@@ -1,0 +1,26 @@
+"""Numerics-aware dense layer (port of ``repro/core/dense.py``)."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .modes import NumericsConfig, nmatmul
+
+
+def dense_init(d_in: int, d_out: int, *, generator: torch.Generator,
+               device: torch.device, dtype=torch.float32,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """A [d_in, d_out] weight drawn from N(0, scale^2) (scale d_in^-0.5)."""
+    scale = scale if scale is not None else d_in ** -0.5
+    w = torch.randn((d_in, d_out), generator=generator, device=device,
+                    dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def dense(x, w, ncfg: NumericsConfig, bias=None, use_kernel: Optional[bool] = None):
+    """y = x @ w (+ bias), multiplying per the configured numerics mode."""
+    y = nmatmul(x, w, ncfg, out_dtype=x.dtype, use_kernel=use_kernel)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y

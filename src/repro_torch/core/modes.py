@@ -1,0 +1,140 @@
+"""Numerics modes: how every matmul multiplies (port of ``repro/core/modes.py``).
+
+* ``f32`` / ``bf16``   — exact matmul (baselines).
+* ``posit_quant``      — operands projected onto the Posit<n,es> grid
+  (straight-through gradients), exact multiply; f32 or bf16 carrier.
+* ``plam_sim``         — every scalar product is the paper's
+  logarithm-approximate multiplication, antilogged to linear f32 and
+  accumulated.  Both operands go through the codec kernel and the
+  products through the PLAM matmul kernel (``repro_torch.kernels``);
+  with prequantized int16 weights only the activations are encoded.
+* ``mitchell_f32``     — parsed for policy parity, not yet served
+  (``ROADMAP.md``, queue 1).
+
+``use_kernel`` selects kernel or plain version as in
+``repro_torch.kernels.ops``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.numerics import PositSpec, decode, quantize, unpack16
+
+MODES = ("f32", "bf16", "posit_quant", "plam_sim", "mitchell_f32")
+
+
+@dataclasses.dataclass(frozen=True)
+class NumericsConfig:
+    mode: str = "bf16"
+    n: int = 16
+    es: int = 1
+    quantize_acts: bool = True  # posit-quantize activations too (not just weights)
+    plam_chunk: int = 64  # K-chunk of the reference's jnp plam_sim path
+    # weights already sit on the posit grid, so the per-matmul weight
+    # codec is skipped (value-identical to quantize-on-read)
+    prequantized_weights: bool = False
+    # carrier dtype for posit_quant: "f32" keeps the posit grid exactly;
+    # "bf16" re-rounds to bf16 (double quantization)
+    carrier: str = "f32"
+
+    def __post_init__(self):
+        assert self.mode in MODES, self.mode
+
+    @property
+    def spec(self) -> PositSpec:
+        return PositSpec(self.n, self.es)
+
+
+EXACT_BF16 = NumericsConfig(mode="bf16")
+POSIT16_QUANT = NumericsConfig(mode="posit_quant", n=16, es=1)
+PLAM16 = NumericsConfig(mode="plam_sim", n=16, es=1)
+
+
+class _QuantizeBF16(torch.autograd.Function):
+    """Posit-grid projection with a bf16 straight-through boundary."""
+
+    @staticmethod
+    def forward(ctx, x, spec):
+        return quantize(x.to(torch.float32), spec).to(torch.bfloat16)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(torch.bfloat16), None
+
+
+def _quantize_bf16(x: torch.Tensor, spec: PositSpec) -> torch.Tensor:
+    return _QuantizeBF16.apply(x, spec)
+
+
+def _plam_matmul(x, w, spec: PositSpec, use_kernel: Optional[bool]):
+    """PLAM matmul of linear operands: encode both, then the PLAM kernel.
+
+    The reference sums each K-chunk with ``jnp.sum``, so the two agree to
+    f32 rounding, not bit for bit.
+    """
+    from repro_torch.kernels.ops import plam_matmul_bits, posit_encode
+
+    k = x.shape[-1]
+    lead = x.shape[:-1]
+    xb = posit_encode(x.reshape(-1, k).contiguous(), spec, use_kernel=use_kernel)
+    wb = posit_encode(w.contiguous(), spec, use_kernel=use_kernel)
+    out = plam_matmul_bits(xb, wb, spec, use_kernel=use_kernel)
+    return out.reshape(*lead, w.shape[-1])
+
+
+def _pattern_matmul(x, w_pat, ncfg: NumericsConfig, out_dtype, use_kernel):
+    """x @ w where w arrived as pre-encoded posit patterns.
+
+    For ``plam_sim`` the patterns feed ``kernels.ops.plam_dense``
+    directly (int16 patterns are read as they are, never widened);
+    every other mode decodes them to their exact posit-grid f32 values
+    and reuses the linear-weight path with the weight codec skipped.
+    """
+    spec = ncfg.spec
+    if ncfg.mode == "plam_sim":
+        from repro_torch.kernels.ops import plam_dense
+
+        return plam_dense(x, w_pat, spec, use_kernel=use_kernel).to(out_dtype)
+    bits = unpack16(w_pat) if w_pat.dtype == torch.int16 else w_pat.to(torch.int32)
+    w_lin = decode(bits, spec)
+    ncfg_pq = dataclasses.replace(ncfg, prequantized_weights=True)
+    return nmatmul(x, w_lin, ncfg_pq, out_dtype=out_dtype, use_kernel=use_kernel)
+
+
+def nmatmul(x, w, ncfg: NumericsConfig, out_dtype=None,
+            use_kernel: Optional[bool] = None):
+    """Numerics-aware x @ w; x: [..., K], w: [K, N].
+
+    Integer-dtype ``w`` is read as pre-encoded Posit<n,es> patterns
+    (prequantized weight storage).
+    """
+    out_dtype = out_dtype or x.dtype
+    if not w.is_floating_point():
+        return _pattern_matmul(x, w, ncfg, out_dtype, use_kernel)
+    f32, bf16 = torch.float32, torch.bfloat16
+    if ncfg.mode == "f32":
+        out = torch.matmul(x.to(f32), w.to(f32))
+    elif ncfg.mode == "bf16":
+        # bf16 operands, f32 products and sums (preferred_element_type=f32)
+        out = torch.matmul(x.to(bf16).to(f32), w.to(bf16).to(f32))
+    elif ncfg.mode == "posit_quant":
+        spec = ncfg.spec
+        if ncfg.carrier == "bf16":
+            xq = _quantize_bf16(x, spec) if ncfg.quantize_acts else x.to(bf16)
+            wq = w.to(bf16) if ncfg.prequantized_weights else _quantize_bf16(w, spec)
+        else:
+            xq = quantize(x.to(f32), spec) if ncfg.quantize_acts else x.to(f32)
+            wq = w.to(f32) if ncfg.prequantized_weights else quantize(w.to(f32), spec)
+        out = torch.matmul(xq, wq)
+    elif ncfg.mode == "plam_sim":
+        out = _plam_matmul(x.to(f32), w.to(f32), ncfg.spec, use_kernel)
+    elif ncfg.mode == "mitchell_f32":
+        raise NotImplementedError(
+            "mitchell_f32 is not ported yet (ROADMAP.md, queue 1: mitchell_f32)")
+    else:  # pragma: no cover
+        raise ValueError(ncfg.mode)
+    return out.to(out_dtype)
+

@@ -1,0 +1,180 @@
+"""Build, load and count the port's CUDA kernels.
+
+The kernels are CUDA C++ for Hopper (``sm_90a``) under ``csrc/`` with a
+plain C interface.  On first use, :func:`library` compiles every ``.cu``
+file with ``nvcc`` (all started together, one process per source),
+links them into one shared library under ``build/repro_torch/`` at the
+repository root, and binds it with ``ctypes``.  The library's name
+carries a hash of the sources and flags, so an edited source rebuilds.
+Nothing is built or imported when this module is imported.
+
+Every wrapper adds one to its kernel's entry in :data:`launches` where
+it launches the kernel, and nowhere else, so a run can show that the
+main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Dict, Optional
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# No --use_fast_math and no FTZ: the codec must see subnormal inputs as
+# they are (they encode to +-minpos), and sums keep IEEE semantics.
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+]
+
+#: launches per kernel since the last reset_launches()
+launches: Dict[str, int] = {
+    "plam_matmul": 0,
+    "paged_decode_attention": 0,
+    "posit_codec": 0,
+}
+
+#: seconds the last build in this process took (0.0 when it was cached)
+build_seconds = 0.0
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def wants_kernel(t: torch.Tensor, use_kernel: Optional[bool]) -> bool:
+    """Kernel or plain version for tensor ``t``.
+
+    ``None`` decides by device: the kernel for a CUDA tensor, the plain
+    version for a CPU tensor.  ``False`` asks for the plain version on
+    any device (tests and the chip smoke use it as the reference);
+    ``True`` insists on the kernel and raises for a CPU tensor.
+    """
+    if use_kernel is None:
+        return t.is_cuda
+    if use_kernel and not t.is_cuda:
+        raise ValueError("the CUDA kernels need CUDA tensors")
+    return bool(use_kernel)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (pathlib.Path(home) / "bin" / "nvcc").exists():
+        return str(pathlib.Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> pathlib.Path:
+    """Compile and link the kernels (a no-op when the library exists)."""
+    global build_seconds
+    so = BUILD_DIR / f"librepro_torch_{_digest()}.so"
+    if so.exists():
+        build_seconds = 0.0
+        return so
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = pathlib.Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        errors = []
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src.name}:\n{out}")
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        tmp_so = pathlib.Path(tmp) / so.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp_so)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_so, so)
+    build_seconds = time.perf_counter() - t0
+    return so
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "plam_matmul_launch": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    "posit_encode_launch": [_P, _I, _P, _I, ctypes.c_int64, _I, _I, _P],
+    "posit_decode_launch": [_P, _I, _P, ctypes.c_int64, _I, _I, _P],
+    "posit_quantize_launch": [_P, _I, _P, ctypes.c_int64, _I, _I, _P],
+    "paged_decode_attention_launch": [
+        _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built kernel library, bound with typed entry points."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+#: dtype codes of the C interface
+DTYPE_CODES = {
+    torch.float32: 0,
+    torch.bfloat16: 1,
+    torch.int32: 2,
+    torch.int16: 3,
+}
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise when a launch was refused (the C side returns cudaGetLastError)."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    launches[name] += 1
+
+
+def require(t: torch.Tensor, name: str, dtypes, ndim: Optional[int] = None) -> None:
+    """Checks every wrapper makes before handing a pointer to a kernel."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}; expected one of {dtypes}")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,157 @@
+// Posit<n,es> field codec for device code, shared by the PLAM matmul
+// (plam_matmul.cu) and the posit codec kernels (posit_codec.cu).
+//
+// A line-for-line port of repro/numerics/posit.py (decode_fields,
+// encode_fields, decode, encode) in uint32 arithmetic.  C++ shifts by
+// 32 or more are undefined, so every variable shift goes through
+// shl()/shr(), which return 0 outside [0, 32) as the reference's
+// _shl/_shr do.  Built without --use_fast_math and without FTZ: inputs
+// are read as raw bits, so f32 subnormals encode to +-minpos.
+#pragma once
+
+#include <cstdint>
+
+namespace plam {
+
+struct Spec {
+  int n;
+  int es;
+  int fb;  // fraction bits of the widest fraction (n - 3 - es)
+  uint32_t mask_n;
+  uint32_t nar;
+  uint32_t maxpos_body;
+};
+
+inline Spec make_spec(int n, int es) {
+  Spec s;
+  s.n = n;
+  s.es = es;
+  s.fb = n - 3 - es;
+  s.mask_n = n < 32 ? ((1u << n) - 1u) : 0xFFFFFFFFu;
+  s.nar = 1u << (n - 1);
+  s.maxpos_body = (1u << (n - 1)) - 1u;
+  return s;
+}
+
+__device__ __forceinline__ uint32_t shl(uint32_t x, int s) {
+  return (s >= 0 && s < 32) ? (x << s) : 0u;
+}
+
+__device__ __forceinline__ uint32_t shr(uint32_t x, int s) {
+  return (s >= 0 && s < 32) ? (x >> s) : 0u;
+}
+
+struct Fields {
+  int sign;
+  int scale;      // k * 2^es + e
+  uint32_t frac;  // left-aligned to fb fractional bits
+  bool is_zero;
+  bool is_nar;
+};
+
+__device__ __forceinline__ Fields decode_fields(uint32_t bits, const Spec& sp) {
+  Fields f;
+  const uint32_t u = bits & sp.mask_n;
+  f.is_zero = u == 0u;
+  f.is_nar = u == sp.nar;
+  f.sign = (int)((u >> (sp.n - 1)) & 1u);
+  const uint32_t mag = f.sign ? ((0u - u) & sp.mask_n) : u;
+  const uint32_t body = mag & sp.maxpos_body;
+  // left-align the n-1 body bits so the first regime bit is bit 31
+  const uint32_t v = body << (33 - sp.n);  // 33 - n in [1, 29]
+  const int r0 = (int)(v >> 31);
+  const uint32_t pad = (1u << (33 - sp.n)) - 1u;
+  const uint32_t w = (r0 ? ~v : v) | pad;  // never 0: pad >= 1
+  const int m = __clz((int)w);             // regime run length
+  const int k = r0 ? m - 1 : -m;
+  const uint32_t rest = shl(v, m + 1);     // exponent+fraction, left-aligned
+  const int e = sp.es > 0 ? (int)(rest >> (32 - sp.es)) : 0;
+  f.frac = (rest << sp.es) >> (32 - sp.fb);
+  f.scale = k * (1 << sp.es) + e;
+  return f;
+}
+
+// Pack (sign, scale, frac with fbits fractional bits) into a pattern with
+// round-to-nearest-even on the full pattern, saturating at +-maxpos and
+// never rounding a non-zero value to zero or NaR.
+__device__ __forceinline__ uint32_t encode_fields(int sign, int scale, uint32_t frac,
+                                                  int fbits, const Spec& sp) {
+  const int n = sp.n, es = sp.es;
+  int k;
+  uint32_t e;
+  if (es > 0) {
+    k = scale >> es;  // arithmetic shift == floor division
+    e = (uint32_t)(scale & ((1 << es) - 1));
+  } else {
+    k = scale;
+    e = 0u;
+  }
+  const bool too_big = k >= n - 2;
+  const bool too_small = k <= -(n - 1);
+  const int kc = k < -(n - 2) ? -(n - 2) : (k > n - 3 ? n - 3 : k);
+  const int m = kc >= 0 ? kc + 2 : 1 - kc;  // regime width incl. terminator
+  const int avail = (n - 1) - m;            // bits left for exponent+fraction
+  const uint32_t regime = kc >= 0 ? shl(1u, kc + 2) - 2u : 1u;
+
+  const uint32_t combined = shl(e, fbits) | frac;
+  const int shift_out = es + fbits - avail;
+  const uint32_t kept = shift_out > 0 ? shr(combined, shift_out) : shl(combined, -shift_out);
+  const uint32_t round_bit = shift_out > 0 ? (shr(combined, shift_out - 1) & 1u) : 0u;
+  const uint32_t sticky_mask = shift_out > 1 ? shl(1u, shift_out - 1) - 1u : 0u;
+  const bool sticky = (combined & sticky_mask) != 0u;
+  const uint32_t body_pre = shl(regime, avail) + kept;
+  const uint32_t inc = round_bit & ((sticky || (body_pre & 1u)) ? 1u : 0u);
+  uint32_t body = body_pre + inc;
+  if (body > sp.maxpos_body) body = sp.maxpos_body;  // carry past maxpos saturates
+  if (too_big) body = sp.maxpos_body;
+  if (too_small) body = 1u;  // minpos
+  return sign ? ((0u - body) & sp.mask_n) : body;
+}
+
+// f32 bit pattern -> posit pattern (repro.numerics.encode).
+__device__ __forceinline__ uint32_t encode_f32_bits(uint32_t b, const Spec& sp) {
+  if ((b & 0x7FFFFFFFu) == 0u) return 0u;
+  const int raw_e = (int)((b >> 23) & 0xFFu);
+  if (raw_e == 255) return sp.nar;  // inf/nan -> NaR
+  // subnormals get scale -127, which clamps to minpos
+  return encode_fields((int)(b >> 31), raw_e - 127, b & 0x7FFFFFu, 23, sp);
+}
+
+// posit pattern -> f32 (repro.numerics.decode).
+__device__ __forceinline__ float decode_f32(uint32_t bits, const Spec& sp) {
+  const Fields f = decode_fields(bits, sp);
+  if (f.is_zero) return 0.0f;
+  if (f.is_nar) return __uint_as_float(0x7FC00000u);
+  int scale = f.scale;
+  uint32_t mant;
+  if (sp.fb <= 23) {
+    mant = f.frac << (23 - sp.fb);
+  } else {  // one extra RNE step into the f32 mantissa
+    const int sh = sp.fb - 23;
+    const uint32_t lower = f.frac & ((1u << sh) - 1u);
+    const uint32_t half = 1u << (sh - 1);
+    const uint32_t hi = f.frac >> sh;
+    const bool rnd = lower > half || (lower == half && (hi & 1u));
+    mant = hi + (rnd ? 1u : 0u);
+    scale += (int)(mant >> 23);
+    mant &= 0x7FFFFFu;
+  }
+  return __uint_as_float(((uint32_t)f.sign << 31) | ((uint32_t)(scale + 127) << 23) | mant);
+}
+
+// The PLAM operand of repro/kernels/plam_matmul.py::_log_words: the
+// f32-aligned log magnitude (scale + 127) << 23 | mantissa23 with the
+// sign folded in as (sign << 31) by an unsigned add, so that the product
+// of two operands is ONE add of their words:
+//   (la - bias + sa<<31) + (lb + sb<<31) == (sa ^ sb) << 31 | (la + lb - bias)
+// modulo 2^32, because la + lb - bias lies in (0, 2^31).  `valid` is
+// false for zero and NaR, whose products contribute +0.0.
+__device__ __forceinline__ uint32_t log_word(uint32_t bits, const Spec& sp, bool& valid) {
+  const Fields f = decode_fields(bits, sp);
+  valid = !(f.is_zero || f.is_nar);
+  const uint32_t mant = sp.fb <= 23 ? (f.frac << (23 - sp.fb)) : (f.frac >> (sp.fb - 23));
+  const uint32_t lmag = ((uint32_t)(f.scale + 127) << 23) | mant;
+  return valid ? lmag + ((uint32_t)f.sign << 31) : 0u;
+}
+
+}  // namespace plam

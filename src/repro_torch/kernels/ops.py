@@ -1,0 +1,52 @@
+"""Public wrappers over the kernels (port of ``repro/kernels/ops.py``).
+
+Each takes ``use_kernel``: ``None`` (the default) runs the CUDA kernel
+for CUDA tensors and the plain version for CPU tensors; ``False`` runs
+the plain version on any device (the reference the tests and the chip
+smoke compare with); ``True`` insists on the kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.numerics import P16, PositSpec
+
+from .plam_matmul import plam_matmul
+from .posit_codec import posit_decode, posit_encode, posit_quantize  # noqa: F401
+
+
+def plam_matmul_bits(
+    a_bits: torch.Tensor,
+    b_bits: torch.Tensor,
+    spec: PositSpec = P16,
+    *,
+    use_kernel: Optional[bool] = None,
+) -> torch.Tensor:
+    """PLAM matmul over posit patterns -> f32."""
+    return plam_matmul(a_bits, b_bits, spec, use_kernel=use_kernel)
+
+
+def plam_dense(
+    x: torch.Tensor,
+    w_bits: torch.Tensor,
+    spec: PositSpec = P16,
+    *,
+    use_kernel: Optional[bool] = None,
+) -> torch.Tensor:
+    """float activations x posit-pattern weights via the PLAM kernel.
+
+    Activations (f32, or bf16, whose values f32 holds exactly) are
+    encoded on the fly by the codec kernel; weights are stored
+    pre-encoded (int32, or int16 for n <= 16), the deployment layout
+    for posit inference.  Leading batch dims of x are flattened into M.
+    Returns f32 [..., N].
+    """
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.dtype not in (torch.float32, torch.bfloat16):
+        x2 = x2.to(torch.float32)
+    a_bits = posit_encode(x2.contiguous(), spec, use_kernel=use_kernel)
+    out = plam_matmul(a_bits, w_bits, spec, use_kernel=use_kernel)
+    return out.reshape(*lead, w_bits.shape[-1])

@@ -1,0 +1,63 @@
+"""PLAM matrix multiplier: the wrapper of the CUDA kernel (K1).
+
+Port of the Pallas TPU kernel ``repro/kernels/plam_matmul.py::plam_matmul``
+as ``csrc/plam_matmul.cu``.  C[M, N] = sum_k PLAM(A[m, k], B[k, n]) over
+posit patterns, each product one integer add of f32-aligned log words
+and a bitcast, accumulated in f32 with k strictly ascending.  The kernel
+is bit-identical to its plain version, ``ref.plam_matmul_seqref``.
+
+B may be int16 patterns (prequantized Posit<16,*> weights), which the
+kernel unpacks in registers, so the weight is never widened in memory.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.numerics import P16, PositSpec
+
+from . import _lib
+from .ref import plam_matmul_seqref
+
+
+def _check_spec(spec: PositSpec) -> None:
+    if spec.max_scale * 2 + 127 > 254:
+        raise ValueError(f"Posit<{spec.n},{spec.es}> product scale must fit f32")
+
+
+def plam_matmul(
+    a_bits: torch.Tensor,
+    b_bits: torch.Tensor,
+    spec: PositSpec = P16,
+    *,
+    use_kernel: Optional[bool] = None,
+) -> torch.Tensor:
+    """C = A (x)_PLAM B with linear-f32 accumulation.
+
+    a_bits: int32 [M, K] patterns; b_bits: int32 or int16 [K, N].
+    Returns f32 [M, N].  ``use_kernel`` as in ``_lib.wants_kernel``.
+    """
+    _check_spec(spec)
+    if a_bits.dim() != 2 or b_bits.dim() != 2 or a_bits.shape[1] != b_bits.shape[0]:
+        raise ValueError(f"shapes {tuple(a_bits.shape)} x {tuple(b_bits.shape)}")
+    if b_bits.dtype == torch.int16 and spec.n > 16:
+        raise ValueError("int16 patterns hold posits of at most 16 bits")
+    if not _lib.wants_kernel(a_bits, use_kernel):
+        return plam_matmul_seqref(a_bits, b_bits, spec)
+    _lib.require(a_bits, "a_bits", (torch.int32,), 2)
+    _lib.require(b_bits, "b_bits", (torch.int32, torch.int16), 2)
+    if b_bits.device != a_bits.device:
+        raise ValueError("a_bits and b_bits must be on one device")
+    m, k = a_bits.shape
+    n = b_bits.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=a_bits.device)
+    if out.numel() == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    err = _lib.library().plam_matmul_launch(
+        a_bits.data_ptr(), b_bits.data_ptr(), int(b_bits.dtype == torch.int16),
+        out.data_ptr(), m, n, k, spec.n, spec.es, _lib.stream_ptr(a_bits))
+    _lib.check_launch("plam_matmul", err)
+    return out

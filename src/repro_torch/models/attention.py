@@ -1,0 +1,161 @@
+"""Grouped-query attention with KV cache, numerics-aware projections.
+
+Port of ``repro/models/attention.py``.  The q/k/v projections resolve
+the ``attn.qkv`` site and the output projection ``attn.out``; PLAM
+applies to these linear layers.  The attention core keeps the
+reference's operation order (einsum, then scale, then f32 softmax,
+weights cast to the value dtype); it does not use a fused attention
+kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.core.dense import dense, dense_init
+from repro_torch.core.policy import SiteNumerics, site
+
+from .common import apply_rope, causal_mask, decode_positions
+
+
+class Attention(nn.Module):
+    """Weights ``wq`` [d, H*hd], ``wk``/``wv`` [d, kv*hd], ``wo`` [H*hd, d]."""
+
+    def __init__(self, d: int, n_heads: int, n_kv: int, head_dim: int, *,
+                 generator, device, dtype=torch.float32):
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.wq = nn.Parameter(dense_init(d, n_heads * head_dim, **kw), requires_grad=False)
+        self.wk = nn.Parameter(dense_init(d, n_kv * head_dim, **kw), requires_grad=False)
+        self.wv = nn.Parameter(dense_init(d, n_kv * head_dim, **kw), requires_grad=False)
+        self.wo = nn.Parameter(dense_init(n_heads * head_dim, d, **kw), requires_grad=False)
+
+
+def _split_heads(x, n, hd):
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, hd)
+
+
+def attn_core(q, k, v, mask, softcap=None):
+    """q: [B,Sq,H,hd]; k,v: [B,Sk,Kv,hd]; mask: [Sq,Sk] or [B,1,Sq,Sk]."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    group = h // kv
+    dt = torch.promote_types(q.dtype, k.dtype)
+    qg = q.reshape(b, sq, kv, group, hd).to(dt)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(dt)).to(torch.float32)
+    logits = logits * hd ** -0.5
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    if mask.dim() == 2:
+        mask_b = mask[None, None, None, :, :]
+    else:
+        mask_b = mask[:, :, None, :, :]
+    neg = torch.tensor(-1e30, dtype=torch.float32, device=logits.device)
+    logits = torch.where(mask_b, logits, neg)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v)
+    return out.reshape(b, sq, h, hd)
+
+
+def _project_qkv(p: Attention, x, ncfg, n_heads, n_kv, head_dim, use_kernel):
+    qkv_cfg = site(ncfg, "attn.qkv")
+    q = _split_heads(dense(x, p.wq, qkv_cfg, use_kernel=use_kernel), n_heads, head_dim)
+    k = _split_heads(dense(x, p.wk, qkv_cfg, use_kernel=use_kernel), n_kv, head_dim)
+    v = _split_heads(dense(x, p.wv, qkv_cfg, use_kernel=use_kernel), n_kv, head_dim)
+    return q, k, v
+
+
+def attn_apply(
+    p: Attention,
+    x,
+    ncfg: SiteNumerics,
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    positions,
+    rope_theta: float = 10_000.0,
+    kv_cache=None,
+    cache_len: Optional[int] = None,
+    softcap=None,
+    use_kernel: Optional[bool] = None,
+):
+    """Returns (out [B,S,d], kv): the cache (if one was passed) with the
+    span written at ``cache_len`` in place, or the fresh (k, v)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, ncfg, n_heads, n_kv, head_dim, use_kernel)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+
+    if kv_cache is not None:
+        # write the span at cache_len, attend causally over the cache prefix
+        ck, cv = kv_cache
+        ck[:, cache_len:cache_len + s] = k.to(ck.dtype)
+        cv[:, cache_len:cache_len + s] = v.to(cv.dtype)
+        m = causal_mask(s, ck.shape[1], cache_len, device=x.device)
+        out = attn_core(q, ck, cv, m, softcap)
+        new_kv = (ck, cv)
+    else:
+        out = attn_core(q, k, v, causal_mask(s, s, device=x.device), softcap)
+        new_kv = (k, v)
+
+    out = dense(out.reshape(b, s, n_heads * head_dim), p.wo, site(ncfg, "attn.out"),
+                use_kernel=use_kernel)
+    return out, new_kv
+
+
+def attn_apply_paged(
+    p: Attention,
+    x,
+    ncfg: SiteNumerics,
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    lengths,
+    k_pages,
+    v_pages,
+    block_tables,
+    rope_theta: float = 10_000.0,
+    softcap=None,
+    use_kernel: Optional[bool] = None,
+):
+    """Single-token decode attention over a paged KV cache.
+
+    x: [B, 1, d]; k_pages/v_pages: [num_blocks, block_size, kv, hd] pool
+    views for this layer; block_tables: int32 [B, max_blk]; lengths:
+    int32 [B] tokens already cached per sequence.  The new token's K/V
+    are written into each sequence's tail block in place, then attention
+    reads through the block table (``repro_torch.kernels``).  Returns
+    (out [B, 1, d], (k_pages, v_pages)).
+    """
+    from repro_torch.kernels.decode_attention import paged_decode_attention
+
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError("paged attention is a single-token decode path")
+    if softcap is not None:
+        raise NotImplementedError("paged decode does not support logit softcap")
+    block_size = k_pages.shape[1]
+    q, k, v = _project_qkv(p, x, ncfg, n_heads, n_kv, head_dim, use_kernel)
+    positions = decode_positions(lengths)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+
+    # write the new token into each sequence's tail block
+    bidx = torch.arange(b, device=x.device)
+    lens = lengths.to(torch.long)
+    blk = block_tables[bidx, lens // block_size].to(torch.long)
+    slot = lens % block_size
+    k_pages.index_put_((blk, slot), k[:, 0].to(k_pages.dtype))
+    v_pages.index_put_((blk, slot), v[:, 0].to(v_pages.dtype))
+
+    out = paged_decode_attention(
+        q[:, 0].contiguous(), k_pages, v_pages, block_tables, lengths + 1,
+        use_kernel=use_kernel)
+    out = dense(out.reshape(b, 1, n_heads * head_dim), p.wo, site(ncfg, "attn.out"),
+                use_kernel=use_kernel)
+    return out, (k_pages, v_pages)

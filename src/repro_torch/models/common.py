@@ -1,0 +1,75 @@
+"""Shared model components: norms, rotary embeddings, positions, masks and
+the walk over policy segments (port of ``repro/models/common.py``)."""
+from __future__ import annotations
+
+from typing import Iterator, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.core.policy import SiteNumerics, layer_segments
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones((d,), device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rmsnorm(self, x)
+
+
+def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in f32, cast back to the activation dtype."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * p.scale.to(torch.float32)
+    return out.to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return theta ** (-torch.arange(0, half, dtype=torch.float32, device=device) / half)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding.  x: [B, S, H, hd]; positions: [B, S] integers."""
+    half = x.shape[-1] // 2
+    inv = rope_freqs(x.shape[-1], theta, device=x.device)  # [half]
+    ang = positions.to(torch.float32)[..., None] * inv  # [B, S, half]
+    cos = torch.cos(ang)[:, :, None, :]  # [B, S, 1, half]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def multi_token_positions(lengths: torch.Tensor, width: int) -> torch.Tensor:
+    """Positions of a ``width``-token span starting at each sequence's
+    cache length: [B] -> [B, W] (token j at ``lengths[b] + j``)."""
+    span = torch.arange(width, dtype=torch.int32, device=lengths.device)
+    return lengths.to(torch.int32)[:, None] + span
+
+
+def decode_positions(lengths: torch.Tensor) -> torch.Tensor:
+    """Single-token special case of :func:`multi_token_positions`."""
+    return multi_token_positions(lengths, 1)
+
+
+def causal_mask(s_q: int, s_k: int, q_offset: int = 0, device=None) -> torch.Tensor:
+    """[s_q, s_k] bool mask; True = attend."""
+    qi = torch.arange(s_q, device=device)[:, None] + q_offset
+    ki = torch.arange(s_k, device=device)[None, :]
+    return ki <= qi
+
+
+def iter_layers(numerics, n_layers: int) -> Iterator[Tuple[int, SiteNumerics]]:
+    """(layer index, bound site numerics) for every layer, in order.
+
+    The reference scans policy-uniform segments of a stacked layer
+    array (``scan_policy_segments``); the port walks its ``ModuleList``
+    and binds each layer to its segment's numerics.
+    """
+    for start, size, nsite in layer_segments(numerics, n_layers):
+        for i in range(start, start + size):
+            yield i, nsite

@@ -1,0 +1,45 @@
+"""Uniform model API over the architecture families (port of the ``dense``
+branch of ``repro/models/registry.py``; the other families are still to
+be ported, ``ROADMAP.md`` queue 1)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from repro_torch.configs.base import ModelConfig
+
+from . import transformer as _tf
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    cfg: ModelConfig
+    init: Callable  # (seed=0, device=None) -> model
+    paged_pool_init: Callable  # (num_blocks, block_size, dtype, device) -> pools
+    paged_prefill: Callable  # (model, tokens, kp, vp, block_ids, true_len, use_kernel)
+    paged_decode_step: Callable  # (model, token, kp, vp, tables, lengths, use_kernel)
+
+
+def build(cfg: ModelConfig) -> ModelAPI:
+    if cfg.family != "dense" or cfg.n_experts:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1)")
+
+    def init(seed: int = 0, device=None):
+        return _tf.lm_init(cfg, seed=seed, device=device)
+
+    def paged_pool_init(num_blocks, block_size, dtype, device):
+        return _tf.paged_kv_pool_init(cfg, num_blocks, block_size, dtype, device)
+
+    def paged_prefill(model, tokens, k_pool, v_pool, block_ids, true_len,
+                      use_kernel=None):
+        return _tf.paged_prefill(cfg, model, tokens, k_pool, v_pool, block_ids,
+                                 true_len, use_kernel)
+
+    def paged_decode_step(model, token, k_pool, v_pool, block_tables, lengths,
+                          use_kernel=None):
+        return _tf.paged_decode_step(cfg, model, token, k_pool, v_pool, block_tables,
+                                     lengths, use_kernel)
+
+    return ModelAPI(cfg=cfg, init=init, paged_pool_init=paged_pool_init,
+                    paged_prefill=paged_prefill, paged_decode_step=paged_decode_step)

@@ -1,0 +1,213 @@
+"""Decoder-only transformer LM, dense family (port of the dense subset of
+``repro/models/transformer.py``).
+
+The model is an ``nn.Module``: token embedding, an ``nn.ModuleList`` of
+blocks (the reference stacks layers on a leading [L] axis and scans
+them) and the final norm and unembedding.  The functions below mirror
+the reference's public entry points and take the model where the
+reference takes its parameter pytree.
+
+Numerics: every matmul resolves a *site* (``attn.qkv``, ``mlp.down``,
+``lm_head``, ...) against ``cfg.numerics``; layer-range policy rules
+bind each block to its segment's numerics.  ``use_kernel`` selects the
+CUDA kernels or their plain versions (``repro_torch.kernels.ops``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.dense import dense, dense_init
+from repro_torch.core.policy import site_for
+
+from .attention import Attention, attn_apply, attn_apply_paged
+from .common import RMSNorm, iter_layers, rmsnorm
+from .mlp import MLP, mlp_apply
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, generator, device, dtype):
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.ln1 = RMSNorm(cfg.d_model, device=device, dtype=dtype)
+        self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, **kw)
+        self.ln2 = RMSNorm(cfg.d_model, device=device, dtype=dtype)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.glu, **kw)
+
+
+class DenseLM(nn.Module):
+    """Parameters in the reference's layout: ``embed`` [V, d], per-block
+    weights [d_in, d_out], ``ln_f``, and ``unembed`` [d, V] unless the
+    embeddings are tied."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        if cfg.family != "dense" or cfg.n_experts:
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1)")
+        dtype = torch_dtype(cfg.param_dtype)
+        self.embed = nn.Parameter(
+            (torch.randn((cfg.vocab, cfg.d_model), generator=generator, device=device)
+             * cfg.d_model ** -0.5).to(dtype),
+            requires_grad=False)
+        self.blocks = nn.ModuleList(
+            Block(cfg, generator=generator, device=device, dtype=dtype)
+            for _ in range(cfg.n_layers))
+        self.ln_f = RMSNorm(cfg.d_model, device=device, dtype=dtype)
+        if cfg.tie_embeddings:
+            self.unembed = None
+        else:
+            self.unembed = nn.Parameter(
+                dense_init(cfg.d_model, cfg.vocab, generator=generator, device=device,
+                           dtype=dtype),
+                requires_grad=False)
+
+
+def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> DenseLM:
+    """The port's own seeded init, drawn on ``device`` (CUDA by default)."""
+    from repro_torch.device import resolve_device
+
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return DenseLM(cfg, generator=gen, device=device)
+
+
+def _ffn_fwd(cfg: ModelConfig, nsite, blk: Block, hn, use_kernel):
+    return mlp_apply(blk.mlp, hn, nsite, cfg.act, use_kernel=use_kernel)
+
+
+def _layer_fwd(cfg: ModelConfig, nsite, blk: Block, x, positions, kv_slice, cache_len,
+               use_kernel):
+    h, new_kv = attn_apply(
+        blk.attn, rmsnorm(blk.ln1, x), nsite,
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
+        positions=positions, rope_theta=cfg.rope_theta,
+        kv_cache=kv_slice, cache_len=cache_len,
+        softcap=cfg.attn_logit_softcap, use_kernel=use_kernel,
+    )
+    x = x + h
+    x = x + _ffn_fwd(cfg, nsite, blk, rmsnorm(blk.ln2, x), use_kernel)
+    return x, new_kv
+
+
+def lm_backbone(cfg: ModelConfig, model: DenseLM, embeds, positions, kv_caches=None,
+                cache_len: Optional[int] = None, use_kernel: Optional[bool] = None):
+    """Run the blocks.  Returns (hidden, kv_caches).
+
+    kv_caches: None, or (k [L,B,S,kv,hd], v [L,...]) written in place at
+    ``cache_len``.
+    """
+    x = embeds
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    for i, nsite in iter_layers(cfg.numerics, cfg.n_layers):
+        kv_slice = None if kv_caches is None else (kv_caches[0][i], kv_caches[1][i])
+        x, _ = _layer_fwd(cfg, nsite, model.blocks[i], x, positions, kv_slice,
+                          cache_len, use_kernel)
+    return rmsnorm(model.ln_f, x), kv_caches
+
+
+def lm_logits(cfg: ModelConfig, model: DenseLM, hidden, use_kernel: Optional[bool] = None):
+    w = model.embed.T if cfg.tie_embeddings else model.unembed
+    head_cfg = site_for(cfg.numerics, "lm_head", n_layers=cfg.n_layers)
+    if not w.is_floating_point():  # prequantized lm_head patterns
+        return dense(hidden, w, head_cfg, use_kernel=use_kernel)
+    return dense(hidden, w.to(hidden.dtype), head_cfg, use_kernel=use_kernel)
+
+
+def embed_tokens(cfg: ModelConfig, model: DenseLM, tokens):
+    return model.embed[tokens.to(torch.long)].to(torch_dtype(cfg.act_dtype))
+
+
+def default_positions(cfg: ModelConfig, b: int, s: int, offset: int = 0, device=None):
+    pos = torch.arange(s, dtype=torch.int32, device=device)[None, :] + offset
+    return pos.expand(b, s)
+
+
+def kv_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                  device=None):
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def paged_kv_pool_init(cfg: ModelConfig, num_blocks: int, block_size: int,
+                       dtype=torch.bfloat16, device=None):
+    """Block-pool KV storage shared by all sequences: two tensors of
+    shape [L, num_blocks, block_size, kv, hd].  Sequences own disjoint
+    sets of blocks, named by their block tables (``repro_torch.serving``)."""
+    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv, cfg.hd)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+@torch.no_grad()
+def paged_prefill(cfg: ModelConfig, model: DenseLM, tokens, k_pool, v_pool, block_ids,
+                  true_len: int, use_kernel: Optional[bool] = None):
+    """Prefill ONE request into pool blocks.
+
+    tokens: [1, S_pad] right-padded to a block-size multiple; block_ids:
+    [S_pad / block_size] pool blocks owned by this request; true_len:
+    the real prompt length.  The prompt's K/V are written into the pools
+    in place.  Returns (logits [1, 1, V] at the last real token,
+    (k_pool, v_pool)).
+    """
+    b, s = tokens.shape
+    if b != 1:
+        raise ValueError("paged prefill admits one request at a time")
+    block_size = k_pool.shape[2]
+    nb = block_ids.shape[0]
+    if s != nb * block_size:
+        raise ValueError(f"{s} tokens do not fill {nb} blocks of {block_size}")
+    dev = tokens.device
+    caches = kv_cache_init(cfg, b, s, k_pool.dtype, device=dev)
+    x = embed_tokens(cfg, model, tokens)
+    positions = default_positions(cfg, b, s, device=dev)
+    hidden, (ck, cv) = lm_backbone(cfg, model, x, positions, kv_caches=caches,
+                                   cache_len=0, use_kernel=use_kernel)
+    kv_shape = (cfg.n_layers, nb, block_size, cfg.n_kv, cfg.hd)
+    ids = block_ids.to(torch.long)
+    k_pool[:, ids] = ck[:, 0].reshape(kv_shape)
+    v_pool[:, ids] = cv[:, 0].reshape(kv_shape)
+    last = hidden[:, true_len - 1:true_len]
+    return lm_logits(cfg, model, last, use_kernel), (k_pool, v_pool)
+
+
+@torch.no_grad()
+def paged_decode_step(cfg: ModelConfig, model: DenseLM, token, k_pool, v_pool,
+                      block_tables, lengths, use_kernel: Optional[bool] = None):
+    """One decode step for a heterogeneous batch over the paged cache.
+
+    token: [B, 1] last token per slot; block_tables: int32 [B, max_blk]
+    pool indices (inactive slots point at the reserved scratch block 0);
+    lengths: int32 [B] per-sequence cached-token counts.  The new K/V
+    are written into the pools in place.  Returns (logits [B, 1, V],
+    (k_pool, v_pool)).
+    """
+    x = embed_tokens(cfg, model, token)
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    for i, nsite in iter_layers(cfg.numerics, cfg.n_layers):
+        blk = model.blocks[i]
+        h, _ = attn_apply_paged(
+            blk.attn, rmsnorm(blk.ln1, x), nsite,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
+            lengths=lengths, k_pages=k_pool[i], v_pages=v_pool[i],
+            block_tables=block_tables, rope_theta=cfg.rope_theta,
+            softcap=cfg.attn_logit_softcap, use_kernel=use_kernel,
+        )
+        x = x + h
+        x = x + _ffn_fwd(cfg, nsite, blk, rmsnorm(blk.ln2, x), use_kernel)
+    x = rmsnorm(model.ln_f, x)
+    return lm_logits(cfg, model, x, use_kernel), (k_pool, v_pool)

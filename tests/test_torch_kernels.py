@@ -1,0 +1,201 @@
+"""Port kernels' plain versions against the JAX reference, and the CUDA
+kernels against their plain versions on the card (``cuda`` marker).
+
+On the CPU every wrapper takes its plain version because its tensors lie
+on the CPU; the launch counters must stay 0 here.
+"""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.decode_attention import (  # noqa: E402
+    paged_decode_attention_kernel as j_paged_kernel,
+)
+from repro.kernels.decode_attention import (  # noqa: E402
+    paged_decode_attention_ref as j_paged_ref,
+)
+from repro.kernels.ref import plam_matmul_seqref as j_seqref  # noqa: E402
+from repro.numerics import PositSpec as JSpec  # noqa: E402
+from repro_torch.kernels import _lib, ops  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    gather_pages,
+    paged_decode_attention,
+    paged_decode_attention_kernel,
+    paged_decode_attention_ref,
+)
+from repro_torch.numerics import P16, pack16  # noqa: E402
+
+# the reference conformance suite's ragged shapes (tests/test_conformance.py)
+RAGGED_SHAPES = [(4, 5, 3), (1, 7, 1), (3, 130, 9), (9, 257, 5), (2, 1, 2), (17, 64, 33)]
+SHAPE_IDS = ["x".join(map(str, s)) for s in RAGGED_SHAPES]
+
+
+def _ragged_operands(shape):
+    """The reference suite's operands: random patterns with NaR lanes in A
+    and zero lanes in B."""
+    m, k, n = shape
+    rng = np.random.default_rng(hash(shape) & 0xFFFF)
+    a = rng.integers(0, 1 << 16, (m, k)).astype(np.int32)
+    b = rng.integers(0, 1 << 16, (k, n)).astype(np.int32)
+    a.flat[:: max(1, a.size // 7)] = P16.nar
+    b.flat[:: max(1, b.size // 5)] = 0
+    return a, b
+
+
+def _bits(x) -> np.ndarray:
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+@pytest.fixture(autouse=True)
+def _no_launches_on_cpu():
+    """Nothing in this file launches a kernel unless a card is present."""
+    _lib.reset_launches()
+    yield
+    if not torch.cuda.is_available():
+        assert all(v == 0 for v in _lib.launches.values()), _lib.launches
+
+
+@pytest.mark.parametrize("shape", RAGGED_SHAPES, ids=SHAPE_IDS)
+def test_plam_matmul_plain_bit_identical_to_reference_seqref(shape):
+    a, b = _ragged_operands(shape)
+    want = j_seqref(jnp.asarray(a), jnp.asarray(b), JSpec(16, 1))
+    got = ops.plam_matmul_bits(torch.from_numpy(a), torch.from_numpy(b), P16)
+    assert np.array_equal(_bits(want), got.numpy().view(np.uint32))
+    # int16 patterns (prequantized storage) give the same bits
+    got16 = ops.plam_matmul_bits(torch.from_numpy(a), pack16(torch.from_numpy(b)), P16)
+    assert torch.equal(got16.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", RAGGED_SHAPES, ids=SHAPE_IDS)
+def test_plam_dense_plain_bit_identical_to_jax_kernel(shape):
+    """plam_dense (encode activations, PLAM matmul) == the JAX Pallas path
+    run in interpret mode, bit for bit."""
+    m, k, n = shape
+    _, b = _ragged_operands(shape)
+    x = np.random.default_rng(k).standard_normal((m, k)).astype(np.float32)
+    want = jops.plam_dense(jnp.asarray(x), jnp.asarray(b), JSpec(16, 1), interpret=True)
+    got = ops.plam_dense(torch.from_numpy(x), torch.from_numpy(b), P16)
+    assert np.array_equal(_bits(want), got.numpy().view(np.uint32))
+
+
+def test_posit_codec_plain_matches_jax_kernels():
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal((33, 70)) * 10.0 ** rng.integers(-6, 6, (33, 70))).astype(
+        np.float32)
+    want_e = jops.posit_encode(jnp.asarray(x), JSpec(16, 1), interpret=True)
+    got_e = ops.posit_encode(torch.from_numpy(x), P16)
+    assert np.array_equal(np.asarray(want_e), got_e.numpy())
+    got_e16 = ops.posit_encode(torch.from_numpy(x), P16, out_dtype=torch.int16)
+    assert torch.equal(got_e16, pack16(got_e))
+    want_d = jops.posit_decode(jnp.asarray(np.asarray(want_e)), JSpec(16, 1), interpret=True)
+    assert np.array_equal(_bits(want_d), ops.posit_decode(got_e, P16).numpy().view(np.uint32))
+    assert torch.equal(ops.posit_decode(got_e16, P16), ops.posit_decode(got_e, P16))
+    want_q = jops.posit_quantize(jnp.asarray(x), JSpec(16, 1), interpret=True)
+    got_q = ops.posit_quantize(torch.from_numpy(x), P16)
+    assert np.array_equal(_bits(want_q), got_q.numpy().view(np.uint32))
+    # bf16 activations encode as their exact f32 values
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    assert torch.equal(ops.posit_encode(xb, P16), ops.posit_encode(xb.float(), P16))
+
+
+def _paged_case(seed=0, dtype=np.float32):
+    """B=3 sequences with ragged lengths over a permuted pool whose block 0
+    is scratch; block tables padded with the scratch block."""
+    rng = np.random.default_rng(seed)
+    b, h, kv, hd, bs = 3, 4, 2, 16, 4
+    lengths = np.array([1, 6, 11], np.int32)
+    need = [-(-int(n) // bs) for n in lengths]
+    nb = 1 + sum(need) + 2
+    perm = rng.permutation(np.arange(1, nb))
+    tables = np.zeros((b, max(need)), np.int32)
+    pos = 0
+    for i, c in enumerate(need):
+        tables[i, :c] = perm[pos:pos + c]
+        pos += c
+    q = rng.standard_normal((b, h, hd)).astype(dtype)
+    kp = rng.standard_normal((nb, bs, kv, hd)).astype(dtype)
+    vp = rng.standard_normal((nb, bs, kv, hd)).astype(dtype)
+    return q, kp, vp, tables, lengths
+
+
+def test_paged_attention_plain_matches_reference_ref_and_kernel():
+    """f32 pools: the port's plain version is allclose (1e-6) to the
+    reference's gather oracle and to its Pallas kernel in interpret mode."""
+    q, kp, vp, tables, lengths = _paged_case()
+    got = paged_decode_attention(*map(torch.from_numpy, (q, kp, vp, tables, lengths)))
+    want_ref = j_paged_ref(*map(jnp.asarray, (q, kp, vp, tables, lengths)))
+    want_kernel = j_paged_kernel(*map(jnp.asarray, (q, kp, vp, tables, lengths)),
+                                 interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_ref), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_kernel), rtol=1e-6, atol=1e-6)
+
+
+def test_gather_pages_layout():
+    q, kp, vp, tables, lengths = _paged_case(seed=2)
+    got = gather_pages(torch.from_numpy(kp), torch.from_numpy(tables))
+    from repro.kernels.decode_attention import gather_pages as j_gather
+
+    assert np.array_equal(got.numpy(), np.asarray(j_gather(jnp.asarray(kp),
+                                                           jnp.asarray(tables))))
+
+
+def test_wrappers_refuse_cpu_tensors_for_the_kernel():
+    a = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.plam_matmul_bits(a, a.T.contiguous(), P16, use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.posit_encode(torch.zeros(4), P16, use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_decode_attention_kernel(*map(torch.from_numpy, _paged_case()))
+
+
+def test_plam_matmul_rejects_bad_operands():
+    a = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.plam_matmul_bits(a, torch.zeros((4, 2), dtype=torch.int32), P16)
+    from repro_torch.numerics import PositSpec
+
+    with pytest.raises(ValueError, match="int16"):
+        ops.plam_matmul_bits(a, torch.zeros((3, 2), dtype=torch.int16), PositSpec(24, 1))
+
+
+# -- on the card ---------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs these checks on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RAGGED_SHAPES, ids=SHAPE_IDS)
+def test_cuda_plam_matmul_bit_identical(cuda_device, shape):
+    a, b = (torch.from_numpy(t).to(cuda_device) for t in _ragged_operands(shape))
+    got = ops.plam_matmul_bits(a, b, P16)
+    assert torch.equal(got.view(torch.int32),
+                       ops.plam_matmul_bits(a, b, P16, use_kernel=False).view(torch.int32))
+    assert torch.equal(got.cpu(), ops.plam_matmul_bits(a.cpu(), b.cpu(), P16))
+
+
+@pytest.mark.cuda
+def test_cuda_posit_codec_bit_identical(cuda_device):
+    pats = torch.arange(1 << 16, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(ops.posit_decode(pats, P16).view(torch.int32),
+                       ops.posit_decode(pats, P16, use_kernel=False).view(torch.int32))
+    x = torch.randn(1 << 16, device=cuda_device) * 1e3
+    assert torch.equal(ops.posit_encode(x, P16), ops.posit_encode(x, P16, use_kernel=False))
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_close_to_plain(cuda_device):
+    q, kp, vp, tables, lengths = (torch.from_numpy(t).to(cuda_device)
+                                  for t in _paged_case(seed=3))
+    got = paged_decode_attention(q, kp, vp, tables, lengths)
+    want = paged_decode_attention_ref(q, kp, vp, tables, lengths)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
