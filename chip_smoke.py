@@ -3,26 +3,35 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py [--layers N] [--phases device,kernels,serve,e2e,times]
+    python3 chip_smoke.py [--layers N]
+                          [--phases device,kernels,conformance,serve,e2e,times]
 
-It imports ``repro_torch`` (never JAX) and runs five phases, each on its
+It imports ``repro_torch`` (never JAX) and runs six phases, each on its
 own lines:
 
-1. device  — the card's name and power limit (nvidia-smi), the torch
+1. device      — the card's name and power limit (nvidia-smi), the torch
    device, and the kernels' build from ``src/repro_torch/kernels/csrc``.
-2. kernels — each CUDA kernel against its plain PyTorch version on the
-   card at main-path shapes: the posit codec (K3) and the PLAM matmul
-   (K1) bit for bit, the paged decode attention (K2) within a stated
-   tolerance.
-3. serve   — full-width yi-6b under ``default=plam_sim:16:1`` with int16
-   prequantized weights serves 4 requests through ``build_engine`` ->
-   ``submit`` -> ``run``; the launch counts must match 7L+1 PLAM matmuls
-   and codec calls per forward and L attention calls per decode step.
-4. e2e     — a 2-layer full-width model runs one prefill and 4 decode
-   steps on the kernels and on the plain versions; last logits must
-   agree within a stated tolerance.
-5. times   — CUDA-event times of each kernel, its plain version and (for
-   attention) ``scaled_dot_product_attention``, beside each kernel's bound.
+2. kernels     — each CUDA kernel against its plain PyTorch version on
+   the card at its paths' shapes: the posit codec (K3), the PLAM matmul
+   (K1) and the element-wise posit multipliers (K4) bit for bit, the
+   paged (K2) and contiguous (K5) decode attention within stated
+   tolerances.  Then K5's public entry point runs once per yi-6b layer
+   at yi-6b's widths (K5 has no serving path).
+3. conformance — ``python -m repro_torch.conformance check`` and
+   ``fuzz --seed 0 --count 2048`` in-process on the default device, so
+   the ``cuda`` oracle runs K3 and K4 beside the golden, torch, table and
+   plain-kernel oracles; no failure, no mismatch, and K3 and K4 launched.
+4. serve       — full-width yi-6b under ``default=plam_sim:16:1`` with
+   int16 prequantized weights serves 4 requests through ``build_engine``
+   -> ``submit`` -> ``run``; the launch counts must match 7L+1 PLAM
+   matmuls and codec calls per forward and L attention calls per decode
+   step.
+5. e2e         — a 2-layer full-width model runs one prefill and 4
+   decode steps on the kernels and on the plain versions; last logits
+   must agree within a stated tolerance.
+6. times       — CUDA-event times of each kernel, its plain version and
+   (for attention) ``scaled_dot_product_attention``, beside each
+   kernel's bound.
 
 It exits non-zero if any phase fails, if no CUDA device is present, or if
 ``repro_torch`` cannot be imported.  Its last line is
@@ -35,6 +44,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -42,6 +52,8 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+
+PHASES = ["device", "kernels", "conformance", "serve", "e2e", "times"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 CUDA-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -69,6 +81,29 @@ K2_TOL_BF16 = 6e-2
 # encoding of the next activations can amplify to a pattern step
 # (2^-12 relative); logits are ~N(0, 1) at random init.
 E2E_LOGIT_TOL = 0.1
+# K5 at yi-6b's widths: batch 4, 32 q heads over 4 kv heads, hd 128, a
+# 4096-key contiguous cache with ragged lengths.
+K5_SHAPE = dict(b=4, h=32, kv=4, hd=128, s=4096)
+K5_LENGTHS = [1000, 2048, 3001, 4096]
+# the reference's shapes (tests/test_resilience.py): b, s, h, kv, hd, blk
+K5_SMALL_SHAPES = [(2, 64, 8, 4, 16, 16), (1, 96, 4, 2, 32, 32)]
+# K5 tolerances.  Kernel and plain version both compute in f32 and differ
+# only in the order of the sums (over up to 4096 keys and across chunks):
+# within K5_TOL_F32.  At bf16 the kernel rounds its f32 result once, to
+# nearest, so each output lies within half a bf16 step of the plain
+# version's f32 result on the same bf16 inputs (at most 2^-8 of its
+# magnitude) plus the order term, K5_BF16_ORDER, ~10x the f32 difference
+# measured at this shape.  The check is relative because |out| is only
+# ~0.03-0.05 here: an absolute limit near 1e-2 would pass a truncating
+# store or a lost chunk.
+K5_TOL_F32 = 1e-4
+K5_BF16_REL = 2.0 ** -8
+K5_BF16_ORDER = 2e-6
+# K4's bound: the ALU-pipe operations a lane needs, counted by hand in
+# the header of its source (no loop or address arithmetic).
+K4_SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "posit_mul.cu")
+K4_OPS = {"plam_mul_elementwise": "kPlamMulAluOpsPerLane",
+          "exact_mul_elementwise": "kExactMulAluOpsPerLane"}
 
 
 def log(msg: str = "") -> None:
@@ -84,7 +119,7 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.results = {"phases": {}}
         self.kernels = {}  # name -> the entry of the {"kernels": [...]} line
-        self.launch_counts = {}
+        self.path_launches = {}  # kernel -> launches in the run of its path
         self.clock_mhz = None
 
     # -- helpers -------------------------------------------------------------
@@ -256,16 +291,180 @@ class Smoke:
             failures.append(f"paged attention: err_f32 {err32} err_bf16 {err16} finite {finite}")
         log(f"K2 paged_decode_attention: max_abs_err vs plain f32 {err32:.3e} "
             f"(tol {K2_TOL_F32}), vs plain bf16 {err16:.3e} (tol {K2_TOL_BF16})")
+
+        k4_ok = self.check_posit_mul(same, failures)
+        k5 = self.check_decode_attention(failures)
         self.kernel_err = {"plam_matmul": 0.0 if k1_ok else None,
                            "posit_codec": 0.0 if k3_ok else None,
-                           "paged_decode_attention": err32}
+                           "paged_decode_attention": err32,
+                           "posit_mul": 0.0 if k4_ok else None,
+                           "decode_attention": k5["err_f32"]}
         self.results["kernels"] = {"k1_bit_identical": k1_ok, "k3_bit_identical": k3_ok,
                                    "k2_err_f32": err32, "k2_err_bf16": err16,
+                                   "k4_bit_identical": k4_ok, "k5": k5,
                                    "failures": failures}
         if failures:
             raise AssertionError("; ".join(failures))
 
+    def check_posit_mul(self, same, failures) -> bool:
+        """K4 against its plain version, raw int32 words: Posit<10,1> over
+        every pattern pair, 2^20 seeded pairs at Posit<16,1>, <16,2> and
+        <32,2> (plam_mul only: the exact product needs n <= 16), and one
+        ragged length with zero and NaR lanes."""
+        torch = self.torch
+        import numpy as np
+
+        from repro_torch.conformance.vectors import pair_grid
+        from repro_torch.kernels.posit_codec import (
+            exact_mul_elementwise,
+            plam_mul_elementwise,
+        )
+        from repro_torch.numerics import PositSpec
+
+        n_before = len(failures)
+        cases = [("Posit<10,1> all 1048576 pairs", PositSpec(10, 1), *pair_grid(10))]
+        rng = np.random.default_rng(12)
+        for n, es in [(16, 1), (16, 2), (32, 2)]:
+            pa, pb = (rng.integers(0, 1 << n, 1 << 20).astype(np.uint32).view(np.int32)
+                      for _ in range(2))
+            cases.append((f"Posit<{n},{es}> 2^20 seeded pairs", PositSpec(n, es), pa, pb))
+        pa, pb = (rng.integers(0, 1 << 16, 1000).astype(np.int32) for _ in range(2))
+        pa[::37], pb[::41] = 0, 1 << 15
+        cases.append(("Posit<16,1> 1000 ragged lanes", PositSpec(16, 1), pa, pb))
+        for tag, spec, pa, pb in cases:
+            a = torch.from_numpy(np.ascontiguousarray(pa)).to(self.dev)
+            b = torch.from_numpy(np.ascontiguousarray(pb)).to(self.dev)
+            fns = [plam_mul_elementwise] + ([exact_mul_elementwise] if spec.n <= 16 else [])
+            for fn in fns:
+                same(f"{fn.__name__} {tag}", fn(a, b, spec), fn(a, b, spec, use_kernel=False))
+            torch.cuda.synchronize()
+        ok = len(failures) == n_before
+        log(f"K4 posit_mul vs plain: {'bit-identical' if ok else failures[n_before:]} "
+            f"over {', '.join(c[0] for c in cases)}")
+        return ok
+
+    def check_decode_attention(self, failures) -> dict:
+        """K5 against its plain version at yi-6b's widths (f32 and bf16) and
+        at the reference's two small shapes (f32); then the public entry
+        point run once per yi-6b layer, counted as K5's path."""
+        torch = self.torch
+        from repro_torch.kernels import _lib
+        from repro_torch.kernels.decode_attention import decode_attention
+
+        g = self.gen(9)
+        sh = K5_SHAPE
+        q = torch.randn((sh["b"], sh["h"], sh["hd"]), generator=g, device=self.dev)
+        k = torch.randn((sh["b"], sh["s"], sh["kv"], sh["hd"]), generator=g, device=self.dev)
+        v = torch.randn((sh["b"], sh["s"], sh["kv"], sh["hd"]), generator=g, device=self.dev)
+        lens = torch.tensor(K5_LENGTHS, dtype=torch.int32, device=self.dev)
+
+        def err(q, k, v, lens, **kw):
+            got = decode_attention(q, k, v, lens, **kw)
+            want = decode_attention(q, k, v, lens, use_kernel=False)
+            return float((got.float() - want.float()).abs().max()), got
+
+        err32, _ = err(q, k, v, lens)
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        err16, out16 = err(qb, kb, vb, lens)
+        # the plain version's f32 result on the same bf16 inputs (it casts
+        # them to f32 first; its bf16 output is this, rounded)
+        exact = decode_attention(qb.float(), kb.float(), vb.float(), lens, use_kernel=False)
+        excess16 = float(((out16.float() - exact).abs() - K5_BF16_REL * exact.abs()).max())
+        small = []
+        for b, s, h, kvh, hd, blk in K5_SMALL_SHAPES:
+            qs = torch.randn((b, h, hd), generator=g, device=self.dev)
+            ks = torch.randn((b, s, kvh, hd), generator=g, device=self.dev)
+            vs = torch.randn((b, s, kvh, hd), generator=g, device=self.dev)
+            ls = torch.randint(1, s + 1, (b,), generator=g, device=self.dev).to(torch.int32)
+            small.append(err(qs, ks, vs, ls, blk=blk)[0])
+        torch.cuda.synchronize()
+        errs_f32 = [err32, *small]
+        ok = (max(errs_f32) <= K5_TOL_F32 and excess16 <= K5_BF16_ORDER
+              and bool(torch.isfinite(out16).all()))
+        if not ok:
+            failures.append(f"decode_attention: err_f32 {errs_f32} bf16 excess {excess16}")
+        log(f"K5 decode_attention B=4 H=32 kv=4 hd=128 S=4096 lens={K5_LENGTHS}: max_abs_err "
+            f"vs plain f32 {err32:.3e}, small shapes {small[0]:.3e} {small[1]:.3e} "
+            f"(tol {K5_TOL_F32}); bf16: max_abs_err vs plain bf16 {err16:.3e} "
+            f"(max |out| {float(exact.abs().max()):.3e}), largest |err| - 2^-8 |out| vs the "
+            f"plain f32 result {excess16:.3e} (tol {K5_BF16_ORDER})")
+
+        # K5's path: the public entry point, once per yi-6b layer, bf16
+        layers = 32
+        _lib.reset_launches()
+        outs = [decode_attention(qb, kb, vb, lens) for _ in range(layers)]
+        torch.cuda.synchronize()
+        launched = _lib.launches["decode_attention"]
+        self.path_launches["decode_attention"] = launched
+        steady = all(torch.equal(o, out16) for o in outs)
+        log(f"K5 public entry, {layers} calls at yi-6b width: {launched} launches, "
+            f"outputs {'identical' if steady else 'DIFFER'} across calls")
+        if launched != layers or not steady:
+            failures.append(f"decode_attention path: {launched} launches, steady {steady}")
+        return {"err_f32": max(errs_f32), "err_f32_yi": err32, "err_f32_small": small,
+                "err_bf16": err16, "bf16_excess": excess16, "path_launches": launched}
+
     # -- phase 3 -------------------------------------------------------------
+
+    def phase_conformance(self):
+        """The conformance path at its real size through its CLI, in-process,
+        on the default device (CUDA): all 15 committed vector files, then the
+        seeded fuzz over the six default specs."""
+        import contextlib
+        import io
+
+        from repro_torch.conformance import default_impls
+        from repro_torch.conformance.__main__ import main as conformance_main
+        from repro_torch.kernels import _lib
+        from repro_torch.numerics import P16
+
+        oracles = sorted(default_impls(P16))
+        log(f"conformance oracles on the default device: {oracles}")
+        if "cuda" not in oracles:
+            raise AssertionError("the default device did not register the cuda oracle")
+
+        def run(argv):
+            buf = io.StringIO()
+            _lib.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = conformance_main(argv)
+            self.torch.cuda.synchronize()
+            return rc, buf.getvalue(), time.perf_counter() - t0, dict(_lib.launches)
+
+        rc_c, out_c, s_c, n_c = run(["check"])
+        log(f"conformance check: rc {rc_c} in {s_c:.1f} s, launches K3 {n_c['posit_codec']} "
+            f"K4 {n_c['posit_mul']}: {out_c.strip().splitlines()[-1] if out_c.strip() else ''}")
+        if rc_c != 0:
+            log(out_c)
+        rc_f, out_f, s_f, n_f = run(["fuzz", "--seed", "0", "--count", "2048"])
+        summary = next((ln for ln in out_f.splitlines() if ln.startswith("conformance fuzz:")),
+                       "")
+        m = re.match(r"conformance fuzz: (\d+) comparisons, (\d+) mismatches, "
+                     r"(\d+) property failures", summary)
+        checked, mism, props = (int(x) for x in m.groups()) if m else (0, -1, -1)
+        indep = re.search(r"comparisons of independent oracles: (\d+)", out_f)
+        independent = int(indep.group(1)) if indep else 0
+        log(f"conformance fuzz --seed 0 --count 2048: rc {rc_f} in {s_f:.1f} s, {checked} "
+            f"comparisons ({independent} of independent oracles, kernel_plain left out), "
+            f"{mism} mismatches, {props} property failures, launches K3 "
+            f"{n_f['posit_codec']} K4 {n_f['posit_mul']}")
+        if rc_f != 0:
+            log(out_f)
+        launches = {k: n_c[k] + n_f[k] for k in ("posit_codec", "posit_mul")}
+        self.path_launches["posit_mul"] = launches["posit_mul"]
+        self.results["conformance"] = {
+            "oracles": oracles, "check_rc": rc_c, "check_s": s_c, "check_launches": n_c,
+            "fuzz_rc": rc_f, "fuzz_s": s_f, "fuzz_launches": n_f, "comparisons": checked,
+            "independent_comparisons": independent,
+            "mismatches": mism, "property_failures": props, "fuzz_output": out_f}
+        if rc_c != 0 or rc_f != 0 or mism != 0 or props != 0 or checked == 0:
+            raise AssertionError(f"conformance: check rc {rc_c}, fuzz rc {rc_f}, "
+                                 f"{mism} mismatches, {props} property failures")
+        if min(launches.values()) == 0:
+            raise AssertionError(f"the cuda oracle launched no kernel: {launches}")
+
+    # -- phase 4 -------------------------------------------------------------
 
     def yi_cfg(self, n_layers):
         from repro_torch.configs import get_config
@@ -312,7 +511,8 @@ class Smoke:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(_lib.launches)
-        self.launch_counts = counts
+        for name in ("plam_matmul", "posit_codec", "paged_decode_attention"):
+            self.path_launches[name] = counts[name]
         st = eng.stats
         forwards = st.prefills + st.decode_steps
         decode_tokens = st.generated_tokens - st.prefills
@@ -387,7 +587,7 @@ class Smoke:
                 "idle_share": 1 - busy / wall_us,
                 "top": [[name, us / 1e3] for name, us in top]}
 
-    # -- phase 4 -------------------------------------------------------------
+    # -- phase 5 -------------------------------------------------------------
 
     def phase_e2e(self):
         torch = self.torch
@@ -437,10 +637,11 @@ class Smoke:
                                "launches": used}
         del model
         torch.cuda.empty_cache()
-        if not finite or err > E2E_LOGIT_TOL or min(used.values()) == 0:
+        served = ("plam_matmul", "posit_codec", "paged_decode_attention")
+        if not finite or err > E2E_LOGIT_TOL or min(used[k] for k in served) == 0:
             raise AssertionError(f"e2e: err {err} finite {finite} launches {used}")
 
-    # -- phase 5 -------------------------------------------------------------
+    # -- phase 6 -------------------------------------------------------------
 
     def phase_times(self):
         torch = self.torch
@@ -538,6 +739,8 @@ class Smoke:
                       ms, plain,
                       q.numel() * 2 * 2 + 2 * ctx * kv * hd * 2 + tables.numel() * 4 + b_ * 4,
                       4 * ctx * h * hd, F32_FLOPS, library_ms=lib_ms)
+        k4_main = self.time_posit_mul(add, int_rate)
+        k5_main = self.time_decode_attention(add)
         self.results["times"] = rows
         self.kernels = {
             "plam_matmul": (k1_main, "src/repro_torch/kernels/csrc/plam_matmul.cu",
@@ -547,14 +750,94 @@ class Smoke:
                 "src/repro/kernels/decode_attention.py:184"),
             "posit_codec": (k3_main, "src/repro_torch/kernels/csrc/posit_codec.cu",
                             "src/repro/kernels/posit_codec.py:57"),
+            "posit_mul": (k4_main, "src/repro_torch/kernels/csrc/posit_mul.cu",
+                          "src/repro/kernels/posit_codec.py:85"),
+            "decode_attention": (k5_main, "src/repro_torch/kernels/csrc/decode_attention.cu",
+                                 "src/repro/kernels/decode_attention.py:83"),
         }
+
+    def time_posit_mul(self, add, int_rate):
+        """K4 over 2^24 seeded Posit<16,1> pairs: 12 bytes a lane, and the
+        ALU-pipe operations a lane needs at 64 lanes per SM per clock (the
+        hand count in posit_mul.cu); no library call computes it."""
+        torch = self.torch
+        from repro_torch.kernels.posit_codec import (
+            exact_mul_elementwise,
+            plam_mul_elementwise,
+        )
+        from repro_torch.numerics import P16
+
+        g = self.gen(6)
+        lanes = 1 << 24
+        a = torch.randint(0, 1 << 16, (lanes,), generator=g, device=self.dev,
+                          dtype=torch.int32)
+        b = torch.randint(0, 1 << 16, (lanes,), generator=g, device=self.dev,
+                          dtype=torch.int32)
+        with open(K4_SOURCE) as f:
+            src = f.read()
+        ops = {name: int(re.search(rf"constexpr int {const} = (\d+);", src).group(1))
+               for name, const in K4_OPS.items()}
+        log(f"K4 ALU-pipe operations a lane needs (counted in posit_mul.cu): {ops}")
+        rows = []
+        for fn in (plam_mul_elementwise, exact_mul_elementwise):
+            ms = self.events_ms(lambda: fn(a, b, P16), reps=20)
+            plain = self.events_ms(lambda: fn(a, b, P16, use_kernel=False), reps=2, warmup=1)
+            rows.append(add("posit_mul", f"{fn.__name__} Posit<16,1> 2^24 lanes", ms, plain,
+                            12 * lanes, ops[fn.__name__] * lanes, int_rate))
+        # a conformance-sized call (2^20 lanes): launch and tail
+        a20, b20 = a[: 1 << 20], b[: 1 << 20]
+        ms = self.events_ms(lambda: plam_mul_elementwise(a20, b20, P16), reps=20)
+        plain = self.events_ms(lambda: plam_mul_elementwise(a20, b20, P16, use_kernel=False),
+                               reps=2, warmup=1)
+        add("posit_mul", "plam_mul_elementwise Posit<16,1> 2^20 lanes", ms, plain,
+            12 << 20, ops["plam_mul_elementwise"] << 20, int_rate)
+        return rows[0]
+
+    def time_decode_attention(self, add):
+        """K5 at yi-6b's widths, bf16, beside scaled_dot_product_attention
+        on the same cache laid out [B, kv, S, hd] with a boolean length mask
+        (timed as the yardstick only; the port never calls it).  The bound
+        counts the live keys: each K/V row below its sequence's length read
+        once."""
+        torch = self.torch
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.decode_attention import decode_attention
+
+        g = self.gen(8)
+        sh = K5_SHAPE
+        b, h, kv, hd, s = sh["b"], sh["h"], sh["kv"], sh["hd"], sh["s"]
+        q = torch.randn((b, h, hd), generator=g, device=self.dev).to(torch.bfloat16)
+        k = torch.randn((b, s, kv, hd), generator=g, device=self.dev).to(torch.bfloat16)
+        v = torch.randn((b, s, kv, hd), generator=g, device=self.dev).to(torch.bfloat16)
+        lens = torch.tensor(K5_LENGTHS, dtype=torch.int32, device=self.dev)
+        ms = self.events_ms(lambda: decode_attention(q, k, v, lens), reps=50)
+        plain = self.events_ms(lambda: decode_attention(q, k, v, lens, use_kernel=False),
+                               reps=10)
+        kc, vc = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        mask = (torch.arange(s, device=self.dev)[None, :] < lens[:, None])[:, None, None, :]
+        qs = q[:, :, None, :]
+        try:
+            F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask, enable_gqa=True)
+            lib_kv, lib_kw = (kc, vc), {"enable_gqa": True}
+        except TypeError:  # torch without enable_gqa: expand kv heads first
+            lib_kv = (kc.repeat_interleave(h // kv, 1), vc.repeat_interleave(h // kv, 1))
+            lib_kw = {}
+        lib_ms = self.events_ms(
+            lambda: F.scaled_dot_product_attention(qs, *lib_kv, attn_mask=mask, **lib_kw),
+            reps=50)
+        live = sum(K5_LENGTHS)
+        bytes_ = 2 * q.numel() * 2 + 2 * live * kv * hd * 2 + b * 4
+        return add("decode_attention", f"B={b} H={h} kv={kv} hd={hd} S={s} bf16 "
+                   f"lens={K5_LENGTHS}", ms, plain, bytes_, 4 * live * h * hd, F32_FLOPS,
+                   library_ms=lib_ms)
 
     def kernels_line(self):
         out = []
         for name, (row, source, replaces) in self.kernels.items():
             out.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": self.launch_counts.get(name, 0),
+                "launches": self.path_launches.get(name, 0),
                 "max_abs_err": self.kernel_err.get(name),
                 "ms": row["ms"], "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"],
@@ -568,7 +851,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="yi-6b depth for the serve phase (widths are never cut)")
-    ap.add_argument("--phases", default="device,kernels,serve,e2e,times")
+    ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args()
     try:
         import torch
@@ -590,7 +873,7 @@ def main() -> int:
     phases = args.phases.split(",")
     failed = []
     t_start = time.perf_counter()
-    for phase in ["device", "kernels", "serve", "e2e", "times"]:
+    for phase in PHASES:
         if phase not in phases:
             continue
         log(f"== phase {phase}")
@@ -612,7 +895,7 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(smoke.results, f, indent=1, default=str)
-    if failed or set(phases) != {"device", "kernels", "serve", "e2e", "times"}:
+    if failed or set(phases) != set(PHASES):
         log(f"chip_smoke: phases failed: {failed}" if failed else
             f"chip_smoke: partial run ({args.phases}); no result line")
         return 1

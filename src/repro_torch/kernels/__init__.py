@@ -1,24 +1,33 @@
 """Hand-written CUDA kernels for Hopper, each with its plain version.
 
-* ``plam_matmul``       — the PLAM matmul (K1, ``csrc/plam_matmul.cu``)
-* ``decode_attention``  — paged decode attention (K2,
+* ``plam_matmul``             — the PLAM matmul (K1, ``csrc/plam_matmul.cu``)
+* ``paged_decode_attention``  — paged decode attention (K2,
   ``csrc/paged_decode_attention.cu``)
-* ``posit_codec``       — posit encode / decode / quantize (K3,
+* ``posit_codec``             — posit encode / decode / quantize (K3,
   ``csrc/posit_codec.cu``)
+* ``posit_mul``               — element-wise PLAM and exact posit products
+  (K4, ``csrc/posit_mul.cu``)
+* ``decode_attention``        — contiguous-cache decode attention split
+  along the keys (K5, ``csrc/decode_attention.cu``)
 
 Kernels are built on first use (``_lib.library``); launches are counted
 in ``_lib.launches``.
 """
 from ._lib import launches, reset_launches  # noqa: F401
 from .decode_attention import (  # noqa: F401
+    decode_attention,
+    decode_attention_kernel,
+    decode_attention_ref,
     gather_pages,
     paged_decode_attention,
     paged_decode_attention_kernel,
     paged_decode_attention_ref,
 )
 from .ops import (  # noqa: F401
+    exact_mul_elementwise,
     plam_dense,
     plam_matmul_bits,
+    plam_mul_elementwise,
     posit_decode,
     posit_encode,
     posit_quantize,

@@ -41,6 +41,8 @@ launches: Dict[str, int] = {
     "plam_matmul": 0,
     "paged_decode_attention": 0,
     "posit_codec": 0,
+    "posit_mul": 0,
+    "decode_attention": 0,
 }
 
 #: seconds the last build in this process took (0.0 when it was cached)
@@ -134,6 +136,9 @@ _SIGNATURES = {
     "posit_quantize_launch": [_P, _I, _P, ctypes.c_int64, _I, _I, _P],
     "paged_decode_attention_launch": [
         _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    "posit_mul_launch": [_P, _P, _P, ctypes.c_int64, _I, _I, _I, _P],
+    "decode_attention_launch": [
+        _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
 }
 
 

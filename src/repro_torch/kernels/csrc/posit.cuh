@@ -1,5 +1,6 @@
 // Posit<n,es> field codec for device code, shared by the PLAM matmul
-// (plam_matmul.cu) and the posit codec kernels (posit_codec.cu).
+// (plam_matmul.cu), the posit codec kernels (posit_codec.cu) and the
+// element-wise multipliers (posit_mul.cu).
 //
 // A line-for-line port of repro/numerics/posit.py (decode_fields,
 // encode_fields, decode, encode) in uint32 arithmetic.  C++ shifts by

@@ -14,7 +14,13 @@ import torch
 from repro_torch.numerics import P16, PositSpec
 
 from .plam_matmul import plam_matmul
-from .posit_codec import posit_decode, posit_encode, posit_quantize  # noqa: F401
+from .posit_codec import (  # noqa: F401
+    exact_mul_elementwise,
+    plam_mul_elementwise,
+    posit_decode,
+    posit_encode,
+    posit_quantize,
+)
 
 
 def plam_matmul_bits(

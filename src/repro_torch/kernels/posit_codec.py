@@ -1,11 +1,19 @@
-"""Posit codec: the wrappers of the CUDA codec kernels (K3).
+"""Posit codec and element-wise multipliers: the wrappers of the CUDA
+kernels K3 and K4.
 
-Port of the Pallas TPU kernels ``repro/kernels/posit_codec.py::
-posit_encode / posit_decode / posit_quantize`` as ``csrc/posit_codec.cu``:
-element-wise f32/bf16 -> pattern (RNE on the pattern, saturating, never
-to zero or NaR), pattern -> f32, and decode . encode.  The kernels are
-bit-identical to their plain versions, the ``repro_torch.numerics``
-codec, which these wrappers take for CPU tensors.
+Port of the Pallas TPU kernels in ``repro/kernels/posit_codec.py``:
+
+* K3, ``posit_encode / posit_decode / posit_quantize`` as
+  ``csrc/posit_codec.cu``: element-wise f32/bf16 -> pattern (RNE on the
+  pattern, saturating, never to zero or NaR), pattern -> f32, and
+  decode . encode.
+* K4, ``plam_mul_elementwise / exact_mul_elementwise`` as
+  ``csrc/posit_mul.cu``: pattern x pattern -> pattern, the PLAM product
+  and the exact product with RNE (the conformance oracles' multipliers).
+
+The kernels are bit-identical to their plain versions, the
+``repro_torch.numerics`` functions, which these wrappers take for CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -13,7 +21,17 @@ from typing import Optional
 
 import torch
 
-from repro_torch.numerics import P16, PositSpec, decode, encode, pack16, unpack16
+from repro_torch.numerics import (
+    P16,
+    PositSpec,
+    decode,
+    encode,
+    exact_mul,
+    pack16,
+    plam_mul,
+    unpack16,
+)
+from repro_torch.numerics.plam import exact_mul_supported
 
 from . import _lib
 
@@ -88,3 +106,41 @@ def posit_quantize(
             spec.n, spec.es, _lib.stream_ptr(x))
         _lib.check_launch("posit_codec", err)
     return out
+
+
+def _posit_mul(a_bits, b_bits, spec, use_kernel, exact: bool):
+    if a_bits.shape != b_bits.shape:
+        raise ValueError(f"operand shapes differ: {tuple(a_bits.shape)} vs "
+                         f"{tuple(b_bits.shape)}")
+    if exact and not exact_mul_supported(spec):
+        raise ValueError("exact_mul supports n <= 16")
+    if not _lib.wants_kernel(a_bits, use_kernel):
+        return (exact_mul if exact else plam_mul)(a_bits, b_bits, spec)
+    _lib.require(a_bits, "a_bits", (torch.int32,))
+    _lib.require(b_bits, "b_bits", (torch.int32,))
+    if b_bits.device != a_bits.device:
+        raise ValueError("a_bits and b_bits lie on different devices")
+    out = torch.empty(a_bits.shape, dtype=torch.int32, device=a_bits.device)
+    if a_bits.numel():
+        err = _lib.library().posit_mul_launch(
+            a_bits.data_ptr(), b_bits.data_ptr(), out.data_ptr(), a_bits.numel(), spec.n,
+            spec.es, int(exact), _lib.stream_ptr(a_bits))
+        _lib.check_launch("posit_mul", err)
+    return out
+
+
+def plam_mul_elementwise(
+    a_bits: torch.Tensor, b_bits: torch.Tensor, spec: PositSpec = P16, *,
+    use_kernel: Optional[bool] = None,
+) -> torch.Tensor:
+    """Element-wise PLAM pattern product: two int32 pattern tensors of one
+    shape -> int32 patterns."""
+    return _posit_mul(a_bits, b_bits, spec, use_kernel, exact=False)
+
+
+def exact_mul_elementwise(
+    a_bits: torch.Tensor, b_bits: torch.Tensor, spec: PositSpec = P16, *,
+    use_kernel: Optional[bool] = None,
+) -> torch.Tensor:
+    """Element-wise exact posit pattern product with RNE (n <= 16)."""
+    return _posit_mul(a_bits, b_bits, spec, use_kernel, exact=True)

@@ -1,5 +1,4 @@
-"""Posit<n,es> arithmetic and the PLAM product in PyTorch."""
-from .plam import plam_product_f32  # noqa: F401
+"""Posit<n,es> arithmetic and PLAM (the paper's core) in PyTorch."""
 from .posit import (  # noqa: F401
     P8,
     P16,
@@ -13,3 +12,12 @@ from .posit import (  # noqa: F401
     quantize,
     unpack16,
 )
+from .plam import (  # noqa: F401
+    exact_mul,
+    mitchell_mul_f32,
+    plam_mul,
+    plam_mul_logfix,
+    plam_product_f32,
+    plam_relative_error,
+)
+from .table import decode_table, encode_table, tables  # noqa: F401

@@ -58,11 +58,14 @@ def no_card():
         pytest.skip("a CUDA device is present: the default device is valid here")
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
+def test_entry_points_default_to_cuda_and_raise_without_it(no_card, capsys):
+    from repro_torch.conformance import check_vectors, default_impls, run_fuzz
+    from repro_torch.conformance.__main__ import main as conformance_main
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_jax
     from repro_torch.device import resolve_device
     from repro_torch.models.transformer import lm_init
+    from repro_torch.numerics import P16
     from repro_torch.serving import ServeOptions, build_engine
 
     cfg = get_config("yi-6b").reduced()
@@ -71,10 +74,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
         lambda: lm_init(cfg),
         lambda: build_engine(cfg, ServeOptions()),
         lambda: params_from_jax({}, cfg),
+        lambda: default_impls(P16),
+        lambda: check_vectors(),
+        lambda: run_fuzz(count=8),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+    # the CLI exits non-zero instead of carrying on on the CPU
+    for argv in (["check"], ["fuzz", "--count", "8"]):
+        assert conformance_main(argv) == 2
+        assert "device='cpu'" in capsys.readouterr().err
+
+
+def test_conformance_gen_needs_a_directory():
+    """gen never falls back to the reference's committed vector directory."""
+    from repro_torch.conformance.__main__ import main as conformance_main
+
+    with pytest.raises(SystemExit) as exc:
+        conformance_main(["gen", "--device", "cpu"])
+    assert exc.value.code != 0
 
 
 def test_chip_smoke_fails_without_a_card(no_card):

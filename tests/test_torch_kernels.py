@@ -13,6 +13,12 @@ import torch  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.decode_attention import (  # noqa: E402
+    decode_attention as j_decode_attention,
+)
+from repro.kernels.decode_attention import (  # noqa: E402
+    decode_attention_ref as j_decode_attention_ref,
+)
+from repro.kernels.decode_attention import (  # noqa: E402
     paged_decode_attention_kernel as j_paged_kernel,
 )
 from repro.kernels.decode_attention import (  # noqa: E402
@@ -22,12 +28,15 @@ from repro.kernels.ref import plam_matmul_seqref as j_seqref  # noqa: E402
 from repro.numerics import PositSpec as JSpec  # noqa: E402
 from repro_torch.kernels import _lib, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention,
+    decode_attention_kernel,
+    decode_attention_ref,
     gather_pages,
     paged_decode_attention,
     paged_decode_attention_kernel,
     paged_decode_attention_ref,
 )
-from repro_torch.numerics import P16, pack16  # noqa: E402
+from repro_torch.numerics import P16, PositSpec, pack16  # noqa: E402
 
 # the reference conformance suite's ragged shapes (tests/test_conformance.py)
 RAGGED_SHAPES = [(4, 5, 3), (1, 7, 1), (3, 130, 9), (9, 257, 5), (2, 1, 2), (17, 64, 33)]
@@ -157,10 +166,85 @@ def test_plam_matmul_rejects_bad_operands():
     a = torch.zeros((2, 3), dtype=torch.int32)
     with pytest.raises(ValueError, match="shapes"):
         ops.plam_matmul_bits(a, torch.zeros((4, 2), dtype=torch.int32), P16)
-    from repro_torch.numerics import PositSpec
-
     with pytest.raises(ValueError, match="int16"):
         ops.plam_matmul_bits(a, torch.zeros((3, 2), dtype=torch.int16), PositSpec(24, 1))
+
+
+# -- K4: the element-wise multipliers ------------------------------------------
+
+def _k4_operands(case):
+    """Posit<8,1> all pairs, or 1000 seeded lanes at Posit<16,1> (a length
+    no tile divides)."""
+    if case == "p8es1_exhaustive":
+        pats = np.arange(256, dtype=np.int32)
+        return JSpec(8, 1), PositSpec(8, 1), np.repeat(pats, 256), np.tile(pats, 256)
+    rng = np.random.default_rng(12)
+    pa, pb = (rng.integers(0, 1 << 16, 1000).astype(np.int32) for _ in range(2))
+    pa[::37], pb[::41] = 0, P16.nar
+    return JSpec(16, 1), P16, pa, pb
+
+
+@pytest.mark.parametrize("fn", ["plam_mul_elementwise", "exact_mul_elementwise"])
+@pytest.mark.parametrize("case", ["p8es1_exhaustive", "p16es1_ragged1000"])
+def test_posit_mul_plain_bit_identical_to_jax_kernel(fn, case):
+    """K4's plain path == the Pallas kernel in interpret mode, bit for bit."""
+    jspec, spec, pa, pb = _k4_operands(case)
+    want = getattr(jops, fn)(jnp.asarray(pa), jnp.asarray(pb), jspec, interpret=True)
+    got = getattr(ops, fn)(torch.from_numpy(pa), torch.from_numpy(pb), spec)
+    assert got.dtype == torch.int32 and got.shape == pa.shape
+    assert np.array_equal(np.asarray(want), got.numpy())
+
+
+def test_posit_mul_wrappers_check_their_operands():
+    a = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.plam_mul_elementwise(a, a[:4], P16)
+    with pytest.raises(ValueError, match="n <= 16"):
+        ops.exact_mul_elementwise(a, a, PositSpec(24, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.plam_mul_elementwise(a, a, P16, use_kernel=True)
+    # every spec the plain version takes, up to 32 bits
+    assert ops.plam_mul_elementwise(a, a, PositSpec(32, 2)).dtype == torch.int32
+
+
+# -- K5: contiguous-cache decode attention --------------------------------------
+
+# the reference's shapes (tests/test_resilience.py): b, s, h, kv, hd, blk
+K5_SHAPES = [(2, 64, 8, 4, 16, 16), (1, 96, 4, 2, 32, 32)]
+
+
+def _k5_case(shape, seed=0):
+    b, s, h, kvh, hd, _ = shape
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    k = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
+    v = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
+    lens = rng.integers(1, s + 1, b).astype(np.int32)
+    return q, k, v, lens
+
+
+@pytest.mark.parametrize("shape", K5_SHAPES, ids=["x".join(map(str, s)) for s in K5_SHAPES])
+def test_decode_attention_plain_matches_jax_kernel_and_ref(shape):
+    q, k, v, lens = _k5_case(shape)
+    got = decode_attention(*map(torch.from_numpy, (q, k, v, lens)), blk=shape[-1])
+    want_kernel = j_decode_attention(*map(jnp.asarray, (q, k, v, lens)), blk=shape[-1],
+                                     interpret=True)
+    want_ref = j_decode_attention_ref(*map(jnp.asarray, (q, k, v, lens)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_kernel), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_ref), rtol=2e-5, atol=2e-5)
+
+
+def test_decode_attention_plain_respects_lengths_and_keeps_dtype():
+    q, k, v, _ = _k5_case((2, 64, 4, 2, 16, 16), seed=1)
+    lens = torch.tensor([5, 64], dtype=torch.int32)
+    out = decode_attention_ref(*map(torch.from_numpy, (q, k, v)), lens)
+    short = decode_attention_ref(torch.from_numpy(q[:1]), torch.from_numpy(k[:1, :5]),
+                                 torch.from_numpy(v[:1, :5]), lens[:1])
+    torch.testing.assert_close(out[0], short[0], rtol=2e-5, atol=2e-5)
+    qb, kb, vb = (torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v))
+    assert decode_attention_ref(qb, kb, vb, lens).dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_kernel(*map(torch.from_numpy, (q, k, v)), lens)
 
 
 # -- on the card ---------------------------------------------------------------
@@ -199,3 +283,23 @@ def test_cuda_paged_attention_close_to_plain(cuda_device):
     got = paged_decode_attention(q, kp, vp, tables, lengths)
     want = paged_decode_attention_ref(q, kp, vp, tables, lengths)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["plam_mul_elementwise", "exact_mul_elementwise"])
+@pytest.mark.parametrize("case", ["p8es1_exhaustive", "p16es1_ragged1000"])
+def test_cuda_posit_mul_bit_identical(cuda_device, fn, case):
+    _, spec, pa, pb = _k4_operands(case)
+    a, b = torch.from_numpy(pa).to(cuda_device), torch.from_numpy(pb).to(cuda_device)
+    got = getattr(ops, fn)(a, b, spec)
+    assert torch.equal(got, getattr(ops, fn)(a, b, spec, use_kernel=False))
+    assert torch.equal(got.cpu(), getattr(ops, fn)(a.cpu(), b.cpu(), spec))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K5_SHAPES, ids=["x".join(map(str, s)) for s in K5_SHAPES])
+def test_cuda_decode_attention_close_to_plain(cuda_device, shape):
+    q, k, v, lens = (torch.from_numpy(t).to(cuda_device) for t in _k5_case(shape, seed=4))
+    got = decode_attention(q, k, v, lens, blk=shape[-1])
+    want = decode_attention(q, k, v, lens, use_kernel=False)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

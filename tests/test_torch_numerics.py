@@ -129,3 +129,94 @@ def test_spec_fields_match_reference():
         js, ts = J.PositSpec(n, es), T.PositSpec(n, es)
         for field in ("useed_exp", "fbmax", "mask_n", "nar", "maxpos_body", "max_scale"):
             assert getattr(js, field) == getattr(ts, field), (n, es, field)
+
+
+# -- the multipliers, the table codec and the golden copy ----------------------
+
+MUL_SPECS = [(8, 0), (8, 1), (16, 1), (16, 2)]
+
+
+def _mul_operands(n: int):
+    """All pattern pairs for n <= 8, else 4096 seeded pairs (the reference's
+    sampled-vector size)."""
+    if n <= 8:
+        pats = np.arange(1 << n, dtype=np.int32)
+        return np.repeat(pats, 1 << n), np.tile(pats, 1 << n)
+    rng = np.random.default_rng(np.random.SeedSequence([n, 0x4D]))
+    return (rng.integers(0, 1 << n, 4096).astype(np.int32),
+            rng.integers(0, 1 << n, 4096).astype(np.int32))
+
+
+@pytest.mark.parametrize("fn", ["plam_mul", "plam_mul_logfix", "exact_mul",
+                                "plam_relative_error"])
+@pytest.mark.parametrize("n,es", MUL_SPECS)
+def test_multipliers_bit_identical(fn, n, es):
+    pa, pb = _mul_operands(n)
+    want = np.asarray(getattr(J, fn)(jnp.asarray(pa), jnp.asarray(pb), J.PositSpec(n, es)))
+    got = getattr(T, fn)(torch.from_numpy(pa), torch.from_numpy(pb), T.PositSpec(n, es))
+    assert got.dtype == (torch.float32 if fn == "plam_relative_error" else torch.int32)
+    assert np.array_equal(want.view(np.uint32), got.numpy().view(np.uint32))
+
+
+def test_multipliers_refuse_what_the_reference_asserts():
+    a = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="n <= 16"):
+        T.exact_mul(a, a, T.PositSpec(24, 1))
+    with pytest.raises(ValueError, match="logfix"):
+        T.plam_mul_logfix(a, a, T.PositSpec(32, 2))
+
+
+def test_mitchell_mul_f32_bit_identical():
+    rng = np.random.default_rng(21)
+    a = rng.standard_normal(50_000).astype(np.float32)
+    b = (rng.standard_normal(50_000) * 10.0 ** rng.integers(-5, 5, 50_000)).astype(np.float32)
+    a[:100] = 0.0
+    b[50:150] = -0.0
+    want = J.mitchell_mul_f32(jnp.asarray(a), jnp.asarray(b))
+    got = T.mitchell_mul_f32(torch.from_numpy(a), torch.from_numpy(b))
+    assert np.array_equal(_f32_bits(want), got.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("n,es", SMALL_SPECS + [(16, 1), (16, 2)])
+def test_table_codec_bit_identical(n, es):
+    """decode_table over every pattern and encode_table over the fuzzer's
+    floats (with its subnormal and overflow specials) and a wide sweep."""
+    from repro.conformance.fuzz import sample_floats
+
+    js, ts = J.PositSpec(n, es), T.PositSpec(n, es)
+    want_v, want_m = J.tables(n, es)
+    got_v, got_m = T.tables(n, es)
+    assert np.array_equal(want_v, got_v) and np.array_equal(want_m, got_m)
+    pats = np.arange(1 << n, dtype=np.int32)
+    want = J.decode_table(jnp.asarray(pats), js)
+    got = T.decode_table(torch.from_numpy(pats), ts)
+    assert np.array_equal(_f32_bits(want), got.numpy().view(np.uint32))
+    x = np.concatenate([sample_floats(np.random.default_rng(n + es), 4096),
+                        _f32_sweep(seed=n + 100 * es, n=20_000)])
+    want_e = np.asarray(J.encode_table(jnp.asarray(x), js))
+    got_e = T.encode_table(torch.from_numpy(x), ts).numpy()
+    assert np.array_equal(want_e, got_e)
+    # the table codec agrees with the bit-field codec, as in the reference
+    assert np.array_equal(got_e, T.encode(torch.from_numpy(x), ts).numpy())
+
+
+@pytest.mark.parametrize("n,es", SMALL_SPECS + [(16, 1)])
+def test_golden_copy_matches_reference(n, es):
+    from repro.numerics import golden as jg
+    from repro_torch.numerics import golden as tg
+
+    assert tg.all_values(n, es) == jg.all_values(n, es)
+    assert tg.thresholds(n, es) == jg.thresholds(n, es)
+    rng = np.random.default_rng(n * 7 + es)
+    pats = rng.integers(0, 1 << n, 300).tolist() + [0, 1 << (n - 1), 1, (1 << n) - 1]
+    for p in pats:
+        got, want = tg.decode_py(p, n, es), jg.decode_py(p, n, es)
+        assert got == want or (got != got and want != want)
+        if p not in (0, 1 << (n - 1)):
+            assert tg.decode_fields_py(p, n, es) == jg.decode_fields_py(p, n, es)
+    for x in [0.0, -0.0, float("inf"), float("nan"), 1e-40, -3e38,
+              *rng.standard_normal(200).tolist()]:
+        assert tg.encode_py(x, n, es) == jg.encode_py(x, n, es)
+    for pa, pb in zip(pats, reversed(pats)):
+        assert tg.plam_mul_py(pa, pb, n, es) == jg.plam_mul_py(pa, pb, n, es)
+        assert tg.exact_mul_py(pa, pb, n, es) == jg.exact_mul_py(pa, pb, n, es)
