@@ -13,7 +13,9 @@ own lines:
    device, and the kernels' build from ``src/repro_torch/kernels/csrc``.
 2. kernels     — each CUDA kernel against its plain PyTorch version on
    the card at its paths' shapes: the posit codec (K3), the PLAM matmul
-   (K1) and the element-wise posit multipliers (K4) bit for bit, the
+   (K1: yi-6b's shapes at M = 4 and 64, every decode-batch M at one of
+   them, and ragged shapes at its decode path's tile, stage, strip and
+   branch edges) and the element-wise posit multipliers (K4) bit for bit, the
    paged (K2) and contiguous (K5) decode attention within stated
    tolerances.  Then K5's public entry point runs once per yi-6b layer
    at yi-6b's widths (K5 has no serving path).
@@ -31,7 +33,11 @@ own lines:
    must agree within a stated tolerance.
 6. times       — CUDA-event times of each kernel, its plain version and
    (for attention) ``scaled_dot_product_attention``, beside each
-   kernel's bound.
+   kernel's bound (and, for K1's decode path, its decode floor).  Each
+   kernel and library call is read two ways: the events' window as
+   earlier runs read it (``ms``; for a short call it holds the host time
+   of the wrapper), and after a device spin (``device_ms``: the card's
+   time alone).
 
 It exits non-zero if any phase fails, if no CUDA device is present, or if
 ``repro_torch`` cannot be imported.  Its last line is
@@ -59,6 +65,9 @@ PHASES = ["device", "kernels", "conformance", "serve", "e2e", "times"]
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 SMS, INT32_LANES_PER_SM = 132, 64
+# clock cycles (~0.1 ms) of the device spin that events_ms(spin=True) queues
+# before a timed call
+SPIN_CYCLES = 200_000
 
 K1_SHAPES = [  # (K, N) of yi-6b's projections and lm_head
     (4096, 4096),    # wq, wo
@@ -68,6 +77,21 @@ K1_SHAPES = [  # (K, N) of yi-6b's projections and lm_head
     (4096, 64000),   # unembed
 ]
 RAGGED_SHAPES = [(4, 5, 3), (1, 7, 1), (3, 130, 9), (9, 257, 5), (2, 1, 2), (17, 64, 33)]
+# (M, K, N) at the edges of K1's decode path (M <= 16): k-tiles of 2048/BN
+# rows, a ring of 4 stages, strips of BN columns, 16-byte vector loads
+# (N % 8 == 0 for int16, N % 4 == 0 for int32) or scalar ones, and the
+# M <= 4 / M <= 16 branches.  RAGGED_SHAPES and K1_EDGE_SHAPES are copies
+# of tests/test_torch_kernels.py's RAGGED_SHAPES and EDGE_SHAPES, which
+# own them (a test there holds the copies equal); this script runs
+# without the tests.  The wide shapes are too large for the CPU tests.
+K1_EDGE_SHAPES = [(4, 1023, 8), (4, 1025, 9), (3, 4097, 16), (1, 4097, 12), (5, 513, 24),
+                  (16, 511, 17), (2, 300, 40)]
+K1_WIDE_EDGE_SHAPES = [(4, 4096, 4104), (4, 2048, 520), (16, 4096, 4100), (7, 1000, 64008)]
+# M of decode batches with 1-4 live slots, and the M <= 16 branch's top
+K1_DECODE_MS = (1, 2, 3, 4, 16)
+# K1's decode floor: ALU-pipe operations of one log_word and of one
+# product row, counted by hand in the header of its source
+K1_SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "plam_matmul.cu")
 # K2 tolerances.  The kernel keeps scores, probabilities and sums in f32
 # and rounds once to bf16 at the end, so against the plain version run in
 # f32 it differs by that rounding (2^-9 of |out| <= 1 here) and sum order.
@@ -129,10 +153,19 @@ class Smoke:
         g.manual_seed(seed)
         return g
 
-    def events_ms(self, fn, reps: int, warmup: int = 2, flush: bool = True) -> float:
-        """Mean device ms of fn() over reps calls, each after an L2 flush."""
+    def events_ms(self, fn, reps: int, warmup: int = 2, flush: bool = True,
+                  spin: bool = False) -> float:
+        """Mean ms between CUDA events around fn() over reps calls, each
+        after an L2 flush.  The window opens when the card reaches the
+        start event, so for a short call it also holds the host time of
+        fn()'s wrapper up to its launch.  With spin, a device spin of about
+        0.1 ms is queued before the start event, so that the host has
+        queued fn()'s launches before the card gets there: the window is
+        then fn()'s device time alone."""
         torch = self.torch
         for _ in range(warmup):
+            if spin:  # the spin's own first launch loads its kernel
+                torch.cuda._sleep(SPIN_CYCLES)
             fn()
         scrub = torch.empty(64 << 20, dtype=torch.int32, device=self.dev) if flush else None
         total = 0.0
@@ -141,12 +174,18 @@ class Smoke:
                 scrub.zero_()  # 256 MB: evicts the 50 MB L2
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            if spin:
+                torch.cuda._sleep(SPIN_CYCLES)
             a.record()
             fn()
             b.record()
             b.synchronize()
             total += a.elapsed_time(b)
         return total / reps
+
+    def timed(self, fn, reps: int):
+        """(window, device) ms of fn(): events_ms without and with the spin."""
+        return self.events_ms(fn, reps), self.events_ms(fn, reps, spin=True)
 
     def int32_ops_per_s(self) -> float:
         return SMS * INT32_LANES_PER_SM * self.clock_mhz * 1e6
@@ -234,24 +273,28 @@ class Smoke:
         k3_ok = not failures
         log(f"K3 posit codec vs plain: {'bit-identical' if k3_ok else failures}")
 
-        # K1 — main-path shapes, int16 B (and int32 B for one shape)
+        # K1 — main-path shapes, int16 B (and int32 B for one shape); at
+        # K = N = 4096 every decode-batch M, int16 and int32
         n_before = len(failures)
-        for m in (4, 64):
-            for k, n in K1_SHAPES:
-                a = posit_encode(torch.randn((m, k), generator=g, device=self.dev), P16)
-                w = torch.randn((k, n), generator=g, device=self.dev) * k ** -0.5
-                b = posit_encode(w, P16, out_dtype=torch.int16)
-                same(f"plam_matmul M={m} K={k} N={n} int16",
-                     plam_matmul(a, b, P16), plam_matmul(a, b, P16, use_kernel=False))
-                if (k, n) == (4096, 4096):
-                    b32 = posit_encode(w, P16)
-                    same(f"plam_matmul M={m} K={k} N={n} int32",
-                         plam_matmul(a, b32, P16), plam_matmul(a, b32, P16, use_kernel=False))
-                torch.cuda.synchronize()
-        # K1 — the reference's ragged shapes with zero and NaR lanes
+        cases = [(m, k, n) for m in (4, 64) for k, n in K1_SHAPES]
+        cases += [(m, 4096, 4096) for m in K1_DECODE_MS if m != 4]
+        for m, k, n in cases:
+            a = posit_encode(torch.randn((m, k), generator=g, device=self.dev), P16)
+            w = torch.randn((k, n), generator=g, device=self.dev) * k ** -0.5
+            b = posit_encode(w, P16, out_dtype=torch.int16)
+            same(f"plam_matmul M={m} K={k} N={n} int16",
+                 plam_matmul(a, b, P16), plam_matmul(a, b, P16, use_kernel=False))
+            if (k, n) == (4096, 4096):
+                b32 = posit_encode(w, P16)
+                same(f"plam_matmul M={m} K={k} N={n} int32",
+                     plam_matmul(a, b32, P16), plam_matmul(a, b32, P16, use_kernel=False))
+            torch.cuda.synchronize()
+        # K1 — ragged shapes with zero and NaR lanes: the reference's, then
+        # the decode path's tile, stage, strip and branch edges; int32 and
+        # int16 B
         import numpy as np
 
-        for shape in RAGGED_SHAPES:
+        for shape in RAGGED_SHAPES + K1_EDGE_SHAPES + K1_WIDE_EDGE_SHAPES:
             m, k, n = shape
             rng = np.random.default_rng(hash(shape) & 0xFFFF)
             a = rng.integers(0, 1 << 16, (m, k)).astype(np.int32)
@@ -259,8 +302,11 @@ class Smoke:
             a.flat[:: max(1, a.size // 7)] = P16.nar
             b.flat[:: max(1, b.size // 5)] = 0
             at, bt_ = torch.from_numpy(a).to(self.dev), torch.from_numpy(b).to(self.dev)
-            same(f"plam_matmul ragged {shape}", plam_matmul(at, bt_, P16),
-                 plam_matmul(at, bt_, P16, use_kernel=False))
+            b16 = ((bt_ ^ 0x8000) - 0x8000).to(torch.int16)
+            for bb in (bt_, b16):
+                same(f"plam_matmul ragged {shape} {str(bb.dtype)[6:]}", plam_matmul(at, bb, P16),
+                     plam_matmul(at, bb, P16, use_kernel=False))
+            torch.cuda.synchronize()
         k1_ok = len(failures) == n_before
         log(f"K1 plam_matmul vs plain: {'bit-identical' if k1_ok else failures[n_before:]}")
 
@@ -578,7 +624,7 @@ class Smoke:
         if busy == 0:
             log("decode profile: the profiler recorded no device time (not measured)")
             return None
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
         log(f"decode profile, 2 steps x 4 slots: wall {wall_us / 1e3:.1f} ms, device busy "
             f"{busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}")
         for name, us in top:
@@ -659,31 +705,53 @@ class Smoke:
         g = self.gen(5)
         rows = []
 
-        def add(name, shape, ms, plain_ms, bytes_, ops, op_rate, library_ms=None):
+        def add(name, shape, ms, plain_ms, bytes_, ops, op_rate, library_ms=None, floor_ms=None):
+            """ms and library_ms are (window, device) pairs from timed();
+            the row's ms and library_ms are the windows, as earlier runs
+            read them, and device_ms and library_device_ms the spun ones."""
             t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
             t_ops = ops / op_rate * 1e3
-            row = {"name": name, "shape": shape, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": max(t_bytes, t_ops),
+            (ms, dev_ms), (lib_ms, lib_dev_ms) = ms, library_ms or (None, None)
+            row = {"name": name, "shape": shape, "ms": ms, "device_ms": dev_ms,
+                   "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "library_ms": library_ms}
+                   "library_ms": lib_ms, "library_device_ms": lib_dev_ms}
+            if floor_ms is not None:
+                row["design_floor_ms"] = floor_ms
             rows.append(row)
-            log(f"time {name} {shape}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-                f"{row['bound_ms']:.4f} ms by {row['bound_by']}"
-                + (f", library {library_ms:.4f} ms" if library_ms is not None else "") + ")")
+            log(f"time {name} {shape}: {ms:.4f} ms, device {dev_ms:.4f} ms (plain "
+                f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}"
+                + (f", library {lib_ms:.4f} ms, device {lib_dev_ms:.4f} ms"
+                   if lib_ms is not None else "")
+                + (f", design floor {floor_ms:.4f} ms" if floor_ms is not None else "") + ")")
             return row
 
+        timed = self.timed
         int_rate = self.int32_ops_per_s()
-        # K1 at the decode shapes (M = 4) and one prefill shape (M = 64)
+        # K1 at the decode shapes (M = 4) and one prefill shape (M = 64).
+        # Beside the bound, the decode path's floor: every B pattern decoded
+        # once and every product's ALU-pipe operations, from the hand count
+        with open(K1_SOURCE) as f:
+            src = f.read()
+        word_ops, row_ops = (int(re.search(rf"constexpr int {c} = (\d+);", src).group(1))
+                             for c in ("kLogWordAluOps", "kProductAluOpsPerRow"))
+        log(f"K1 ALU-pipe operations (counted in plam_matmul.cu): log_word {word_ops}, "
+            f"product {row_ops} a row")
         k1_main = None
-        for m, (k, n) in [(4, s) for s in K1_SHAPES] + [(64, (4096, 11008))]:
+        # wq/wo is timed first and once more last: the first reading of a
+        # phase has read high (a start-up effect, or the shape's own time)
+        k1_runs = [(4, s) for s in K1_SHAPES] + [(64, (4096, 11008)), (4, K1_SHAPES[0])]
+        for i, (m, (k, n)) in enumerate(k1_runs):
             a = posit_encode(torch.randn((m, k), generator=g, device=self.dev), P16)
             b = posit_encode(torch.randn((k, n), generator=g, device=self.dev) * k ** -0.5,
                              P16, out_dtype=torch.int16)
-            ms = self.events_ms(lambda: plam_matmul(a, b, P16), reps=10)
+            ms = timed(lambda: plam_matmul(a, b, P16), reps=10)
             plain = self.events_ms(lambda: plam_matmul(a, b, P16, use_kernel=False),
                                    reps=1, warmup=0)
-            row = add("plam_matmul", f"M={m} K={k} N={n} B=int16", ms, plain,
-                      m * k * 4 + k * n * 2 + m * n * 4, m * k * n, int_rate)
+            floor = (k * n * word_ops + m * k * n * row_ops) / int_rate * 1e3 if m <= 16 else None
+            again = " (again, last)" if i == len(k1_runs) - 1 else ""
+            row = add("plam_matmul", f"M={m} K={k} N={n} B=int16{again}", ms, plain,
+                      m * k * 4 + k * n * 2 + m * n * 4, m * k * n, int_rate, floor_ms=floor)
             if (m, k, n) == (4, 4096, 11008):
                 k1_main = row
             del a, b
@@ -692,7 +760,7 @@ class Smoke:
         for shape, od in [((4, 4096), torch.int32), ((64, 11008), torch.int32),
                           ((4096, 11008), torch.int16)]:
             x = torch.randn(shape, generator=g, device=self.dev).to(torch.bfloat16)
-            ms = self.events_ms(lambda: posit_encode(x, P16, out_dtype=od), reps=20)
+            ms = timed(lambda: posit_encode(x, P16, out_dtype=od), reps=20)
             plain = self.events_ms(
                 lambda: posit_encode(x, P16, out_dtype=od, use_kernel=False), reps=2)
             out_b = 4 if od == torch.int32 else 2
@@ -715,8 +783,7 @@ class Smoke:
         kp = torch.randn((nb, bs, kv, hd), generator=g, device=self.dev).to(torch.bfloat16)
         vp = torch.randn((nb, bs, kv, hd), generator=g, device=self.dev).to(torch.bfloat16)
         lens = torch.tensor(lengths, dtype=torch.int32, device=self.dev)
-        ms = self.events_ms(lambda: paged_decode_attention_kernel(q, kp, vp, tables, lens),
-                            reps=50)
+        ms = timed(lambda: paged_decode_attention_kernel(q, kp, vp, tables, lens), reps=50)
         plain = self.events_ms(lambda: paged_decode_attention_ref(q, kp, vp, tables, lens),
                                reps=20)
         # library yardstick: SDPA over the pre-gathered contiguous cache
@@ -731,7 +798,7 @@ class Smoke:
         except TypeError:  # torch without enable_gqa: expand kv heads first
             lib_kv = (kc.repeat_interleave(h // kv, 1), vc.repeat_interleave(h // kv, 1))
             lib_kw = {}
-        lib_ms = self.events_ms(
+        lib_ms = self.timed(
             lambda: F.scaled_dot_product_attention(qs, *lib_kv, attn_mask=mask, **lib_kw),
             reps=50)
         ctx = sum(lengths)
@@ -780,13 +847,13 @@ class Smoke:
         log(f"K4 ALU-pipe operations a lane needs (counted in posit_mul.cu): {ops}")
         rows = []
         for fn in (plam_mul_elementwise, exact_mul_elementwise):
-            ms = self.events_ms(lambda: fn(a, b, P16), reps=20)
+            ms = self.timed(lambda: fn(a, b, P16), reps=20)
             plain = self.events_ms(lambda: fn(a, b, P16, use_kernel=False), reps=2, warmup=1)
             rows.append(add("posit_mul", f"{fn.__name__} Posit<16,1> 2^24 lanes", ms, plain,
                             12 * lanes, ops[fn.__name__] * lanes, int_rate))
         # a conformance-sized call (2^20 lanes): launch and tail
         a20, b20 = a[: 1 << 20], b[: 1 << 20]
-        ms = self.events_ms(lambda: plam_mul_elementwise(a20, b20, P16), reps=20)
+        ms = self.timed(lambda: plam_mul_elementwise(a20, b20, P16), reps=20)
         plain = self.events_ms(lambda: plam_mul_elementwise(a20, b20, P16, use_kernel=False),
                                reps=2, warmup=1)
         add("posit_mul", "plam_mul_elementwise Posit<16,1> 2^20 lanes", ms, plain,
@@ -811,7 +878,7 @@ class Smoke:
         k = torch.randn((b, s, kv, hd), generator=g, device=self.dev).to(torch.bfloat16)
         v = torch.randn((b, s, kv, hd), generator=g, device=self.dev).to(torch.bfloat16)
         lens = torch.tensor(K5_LENGTHS, dtype=torch.int32, device=self.dev)
-        ms = self.events_ms(lambda: decode_attention(q, k, v, lens), reps=50)
+        ms = self.timed(lambda: decode_attention(q, k, v, lens), reps=50)
         plain = self.events_ms(lambda: decode_attention(q, k, v, lens, use_kernel=False),
                                reps=10)
         kc, vc = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
@@ -823,7 +890,7 @@ class Smoke:
         except TypeError:  # torch without enable_gqa: expand kv heads first
             lib_kv = (kc.repeat_interleave(h // kv, 1), vc.repeat_interleave(h // kv, 1))
             lib_kw = {}
-        lib_ms = self.events_ms(
+        lib_ms = self.timed(
             lambda: F.scaled_dot_product_attention(qs, *lib_kv, attn_mask=mask, **lib_kw),
             reps=50)
         live = sum(K5_LENGTHS)
@@ -839,7 +906,8 @@ class Smoke:
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": self.path_launches.get(name, 0),
                 "max_abs_err": self.kernel_err.get(name),
-                "ms": row["ms"], "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
+                "ms": row["ms"], "kernel_ms": row["ms"], "device_ms": row["device_ms"],
+                "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "shape": row["shape"],

@@ -23,6 +23,19 @@ struct Spec {
   uint32_t maxpos_body;
 };
 
+// The same fields as constants of the type, for a spec known when the
+// kernel is compiled: decode_fields and log_word then fold its masks,
+// shifts and branches into immediates.  Both take either spec type.
+template <int N, int ES>
+struct FixedSpec {
+  static constexpr int n = N;
+  static constexpr int es = ES;
+  static constexpr int fb = N - 3 - ES;
+  static constexpr uint32_t mask_n = N < 32 ? ((1u << N) - 1u) : 0xFFFFFFFFu;
+  static constexpr uint32_t nar = 1u << (N - 1);
+  static constexpr uint32_t maxpos_body = (1u << (N - 1)) - 1u;
+};
+
 inline Spec make_spec(int n, int es) {
   Spec s;
   s.n = n;
@@ -50,7 +63,8 @@ struct Fields {
   bool is_nar;
 };
 
-__device__ __forceinline__ Fields decode_fields(uint32_t bits, const Spec& sp) {
+template <class S>
+__device__ __forceinline__ Fields decode_fields(uint32_t bits, const S& sp) {
   Fields f;
   const uint32_t u = bits & sp.mask_n;
   f.is_zero = u == 0u;
@@ -147,7 +161,8 @@ __device__ __forceinline__ float decode_f32(uint32_t bits, const Spec& sp) {
 //   (la - bias + sa<<31) + (lb + sb<<31) == (sa ^ sb) << 31 | (la + lb - bias)
 // modulo 2^32, because la + lb - bias lies in (0, 2^31).  `valid` is
 // false for zero and NaR, whose products contribute +0.0.
-__device__ __forceinline__ uint32_t log_word(uint32_t bits, const Spec& sp, bool& valid) {
+template <class S>
+__device__ __forceinline__ uint32_t log_word(uint32_t bits, const S& sp, bool& valid) {
   const Fields f = decode_fields(bits, sp);
   valid = !(f.is_zero || f.is_nar);
   const uint32_t mant = sp.fb <= 23 ? (f.frac << (23 - sp.fb)) : (f.frac >> (sp.fb - 23));

@@ -41,6 +41,28 @@ from repro_torch.numerics import P16, PositSpec, pack16  # noqa: E402
 # the reference conformance suite's ragged shapes (tests/test_conformance.py)
 RAGGED_SHAPES = [(4, 5, 3), (1, 7, 1), (3, 130, 9), (9, 257, 5), (2, 1, 2), (17, 64, 33)]
 SHAPE_IDS = ["x".join(map(str, s)) for s in RAGGED_SHAPES]
+# (M, K, N) at the edges of the CUDA kernel's decode path (M <= 16):
+# k-tiles of 2048/BN rows and a 4-stage ring (K = BK*S +- 1, K = 4097),
+# strips of 8-16 columns, vector (N % 8 == 0) or scalar loads on a ragged
+# k-tail, N = 8j + 1, and the M <= 4 / M <= 16 branch edges (M = 5, 16).
+# chip_smoke.py checks the kernel on the card at copies of both lists.
+EDGE_SHAPES = [(4, 1023, 8), (4, 1025, 9), (3, 4097, 16), (1, 4097, 12), (5, 513, 24),
+               (16, 511, 17), (2, 300, 40)]
+K1_SHAPES = RAGGED_SHAPES + EDGE_SHAPES
+K1_IDS = ["x".join(map(str, s)) for s in K1_SHAPES]
+
+
+def test_chip_smoke_checks_k1_at_these_shapes():
+    """chip_smoke.py (which runs without the tests) keeps copies of
+    RAGGED_SHAPES and EDGE_SHAPES; they must not drift from these."""
+    import ast
+    import pathlib
+
+    tree = ast.parse((pathlib.Path(__file__).parents[1] / "chip_smoke.py").read_text())
+    lists = {t.id: ast.literal_eval(node.value) for node in tree.body
+             if isinstance(node, ast.Assign) for t in node.targets if isinstance(t, ast.Name)
+             and t.id in ("RAGGED_SHAPES", "K1_EDGE_SHAPES")}
+    assert lists == {"RAGGED_SHAPES": RAGGED_SHAPES, "K1_EDGE_SHAPES": EDGE_SHAPES}
 
 
 def _ragged_operands(shape):
@@ -68,7 +90,7 @@ def _no_launches_on_cpu():
         assert all(v == 0 for v in _lib.launches.values()), _lib.launches
 
 
-@pytest.mark.parametrize("shape", RAGGED_SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("shape", K1_SHAPES, ids=K1_IDS)
 def test_plam_matmul_plain_bit_identical_to_reference_seqref(shape):
     a, b = _ragged_operands(shape)
     want = j_seqref(jnp.asarray(a), jnp.asarray(b), JSpec(16, 1))
@@ -79,7 +101,7 @@ def test_plam_matmul_plain_bit_identical_to_reference_seqref(shape):
     assert torch.equal(got16.view(torch.int32), got.view(torch.int32))
 
 
-@pytest.mark.parametrize("shape", RAGGED_SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("shape", K1_SHAPES, ids=K1_IDS)
 def test_plam_dense_plain_bit_identical_to_jax_kernel(shape):
     """plam_dense (encode activations, PLAM matmul) == the JAX Pallas path
     run in interpret mode, bit for bit."""
@@ -258,13 +280,14 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", RAGGED_SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("shape", K1_SHAPES, ids=K1_IDS)
 def test_cuda_plam_matmul_bit_identical(cuda_device, shape):
     a, b = (torch.from_numpy(t).to(cuda_device) for t in _ragged_operands(shape))
-    got = ops.plam_matmul_bits(a, b, P16)
-    assert torch.equal(got.view(torch.int32),
-                       ops.plam_matmul_bits(a, b, P16, use_kernel=False).view(torch.int32))
-    assert torch.equal(got.cpu(), ops.plam_matmul_bits(a.cpu(), b.cpu(), P16))
+    for bb in (b, pack16(b)):  # int32 and int16 patterns take different load paths
+        got = ops.plam_matmul_bits(a, bb, P16)
+        assert torch.equal(got.view(torch.int32),
+                           ops.plam_matmul_bits(a, bb, P16, use_kernel=False).view(torch.int32))
+        assert torch.equal(got.cpu(), ops.plam_matmul_bits(a.cpu(), b.cpu(), P16))
 
 
 @pytest.mark.cuda
