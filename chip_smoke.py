@@ -17,8 +17,11 @@ own lines:
    them, and ragged shapes at its decode path's tile, stage, strip and
    branch edges) and the element-wise posit multipliers (K4) bit for bit, the
    paged (K2) and contiguous (K5) decode attention within stated
-   tolerances.  Then K5's public entry point runs once per yi-6b layer
-   at yi-6b's widths (K5 has no serving path).
+   tolerances, at serving and long contexts and at the length edges of
+   their shared core (0 included) in every dtype pair they take, and
+   over seeded random shapes with NaN in every element they must not
+   read.  Then K5's public entry point runs once per yi-6b layer at
+   yi-6b's widths (K5 has no serving path).
 3. conformance — ``python -m repro_torch.conformance check`` and
    ``fuzz --seed 0 --count 2048`` in-process on the default device, so
    the ``cuda`` oracle runs K3 and K4 beside the golden, torch, table and
@@ -37,7 +40,8 @@ own lines:
    kernel and library call is read two ways: the events' window as
    earlier runs read it (``ms``; for a short call it holds the host time
    of the wrapper), and after a device spin (``device_ms``: the card's
-   time alone).
+   time alone).  K2 is timed at the serving shape and at a long paged
+   context, and K5 also at other split sizes.
 
 It exits non-zero if any phase fails, if no CUDA device is present, or if
 ``repro_torch`` cannot be imported.  Its last line is
@@ -100,6 +104,15 @@ K1_SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "plam_ma
 # moves the output by up to a few 1e-2.
 K2_TOL_F32 = 1e-2
 K2_TOL_BF16 = 6e-2
+# K2 at a long paged context: K5's lengths over yi-6b's widths, 16-key
+# pool blocks, 256 table entries a sequence
+K2_LONG_LENGTHS = [1000, 2048, 3001, 4096]
+K2_LONG_MAX_BLK = 256
+# lengths at the edges of K2's and K5's core: 0 (every key masked), 1, a
+# 16-key tile (K2's pool block) +- 1, a round of a block's tiles +- 1 (64
+# keys with four warps, 128 with eight); the checks add the split plan's
+# edge +- 1 and the full cache
+LENGTH_EDGES = [0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 129]
 # Phase 4: K1 and K3 are bit-identical to their plain versions, so the
 # two runs differ only through K2's rounding (above), which the posit
 # encoding of the next activations can amplify to a pattern step
@@ -109,6 +122,8 @@ E2E_LOGIT_TOL = 0.1
 # 4096-key contiguous cache with ragged lengths.
 K5_SHAPE = dict(b=4, h=32, kv=4, hd=128, s=4096)
 K5_LENGTHS = [1000, 2048, 3001, 4096]
+# keys a block covers, timed beside the split plan's choice at K5's shape
+K5_SPLIT_SWEEP = (128, 256, 512, 1024)
 # the reference's shapes (tests/test_resilience.py): b, s, h, kv, hd, blk
 K5_SMALL_SHAPES = [(2, 64, 8, 4, 16, 16), (1, 96, 4, 2, 32, 32)]
 # K5 tolerances.  Kernel and plain version both compute in f32 and differ
@@ -123,6 +138,15 @@ K5_SMALL_SHAPES = [(2, 64, 8, 4, 16, 16), (1, 96, 4, 2, 32, 32)]
 K5_TOL_F32 = 1e-4
 K5_BF16_REL = 2.0 ** -8
 K5_BF16_ORDER = 2e-6
+# K2 is also held to K5's gates against the plain version's f32 result:
+# the shared core computes both alike (inputs widened exactly to f32;
+# scores, softmax and sums in f32; one rounding of the output), so an f32
+# output lies within K5_TOL_F32 of it and a bf16 output within
+# K5_BF16_REL |out| + K5_BF16_ORDER.  At 1000-4096 keys |out| is ~0.03:
+# K2_TOL_F32 alone would pass a dropped 16-key tile or a misweighted split.
+# Seeded random shapes on which K2 and K5 run with NaN in every element
+# they must not read (CANARY_CASES of each; see check_canaries)
+CANARY_CASES = 120
 # K4's bound: the ALU-pipe operations a lane needs, counted by hand in
 # the header of its source (no loop or address arithmetic).
 K4_SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "posit_mul.cu")
@@ -187,6 +211,24 @@ class Smoke:
         """(window, device) ms of fn(): events_ms without and with the spin."""
         return self.events_ms(fn, reps), self.events_ms(fn, reps, spin=True)
 
+    def sdpa(self, q, kc, vc, lens):
+        """A call of scaled_dot_product_attention for q [B, H, hd] over kc,
+        vc [B, kv, S, hd] with a boolean length mask: the library yardstick
+        of K2 and K5 (timed only; the port never calls it)."""
+        torch = self.torch
+        import torch.nn.functional as F
+
+        h, kv, s = q.shape[1], kc.shape[1], kc.shape[2]
+        mask = (torch.arange(s, device=self.dev)[None, :] < lens[:, None])[:, None, None, :]
+        qs = q[:, :, None, :]
+        try:
+            F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask, enable_gqa=True)
+            lib_kv, lib_kw = (kc, vc), {"enable_gqa": True}
+        except TypeError:  # torch without enable_gqa: expand kv heads first
+            lib_kv = (kc.repeat_interleave(h // kv, 1), vc.repeat_interleave(h // kv, 1))
+            lib_kw = {}
+        return lambda: F.scaled_dot_product_attention(qs, *lib_kv, attn_mask=mask, **lib_kw)
+
     def int32_ops_per_s(self) -> float:
         return SMS * INT32_LANES_PER_SM * self.clock_mhz * 1e6
 
@@ -222,10 +264,6 @@ class Smoke:
 
     def phase_kernels(self):
         torch = self.torch
-        from repro_torch.kernels.decode_attention import (
-            paged_decode_attention_kernel,
-            paged_decode_attention_ref,
-        )
         from repro_torch.kernels.plam_matmul import plam_matmul
         from repro_torch.kernels.posit_codec import (
             posit_decode,
@@ -310,47 +348,122 @@ class Smoke:
         k1_ok = len(failures) == n_before
         log(f"K1 plam_matmul vs plain: {'bit-identical' if k1_ok else failures[n_before:]}")
 
-        # K2 — ragged lengths, permuted block tables, scratch block 0
-        b_, h, kv, hd, bs = 4, 32, 4, 128, 16
-        lengths = [1, 15, 16, 77]
+        k2 = self.check_paged_attention(failures)
+        k4_ok = self.check_posit_mul(same, failures)
+        k5 = self.check_decode_attention(failures)
+        canaries = self.check_canaries(failures)
+        self.kernel_err = {"plam_matmul": 0.0 if k1_ok else None,
+                           "posit_codec": 0.0 if k3_ok else None,
+                           "paged_decode_attention": k2["err_f32"],
+                           "posit_mul": 0.0 if k4_ok else None,
+                           "decode_attention": k5["err_f32"]}
+        self.results["kernels"] = {"k1_bit_identical": k1_ok, "k3_bit_identical": k3_ok,
+                                   "k2": k2,
+                                   "k4_bit_identical": k4_ok, "k5": k5,
+                                   "canaries": canaries,
+                                   "failures": failures}
+        if failures:
+            raise AssertionError("; ".join(failures))
+
+    def paged_case(self, g, lengths, max_blk=None, h=32, kv=4, hd=128, bs=16,
+                   q_dtype=None, kv_dtype=None):
+        """Seeded K2 inputs: each sequence owns ceil(length / bs) pool blocks
+        (at least one) at permuted places in the pool; table rows are padded
+        with block 0, a scratch block of random rows, up to max_blk."""
+        torch = self.torch
+        q_dtype = q_dtype or torch.bfloat16
+        kv_dtype = kv_dtype or torch.bfloat16
         need = [max(1, -(-n // bs)) for n in lengths]
-        max_blk = max(need)
+        max_blk = max_blk or max(need)
         nb = 1 + sum(need) + 3
         perm = torch.randperm(nb - 1, generator=g, device=self.dev) + 1
-        tables = torch.zeros((b_, max_blk), dtype=torch.int32, device=self.dev)
+        tables = torch.zeros((len(lengths), max_blk), dtype=torch.int32, device=self.dev)
         pos = 0
         for i, c in enumerate(need):
             tables[i, :c] = perm[pos:pos + c]
             pos += c
-        q = torch.randn((b_, h, hd), generator=g, device=self.dev).to(torch.bfloat16)
-        kp = torch.randn((nb, bs, kv, hd), generator=g, device=self.dev).to(torch.bfloat16)
-        vp = torch.randn((nb, bs, kv, hd), generator=g, device=self.dev).to(torch.bfloat16)
+        q = torch.randn((len(lengths), h, hd), generator=g, device=self.dev).to(q_dtype)
+        kp = torch.randn((nb, bs, kv, hd), generator=g, device=self.dev).to(kv_dtype)
+        vp = torch.randn((nb, bs, kv, hd), generator=g, device=self.dev).to(kv_dtype)
         lens = torch.tensor(lengths, dtype=torch.int32, device=self.dev)
-        got = paged_decode_attention_kernel(q, kp, vp, tables, lens).float()
-        ref16 = paged_decode_attention_ref(q, kp, vp, tables, lens).float()
-        ref32 = paged_decode_attention_ref(q.float(), kp.float(), vp.float(), tables, lens)
-        err16 = float((got - ref16).abs().max())
-        err32 = float((got - ref32).abs().max())
-        finite = bool(torch.isfinite(got).all())
-        k2_ok = finite and err32 <= K2_TOL_F32 and err16 <= K2_TOL_BF16
-        if not k2_ok:
-            failures.append(f"paged attention: err_f32 {err32} err_bf16 {err16} finite {finite}")
-        log(f"K2 paged_decode_attention: max_abs_err vs plain f32 {err32:.3e} "
-            f"(tol {K2_TOL_F32}), vs plain bf16 {err16:.3e} (tol {K2_TOL_BF16})")
+        return q, kp, vp, tables, lens
 
-        k4_ok = self.check_posit_mul(same, failures)
-        k5 = self.check_decode_attention(failures)
-        self.kernel_err = {"plam_matmul": 0.0 if k1_ok else None,
-                           "posit_codec": 0.0 if k3_ok else None,
-                           "paged_decode_attention": err32,
-                           "posit_mul": 0.0 if k4_ok else None,
-                           "decode_attention": k5["err_f32"]}
-        self.results["kernels"] = {"k1_bit_identical": k1_ok, "k3_bit_identical": k3_ok,
-                                   "k2_err_f32": err32, "k2_err_bf16": err16,
-                                   "k4_bit_identical": k4_ok, "k5": k5,
-                                   "failures": failures}
-        if failures:
-            raise AssertionError("; ".join(failures))
+    def check_paged_attention(self, failures) -> dict:
+        """K2 against its plain version: at f32 (the plain version run on the
+        same values cast to f32) within K2_TOL_F32, and where q or the pool
+        is bf16 against the plain version in the same dtypes within
+        K2_TOL_BF16.  Shapes: ragged serving lengths; the long paged
+        context; the length edges (LENGTH_EDGES, the split plan's edge +- 1,
+        the full cache) at long and at serving capacity, in all four dtype
+        pairs; other group sizes and head dims."""
+        torch = self.torch
+        from repro_torch.kernels.decode_attention import (
+            paged_decode_attention_kernel,
+            paged_decode_attention_ref,
+            card_sms,
+            split_plan,
+        )
+
+        g = self.gen(4)
+        bf, f32 = torch.bfloat16, torch.float32
+        pairs = [(bf, bf), (f32, bf), (f32, f32), (bf, f32)]
+        cap = K2_LONG_MAX_BLK * 16
+        sms = card_sms(torch.cuda.current_device())
+        sk = split_plan(len(LENGTH_EDGES) + 5, 4, cap, sms).split_keys
+        edges = LENGTH_EDGES + [sk - 1, sk, sk + 1, cap - 1, cap]
+        cases = [("ragged", dict(lengths=[1, 15, 16, 77]), pairs[:1]),
+                 ("long", dict(lengths=K2_LONG_LENGTHS, max_blk=K2_LONG_MAX_BLK), pairs[:1]),
+                 (f"edges (split {sk})", dict(lengths=edges, max_blk=K2_LONG_MAX_BLK), pairs),
+                 ("serving edges", dict(lengths=[0, 1, 15, 16, 17, 79, 80], max_blk=5), pairs)]
+        for h, kv, hd in [(48, 4, 128), (16, 1, 256), (8, 8, 64), (8, 4, 32), (4, 2, 16)]:
+            cases.append((f"h={h} kv={kv} hd={hd}",
+                          dict(lengths=[0, 5, 300, 700], max_blk=48, h=h, kv=kv, hd=hd),
+                          [(bf, bf), (f32, f32)]))
+        rows, worst32, worst16, worst_tight = [], 0.0, 0.0, {"f32": 0.0, "bf16": -1.0}
+        for name, kw, dts in cases:
+            for qd, kd in dts:
+                q, kp, vp, tables, lens = self.paged_case(g, q_dtype=qd, kv_dtype=kd, **kw)
+                got = paged_decode_attention_kernel(q, kp, vp, tables, lens).float()
+                ref32 = paged_decode_attention_ref(q.float(), kp.float(), vp.float(), tables,
+                                                   lens)
+                err32 = float((got - ref32).abs().max())
+                err16 = None
+                if bf in (qd, kd):
+                    ref = paged_decode_attention_ref(q, kp, vp, tables, lens).float()
+                    err16 = float((got - ref).abs().max())
+                # K5's gates: f32 out within K5_TOL_F32, bf16 out within
+                # K5_BF16_REL |out| + K5_BF16_ORDER of the plain f32 result
+                if qd == f32:
+                    tight, tight_ok = err32, err32 <= K5_TOL_F32
+                else:
+                    tight = float(((got - ref32).abs() - K5_BF16_REL * ref32.abs()).max())
+                    tight_ok = tight <= K5_BF16_ORDER
+                finite = bool(torch.isfinite(got).all())
+                torch.cuda.synchronize()
+                tag = f"{name} q {str(qd)[6:]} kv {str(kd)[6:]}"
+                ok = (finite and tight_ok and err32 <= K2_TOL_F32
+                      and (err16 is None or err16 <= K2_TOL_BF16))
+                if not ok:
+                    failures.append(f"paged attention {tag}: err_f32 {err32} err_bf16 {err16} "
+                                    f"K5 gate {tight} finite {finite}")
+                worst32 = max(worst32, err32)
+                worst16 = max(worst16, err16 or 0.0)
+                out_dt = "f32" if qd == f32 else "bf16"
+                worst_tight[out_dt] = max(worst_tight[out_dt], tight)
+                rows.append({"case": tag, "lengths": kw["lengths"], "err_f32": err32,
+                             "err_bf16": err16, "k5_gate": tight, "finite": finite})
+        log(f"K2 paged_decode_attention over {len(rows)} cases (ragged, long "
+            f"{K2_LONG_LENGTHS}, length edges {edges} and [0, 1, 15, 16, 17, 79, 80], groups "
+            f"1-16, hd 16-256; four dtype pairs): max_abs_err vs plain f32 {worst32:.3e} (tol "
+            f"{K2_TOL_F32}), vs plain bf16 {worst16:.3e} (tol {K2_TOL_BF16}); K5's gates: f32 "
+            f"out {worst_tight['f32']:.3e} (tol {K5_TOL_F32}), bf16 out largest |err| - 2^-8 "
+            f"|out| {worst_tight['bf16']:.3e} (tol {K5_BF16_ORDER})")
+        for r in rows:
+            log(f"  {r['case']}: f32 {r['err_f32']:.3e}" + (
+                f", bf16 {r['err_bf16']:.3e}" if r["err_bf16"] is not None else "")
+                + f", K5 gate {r['k5_gate']:.3e}")
+        return {"err_f32": worst32, "err_bf16": worst16, "k5_gate_f32_out": worst_tight["f32"],
+                "k5_gate_bf16_out": worst_tight["bf16"], "cases": rows}
 
     def check_posit_mul(self, same, failures) -> bool:
         """K4 against its plain version, raw int32 words: Posit<10,1> over
@@ -395,7 +508,7 @@ class Smoke:
         point run once per yi-6b layer, counted as K5's path."""
         torch = self.torch
         from repro_torch.kernels import _lib
-        from repro_torch.kernels.decode_attention import decode_attention
+        from repro_torch.kernels.decode_attention import card_sms, decode_attention, split_plan
 
         g = self.gen(9)
         sh = K5_SHAPE
@@ -423,17 +536,35 @@ class Smoke:
             vs = torch.randn((b, s, kvh, hd), generator=g, device=self.dev)
             ls = torch.randint(1, s + 1, (b,), generator=g, device=self.dev).to(torch.int32)
             small.append(err(qs, ks, vs, ls, blk=blk)[0])
+        # the length edges at yi-6b's widths, the split plan's edge +- 1
+        # and the full cache
+        s_len = sh["s"]
+        sk = split_plan(len(LENGTH_EDGES) + 5, sh["kv"], s_len,
+                        card_sms(torch.cuda.current_device())).split_keys
+        edges = LENGTH_EDGES + [sk - 1, sk, sk + 1, s_len - 1, s_len]
+        qe = torch.randn((len(edges), sh["h"], sh["hd"]), generator=g, device=self.dev)
+        ke = torch.randn((len(edges), s_len, sh["kv"], sh["hd"]), generator=g, device=self.dev)
+        ve = torch.randn((len(edges), s_len, sh["kv"], sh["hd"]), generator=g, device=self.dev)
+        le = torch.tensor(edges, dtype=torch.int32, device=self.dev)
+        err_edges, _ = err(qe, ke, ve, le)
+        qeb, keb, veb = (t.to(torch.bfloat16) for t in (qe, ke, ve))
+        out_e16 = decode_attention(qeb, keb, veb, le)
+        exact_e = decode_attention(qeb.float(), keb.float(), veb.float(), le, use_kernel=False)
+        excess_edges = float(((out_e16.float() - exact_e).abs()
+                              - K5_BF16_REL * exact_e.abs()).max())
         torch.cuda.synchronize()
-        errs_f32 = [err32, *small]
+        errs_f32 = [err32, *small, err_edges]
+        excess16 = max(excess16, excess_edges)
         ok = (max(errs_f32) <= K5_TOL_F32 and excess16 <= K5_BF16_ORDER
-              and bool(torch.isfinite(out16).all()))
+              and bool(torch.isfinite(out16).all()) and bool(torch.isfinite(out_e16).all()))
         if not ok:
             failures.append(f"decode_attention: err_f32 {errs_f32} bf16 excess {excess16}")
         log(f"K5 decode_attention B=4 H=32 kv=4 hd=128 S=4096 lens={K5_LENGTHS}: max_abs_err "
-            f"vs plain f32 {err32:.3e}, small shapes {small[0]:.3e} {small[1]:.3e} "
-            f"(tol {K5_TOL_F32}); bf16: max_abs_err vs plain bf16 {err16:.3e} "
-            f"(max |out| {float(exact.abs().max()):.3e}), largest |err| - 2^-8 |out| vs the "
-            f"plain f32 result {excess16:.3e} (tol {K5_BF16_ORDER})")
+            f"vs plain f32 {err32:.3e}, small shapes {small[0]:.3e} {small[1]:.3e}, length "
+            f"edges {edges} {err_edges:.3e} (tol {K5_TOL_F32}); bf16: max_abs_err vs plain "
+            f"bf16 {err16:.3e} (max |out| {float(exact.abs().max()):.3e}), largest |err| - "
+            f"2^-8 |out| vs the plain f32 result {excess16:.3e} (edges {excess_edges:.3e}; "
+            f"tol {K5_BF16_ORDER})")
 
         # K5's path: the public entry point, once per yi-6b layer, bf16
         layers = 32
@@ -448,7 +579,142 @@ class Smoke:
         if launched != layers or not steady:
             failures.append(f"decode_attention path: {launched} launches, steady {steady}")
         return {"err_f32": max(errs_f32), "err_f32_yi": err32, "err_f32_small": small,
-                "err_bf16": err16, "bf16_excess": excess16, "path_launches": launched}
+                "err_f32_edges": err_edges, "edges": edges, "err_bf16": err16, "bf16_excess": excess16, "path_launches": launched}
+
+    def check_canaries(self, failures, seed: int = 11, cases: int = CANARY_CASES) -> dict:
+        """K2 and K5 on seeded random shapes (batch 1-5, 1-8 kv heads, 1-16 q
+        heads per kv head, every head dim compiled in, every dtype pair,
+        pool blocks of 1-32 keys, capacities up to ~1200 keys, lengths from
+        0 to past the capacity, and for K5 a random split size or the
+        plan's), with NaN in every element the kernel must not read: pool
+        blocks that no table names, table entries past a sequence's live
+        blocks, keys at or past a sequence's length, and a guard row on
+        either side of q, the pools and the cache.  Each result must be
+        finite, within K5's gates of the plain version run on copies with
+        those NaNs zeroed, and bitwise the same on a second call (which
+        finds the split counters back at 0).  A read of a masked or
+        out-of-range row shows as NaN; a wild address, as a CUDA error."""
+        torch = self.torch
+        import numpy as np
+
+        from repro_torch.kernels.decode_attention import (
+            HEAD_DIMS,
+            card_sms,
+            decode_attention_kernel,
+            decode_attention_ref,
+            paged_decode_attention_kernel,
+            paged_decode_attention_ref,
+            split_plan,
+        )
+
+        rng = np.random.default_rng(seed)
+        g = self.gen(seed)
+        bf, f32 = torch.bfloat16, torch.float32
+        pairs = [(bf, bf), (f32, bf), (f32, f32), (bf, f32)]
+        sms = card_sms(torch.cuda.current_device())
+        nan = float("nan")
+
+        def guarded(x):
+            """x's values in a tensor with a NaN row before and after it."""
+            buf = torch.full((x.shape[0] + 2, *x.shape[1:]), nan, dtype=x.dtype,
+                             device=self.dev)
+            buf[1:-1] = x
+            return buf[1:-1]
+
+        def shape():
+            kv = int(rng.choice([1, 2, 4, 8]))
+            return (int(rng.integers(1, 6)), kv * int(rng.integers(1, 17)), kv,
+                    int(rng.choice(HEAD_DIMS)))
+
+        def lengths_for(b, cap):
+            lens = rng.integers(0, cap + 4, b)
+            pick = rng.random(b)
+            lens[pick < 0.15] = 0
+            lens[(pick >= 0.15) & (pick < 0.3)] = cap
+            return lens
+
+        bad, worst = [], {"f32": 0.0, "bf16": -1.0}
+        max_splits = 0
+
+        def judge(tag, kernel, ref32, out_dtype):
+            got = kernel().float()
+            again = kernel().float()
+            finite = bool(torch.isfinite(got).all())
+            if out_dtype == f32:
+                gate, key, tol = float((got - ref32).abs().max()), "f32", K5_TOL_F32
+            else:
+                gate = float(((got - ref32).abs() - K5_BF16_REL * ref32.abs()).max())
+                key, tol = "bf16", K5_BF16_ORDER
+            torch.cuda.synchronize()
+            same = torch.equal(got, again)
+            worst[key] = max(worst[key], gate) if finite else worst[key]
+            if not (finite and same and gate <= tol):
+                bad.append(f"{tag}: finite {finite}, repeatable {same}, K5 gate {gate:.3e}")
+
+        for i in range(cases):
+            # K2: the pool holds [NaN block, finite pad block, owned blocks
+            # in permuted order, NaN block]
+            b, h, kv, hd = shape()
+            bs = int(rng.choice([1, 2, 4, 8, 16, 32]))
+            max_blk = int(rng.integers(1, 1200 // bs + 1))
+            cap = max_blk * bs
+            lens = lengths_for(b, cap)
+            qd, kd = pairs[int(rng.integers(4))]
+            need = [max_blk if n == 0 else -(-min(int(n), cap) // bs) for n in lens]
+            nb = 2 + sum(need) + 1
+            kp = torch.randn((nb, bs, kv, hd), generator=g, device=self.dev).to(kd)
+            vp = torch.randn((nb, bs, kv, hd), generator=g, device=self.dev).to(kd)
+            kp[0], vp[0], kp[-1], vp[-1] = nan, nan, nan, nan
+            perm = torch.randperm(nb - 3, generator=g, device=self.dev) + 2
+            tables = torch.zeros((b, max_blk), dtype=torch.int32, device=self.dev)
+            pos = 0
+            for j, (n, c) in enumerate(zip(lens, need)):
+                tables[j, :c] = perm[pos:pos + c]
+                if 0 < n < cap and n % bs:  # the rows past the length in its last block
+                    kp[perm[pos + c - 1], n % bs:] = nan
+                    vp[perm[pos + c - 1], n % bs:] = nan
+                pos += c
+            q = torch.randn((b, h, hd), generator=g, device=self.dev).to(qd)
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=self.dev)
+            ref32 = paged_decode_attention_ref(q.float(), kp.float().nan_to_num(0.0),
+                                               vp.float().nan_to_num(0.0), tables, lens_t)
+            qg, kg, vg = guarded(q), guarded(kp), guarded(vp)
+            max_splits = max(max_splits, split_plan(b, kv, cap, sms).n_splits)
+            judge(f"K2 case {i} B={b} H={h} kv={kv} hd={hd} bs={bs} max_blk={max_blk} "
+                  f"q {str(qd)[6:]} kv {str(kd)[6:]} lens {lens.tolist()}",
+                  lambda: paged_decode_attention_kernel(qg, kg, vg, tables, lens_t), ref32, qd)
+            del kp, vp, kg, vg
+
+            # K5: keys at or past each length NaN
+            b, h, kv, hd = shape()
+            s_len = int(rng.integers(1, 1201))
+            lens = lengths_for(b, s_len)
+            dt = (f32, bf)[int(rng.integers(2))]
+            blk = None if rng.random() < 0.3 else int(rng.integers(1, s_len + 1))
+            k = torch.randn((b, s_len, kv, hd), generator=g, device=self.dev).to(dt)
+            v = torch.randn((b, s_len, kv, hd), generator=g, device=self.dev).to(dt)
+            for j, n in enumerate(lens):
+                if 0 < n < s_len:
+                    k[j, n:], v[j, n:] = nan, nan
+            q = torch.randn((b, h, hd), generator=g, device=self.dev).to(dt)
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=self.dev)
+            ref32 = decode_attention_ref(q.float(), k.float().nan_to_num(0.0),
+                                         v.float().nan_to_num(0.0), lens_t)
+            qg, kg, vg = guarded(q), guarded(k), guarded(v)
+            max_splits = max(max_splits, split_plan(b, kv, s_len, sms, blk).n_splits)
+            judge(f"K5 case {i} B={b} H={h} kv={kv} hd={hd} S={s_len} blk={blk} "
+                  f"{str(dt)[6:]} lens {lens.tolist()}",
+                  lambda: decode_attention_kernel(qg, kg, vg, lens_t, blk=blk), ref32, dt)
+            del k, v, kg, vg
+        failures.extend(f"canaries {m}" for m in bad)
+        log(f"K2, K5 canaries: {cases} seeded random shapes each (seed {seed}; up to "
+            f"{max_splits} splits), NaN in every element they must not read: "
+            f"{len(bad)} failed; K5's gates: f32 out {worst['f32']:.3e} (tol {K5_TOL_F32}), "
+            f"bf16 out {worst['bf16']:.3e} (tol {K5_BF16_ORDER})")
+        for m in bad[:10]:
+            log(f"  {m}")
+        return {"seed": seed, "cases": cases, "failed": bad, "max_splits": max_splits,
+                "k5_gate_f32_out": worst["f32"], "k5_gate_bf16_out": worst["bf16"]}
 
     # -- phase 3 -------------------------------------------------------------
 
@@ -629,8 +895,14 @@ class Smoke:
             f"{busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}")
         for name, us in top:
             log(f"  {us / busy:6.1%}  {us / 1e3:8.2f} ms  {name[:90]}")
+        # K2's kernel: the shared decode-attention core over the paged pool
+        k2_us = sum(us for name, us in by_name.items()
+                    if "decode_attention_core" in name and "true>" in name)
+        log(f"  K2 (decode_attention_core, paged): {k2_us / busy:.2%} of device time, "
+            f"{k2_us / 1e3:.3f} ms")
         return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
                 "idle_share": 1 - busy / wall_us,
+                "k2_ms": k2_us / 1e3, "k2_share": k2_us / busy,
                 "top": [[name, us / 1e3] for name, us in top]}
 
     # -- phase 5 -------------------------------------------------------------
@@ -691,7 +963,6 @@ class Smoke:
 
     def phase_times(self):
         torch = self.torch
-        import torch.nn.functional as F
 
         from repro_torch.kernels.decode_attention import (
             gather_pages,
@@ -768,44 +1039,27 @@ class Smoke:
                       x.numel() * (2 + out_b), x.numel(), int_rate)
             if shape == (4, 4096):
                 k3_main = row
-        # K2 at the serving shape: 4 sequences of yi-6b heads, bf16 pool
-        b_, h, kv, hd, bs = 4, 32, 4, 128, 16
-        lengths = [48, 60, 70, 79]
-        need = [-(-n // bs) for n in lengths]
-        max_blk, nb = max(need), 1 + sum(need)
-        tables = torch.zeros((b_, max_blk), dtype=torch.int32, device=self.dev)
-        perm = torch.randperm(nb - 1, generator=g, device=self.dev) + 1
-        pos = 0
-        for i, c in enumerate(need):
-            tables[i, :c] = perm[pos:pos + c]
-            pos += c
-        q = torch.randn((b_, h, hd), generator=g, device=self.dev).to(torch.bfloat16)
-        kp = torch.randn((nb, bs, kv, hd), generator=g, device=self.dev).to(torch.bfloat16)
-        vp = torch.randn((nb, bs, kv, hd), generator=g, device=self.dev).to(torch.bfloat16)
-        lens = torch.tensor(lengths, dtype=torch.int32, device=self.dev)
-        ms = timed(lambda: paged_decode_attention_kernel(q, kp, vp, tables, lens), reps=50)
-        plain = self.events_ms(lambda: paged_decode_attention_ref(q, kp, vp, tables, lens),
-                               reps=20)
-        # library yardstick: SDPA over the pre-gathered contiguous cache
-        kc = gather_pages(kp, tables).transpose(1, 2).contiguous()  # [B, kv, S, hd]
-        vc = gather_pages(vp, tables).transpose(1, 2).contiguous()
-        s = kc.shape[2]
-        mask = (torch.arange(s, device=self.dev)[None, :] < lens[:, None])[:, None, None, :]
-        qs = q[:, :, None, :]
-        try:
-            F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask, enable_gqa=True)
-            lib_kv, lib_kw = (kc, vc), {"enable_gqa": True}
-        except TypeError:  # torch without enable_gqa: expand kv heads first
-            lib_kv = (kc.repeat_interleave(h // kv, 1), vc.repeat_interleave(h // kv, 1))
-            lib_kw = {}
-        lib_ms = self.timed(
-            lambda: F.scaled_dot_product_attention(qs, *lib_kv, attn_mask=mask, **lib_kw),
-            reps=50)
-        ctx = sum(lengths)
-        k2_main = add("paged_decode_attention", f"B=4 H=32 kv=4 hd=128 bs=16 lens={lengths}",
-                      ms, plain,
+        # K2 at the serving shape (4 sequences of yi-6b heads, bf16 pool) and
+        # at a long paged context; the library yardstick is SDPA over the
+        # cache gathered beforehand (it leaves out K2's block-table walk)
+        k2_main = None
+        for lengths, max_blk in [([48, 60, 70, 79], None), (K2_LONG_LENGTHS, K2_LONG_MAX_BLK)]:
+            q, kp, vp, tables, lens = self.paged_case(g, lengths, max_blk=max_blk)
+            b_, h, hd = q.shape
+            kv = kp.shape[2]
+            ms = timed(lambda: paged_decode_attention_kernel(q, kp, vp, tables, lens), reps=50)
+            plain = self.events_ms(
+                lambda: paged_decode_attention_ref(q, kp, vp, tables, lens), reps=20)
+            kc = gather_pages(kp, tables).transpose(1, 2).contiguous()  # [B, kv, S, hd]
+            vc = gather_pages(vp, tables).transpose(1, 2).contiguous()
+            lib_ms = self.timed(self.sdpa(q, kc, vc, lens), reps=50)
+            ctx = sum(lengths)
+            row = add("paged_decode_attention",
+                      f"B={b_} H={h} kv={kv} hd={hd} bs=16 lens={lengths}", ms, plain,
                       q.numel() * 2 * 2 + 2 * ctx * kv * hd * 2 + tables.numel() * 4 + b_ * 4,
                       4 * ctx * h * hd, F32_FLOPS, library_ms=lib_ms)
+            k2_main = k2_main or row
+            del q, kp, vp, kc, vc
         k4_main = self.time_posit_mul(add, int_rate)
         k5_main = self.time_decode_attention(add)
         self.results["times"] = rows
@@ -867,9 +1121,7 @@ class Smoke:
         counts the live keys: each K/V row below its sequence's length read
         once."""
         torch = self.torch
-        import torch.nn.functional as F
-
-        from repro_torch.kernels.decode_attention import decode_attention
+        from repro_torch.kernels.decode_attention import card_sms, decode_attention, split_plan
 
         g = self.gen(8)
         sh = K5_SHAPE
@@ -882,19 +1134,19 @@ class Smoke:
         plain = self.events_ms(lambda: decode_attention(q, k, v, lens, use_kernel=False),
                                reps=10)
         kc, vc = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-        mask = (torch.arange(s, device=self.dev)[None, :] < lens[:, None])[:, None, None, :]
-        qs = q[:, :, None, :]
-        try:
-            F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask, enable_gqa=True)
-            lib_kv, lib_kw = (kc, vc), {"enable_gqa": True}
-        except TypeError:  # torch without enable_gqa: expand kv heads first
-            lib_kv = (kc.repeat_interleave(h // kv, 1), vc.repeat_interleave(h // kv, 1))
-            lib_kw = {}
-        lib_ms = self.timed(
-            lambda: F.scaled_dot_product_attention(qs, *lib_kv, attn_mask=mask, **lib_kw),
-            reps=50)
+        lib_ms = self.timed(self.sdpa(q, kc, vc, lens), reps=50)
         live = sum(K5_LENGTHS)
         bytes_ = 2 * q.numel() * 2 + 2 * live * kv * hd * 2 + b * 4
+        # the split plan's choice beside other split sizes (the kernel's
+        # blk: keys a block covers), spun
+        plan = split_plan(b, kv, s, card_sms(torch.cuda.current_device()))
+        sweep = {}
+        for blk in K5_SPLIT_SWEEP:
+            sweep[blk] = self.events_ms(lambda: decode_attention(q, k, v, lens, blk=blk), 50,
+                                        spin=True)
+        log(f"K5 split sweep (keys a block, spun ms; the plan takes {plan.split_keys}): "
+            + ", ".join(f"{blk} {ms:.4f}" for blk, ms in sweep.items()))
+        self.results["k5_split_sweep"] = {"plan": plan.split_keys, "device_ms": sweep}
         return add("decode_attention", f"B={b} H={h} kv={kv} hd={hd} S={s} bf16 "
                    f"lens={K5_LENGTHS}", ms, plain, bytes_, 4 * live * h * hd, F32_FLOPS,
                    library_ms=lib_ms)

@@ -2,7 +2,8 @@
 
 * ``plam_matmul``             — the PLAM matmul (K1, ``csrc/plam_matmul.cu``)
 * ``paged_decode_attention``  — paged decode attention (K2,
-  ``csrc/paged_decode_attention.cu``)
+  ``csrc/paged_decode_attention.cu``, on the split-key core of
+  ``csrc/decode_attention.cuh`` that K5 shares)
 * ``posit_codec``             — posit encode / decode / quantize (K3,
   ``csrc/posit_codec.cu``)
 * ``posit_mul``               — element-wise PLAM and exact posit products

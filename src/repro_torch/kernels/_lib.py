@@ -135,10 +135,11 @@ _SIGNATURES = {
     "posit_decode_launch": [_P, _I, _P, ctypes.c_int64, _I, _I, _P],
     "posit_quantize_launch": [_P, _I, _P, ctypes.c_int64, _I, _I, _P],
     "paged_decode_attention_launch": [
-        _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+        _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        ctypes.c_float, _P],
     "posit_mul_launch": [_P, _P, _P, ctypes.c_int64, _I, _I, _I, _P],
     "decode_attention_launch": [
-        _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+        _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
 }
 
 

@@ -1,33 +1,134 @@
 """Single-token GQA decode attention: paged (K2) and contiguous (K5).
 
-Port of ``repro/kernels/decode_attention.py``:
+Port of ``repro/kernels/decode_attention.py``.  Both CUDA kernels run
+one shared split-key core, ``csrc/decode_attention.cuh``: one thread
+block per (key split, kv head, sequence); eight warps a block, each an
+online softmax in f32 over its own tiles of keys, fed by a two-stage
+``cp.async`` ring of 16-byte copies; Q.K^T on the tensor cores when q
+and the cache are bf16 (f32 FMAs otherwise); P.V in f32 on the FMA
+pipes.  A sequence with one live split writes its output directly; with
+several, the last split of each (sequence, kv head) to finish combines
+their softmax states.  :func:`split_plan` picks the split from the
+cache's capacity and the card's SMs.
 
 * K2, the Pallas TPU kernel ``paged_decode_attention_kernel``, becomes
-  ``csrc/paged_decode_attention.cu``, which reads each sequence's block
-  table inside the kernel and keeps the online softmax in f32.
-  ``paged_decode_attention_ref`` (gather, then attend in ``attn_core``'s
-  operation order) is its plain version, the path the reference engine
-  runs off the TPU.  ``paged_decode_attention`` dispatches between them.
-  The two agree to within rounding, not bit for bit: the kernel keeps
-  scores and probabilities in f32 to the end, while the plain version
-  rounds the scores to the operands' dtype and the softmax weights to
-  the value dtype (bf16 in serving) before the weighted sum.
+  ``csrc/paged_decode_attention.cu``: the core reads each split's slice
+  of the block-table row itself.  ``paged_decode_attention_ref`` (gather,
+  then attend in ``attn_core``'s operation order) is its plain version,
+  the path the reference engine runs off the TPU.
+  ``paged_decode_attention`` dispatches between them.  The two agree to
+  within rounding, not bit for bit: the kernel keeps scores and
+  probabilities in f32 to the end, while the plain version rounds the
+  scores to the operands' dtype and the softmax weights to the value
+  dtype (bf16 in serving) before the weighted sum.
 * K5, the Pallas TPU kernel ``decode_attention`` over a contiguous
-  cache, becomes ``csrc/decode_attention.cu``, which splits the keys
-  into chunks across blocks and combines the chunks' softmax states in a
-  second kernel.  ``decode_attention_ref`` is its plain version (all in
-  f32, as the reference's oracle), and ``decode_attention`` dispatches.
-  No serving path of either package calls it; it is a public kernel.
+  cache, becomes ``csrc/decode_attention.cu``.  ``decode_attention_ref``
+  is its plain version (all in f32, as the reference's oracle), and
+  ``decode_attention`` dispatches.  No serving path of either package
+  calls it; it is a public kernel.
+
+A sequence of length 0 has every key masked: as in the reference, its
+weights are uniform over every key the cache holds (``max_blk *
+block_size`` paged, ``S`` contiguous).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _lib
 
 _FLOATS = (torch.float32, torch.bfloat16)
+#: head dims the core is compiled for (csrc/decode_attention.cuh)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_GROUP = 16
+
+# The split plan.  A block runs eight warps over 16-key tiles (at hd 128
+# in bf16), so a split is a whole number of 128-key rounds, at least
+# MIN_SPLIT_KEYS: at the tens of keys a serving step holds, one split
+# covers a sequence and no combine runs.  Longer caches get about one
+# block per SM of the card over all (sequence, kv head) pairs (one block
+# fills an SM's shared memory), at most MAX_SPLIT_KEYS keys a split (which
+# also bounds the block-table slice a paged block holds in shared memory).
+# At chip_smoke.py's K5 shape (4 sequences, 4096-key cache, bf16) on an
+# H100 (132 SMs) this gives 512 keys a block; chip_smoke.py's split sweep
+# there times 128, 256, 512 and 1024 keys a block (PERF.md records it).
+ROUND_KEYS = 128
+MIN_SPLIT_KEYS = 256
+MAX_SPLIT_KEYS = 4096
+
+
+@functools.lru_cache(maxsize=None)
+def card_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """``n_splits`` blocks of ``split_keys`` keys per (sequence, kv head).
+    Split c covers keys [c * split_keys, (c + 1) * split_keys) below the
+    sequence's active keys (its length capped at the capacity, or the whole
+    capacity at length 0); splits past them exit at once."""
+
+    n_splits: int
+    split_keys: int
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(batch: int, kv: int, capacity: int, sms: int,
+               split_keys: Optional[int] = None) -> SplitPlan:
+    """Split of a cache of ``capacity`` keys per sequence over blocks on a
+    card of ``sms`` SMs.  ``split_keys`` given: that many keys a block;
+    else chosen from the shape (module constants above)."""
+    if split_keys is None:
+        want = max(1, -(-sms // (batch * kv)))
+        split_keys = -(-capacity // want)
+        split_keys = -(-split_keys // ROUND_KEYS) * ROUND_KEYS
+        split_keys = min(max(split_keys, MIN_SPLIT_KEYS), MAX_SPLIT_KEYS)
+    if split_keys <= 0:
+        raise ValueError(f"split_keys must be positive, got {split_keys}")
+    return SplitPlan(-(-capacity // split_keys), split_keys)
+
+
+# Counters of the last-arriving split, one per (sequence, kv head): zeroed
+# once, allocated once per (device, stream) and grown as needed; every
+# launch leaves them zero.  Keyed by stream, since two launches that run
+# at once must not share them.
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _scratch(q: torch.Tensor, batch: int, kv: int, hd: int, plan: SplitPlan):
+    """(partials, counters) pointers for a launch: none for one split;
+    else f32 partials allocated per call (the caching allocator makes it
+    cheap) and the stream's shared counters."""
+    if plan.n_splits == 1:
+        return None, 0, 0
+    h = q.shape[1]
+    partials = torch.empty(batch * h * plan.n_splits * (hd + 2), dtype=torch.float32,
+                           device=q.device)
+    key = (q.device.index, _lib.stream_ptr(q))
+    counters = _counters.get(key)
+    if counters is None or counters.numel() < batch * kv:
+        counters = torch.zeros(batch * kv, dtype=torch.int32, device=q.device)
+        _counters[key] = counters
+    return partials, partials.data_ptr(), counters.data_ptr()
+
+
+def _check_core_shape(q: torch.Tensor, kv: int, tensors) -> None:
+    b, h, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} is not compiled in; the kernel takes {HEAD_DIMS}")
+    if h // kv > MAX_GROUP:
+        raise ValueError(f"{h // kv} q heads per kv head; the kernel takes at most {MAX_GROUP}")
+    if b > 65535 or kv > 65535:
+        raise ValueError(f"batch {b} or kv heads {kv} exceed the grid's 65535")
+    for name, t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
@@ -68,8 +169,10 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths):
 def paged_decode_attention_kernel(q, k_pool, v_pool, block_tables, lengths):
     """The CUDA kernel.  q: [B, H, hd]; k_pool, v_pool: [num_blocks, bs,
     kv, hd]; block_tables: int32 [B, max_blk] pool indices (rows padded
-    with any valid block id); lengths: int32 [B] valid keys per sequence,
-    each at least 1.  Returns [B, H, hd] in q's dtype."""
+    with any valid block id); lengths: int32 [B] valid keys per sequence
+    (0: every key masked, uniform weights over all max_blk * bs keys).
+    hd in HEAD_DIMS, at most MAX_GROUP q heads per kv head.  Returns
+    [B, H, hd] in q's dtype."""
     _lib.require(q, "q", _FLOATS, 3)
     _lib.require(k_pool, "k_pool", _FLOATS, 4)
     _lib.require(v_pool, "v_pool", (k_pool.dtype,), 4)
@@ -82,12 +185,16 @@ def paged_decode_attention_kernel(q, k_pool, v_pool, block_tables, lengths):
             f"q {tuple(q.shape)} does not fit pools {tuple(k_pool.shape)}")
     if block_tables.shape[0] != b or lengths.shape[0] != b:
         raise ValueError("block_tables and lengths need one row per sequence")
+    _check_core_shape(q, kv, [("q", q), ("k_pool", k_pool), ("v_pool", v_pool)])
+    max_blk = block_tables.shape[1]
+    plan = split_plan(b, kv, max_blk * bs, card_sms(q.device.index))
+    _keep, partials, counters = _scratch(q, b, kv, hd, plan)
     out = torch.empty_like(q)
     err = _lib.library().paged_decode_attention_launch(
         q.data_ptr(), _lib.DTYPE_CODES[q.dtype], k_pool.data_ptr(), v_pool.data_ptr(),
         _lib.DTYPE_CODES[k_pool.dtype], block_tables.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, h, kv, hd, bs, block_tables.shape[1], hd ** -0.5,
-        _lib.stream_ptr(q))
+        out.data_ptr(), partials, counters, b, h, kv, hd, bs, max_blk, plan.n_splits,
+        plan.split_keys, hd ** -0.5, _lib.stream_ptr(q))
     _lib.check_launch("paged_decode_attention", err)
     return out
 
@@ -99,14 +206,6 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
     if _lib.wants_kernel(q, use_kernel):
         return paged_decode_attention_kernel(q, k_pool, v_pool, block_tables, lengths)
     return paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths)
-
-
-# Keys per thread block of K5 (the reference's ``blk``): 128 keys give
-# the 16 (sequence, kv head) pairs of a yi-6b-width cache 32 blocks each
-# at S = 4096, enough to fill the card.  On an H100 80GB HBM3 (700 W) at
-# chip_smoke.py's K5 shape in bf16, 64 keys took 76.6 us, 128 took 72.1,
-# 256 took 95.9 and 512 took 144.8 (PERF.md, K5).
-DEFAULT_BLOCK = 128
 
 
 def decode_attention_ref(q, k, v, lengths):
@@ -126,10 +225,13 @@ def decode_attention_ref(q, k, v, lengths):
     return out.reshape(b, h, hd).to(q.dtype)
 
 
-def decode_attention_kernel(q, k, v, lengths, *, blk: int = DEFAULT_BLOCK):
+def decode_attention_kernel(q, k, v, lengths, *, blk: Optional[int] = None):
     """The CUDA kernel.  q: [B, H, hd]; k, v: [B, S, kv, hd], all f32 or all
-    bf16; lengths: int32 [B] valid keys per sequence.  Returns [B, H, hd]
-    in q's dtype."""
+    bf16; lengths: int32 [B] valid keys per sequence (0: uniform weights
+    over all S keys).  hd in HEAD_DIMS, at most MAX_GROUP q heads per kv
+    head.  ``blk`` (the reference's keys per block) is the keys each
+    thread block covers; ``None`` takes :func:`split_plan`'s choice.
+    Returns [B, H, hd] in q's dtype."""
     _lib.require(q, "q", _FLOATS, 3)
     _lib.require(k, "k", (q.dtype,), 4)
     _lib.require(v, "v", (q.dtype,), 4)
@@ -140,27 +242,26 @@ def decode_attention_kernel(q, k, v, lengths, *, blk: int = DEFAULT_BLOCK):
         raise ValueError(f"q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}")
     if lengths.shape[0] != b:
         raise ValueError("lengths needs one entry per sequence")
-    if blk <= 0:
+    if blk is not None and blk <= 0:
         raise ValueError(f"blk must be positive, got {blk}")
-    chunks = -(-s // blk)
-    m_part = torch.empty((b, h, chunks), dtype=torch.float32, device=q.device)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((b, h, chunks, hd), dtype=torch.float32, device=q.device)
+    _check_core_shape(q, kv, [("q", q), ("k", k), ("v", v)])
+    plan = split_plan(b, kv, s, card_sms(q.device.index), blk)
+    _keep, partials, counters = _scratch(q, b, kv, hd, plan)
     out = torch.empty_like(q)
     err = _lib.library().decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _lib.DTYPE_CODES[q.dtype],
-        lengths.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        out.data_ptr(), b, h, kv, hd, s, blk, hd ** -0.5, _lib.stream_ptr(q))
+        lengths.data_ptr(), partials, counters, out.data_ptr(), b, h, kv, hd, s,
+        plan.n_splits, plan.split_keys, hd ** -0.5, _lib.stream_ptr(q))
     _lib.check_launch("decode_attention", err)
     return out
 
 
-def decode_attention(q, k, v, lengths, *, blk: int = DEFAULT_BLOCK,
+def decode_attention(q, k, v, lengths, *, blk: Optional[int] = None,
                      use_kernel: Optional[bool] = None):
     """Contiguous-cache decode attention: the kernel for CUDA tensors, the
     plain version for CPU tensors (or anywhere under ``use_kernel=False``).
-    ``blk`` is the kernel's keys per thread block; the plain version has
-    no blocks."""
+    ``blk`` is the kernel's keys per thread block (``None``: chosen from
+    the shape); the plain version has no blocks."""
     if _lib.wants_kernel(q, use_kernel):
         return decode_attention_kernel(q, k, v, lengths, blk=blk)
     return decode_attention_ref(q, k, v, lengths)

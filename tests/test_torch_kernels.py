@@ -35,6 +35,9 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     paged_decode_attention,
     paged_decode_attention_kernel,
     paged_decode_attention_ref,
+    card_sms,
+    split_plan,
+    SplitPlan,
 )
 from repro_torch.numerics import P16, PositSpec, pack16  # noqa: E402
 
@@ -133,16 +136,17 @@ def test_posit_codec_plain_matches_jax_kernels():
     assert torch.equal(ops.posit_encode(xb, P16), ops.posit_encode(xb.float(), P16))
 
 
-def _paged_case(seed=0, dtype=np.float32):
-    """B=3 sequences with ragged lengths over a permuted pool whose block 0
-    is scratch; block tables padded with the scratch block."""
+def _paged_case(seed=0, dtype=np.float32, lengths=(1, 6, 11), max_blk=None, h=4, kv=2,
+                hd=16, bs=4):
+    """Sequences with ragged lengths over a permuted pool whose block 0 is
+    scratch; block tables padded with the scratch block up to max_blk."""
     rng = np.random.default_rng(seed)
-    b, h, kv, hd, bs = 3, 4, 2, 16, 4
-    lengths = np.array([1, 6, 11], np.int32)
-    need = [-(-int(n) // bs) for n in lengths]
+    b = len(lengths)
+    lengths = np.array(lengths, np.int32)
+    need = [max(1, -(-int(n) // bs)) for n in lengths]
     nb = 1 + sum(need) + 2
     perm = rng.permutation(np.arange(1, nb))
-    tables = np.zeros((b, max(need)), np.int32)
+    tables = np.zeros((b, max_blk or max(need)), np.int32)
     pos = 0
     for i, c in enumerate(need):
         tables[i, :c] = perm[pos:pos + c]
@@ -163,6 +167,25 @@ def test_paged_attention_plain_matches_reference_ref_and_kernel():
                                  interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want_ref), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want_kernel), rtol=1e-6, atol=1e-6)
+
+
+# length 0 (every key masked: uniform weights over all max_blk * bs keys,
+# padding blocks included) and the full table (max_blk * bs = 12 keys)
+@pytest.mark.parametrize("lengths", [(0, 6, 11), (0, 0, 0), (12, 12, 12), (0, 12, 5)],
+                         ids=["len0", "all-len0", "full", "len0-full-mixed"])
+def test_paged_attention_plain_matches_reference_at_length_edges(lengths):
+    q, kp, vp, tables, lens = _paged_case(seed=5, lengths=lengths, max_blk=3)
+    got = paged_decode_attention(*map(torch.from_numpy, (q, kp, vp, tables, lens)))
+    want_ref = j_paged_ref(*map(jnp.asarray, (q, kp, vp, tables, lens)))
+    want_kernel = j_paged_kernel(*map(jnp.asarray, (q, kp, vp, tables, lens)), interpret=True)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_ref), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_kernel), rtol=1e-6, atol=1e-6)
+    if 0 in lengths:  # the mean of V over every key the table names
+        i = lengths.index(0)
+        v_all = gather_pages(torch.from_numpy(vp), torch.from_numpy(tables))[i]  # [S, kv, hd]
+        mean = v_all.mean(0).repeat_interleave(2, dim=0)  # q heads 2g, 2g+1 share kv head g
+        torch.testing.assert_close(got[i], mean, rtol=1e-5, atol=1e-6)
 
 
 def test_gather_pages_layout():
@@ -256,6 +279,69 @@ def test_decode_attention_plain_matches_jax_kernel_and_ref(shape):
     np.testing.assert_allclose(got.numpy(), np.asarray(want_ref), rtol=2e-5, atol=2e-5)
 
 
+# length 0 (uniform over all S keys) and the full cache; S = 64 is a whole
+# number of the reference kernel's 16-key blocks, so it pads nothing
+@pytest.mark.parametrize("lens", [(0, 64), (64, 0), (0, 0)], ids=["len0-full", "full-len0",
+                                                                 "all-len0"])
+def test_decode_attention_plain_matches_jax_at_length_edges(lens):
+    q, k, v, _ = _k5_case((2, 64, 8, 4, 16, 16), seed=2)
+    lens = np.array(lens, np.int32)
+    got = decode_attention(*map(torch.from_numpy, (q, k, v, lens)))
+    want_kernel = j_decode_attention(*map(jnp.asarray, (q, k, v, lens)), blk=16,
+                                     interpret=True)
+    want_ref = j_decode_attention_ref(*map(jnp.asarray, (q, k, v, lens)))
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_kernel), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_ref), rtol=2e-5, atol=2e-5)
+
+
+# the SMs of an H100 SXM, the card the split plan was sized on
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("capacity", [1, 15, 16, 80, 128, 256, 257, 704, 4096],
+                         ids=lambda c: f"cap{c}")
+@pytest.mark.parametrize("batch,kv,split_keys", [(4, 4, None), (13, 4, None), (1, 1, None),
+                                                 (64, 8, None), (2, 4, 16), (1, 2, 32),
+                                                 (3, 1, 1)])
+def test_split_plan_covers_each_live_key_once(capacity, batch, kv, split_keys):
+    """The kernels' splits (split_plan, and the live-range rule the core
+    applies per sequence) cover keys [0, active) exactly once at every
+    length 0-4096: active is the length capped at the capacity, or the
+    whole capacity at length 0."""
+    plan = split_plan(batch, kv, capacity, H100_SMS, split_keys)
+    assert plan.n_splits == -(-capacity // plan.split_keys)
+    assert (plan.n_splits - 1) * plan.split_keys < capacity  # no split starts past the cache
+    sk = plan.split_keys
+    for length in range(0, 4097):
+        # the core's rule (decode_attention.cuh): active keys, live splits
+        active = min(length, capacity) if length > 0 else capacity
+        ranges = [(c * sk, min((c + 1) * sk, active)) for c in range(plan.n_splits)
+                  if c * sk < active]
+        assert 1 <= len(ranges) <= plan.n_splits
+        covered = [t for a, b in ranges for t in range(a, b)]
+        assert covered == list(range(active)), (length, ranges)
+        assert all(0 < b - a <= plan.split_keys for a, b in ranges)
+
+
+def test_split_plan_shapes():
+    """One split at serving contexts (no combine); at yi-6b widths and 4096
+    keys, about a block per SM of the card; at most MAX_SPLIT_KEYS a split;
+    an explicit split size is kept."""
+    from repro_torch.kernels.decode_attention import MAX_SPLIT_KEYS, ROUND_KEYS
+
+    assert split_plan(4, 4, 80, H100_SMS).n_splits == 1
+    assert split_plan(4, 4, 128, H100_SMS).n_splits == 1
+    for sms in (H100_SMS, 114, 78):  # H100 SXM, H100 PCIe, a smaller card
+        k5 = split_plan(4, 4, 4096, sms)  # over its 16 (sequence, kv head) pairs
+        assert sms // 2 <= k5.n_splits * 16 <= 2 * sms and k5.split_keys % ROUND_KEYS == 0
+    assert split_plan(4, 4, 4096, H100_SMS).split_keys == 512
+    assert split_plan(64, 8, 100_000, H100_SMS).split_keys == MAX_SPLIT_KEYS
+    assert split_plan(2, 4, 64, H100_SMS, 16) == SplitPlan(4, 16)
+    with pytest.raises(ValueError):
+        split_plan(2, 4, 64, H100_SMS, 0)
+
+
 def test_decode_attention_plain_respects_lengths_and_keeps_dtype():
     q, k, v, _ = _k5_case((2, 64, 4, 2, 16, 16), seed=1)
     lens = torch.tensor([5, 64], dtype=torch.int32)
@@ -326,3 +412,72 @@ def test_cuda_decode_attention_close_to_plain(cuda_device, shape):
     got = decode_attention(q, k, v, lens, blk=shape[-1])
     want = decode_attention(q, k, v, lens, use_kernel=False)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# K2 and K5 at the length edges on the card: 0, 1, bs - 1, bs, bs + 1, a
+# round of the block's 16-key tiles +- 1 (64 keys with four warps, 128
+# with eight), the split plan's edge +- 1 (capacity 320 gives two splits
+# of 256 keys) and the full cache
+EDGE_BS, EDGE_MAX_BLK = 8, 40
+EDGE_CAP = EDGE_BS * EDGE_MAX_BLK
+EDGE_LENGTHS = (0, 1, 7, 8, 9, 63, 64, 65, 127, 128, 129, 255, 256, 257, EDGE_CAP - 1,
+                EDGE_CAP)
+EDGE_DTYPES = [("f32", "f32"), ("bf16", "bf16"), ("f32", "bf16"), ("bf16", "f32")]
+_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kv,hd", [(8, 2, 32), (12, 1, 64), (4, 4, 128)],
+                         ids=["g4hd32", "g12hd64", "g1hd128"])
+@pytest.mark.parametrize("dtypes", EDGE_DTYPES, ids=["-".join(d) for d in EDGE_DTYPES])
+def test_cuda_paged_attention_length_edges(cuda_device, h, kv, hd, dtypes):
+    sms = card_sms(torch.cuda.current_device())
+    assert split_plan(len(EDGE_LENGTHS), kv, EDGE_CAP, sms).split_keys == 256
+    q, kp, vp, tables, lens = (
+        torch.from_numpy(t).to(cuda_device)
+        for t in _paged_case(seed=6, lengths=EDGE_LENGTHS, max_blk=EDGE_MAX_BLK, h=h, kv=kv,
+                             hd=hd, bs=EDGE_BS))
+    q, kp, vp = q.to(_DT[dtypes[0]]), kp.to(_DT[dtypes[1]]), vp.to(_DT[dtypes[1]])
+    got = paged_decode_attention(q, kp, vp, tables, lens)
+    assert got.dtype == q.dtype and torch.isfinite(got.float()).all()
+    want = paged_decode_attention_ref(q.float(), kp.float(), vp.float(), tables, lens)
+    if dtypes == ("f32", "f32"):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:  # chip_smoke.py's K2 tolerances: f32 result, then the plain bf16 one
+        assert float((got.float() - want).abs().max()) <= 1e-2
+        plain = paged_decode_attention_ref(q, kp, vp, tables, lens).float()
+        assert float((got.float() - plain).abs().max()) <= 6e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kv,hd", [(8, 2, 32), (12, 1, 64), (4, 4, 128)],
+                         ids=["g4hd32", "g12hd64", "g1hd128"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_decode_attention_length_edges(cuda_device, h, kv, hd, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    b = len(EDGE_LENGTHS)
+    q = torch.randn((b, h, hd), generator=g, device=cuda_device)
+    k, v = (torch.randn((b, EDGE_CAP, kv, hd), generator=g, device=cuda_device)
+            for _ in range(2))
+    lens = torch.tensor(EDGE_LENGTHS, dtype=torch.int32, device=cuda_device)
+    q, k, v = (t.to(_DT[dtype]) for t in (q, k, v))
+    got = decode_attention(q, k, v, lens)
+    assert got.dtype == q.dtype and torch.isfinite(got.float()).all()
+    exact = decode_attention(q.float(), k.float(), v.float(), lens, use_kernel=False)
+    if dtype == "f32":
+        torch.testing.assert_close(got, exact, rtol=1e-4, atol=1e-4)
+    else:  # one rounding to bf16 of the f32 result, plus the order of the sums
+        assert float(((got.float() - exact).abs() - 2.0 ** -8 * exact.abs()).max()) <= 2e-6
+
+
+@pytest.mark.cuda
+def test_cuda_attention_refuses_shapes_it_was_not_built_for(cuda_device):
+    q, kp, vp, tables, lens = (torch.from_numpy(t).to(cuda_device)
+                               for t in _paged_case(seed=3))
+    with pytest.raises(ValueError, match="head dim"):
+        paged_decode_attention(q[..., :8].contiguous(), kp[..., :8].contiguous(),
+                               vp[..., :8].contiguous(), tables, lens)
+    k = torch.zeros((1, 16, 1, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="at most"):
+        decode_attention(torch.zeros((1, 17, 16), device=cuda_device), k, k,
+                         torch.ones(1, dtype=torch.int32, device=cuda_device))
