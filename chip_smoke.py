@@ -15,7 +15,10 @@ own lines:
    the card at its paths' shapes: the posit codec (K3), the PLAM matmul
    (K1: yi-6b's shapes at M = 4 and 64, every decode-batch M at one of
    them, and ragged shapes at its decode path's tile, stage, strip and
-   branch edges) and the element-wise posit multipliers (K4) bit for bit, the
+   branch edges; and K1 over float activations, which it encodes itself,
+   over all 65,536 bf16 patterns and a seeded f32 sweep with its edges,
+   at ragged M, K and N and at every projection shape at the serve
+   path's M) and the element-wise posit multipliers (K4) bit for bit, the
    paged (K2) and contiguous (K5) decode attention within stated
    tolerances, at serving and long contexts and at the length edges of
    their shared core (0 included) in every dtype pair they take, and
@@ -28,9 +31,10 @@ own lines:
    plain-kernel oracles; no failure, no mismatch, and K3 and K4 launched.
 4. serve       — full-width yi-6b under ``default=plam_sim:16:1`` with
    int16 prequantized weights serves 4 requests through ``build_engine``
-   -> ``submit`` -> ``run``; the launch counts must match 7L+1 PLAM
-   matmuls and codec calls per forward and L attention calls per decode
-   step.
+   -> ``submit`` -> ``run``; the launch counts must match 7L+1 weight
+   encodes (K3) at build, 7L+1 PLAM matmuls and no codec call per
+   forward (the activations are encoded inside K1), and L attention
+   calls per decode step.
 5. e2e         — a 2-layer full-width model runs one prefill and 4
    decode steps on the kernels and on the plain versions; last logits
    must agree within a stated tolerance.
@@ -40,7 +44,10 @@ own lines:
    kernel and library call is read two ways: the events' window as
    earlier runs read it (``ms``; for a short call it holds the host time
    of the wrapper), and after a device spin (``device_ms``: the card's
-   time alone).  K2 is timed at the serving shape and at a long paged
+   time alone).  K1 over bf16 activations (one launch) is timed beside
+   the codec-then-matmul pair it replaced, in turns, with each one's host
+   time per call, and again on the activations one step of a seeded
+   full-depth engine gives it.  K2 is timed at the serving shape and at a long paged
    context, and K5 also at other split sizes.
 
 It exits non-zero if any phase fails, if no CUDA device is present, or if
@@ -95,7 +102,38 @@ K1_WIDE_EDGE_SHAPES = [(4, 4096, 4104), (4, 2048, 520), (16, 4096, 4100), (7, 10
 K1_DECODE_MS = (1, 2, 3, 4, 16)
 # K1's decode floor: ALU-pipe operations of one log_word and of one
 # product row, counted by hand in the header of its source
-K1_SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "plam_matmul.cu")
+K1_SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "plam_matmul.cuh")
+# K1 over float activations: (M, K, N) beyond M in K1_FUSED_MS at K = N =
+# 4096, at M = 4 and 64: an odd K (bf16 rows then start off 4 bytes and
+# are read with guarded 2-byte loads) and N that is not a multiple of 8
+K1_FUSED_KN = [(4096, 512), (4096, 11008), (4096, 4100), (33, 4096), (4095, 4096),
+               (33, 4100), (4095, 11008)]
+K1_FUSED_MS = (1, 2, 3, 4, 5, 16, 17, 64)
+# M at which the serve path calls K1 over bf16 activations: a decode step
+# with 4 slots, and prefills of prompts padded to 48 and 64 tokens; the
+# fused kernel is checked at every K1_SHAPES (K, N) at each of them
+K1_SERVE_MS = (4, 48, 64)
+# every PLANT-th activation of those checks is a sweep value (most lie
+# outside the exact bf16 range), so that both of a_word's branches run
+# in one warp, as on the serve path's own activations
+PLANT = 5
+# Posit<16,1>: the bf16 scales at which a value is its own A word
+# (posit.cuh derives them from the spec); the share of the serve path's
+# activations outside them is logged beside the fused call's time
+EXACT_BF16_SCALES = (-12, 11)
+# K1 fused beside the codec-then-matmul pair: yi-6b's projections at M = 4,
+# and at the prefill M of the serve phase's prompts (32-64 tokens, padded
+# to 16-token blocks: 48 and 64) wg/wu at 64 and wq/wo, wk/wv, wd at 48
+K1_PAIR_RUNS = ([(4, s) for s in K1_SHAPES] + [(64, (4096, 11008))]
+                + [(48, s) for s in ((4096, 4096), (4096, 512), (11008, 4096))])
+# back-to-back wrapper calls whose host time is averaged, behind a device
+# spin long enough (~20 ms) that the card never drains the queue
+HOST_CALLS = 200
+HOST_SPIN_CYCLES = 40_000_000
+# K3's bound and design floor: the ALU-pipe operations a bf16 encode lane
+# needs (a table encode) and those of its design, counted by hand in the
+# header of its source
+K3_SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "posit_codec.cu")
 # K2 tolerances.  The kernel keeps scores, probabilities and sums in f32
 # and rounds once to bf16 at the end, so against the plain version run in
 # f32 it differs by that rounding (2^-9 of |out| <= 1 here) and sum order.
@@ -178,14 +216,14 @@ class Smoke:
         return g
 
     def events_ms(self, fn, reps: int, warmup: int = 2, flush: bool = True,
-                  spin: bool = False) -> float:
+                  spin: bool = False, spin_cycles: int = SPIN_CYCLES) -> float:
         """Mean ms between CUDA events around fn() over reps calls, each
         after an L2 flush.  The window opens when the card reaches the
         start event, so for a short call it also holds the host time of
-        fn()'s wrapper up to its launch.  With spin, a device spin of about
-        0.1 ms is queued before the start event, so that the host has
-        queued fn()'s launches before the card gets there: the window is
-        then fn()'s device time alone."""
+        fn()'s wrapper up to its launch.  With spin, a device spin of
+        spin_cycles (about 0.1 ms by default) is queued before the start
+        event, so that the host has queued fn()'s launches before the card
+        gets there: the window is then fn()'s device time alone."""
         torch = self.torch
         for _ in range(warmup):
             if spin:  # the spin's own first launch loads its kernel
@@ -199,13 +237,28 @@ class Smoke:
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             if spin:
-                torch.cuda._sleep(SPIN_CYCLES)
+                torch.cuda._sleep(spin_cycles)
             a.record()
             fn()
             b.record()
             b.synchronize()
             total += a.elapsed_time(b)
         return total / reps
+
+    def host_us(self, fn, calls: int = HOST_CALLS) -> float:
+        """Host microseconds per call of fn(): `calls` back-to-back calls
+        with no sync, queued behind a device spin so that the card never
+        holds the host back, divided by `calls`."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOST_SPIN_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / calls * 1e6
 
     def timed(self, fn, reps: int):
         """(window, device) ms of fn(): events_ms without and with the spin."""
@@ -347,6 +400,8 @@ class Smoke:
             torch.cuda.synchronize()
         k1_ok = len(failures) == n_before
         log(f"K1 plam_matmul vs plain: {'bit-identical' if k1_ok else failures[n_before:]}")
+        fused = self.check_fused_encode(same, failures, sweep)
+        k1_ok = k1_ok and fused["ok"]
 
         k2 = self.check_paged_attention(failures)
         k4_ok = self.check_posit_mul(same, failures)
@@ -357,13 +412,92 @@ class Smoke:
                            "paged_decode_attention": k2["err_f32"],
                            "posit_mul": 0.0 if k4_ok else None,
                            "decode_attention": k5["err_f32"]}
-        self.results["kernels"] = {"k1_bit_identical": k1_ok, "k3_bit_identical": k3_ok,
+        self.results["kernels"] = {"k1_bit_identical": k1_ok, "k1_fused": fused,
+                                   "k3_bit_identical": k3_ok,
                                    "k2": k2,
                                    "k4_bit_identical": k4_ok, "k5": k5,
                                    "canaries": canaries,
                                    "failures": failures}
         if failures:
             raise AssertionError("; ".join(failures))
+
+    def check_fused_encode(self, same, failures, sweep) -> dict:
+        """K1 over float activations (plam_matmul_float, the route of
+        plam_dense) against its plain version, plam_matmul_seqref(encode(x)),
+        bit for bit, with int16 and int32 B: all 65,536 bf16 patterns as A
+        ([16, 4096], its first 4 rows, and [64, 1024]); the seeded f32
+        sweep with its edges (+-0, +-inf, NaN, subnormals, 3e38, 2^+-60)
+        and its bf16 rounding, at every M of K1_FUSED_MS (K = N = 4096) and
+        at K1_FUSED_KN (M = 4 and 64); and the serve path's shapes, every
+        K1_SHAPES (K, N) at each M of K1_SERVE_MS, f32 and bf16, over
+        N(0, 1) values with every PLANT-th one a sweep value (the unembed's
+        N = 64000 is the one shape that takes the 64-column strip kernel
+        over float A).  Each plain result is computed once
+        (int32 B) and held against both B dtypes (the CPU tests show the
+        plain version gives the same bits for both)."""
+        torch = self.torch
+        from repro_torch.kernels.plam_matmul import plam_matmul_float
+        from repro_torch.kernels.posit_codec import posit_encode
+        from repro_torch.numerics import P16
+
+        n_before = len(failures)
+        g = self.gen(13)
+        weights = {}
+
+        def b_pair(k, n):
+            if (k, n) not in weights:
+                w = torch.randn((k, n), generator=g, device=self.dev) * k ** -0.5
+                weights[(k, n)] = (posit_encode(w, P16),
+                                   posit_encode(w, P16, out_dtype=torch.int16))
+            return weights[(k, n)]
+
+        def check(tag, x, n):
+            b32, b16 = b_pair(x.shape[1], n)
+            want = plam_matmul_float(x, b32, P16, use_kernel=False)
+            for bb in (b16, b32):
+                same(f"plam_matmul_float {tag} {tuple(x.shape)} N={n} {str(bb.dtype)[6:]}",
+                     plam_matmul_float(x, bb, P16), want)
+            torch.cuda.synchronize()
+
+        pats = (torch.arange(1 << 16, dtype=torch.int32, device=self.dev) - (1 << 15)).to(
+            torch.int16).view(torch.bfloat16)
+        all16 = pats.view(16, 4096)
+        cases = 0
+        for x, n in [(all16, 4096), (all16, 512), (all16[:4].contiguous(), 11008),
+                     (pats.view(64, 1024), 4100)]:
+            check("all bf16 patterns", x, n)
+            cases += 1
+        # the sweep's edges first, then its seeded values, as [64, 4096]
+        rows = torch.cat([sweep[-16:], sweep[:64 * 4096 - 16]]).view(64, 4096)
+        for xs in (rows, rows.to(torch.bfloat16)):
+            tag = f"sweep {str(xs.dtype)[6:]}"
+            for m in K1_FUSED_MS:
+                check(tag, xs[:m].contiguous(), 4096)
+                cases += 1
+            for m in (4, 64):
+                for k, n in K1_FUSED_KN:
+                    check(tag, xs[:m, :k].contiguous(), n)
+                    cases += 1
+        m_top = max(K1_SERVE_MS)
+        for k in sorted({k for k, _ in K1_SHAPES}):
+            acts = torch.randn((m_top, k), generator=g, device=self.dev).view(-1)
+            acts[::PLANT] = sweep[: acts[::PLANT].numel()]
+            acts[:16] = sweep[-16:]  # the edges
+            acts = acts.view(m_top, k)
+            for xs in (acts, acts.to(torch.bfloat16)):
+                for m in K1_SERVE_MS:
+                    for kk, n in K1_SHAPES:
+                        if kk == k:
+                            check(f"serve shape {str(xs.dtype)[6:]}", xs[:m].contiguous(), n)
+                            cases += 1
+            weights.clear()
+        ok = len(failures) == n_before
+        log(f"K1 over float activations vs plain encode + matmul: "
+            f"{'bit-identical' if ok else failures[n_before:]} over {cases} (A, N) cases, "
+            f"int16 and int32 B (all 65,536 bf16 patterns; f32 sweep and edges and its bf16 "
+            f"rounding at M {list(K1_FUSED_MS)} and (K, N) {K1_FUSED_KN} at M = 4, 64; "
+            f"f32 and bf16 at every K1_SHAPES (K, N) at M {list(K1_SERVE_MS)})")
+        return {"ok": ok, "cases": cases}
 
     def paged_case(self, g, lengths, max_blk=None, h=32, kv=4, hd=128, bs=16,
                    q_dtype=None, kv_dtype=None):
@@ -765,6 +899,9 @@ class Smoke:
             log(out_f)
         launches = {k: n_c[k] + n_f[k] for k in ("posit_codec", "posit_mul")}
         self.path_launches["posit_mul"] = launches["posit_mul"]
+        # K3's paths: this one and the engine build's weight encodes (serve)
+        self.path_launches["posit_codec"] = (self.path_launches.get("posit_codec", 0)
+                                             + launches["posit_codec"])
         self.results["conformance"] = {
             "oracles": oracles, "check_rc": rc_c, "check_s": s_c, "check_launches": n_c,
             "fuzz_rc": rc_f, "fuzz_s": s_f, "fuzz_launches": n_f, "comparisons": checked,
@@ -787,6 +924,8 @@ class Smoke:
 
     def phase_serve(self):
         torch = self.torch
+        import numpy as np
+
         from repro_torch.kernels import _lib
         from repro_torch.serving import ServeOptions, build_engine
 
@@ -811,6 +950,7 @@ class Smoke:
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
         if build_encodes != 7 * layers + 1:
             raise AssertionError(f"expected {7 * layers + 1} weight encodes, got {build_encodes}")
+        self.path_launches["posit_codec"] = self.path_launches.get("posit_codec", 0) + build_encodes
 
         g = torch.Generator().manual_seed(7)
         lens = torch.randint(32, 65, (4,), generator=g).tolist()
@@ -823,7 +963,7 @@ class Smoke:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(_lib.launches)
-        for name in ("plam_matmul", "posit_codec", "paged_decode_attention"):
+        for name in ("plam_matmul", "paged_decode_attention"):
             self.path_launches[name] = counts[name]
         st = eng.stats
         forwards = st.prefills + st.decode_steps
@@ -834,15 +974,26 @@ class Smoke:
             f"({decode_tokens / st.decode_s:.2f} decode tok/s), "
             f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         log(f"launches: {counts} (forwards {forwards}, decode steps {st.decode_steps})")
+        # one K1 launch a projection, the activations encoded inside it
         expect = {"plam_matmul": (7 * layers + 1) * forwards,
-                  "posit_codec": (7 * layers + 1) * forwards,
+                  "posit_codec": 0,
                   "paged_decode_attention": layers * st.decode_steps}
         bad = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
         outs = [done[h.rid] for h in handles]
         valid = all(len(o) == 16 and all(0 <= t < cfg.vocab for t in o) for o in outs)
         for h in handles:
             log(f"  req {h.rid}: {done[h.rid]}")
-        profile = self.profile_decode(eng, prompts)
+        # the counted run's step latencies, before the profile adds steps
+        run_steps = list(st.step_latency_s)
+        log(f"step latency over the {len(run_steps)} steps: p50 "
+            f"{np.quantile(run_steps, 0.5) * 1e3:.1f} ms, p95 "
+            f"{np.quantile(run_steps, 0.95) * 1e3:.1f} ms, first {run_steps[0] * 1e3:.1f} ms")
+        profile, step_launches = self.profile_decode(eng, prompts)
+        step_expect = {"plam_matmul": 7 * layers + 1, "posit_codec": 0,
+                       "paged_decode_attention": layers}
+        for k, v in step_expect.items():
+            if step_launches[k] != v:
+                bad[f"{k} in one decode step"] = (step_launches[k], v)
         self.results["serve"] = {
             "layers": layers, "prompt_lens": lens, "steps": st.steps,
             "prefills": st.prefills, "decode_steps": st.decode_steps,
@@ -851,6 +1002,9 @@ class Smoke:
             "step_p50_s": st.latency_p50(), "step_p95_s": st.latency_p95(),
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "engine_build_s": build_s, "launches": counts, "expected": expect,
+            "decode_step_launches": step_launches, "run_step_latency_s": run_steps,
+            "run_step_p50_s": float(np.quantile(run_steps, 0.5)),
+            "run_step_p95_s": float(np.quantile(run_steps, 0.95)),
             "outputs": outs, "decode_profile": profile}
         del eng
         torch.cuda.empty_cache()
@@ -860,18 +1014,27 @@ class Smoke:
             raise AssertionError("a request did not return 16 valid tokens")
 
     def profile_decode(self, eng, prompts):
-        """Device time by kernel over two decode steps with all 4 slots
-        busy (torch.profiler), after the counted run; idle share = 1 -
-        device busy time / wall time of the two steps."""
+        """Launches of one decode step with all 4 slots busy, then device
+        time by kernel over two more (torch.profiler), after the counted
+        run; idle share = 1 - device busy time / wall time of the two
+        steps.  Returns (profile or None, launches of the one step)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
+        from repro_torch.kernels import _lib
+
+        for p in prompts:
+            eng.submit(p, max_new_tokens=5, arrival_step=eng.current_step)
+        eng.step()  # admits and prefills all four, then one decode
+        _lib.reset_launches()
+        eng.step()  # one decode step, counted
+        torch.cuda.synchronize()
+        step_launches = dict(_lib.launches)
+        log(f"one decode step (4 slots): launches {step_launches}")
         if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
             log("decode profile: this torch cannot trace the card (not measured)")
-            return None
-        for p in prompts:
-            eng.submit(p, max_new_tokens=4, arrival_step=eng.current_step)
-        eng.step()  # admits and prefills all four, then one decode
+            eng.run()
+            return None, step_launches
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             eng.step()
@@ -889,7 +1052,7 @@ class Smoke:
         busy = sum(by_name.values())
         if busy == 0:
             log("decode profile: the profiler recorded no device time (not measured)")
-            return None
+            return None, step_launches
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
         log(f"decode profile, 2 steps x 4 slots: wall {wall_us / 1e3:.1f} ms, device busy "
             f"{busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}")
@@ -903,7 +1066,7 @@ class Smoke:
         return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
                 "idle_share": 1 - busy / wall_us,
                 "k2_ms": k2_us / 1e3, "k2_share": k2_us / busy,
-                "top": [[name, us / 1e3] for name, us in top]}
+                "top": [[name, us / 1e3] for name, us in top]}, step_launches
 
     # -- phase 5 -------------------------------------------------------------
 
@@ -955,8 +1118,9 @@ class Smoke:
                                "launches": used}
         del model
         torch.cuda.empty_cache()
-        served = ("plam_matmul", "posit_codec", "paged_decode_attention")
-        if not finite or err > E2E_LOGIT_TOL or min(used[k] for k in served) == 0:
+        served = ("plam_matmul", "paged_decode_attention")
+        if (not finite or err > E2E_LOGIT_TOL or min(used[k] for k in served) == 0
+                or used["posit_codec"] != 0):
             raise AssertionError(f"e2e: err {err} finite {finite} launches {used}")
 
     # -- phase 6 -------------------------------------------------------------
@@ -969,6 +1133,7 @@ class Smoke:
             paged_decode_attention_kernel,
             paged_decode_attention_ref,
         )
+        from repro_torch.kernels.ops import plam_dense
         from repro_torch.kernels.plam_matmul import plam_matmul
         from repro_torch.kernels.posit_codec import posit_encode
         from repro_torch.numerics import P16
@@ -997,6 +1162,12 @@ class Smoke:
                 + (f", design floor {floor_ms:.4f} ms" if floor_ms is not None else "") + ")")
             return row
 
+        def mean(v):
+            return sum(v) / len(v)
+
+        def in_turns(pair, fused, digits):
+            return [round(v, digits) for v in (pair[0], fused[0], fused[1], pair[1])]
+
         timed = self.timed
         int_rate = self.int32_ops_per_s()
         # K1 at the decode shapes (M = 4) and one prefill shape (M = 64).
@@ -1021,12 +1192,55 @@ class Smoke:
                                    reps=1, warmup=0)
             floor = (k * n * word_ops + m * k * n * row_ops) / int_rate * 1e3 if m <= 16 else None
             again = " (again, last)" if i == len(k1_runs) - 1 else ""
-            row = add("plam_matmul", f"M={m} K={k} N={n} B=int16{again}", ms, plain,
-                      m * k * 4 + k * n * 2 + m * n * 4, m * k * n, int_rate, floor_ms=floor)
+            add("plam_matmul", f"M={m} K={k} N={n} B=int16{again}", ms, plain,
+                m * k * 4 + k * n * 2 + m * n * 4, m * k * n, int_rate, floor_ms=floor)
+            del a, b
+        # K1 over bf16 activations (plam_dense: one launch, the serving
+        # path's call) beside the codec-then-matmul pair it replaced, in
+        # turns (pair, fused, fused, pair), window and spun, and the host
+        # time per call of each
+        for m, (k, n) in K1_PAIR_RUNS:
+            x = torch.randn((m, k), generator=g, device=self.dev).to(torch.bfloat16)
+            b = posit_encode(torch.randn((k, n), generator=g, device=self.dev) * k ** -0.5,
+                             P16, out_dtype=torch.int16)
+            fused = lambda: plam_dense(x, b, P16)  # noqa: E731
+            pair = lambda: plam_matmul(posit_encode(x, P16), b, P16)  # noqa: E731
+            turns = {"pair": [], "fused": []}
+            for spin in (False, True):
+                for name in ("pair", "fused", "fused", "pair"):
+                    fn = fused if name == "fused" else pair
+                    turns[name].append(self.events_ms(fn, reps=10, spin=spin))
+            host = {"pair": [], "fused": []}
+            for name in ("pair", "fused", "fused", "pair"):
+                host[name].append(self.host_us(fused if name == "fused" else pair))
+            plain = self.events_ms(lambda: plam_dense(x, b, P16, use_kernel=False), reps=1,
+                                   warmup=0)
+            floor = (k * n * word_ops + m * k * n * row_ops) / int_rate * 1e3 if m <= 16 else None
+            row = add("plam_matmul", f"fused M={m} K={k} N={n} A=bf16 B=int16",
+                      (mean(turns["fused"][:2]), mean(turns["fused"][2:])), plain,
+                      m * k * 2 + k * n * 2 + m * n * 4, m * k * n, int_rate, floor_ms=floor)
+            row.update({"turns_ms": turns, "pair_ms": mean(turns["pair"][:2]),
+                        "pair_device_ms": mean(turns["pair"][2:]), "host_us": host,
+                        "fused_host_us": mean(host["fused"]),
+                        "pair_host_us": mean(host["pair"])})
+            tp, tf, hp, hf = turns["pair"], turns["fused"], host["pair"], host["fused"]
+            log(f"  fused vs pair, in turns (pair, fused, fused, pair): window "
+                f"{in_turns(tp[:2], tf[:2], 4)} ms, spun {in_turns(tp[2:], tf[2:], 4)} ms; "
+                f"host per call {in_turns(hp, hf, 2)} us")
             if (m, k, n) == (4, 4096, 11008):
                 k1_main = row
-            del a, b
-        # K3 at the activation shapes (bf16 -> int32) and one weight (-> int16)
+            del x, b
+        self.time_fused_on_serve_activations()
+        # K3 at the activation shapes (bf16 -> int32) and one weight (->
+        # int16); the bound is the larger of the bytes and the ALU-pipe
+        # operations a table encode needs, and beside it the design's floor
+        # (its own operations), both hand counts in its source
+        with open(K3_SOURCE) as f:
+            src = f.read()
+        k3_bound_ops, k3_ops = (int(re.search(rf"constexpr int {c} = (\d+);", src).group(1))
+                                for c in ("kEncodeBoundAluOpsPerLane", "kEncodeAluOpsPerLane"))
+        log(f"K3 ALU-pipe operations a bf16 encode lane needs (counted in posit_codec.cu): "
+            f"{k3_bound_ops} (a table encode: the bound), {k3_ops} (this design: its floor)")
         k3_main = None
         for shape, od in [((4, 4096), torch.int32), ((64, 11008), torch.int32),
                           ((4096, 11008), torch.int16)]:
@@ -1036,8 +1250,9 @@ class Smoke:
                 lambda: posit_encode(x, P16, out_dtype=od, use_kernel=False), reps=2)
             out_b = 4 if od == torch.int32 else 2
             row = add("posit_codec", f"encode {list(shape)} bf16->{str(od)[6:]}", ms, plain,
-                      x.numel() * (2 + out_b), x.numel(), int_rate)
-            if shape == (4, 4096):
+                      x.numel() * (2 + out_b), x.numel() * k3_bound_ops, int_rate,
+                      floor_ms=x.numel() * k3_ops / int_rate * 1e3)
+            if shape == (4096, 11008):  # the weight encode: K3's path now
                 k3_main = row
         # K2 at the serving shape (4 sequences of yi-6b heads, bf16 pool) and
         # at a long paged context; the library yardstick is SDPA over the
@@ -1064,7 +1279,7 @@ class Smoke:
         k5_main = self.time_decode_attention(add)
         self.results["times"] = rows
         self.kernels = {
-            "plam_matmul": (k1_main, "src/repro_torch/kernels/csrc/plam_matmul.cu",
+            "plam_matmul": (k1_main, "src/repro_torch/kernels/csrc/plam_matmul.cuh",
                             "src/repro/kernels/plam_matmul.py:123"),
             "paged_decode_attention": (
                 k2_main, "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
@@ -1076,6 +1291,92 @@ class Smoke:
             "decode_attention": (k5_main, "src/repro_torch/kernels/csrc/decode_attention.cu",
                                  "src/repro/kernels/decode_attention.py:83"),
         }
+
+    def serve_activations(self):
+        """What K1 is given on the serve path: a seeded full-width engine
+        (the serve phase's configuration and depth) admits four prompts of
+        40, 64, 20 and 10 tokens in one step, so it prefills at M = 48 and
+        64 (and 32, 16) and then decodes the four slots at M = 4.  Returns
+        {(M, K, N): [(x, weight), ...]} over every plam_dense call of that
+        step, in call order (a copy of each x; the weights are the
+        engine's)."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.serving import ServeOptions, build_engine
+
+        opts = ServeOptions(max_new_tokens=4, block_size=16, max_slots=4, num_blocks=64,
+                            max_seq_len=128, prequantize=True)
+        cfg = self.yi_cfg(self.args.layers)
+        eng = build_engine(cfg, opts, init_seed=0)
+        g = torch.Generator().manual_seed(17)
+        for n in (40, 64, 20, 10):
+            eng.submit(torch.randint(0, cfg.vocab, (n,), generator=g).tolist(),
+                       max_new_tokens=4, arrival_step=0)
+        seen, plam_dense = {}, ops.plam_dense
+
+        def spy(x, w, *args, **kw):
+            x2 = x.reshape(-1, x.shape[-1])
+            seen.setdefault((x2.shape[0], *w.shape), []).append((x2.clone(), w))
+            return plam_dense(x, w, *args, **kw)
+
+        ops.plam_dense = spy
+        try:
+            eng.step()
+        finally:
+            ops.plam_dense = plam_dense
+        torch.cuda.synchronize()
+        del eng
+        return seen
+
+    def time_fused_on_serve_activations(self):
+        """The fused call beside the codec-then-matmul pair on the serve
+        path's own activations (serve_activations) at K1_PAIR_RUNS' shapes:
+        each timed call runs every captured call of its shape back to back
+        (each layer's input with that layer's weight) and is divided by
+        their number; spun, behind a spin long enough to queue them all, in
+        turns (pair, fused, fused, pair).  Logs the share of the inputs, and
+        of their 32-element runs, outside the exact bf16 range (where
+        a_word takes the full encode)."""
+        torch = self.torch
+        from repro_torch.kernels.ops import plam_dense
+        from repro_torch.kernels.plam_matmul import plam_matmul
+        from repro_torch.kernels.posit_codec import posit_encode
+        from repro_torch.numerics import P16
+
+        seen, rows = self.serve_activations(), []
+        lo, hi = EXACT_BF16_SCALES
+        for m, (k, n) in K1_PAIR_RUNS:
+            calls = seen[(m, k, n)]
+            xs = torch.cat([x for x, _ in calls])
+            bits = xs.view(torch.int16).to(torch.int32) & 0xFFFF
+            scale = ((bits >> 7) & 0xFF) - 127
+            out = ((bits & 0x7FFF) != 0) & ((scale < lo) | (scale > hi))
+            runs = out.view(-1, 32).any(1).float().mean().item()
+
+            def fused():
+                for x, w in calls:
+                    plam_dense(x, w, P16)
+
+            def pair():
+                for x, w in calls:
+                    plam_matmul(posit_encode(x, P16), w, P16)
+
+            turns = {"pair": [], "fused": []}
+            for name in ("pair", "fused", "fused", "pair"):
+                turns[name].append(self.events_ms(fused if name == "fused" else pair, reps=3,
+                                                  spin=True, spin_cycles=HOST_SPIN_CYCLES)
+                                   / len(calls))
+            share = out.float().mean().item()
+            rows.append({"shape": f"M={m} K={k} N={n}", "calls": len(calls),
+                         "out_of_range": share, "runs_out_of_range": runs,
+                         "turns_device_ms": turns})
+            log(f"time fused vs pair on serve activations M={m} K={k} N={n} ({len(calls)} calls): "
+                f"{share:.4f} of values and {runs:.4f} of 32-value runs outside scales "
+                f"[{lo}, {hi}]; spun ms a call, in turns (pair, fused, fused, pair): "
+                f"{[round(v, 4) for v in (turns['pair'][0], *turns['fused'], turns['pair'][1])]}")
+        self.results["fused_on_serve_activations"] = rows
+        del seen
+        torch.cuda.empty_cache()
 
     def time_posit_mul(self, add, int_rate):
         """K4 over 2^24 seeded Posit<16,1> pairs: 12 bytes a lane, and the

@@ -5,9 +5,10 @@
   (straight-through gradients), exact multiply; f32 or bf16 carrier.
 * ``plam_sim``         — every scalar product is the paper's
   logarithm-approximate multiplication, antilogged to linear f32 and
-  accumulated.  Both operands go through the codec kernel and the
-  products through the PLAM matmul kernel (``repro_torch.kernels``);
-  with prequantized int16 weights only the activations are encoded.
+  accumulated.  The weight goes through the codec kernel, the
+  activations are encoded inside the PLAM matmul kernel, which sums the
+  products (``repro_torch.kernels``); prequantized int16 weights skip
+  the weight encode.
 * ``mitchell_f32``     — parsed for policy parity, not yet served
   (``ROADMAP.md``, queue 1).
 
@@ -70,19 +71,17 @@ def _quantize_bf16(x: torch.Tensor, spec: PositSpec) -> torch.Tensor:
 
 
 def _plam_matmul(x, w, spec: PositSpec, use_kernel: Optional[bool]):
-    """PLAM matmul of linear operands: encode both, then the PLAM kernel.
+    """PLAM matmul of linear operands: the weight through the codec
+    kernel, then ``plam_dense``, which encodes the activations inside
+    the PLAM kernel.
 
     The reference sums each K-chunk with ``jnp.sum``, so the two agree to
     f32 rounding, not bit for bit.
     """
-    from repro_torch.kernels.ops import plam_matmul_bits, posit_encode
+    from repro_torch.kernels.ops import plam_dense, posit_encode
 
-    k = x.shape[-1]
-    lead = x.shape[:-1]
-    xb = posit_encode(x.reshape(-1, k).contiguous(), spec, use_kernel=use_kernel)
     wb = posit_encode(w.contiguous(), spec, use_kernel=use_kernel)
-    out = plam_matmul_bits(xb, wb, spec, use_kernel=use_kernel)
-    return out.reshape(*lead, w.shape[-1])
+    return plam_dense(x, wb, spec, use_kernel=use_kernel)
 
 
 def _pattern_matmul(x, w_pat, ncfg: NumericsConfig, out_dtype, use_kernel):

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper, each with its plain version.
 
-* ``plam_matmul``             — the PLAM matmul (K1, ``csrc/plam_matmul.cu``)
+* ``plam_matmul``             — the PLAM matmul (K1, ``csrc/plam_matmul.cuh``;
+  entry points ``plam_matmul.cu`` over posit patterns and ``plam_dense.cu``
+  over float activations, which it encodes itself)
 * ``paged_decode_attention``  — paged decode attention (K2,
   ``csrc/paged_decode_attention.cu``, on the split-key core of
   ``csrc/decode_attention.cuh`` that K5 shares)

@@ -1,503 +1,8 @@
-// PLAM matmul on Hopper: C[M,N] = sum_k PLAM(A[m,k], B[k,n]), f32 sums.
-//
-// Replaces the Pallas TPU kernel repro/kernels/plam_matmul.py::plam_matmul
-// (_plam_matmul_kernel, _log_words).  Each product is one 32-bit integer
-// add of two pre-decoded log words (posit.cuh::log_word) and a bitcast;
-// zero and NaR lanes contribute +0.0.
-//
-// Bit identity with the sequential reference (kernels/ref.py::
-// plam_matmul_seqref) rules the design: every output is owned by one
-// thread that walks k strictly ascending in one f32 accumulator, starting
-// at +0.0.  So there is no split-K, no tree sum and no atomics: each
-// would change the order of the f32 adds.  Ragged M, N and K read as zero
-// patterns, whose products add +0.0 and leave a sum unchanged (a sum of
-// products is never -0.0: every valid product is a normal f32).  Tensor
-// cores (wgmma) cannot help: a PLAM product is an integer add of log
-// words, not a multiply.  TMA is not used either: its tensor maps are
-// made by cuTensorMapEncodeTiled in libcuda, which this library (plain
-// nvcc, bound with ctypes) does not link, and cp.async already keeps
-// the loads in flight here.
-//
-// What bounds it on an H100: decoding B.  A decode call (M <= 16) reads
-// each int16 weight once and uses it M times, so its bytes are few
-// (K*N*2) and its work is the decode of K*N patterns into log words.
-// Operations of one log_word, counted by hand as posit_mul.cu counts
-// K4's (one per operator, comparison, select or clz on a lane's values;
-// values of the spec alone are hoisted and not counted):
-//
-//                     ALU-only   add-like   clz
-//   decode_fields        16          8       1
-//   log_word glue         3          5       -   (mantissa shift, +127,
-//                                                  <<23, sign<<31, add;
-//                                                  or, valid, select)
-//   log_word             19         13       1   = 33
-//   product, per row      2          1       -   + one f32 add (two
-//                                                  compares, one add)
-//
-// The ALU pipe (64 lanes per SM per clock) binds: a B pattern costs at
-// least 19 + 2*M ALU-only operations, 27 at M = 4, against 2 bytes.
-// At M = 4, K = 4096, N = 4096 that is 0.027 ms on 132 SMs at 1980 MHz,
-// against 0.010 ms for the bytes.  chip_smoke.py reads the two counts
-// below for this "design floor"; the bound it reports stays the true
-// floor (one add per product, or the bytes).
-//
-// What the decode path (M <= 16) does about it:
-// - Decoding is parted from owning outputs, in separate warps.  256
-//   decoder threads copy and decode a [BK, BN] tile of B (2048 patterns,
-//   8 a thread) and the [BK, MT] tile of A into uint32 log words in
-//   shared memory, word 0 meaning zero or NaR, while 4*BN owner threads
-//   (four per column, MT/4 rows each) add the previous tile's products
-//   in k order.  A B word is decoded once and used M times, and the
-//   owners load 16 k steps of words before adding them, so that a
-//   shared-memory latency is paid per batch and not per step.
-// - The strip width BN (8 to 64 columns) is chosen from N and the SM
-//   count (strip_width) so that the grid's last wave is not a tail:
-//   8 columns at N = 512, 32 at 4096 and 11008, 64 at 64000.
-// - Loads stay in flight: a ring of kStages tiles of raw patterns is
-//   filled with cp.async, tiles t+2 .. t+kStages landing while tile t+1
-//   is decoded and tile t summed, and the decoded words are
-//   double-buffered, so that each tile costs one barrier.  Each decoder
-//   decodes exactly the patterns it copied, so it waits only for its own
-//   copies.  B rows that start on 16 bytes (N % 8 == 0 for int16,
-//   N % 4 == 0 for int32, an aligned base) are copied 16 bytes a thread;
-//   other shapes read B with guarded scalar loads at decode time.
-// - int16 B at Posit<16,1>, the prequantized weights of the serving
-//   path, runs with the spec compiled in (plam::FixedSpec), so that
-//   decode_fields' masks, shifts and branches fold into immediates.
-//
-// The prefill path (M > 16) is the tiled kernel at the end of this file,
-// which the decode path's design leaves as it was: there a decoded B
-// word serves 64 rows, so the decode is amortised, and the M * N outputs
-// alone give every SM work.  Its limits (serial k-tiles
-// behind two barriers, no loads in flight) are for a later change.
-#include <cuda_runtime.h>
-
-#include <cstdint>
-
-#include "posit.cuh"
-
-// the hand counts above, which chip_smoke.py reads for K1's decode floor
-constexpr int kLogWordAluOps = 19;
-constexpr int kProductAluOpsPerRow = 2;
-
-namespace {
-
-__device__ __forceinline__ uint32_t load_bits(int32_t b) { return (uint32_t)b; }
-__device__ __forceinline__ uint32_t load_bits(int16_t b) { return (uint32_t)(uint16_t)b; }
-
-// -- the decode path (M <= 16) ---------------------------------------------
-
-constexpr int kDecoders = 256;   // threads of a block that copy and decode
-constexpr int kTileElems = 2048; // B patterns in a [BK, BN] tile: 8 a thread
-constexpr int kStages = 4;       // cp.async ring depth
-constexpr int kSumBatch = 16;    // k steps whose words an owner loads before adding
-
-// cp.async of 16 or 4 bytes; with `full` false nothing is read and the
-// destination is zero-filled (a zero pattern)
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool full) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool full) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(full ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-template <int MT, int BN, typename TB, bool VEC>
-struct DecodeTile {
-  static constexpr int BK = kTileElems / BN;             // k-tile depth
-  static constexpr int EPC = 16 / (int)sizeof(TB);       // patterns per 16-byte chunk
-  static constexpr int CPR = BN / EPC;                   // chunks per tile row
-  static constexpr int CPT = kTileElems / EPC / kDecoders;  // chunks per decoder
-  static constexpr int APT = (MT * BK + kDecoders - 1) / kDecoders;  // A patterns per decoder
-  static constexpr int RM = MT / 4;                      // rows per owner thread
-  static constexpr int OWNERS = 4 * BN;                  // four per column: whole warps
-  static constexpr int THREADS = OWNERS + kDecoders;
-  // shared memory: decoded B [2][BK][BN], decoded A [2][BK][MT] (uint32),
-  // raw A [kStages][BK][MT] (int32), raw B [kStages][BK][BN] (VEC only)
-  static constexpr size_t kWb = 2 * kTileElems * 4;
-  static constexpr size_t kWa = 2 * BK * MT * 4;
-  static constexpr size_t kRawA = kStages * BK * MT * 4;
-  static constexpr size_t kRawB = VEC ? kStages * kTileElems * sizeof(TB) : 0;
-  static constexpr size_t kSmem = kWb + kWa + kRawA + kRawB;
-  static_assert(BN % EPC == 0 && CPT >= 1 && BK % kSumBatch == 0, "tile shape");
-};
-
-template <int MT, int BN, typename TB, bool VEC, class SP>
-__global__ void __launch_bounds__(DecodeTile<MT, BN, TB, VEC>::THREADS)
-plam_matmul_decode_kernel(const int32_t* __restrict__ A, const TB* __restrict__ B,
-                          float* __restrict__ C, int M, int N, int K, SP sp) {
-  using D = DecodeTile<MT, BN, TB, VEC>;
-  constexpr int BK = D::BK, EPC = D::EPC, CPR = D::CPR, RM = D::RM;
-  constexpr uint32_t kBias = 127u << 23;
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* const wb = (uint32_t*)smem;
-  uint32_t* const wa = (uint32_t*)(smem + D::kWb);
-  int32_t* const raw_a = (int32_t*)(smem + D::kWb + D::kWa);
-  TB* const raw_b = (TB*)(smem + D::kWb + D::kWa + D::kRawA);
-
-  // the first OWNERS threads own outputs, the other kDecoders threads
-  // copy and decode
-  const int tid = threadIdx.x;
-  const int dec = tid - D::OWNERS;
-  const int n0 = blockIdx.x * BN;
-  const int tiles = (K + BK - 1) / BK;
-
-  // Start tile t's copies into ring slot t % kStages, one commit group
-  // per call (empty past the last tile, so the group count stays uniform).
-  auto load = [&](int t) {
-    if (t < tiles) {
-      const int k0 = t * BK;
-      const int slot = t % kStages;
-#pragma unroll
-      for (int j = 0; j < D::APT; ++j) {
-        const int i = dec + j * kDecoders;
-        if ((MT * BK) % kDecoders != 0 && i >= MT * BK) break;
-        const int mm = i % MT, kk = i / MT;
-        const bool in = mm < M && k0 + kk < K;
-        cp_async_4(&raw_a[(slot * BK + kk) * MT + mm], in ? A + (size_t)mm * K + k0 + kk : A, in);
-      }
-      if constexpr (VEC) {
-#pragma unroll
-        for (int c = 0; c < D::CPT; ++c) {
-          const int chunk = dec + c * kDecoders;
-          const int kk = chunk / CPR, nn = (chunk % CPR) * EPC;
-          const bool in = k0 + kk < K && n0 + nn < N;  // N % EPC == 0: all or none
-          cp_async_16(&raw_b[(slot * BK + kk) * BN + nn],
-                      in ? B + (size_t)(k0 + kk) * N + n0 + nn : B, in);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-
-  // Decode tile t (the patterns this thread copied) into buffer t & 1.
-  auto decode = [&](int t) {
-    const int k0 = t * BK;
-    const int slot = t % kStages;
-    uint32_t* const wa_t = wa + (t & 1) * BK * MT;
-    uint32_t* const wb_t = wb + (t & 1) * kTileElems;
-    bool ok;
-#pragma unroll
-    for (int j = 0; j < D::APT; ++j) {
-      const int i = dec + j * kDecoders;
-      if ((MT * BK) % kDecoders != 0 && i >= MT * BK) break;
-      wa_t[i] = plam::log_word((uint32_t)raw_a[slot * BK * MT + i], sp, ok);
-    }
-#pragma unroll
-    for (int c = 0; c < D::CPT; ++c) {
-      const int chunk = dec + c * kDecoders;
-      const int kk = chunk / CPR, nn = (chunk % CPR) * EPC;
-      uint32_t bits[EPC];
-      if constexpr (VEC) {
-        const uint4 v = *reinterpret_cast<const uint4*>(&raw_b[(slot * BK + kk) * BN + nn]);
-        const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int e = 0; e < EPC; ++e) {
-          if constexpr (sizeof(TB) == 2) {
-            bits[e] = (w4[e / 2] >> (16 * (e % 2))) & 0xFFFFu;
-          } else {
-            bits[e] = w4[e];
-          }
-        }
-      } else {
-        const int gk = k0 + kk;
-#pragma unroll
-        for (int e = 0; e < EPC; ++e) {
-          const int gn = n0 + nn + e;
-          bits[e] = (gk < K && gn < N) ? load_bits(B[(size_t)gk * N + gn]) : 0u;
-        }
-      }
-      uint32_t w[EPC];
-#pragma unroll
-      for (int e = 0; e < EPC; ++e) w[e] = plam::log_word(bits[e], sp, ok);
-#pragma unroll
-      for (int q = 0; q < EPC / 4; ++q) {
-        *reinterpret_cast<uint4*>(&wb_t[kk * BN + nn + 4 * q]) =
-            make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
-      }
-    }
-  };
-
-  // Owner threads add tile t's products in k order.
-  const int col = tid % BN;
-  const int row0 = (tid / BN) * RM;
-  float acc[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) acc[i] = 0.0f;
-  auto sum = [&](int t) {
-    const uint32_t* const wa_t = wa + (t & 1) * BK * MT + row0;
-    const uint32_t* const wb_t = wb + (t & 1) * kTileElems + col;
-    // the words of kSumBatch k steps are loaded first, so that one
-    // shared-memory latency is paid per batch and not per step
-    for (int k0 = 0; k0 < BK; k0 += kSumBatch) {
-      uint32_t b[kSumBatch], a[kSumBatch][RM];
-#pragma unroll
-      for (int u = 0; u < kSumBatch; ++u) {
-        const int kk = k0 + u;
-        b[u] = wb_t[kk * BN];
-        if constexpr (RM % 4 == 0) {
-#pragma unroll
-          for (int q = 0; q < RM / 4; ++q) {
-            const uint4 v = *reinterpret_cast<const uint4*>(&wa_t[kk * MT + 4 * q]);
-            a[u][4 * q] = v.x, a[u][4 * q + 1] = v.y, a[u][4 * q + 2] = v.z,
-                     a[u][4 * q + 3] = v.w;
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < RM; ++i) a[u][i] = wa_t[kk * MT + i];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kSumBatch; ++u) {
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          // A's word keeps its bias: a word of 0 marks zero or NaR, and every
-          // valid word is at least 64 << 23 (|scale| <= 63).  A zero or NaR
-          // product is +0.0, and adding it leaves the sum's bits as they
-          // are (the sum is never -0.0 or NaN: every product is a finite
-          // normal f32), so it is skipped.
-          if (a[u][i] != 0u && b[u] != 0u) {
-            acc[i] = acc[i] + __uint_as_float(a[u][i] + b[u] - kBias);
-          }
-        }
-      }
-    }
-  };
-
-  // While the owners add tile t, the decoders decode tile t + 1 and
-  // copy tile t + kStages; one barrier per tile hands the words over.
-  const bool owner = dec < 0;
-  if (!owner) {
-    for (int s = 0; s < kStages; ++s) load(s);
-    cp_async_wait<kStages - 1>();  // tile 0 has landed
-    decode(0);
-  }
-  __syncthreads();
-  for (int t = 0; t < tiles; ++t) {
-    if (owner) {
-      sum(t);
-    } else {
-      load(t + kStages);  // into tile t's slot, decoded before the last barrier
-      cp_async_wait<kStages - 1>();  // tile t + 1 has landed
-      if (t + 1 < tiles) decode(t + 1);
-    }
-    __syncthreads();
-  }
-
-  const int gn = n0 + col;
-  if (owner && gn < N) {
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      if (row0 + i < M) C[(size_t)(row0 + i) * N + gn] = acc[i];
-    }
-  }
-}
-
-template <int MT, int BN, typename TB, bool VEC, class SP>
-cudaError_t launch_decode(const int32_t* a, const TB* b, float* c, int m, int n, int k,
-                          SP sp, cudaStream_t stream) {
-  constexpr size_t smem = DecodeTile<MT, BN, TB, VEC>::kSmem;
-  auto kernel = plam_matmul_decode_kernel<MT, BN, TB, VEC, SP>;
-  // set once per instantiation, at its first launch
-  static const cudaError_t attr =
-      smem > 48 * 1024
-          ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
-          : cudaSuccess;
-  if (attr != cudaSuccess) return attr;
-  kernel<<<(n + BN - 1) / BN, DecodeTile<MT, BN, TB, VEC>::THREADS, smem, stream>>>(
-      a, b, c, m, n, k, sp);
-  return cudaSuccess;
-}
-
-template <int MT, int BN, typename TB, class SP>
-cudaError_t launch_strip(bool vec, const int32_t* a, const TB* b, float* c, int m, int n,
-                         int k, SP sp, cudaStream_t stream) {
-  return vec ? launch_decode<MT, BN, TB, true>(a, b, c, m, n, k, sp, stream)
-             : launch_decode<MT, BN, TB, false>(a, b, c, m, n, k, sp, stream);
-}
-
-// The strip width (8 to 64 columns, at least min_bn) whose grid finishes
-// first: a block's work grows as BN + MT (its B columns and the A rows it
-// decodes again), and the blocks run in waves over the card's SMs, so the
-// cost is waves * (BN + MT).  Ties go to the wider strip.
-int strip_width(int n, int mt, int min_bn, int sms) {
-  int best_bn = min_bn;
-  long best = -1;
-  for (int bn = 64; bn >= min_bn; bn /= 2) {
-    const long waves = ((n + bn - 1) / bn + sms - 1) / sms;
-    const long cost = waves * (bn + mt);
-    if (best < 0 || cost < best) best = cost, best_bn = bn;
-  }
-  return best_bn;
-}
-
-// The card's SM count, read once
-cudaError_t card_sms(int* sms) {
-  static int cached = 0;
-  if (cached == 0) {
-    int dev = 0, count = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-    cached = count;
-  }
-  *sms = cached;
-  return cudaSuccess;
-}
-
-template <int MT, typename TB, class SP>
-cudaError_t dispatch_decode(const int32_t* a, const TB* b, float* c, int m, int n, int k,
-                            SP sp, cudaStream_t stream) {
-  constexpr int kEpc = 16 / (int)sizeof(TB);
-  const bool vec = n % kEpc == 0 && (reinterpret_cast<uintptr_t>(b) & 15u) == 0;
-  int sms = 0;
-  const cudaError_t e = card_sms(&sms);
-  if (e != cudaSuccess) return e;
-  switch (strip_width(n, MT, MT == 4 ? 8 : 16, sms)) {
-    case 64: return launch_strip<MT, 64, TB>(vec, a, b, c, m, n, k, sp, stream);
-    case 32: return launch_strip<MT, 32, TB>(vec, a, b, c, m, n, k, sp, stream);
-    case 16: return launch_strip<MT, 16, TB>(vec, a, b, c, m, n, k, sp, stream);
-    default:
-      if constexpr (MT == 4) return launch_strip<MT, 8, TB>(vec, a, b, c, m, n, k, sp, stream);
-      return cudaErrorInvalidValue;
-  }
-}
-
-// -- the prefill path (M > 16) ---------------------------------------------
-
-template <int BM, int BN, int BK, int TM, int TN, typename TB>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-plam_matmul_kernel(const int32_t* __restrict__ A, const TB* __restrict__ B,
-                   float* __restrict__ C, int M, int N, int K, plam::Spec sp) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr int TX = BN / TN;  // threads along N
-  constexpr uint32_t kBias = 127u << 23;
-  // A is stored k-major with one pad column: the decode loop writes it
-  // with consecutive threads on consecutive k, conflict-free
-  __shared__ uint32_t a_word[BK][BM + 1];
-  __shared__ uint32_t b_word[BK][BN];
-  __shared__ bool a_ok[BK][BM + 1];
-  __shared__ bool b_ok[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // decode the A tile once; consecutive threads walk k (A is row-major)
-    for (int idx = tid; idx < BM * BK; idx += NT) {
-      const int mm = idx / BK, kk = idx % BK;
-      const int gm = m0 + mm, gk = k0 + kk;
-      const uint32_t bits = (gm < M && gk < K) ? (uint32_t)A[(size_t)gm * K + gk] : 0u;
-      bool ok;
-      const uint32_t w = plam::log_word(bits, sp, ok);
-      a_word[kk][mm] = w - kBias;  // bias pre-subtracted once per A element
-      a_ok[kk][mm] = ok;
-    }
-    // decode the B tile once; consecutive threads walk n (B is row-major)
-    for (int idx = tid; idx < BK * BN; idx += NT) {
-      const int kk = idx / BN, nn = idx % BN;
-      const int gk = k0 + kk, gn = n0 + nn;
-      const uint32_t bits = (gk < K && gn < N) ? load_bits(B[(size_t)gk * N + gn]) : 0u;
-      bool ok;
-      b_word[kk][nn] = plam::log_word(bits, sp, ok);
-      b_ok[kk][nn] = ok;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      uint32_t aw[TM], bw[TN];
-      bool av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        aw[i] = a_word[kk][ty * TM + i];
-        av[i] = a_ok[kk][ty * TM + i];
-      }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        bw[j] = b_word[kk][tx + j * TX];
-        bv[j] = b_ok[kk][tx + j * TX];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          // one integer add is the whole multiplier; always add, so that
-          // the accumulator sees the same +0.0 terms as the reference
-          const float v = (av[i] && bv[j]) ? __uint_as_float(aw[i] + bw[j]) : 0.0f;
-          acc[i][j] = acc[i][j] + v;
-        }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + j * TX;
-      if (gn < N) C[(size_t)gm * N + gn] = acc[i][j];
-    }
-  }
-}
-
-template <int BM, int BN, int BK, int TM, int TN, typename TB>
-void launch(const int32_t* a, const TB* b, float* c, int m, int n, int k, plam::Spec sp,
-            cudaStream_t stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  plam_matmul_kernel<BM, BN, BK, TM, TN, TB>
-      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(a, b, c, m, n, k, sp);
-}
-
-template <typename TB, class SP>
-cudaError_t dispatch_rows(const int32_t* a, const TB* b, float* c, int m, int n, int k, SP sp,
-                          cudaStream_t stream) {
-  return m <= 4 ? dispatch_decode<4, TB>(a, b, c, m, n, k, sp, stream)  // decode batches
-                : dispatch_decode<16, TB>(a, b, c, m, n, k, sp, stream);
-}
-
-template <typename TB>
-cudaError_t dispatch(const int32_t* a, const TB* b, float* c, int m, int n, int k,
-                     plam::Spec sp, cudaStream_t stream) {
-  if (m > 16) {
-    launch<64, 32, 32, 4, 2, TB>(a, b, c, m, n, k, sp, stream);  // prefill
-    return cudaSuccess;
-  }
-  // prequantized weights (int16 Posit<16,1>) get the spec compiled in
-  if constexpr (sizeof(TB) == 2) {
-    if (sp.n == 16 && sp.es == 1) {
-      return dispatch_rows(a, b, c, m, n, k, plam::FixedSpec<16, 1>{}, stream);
-    }
-  }
-  return dispatch_rows(a, b, c, m, n, k, sp, stream);
-}
-
-}  // namespace
+// K1's entry point over posit patterns: C = A (x)_PLAM B with A int32
+// patterns.  The kernels are plam_matmul.cuh's (kPatternA); the wrapper
+// is kernels/plam_matmul.py::plam_matmul (ops.plam_matmul_bits), which
+// the conformance path and the tests call.
+#include "plam_matmul.cuh"
 
 // a: int32 [m, k]; b: int32 (b_is_int16 == 0) or int16 [k, n]; c: f32 [m, n],
 // all contiguous on the device.  Launches on `stream`; returns the
@@ -505,14 +10,6 @@ cudaError_t dispatch(const int32_t* a, const TB* b, float* c, int m, int n, int 
 extern "C" int plam_matmul_launch(const void* a, const void* b, int b_is_int16, void* c,
                                   int m, int n, int k, int posit_n, int posit_es,
                                   void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
-  const plam::Spec sp = plam::make_spec(posit_n, posit_es);
-  const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e =
-      b_is_int16 ? dispatch<int16_t>((const int32_t*)a, (const int16_t*)b, (float*)c, m, n, k,
-                                     sp, s)
-                 : dispatch<int32_t>((const int32_t*)a, (const int32_t*)b, (float*)c, m, n, k,
-                                     sp, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return plam_mm::launch_matmul<plam_mm::kPatternA>(a, 0, b, b_is_int16, c, m, n, k, posit_n,
+                                                    posit_es, stream);
 }

@@ -1,5 +1,5 @@
 // Posit<n,es> field codec for device code, shared by the PLAM matmul
-// (plam_matmul.cu), the posit codec kernels (posit_codec.cu) and the
+// (plam_matmul.cuh), the posit codec kernels (posit_codec.cu) and the
 // element-wise multipliers (posit_mul.cu).
 //
 // A line-for-line port of repro/numerics/posit.py (decode_fields,
@@ -14,6 +14,21 @@
 
 namespace plam {
 
+// The bf16 values that Posit<n,es> holds exactly: a bf16 carries 7
+// fraction bits, so its posit is exact where the regime (terminator
+// included) leaves es exponent bits and 7 fraction bits, m <= n - 8 - es.
+// With m = k + 2 for k >= 0 and 1 - k for k < 0, that is scales
+// [(1 - mmax) 2^es, (mmax - 1) 2^es - 1]: [-12, 11] at Posit<16,1>.  An
+// empty range (lo > hi) where not even k = 0 leaves the room.
+constexpr int kBf16FracBits = 7;
+constexpr int exact_bf16_mmax(int n, int es) { return n - 1 - es - kBf16FracBits; }
+constexpr int exact_bf16_lo(int n, int es) {
+  return exact_bf16_mmax(n, es) >= 2 ? (1 - exact_bf16_mmax(n, es)) * (1 << es) : 1;
+}
+constexpr int exact_bf16_hi(int n, int es) {
+  return exact_bf16_mmax(n, es) >= 2 ? (exact_bf16_mmax(n, es) - 1) * (1 << es) - 1 : 0;
+}
+
 struct Spec {
   int n;
   int es;
@@ -21,6 +36,7 @@ struct Spec {
   uint32_t mask_n;
   uint32_t nar;
   uint32_t maxpos_body;
+  int exact_lo, exact_hi;  // scales at which every bf16 value is a posit
 };
 
 // The same fields as constants of the type, for a spec known when the
@@ -34,6 +50,8 @@ struct FixedSpec {
   static constexpr uint32_t mask_n = N < 32 ? ((1u << N) - 1u) : 0xFFFFFFFFu;
   static constexpr uint32_t nar = 1u << (N - 1);
   static constexpr uint32_t maxpos_body = (1u << (N - 1)) - 1u;
+  static constexpr int exact_lo = exact_bf16_lo(N, ES);
+  static constexpr int exact_hi = exact_bf16_hi(N, ES);
 };
 
 inline Spec make_spec(int n, int es) {
@@ -44,6 +62,8 @@ inline Spec make_spec(int n, int es) {
   s.mask_n = n < 32 ? ((1u << n) - 1u) : 0xFFFFFFFFu;
   s.nar = 1u << (n - 1);
   s.maxpos_body = (1u << (n - 1)) - 1u;
+  s.exact_lo = exact_bf16_lo(n, es);
+  s.exact_hi = exact_bf16_hi(n, es);
   return s;
 }
 
@@ -89,8 +109,9 @@ __device__ __forceinline__ Fields decode_fields(uint32_t bits, const S& sp) {
 // Pack (sign, scale, frac with fbits fractional bits) into a pattern with
 // round-to-nearest-even on the full pattern, saturating at +-maxpos and
 // never rounding a non-zero value to zero or NaR.
+template <class S>
 __device__ __forceinline__ uint32_t encode_fields(int sign, int scale, uint32_t frac,
-                                                  int fbits, const Spec& sp) {
+                                                  int fbits, const S& sp) {
   const int n = sp.n, es = sp.es;
   int k;
   uint32_t e;
@@ -124,7 +145,8 @@ __device__ __forceinline__ uint32_t encode_fields(int sign, int scale, uint32_t 
 }
 
 // f32 bit pattern -> posit pattern (repro.numerics.encode).
-__device__ __forceinline__ uint32_t encode_f32_bits(uint32_t b, const Spec& sp) {
+template <class S>
+__device__ __forceinline__ uint32_t encode_f32_bits(uint32_t b, const S& sp) {
   if ((b & 0x7FFFFFFFu) == 0u) return 0u;
   const int raw_e = (int)((b >> 23) & 0xFFu);
   if (raw_e == 255) return sp.nar;  // inf/nan -> NaR
@@ -168,6 +190,23 @@ __device__ __forceinline__ uint32_t log_word(uint32_t bits, const S& sp, bool& v
   const uint32_t mant = sp.fb <= 23 ? (f.frac << (23 - sp.fb)) : (f.frac >> (sp.fb - 23));
   const uint32_t lmag = ((uint32_t)(f.scale + 127) << 23) | mant;
   return valid ? lmag + ((uint32_t)f.sign << 31) : 0u;
+}
+
+// A's log word straight from a float activation's f32 bits (a bf16 is
+// its 16 bits shifted up): log_word(encode_f32_bits(x)), without the
+// pattern in between.  Where x is a bf16 value (its low 16 bits are 0)
+// at a scale the posit holds exactly, the posit's scale and mantissa are
+// x's own, so the sign-folded word IS x's bits: a range check and a
+// copy.  Zero gives word 0 (invalid); everything else (f32 values with
+// more than 8 significant bits, scales outside the range, subnormals
+// (minpos), inf and NaN (NaR, word 0)) takes the full encode and decode.
+template <class S>
+__device__ __forceinline__ uint32_t a_word(uint32_t x, const S& sp) {
+  const int e = (int)((x >> 23) & 0xFFu) - 127;
+  if ((x & 0xFFFFu) == 0u && e >= sp.exact_lo && e <= sp.exact_hi) return x;
+  if ((x & 0x7FFFFFFFu) == 0u) return 0u;
+  bool valid;
+  return log_word(encode_f32_bits(x, sp), sp, valid);
 }
 
 }  // namespace plam

@@ -9,18 +9,50 @@
 // its 16 bits shifted up), so subnormal inputs encode to +-minpos whatever
 // the float mode.  Build without --use_fast_math / FTZ.
 //
-// What bounds it on an H100: bytes at large sizes (one read and one write
-// per element, 4 + 4 bytes for f32 -> int32); at the activation sizes of
-// the serving path ([4, 4096] to [64, 11008]) the launch itself.  The
-// design reads and writes one 32-bit word (or one 16-bit word) per thread,
-// coalesced, in a grid-stride loop; encode writes int16 directly when the
-// caller stores 16-bit patterns, so weights are never staged in int32.
+// Where it runs: the serving path's activations are encoded inside the
+// PLAM matmul (plam_matmul.cuh, kFloatA), so this kernel encodes the
+// weights once at engine build (quantize_params, bf16 -> int16) and
+// serves the conformance oracle and the linear plam_sim path's weights.
+//
+// What bounds it on an H100: bytes.  A bf16 input has only 65,536
+// values, so an encode that looks its pattern up in a 128 KB table in
+// shared memory needs one operation a lane on its value (the table index
+// from the input's bits; loads, stores and address arithmetic left out)
+// against 2 + 2 bytes (bf16 -> int16) at 3.35 TB/s: 0.054 ms for a
+// [4096, 11008] weight.  That count is K3's bound.
+//
+// This design computes the fields for a spec given at run time instead.
+// Its operations a lane, counted by hand as posit_mul.cu counts K4's (one
+// for each operator, comparison or select on a lane's values; values of
+// the spec alone hoisted; loop and address arithmetic left out), are its
+// design floor, not the function's:
+//
+//                       ALU-only   add-like
+//   encode_fields           33         12   (posit_mul.cu's count)
+//   encode_f32_bits glue     9          1   (zero test: and, compare,
+//                                            select; exponent: shift,
+//                                            and; NaR test: compare,
+//                                            select; sign shift,
+//                                            mantissa and; scale - 127)
+//   encode lane             42         13   = 55
+//
+// At 64 ALU lanes per SM per clock that is 42 / 64 SM-clocks a lane:
+// 0.113 ms for the weight on 132 SMs at 1980 MHz, 2.1x the bound.  The
+// design reads and writes one 32-bit word (or one 16-bit word) per
+// thread, coalesced, in a grid-stride loop; encode writes int16 directly
+// when the caller stores 16-bit patterns, so weights are never staged in
+// int32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "posit.cuh"
+
+// the counts above, which chip_smoke.py reads from this file: K3's bound
+// (a table encode of bf16 input) and this design's floor
+constexpr int kEncodeBoundAluOpsPerLane = 1;
+constexpr int kEncodeAluOpsPerLane = 42;
 
 namespace {
 

@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.numerics import P16, PositSpec
 
-from .plam_matmul import plam_matmul
+from .plam_matmul import plam_matmul, plam_matmul_float
 from .posit_codec import (  # noqa: F401
     exact_mul_elementwise,
     plam_mul_elementwise,
@@ -44,15 +44,14 @@ def plam_dense(
     """float activations x posit-pattern weights via the PLAM kernel.
 
     Activations (f32, or bf16, whose values f32 holds exactly) are
-    encoded on the fly by the codec kernel; weights are stored
-    pre-encoded (int32, or int16 for n <= 16), the deployment layout
-    for posit inference.  Leading batch dims of x are flattened into M.
-    Returns f32 [..., N].
+    encoded inside the PLAM kernel's A loader, one launch a call;
+    weights are stored pre-encoded (int32, or int16 for n <= 16), the
+    deployment layout for posit inference.  Leading batch dims of x are
+    flattened into M.  Returns f32 [..., N].
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.dtype not in (torch.float32, torch.bfloat16):
         x2 = x2.to(torch.float32)
-    a_bits = posit_encode(x2.contiguous(), spec, use_kernel=use_kernel)
-    out = plam_matmul(a_bits, w_bits, spec, use_kernel=use_kernel)
+    out = plam_matmul_float(x2.contiguous(), w_bits, spec, use_kernel=use_kernel)
     return out.reshape(*lead, w_bits.shape[-1])
