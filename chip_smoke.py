@@ -14,8 +14,9 @@ own lines:
 2. kernels     — each CUDA kernel against its plain PyTorch version on
    the card at its paths' shapes: the posit codec (K3), the PLAM matmul
    (K1: yi-6b's shapes at M = 4 and 64, every decode-batch M at one of
-   them, and ragged shapes at its decode path's tile, stage, strip and
-   branch edges; and K1 over float activations, which it encodes itself,
+   them, ragged shapes at its decode path's tile, stage, strip and branch
+   edges, and its prefill path's edges with planted zero and NaR k-tiles
+   over pattern, f32 and bf16 A; and K1 over float activations, which it encodes itself,
    over all 65,536 bf16 patterns and a seeded f32 sweep with its edges,
    at ragged M, K and N and at every projection shape at the serve
    path's M) and the element-wise posit multipliers (K4) bit for bit, the
@@ -40,7 +41,8 @@ own lines:
    must agree within a stated tolerance.
 6. times       — CUDA-event times of each kernel, its plain version and
    (for attention) ``scaled_dot_product_attention``, beside each
-   kernel's bound (and, for K1's decode path, its decode floor).  Each
+   kernel's bound (and, for K1, the floor of its design, with the strip
+   width of its prefill path).  Each
    kernel and library call is read two ways: the events' window as
    earlier runs read it (``ms``; for a short call it holds the host time
    of the wrapper), and after a device spin (``device_ms``: the card's
@@ -76,6 +78,8 @@ PHASES = ["device", "kernels", "conformance", "serve", "e2e", "times"]
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 SMS, INT32_LANES_PER_SM = 132, 64
+# lane instructions an SM starts a clock: 4 warp schedulers of 32 lanes
+INSTR_LANES_PER_SM = 128
 # clock cycles (~0.1 ms) of the device spin that events_ms(spin=True) queues
 # before a timed call
 SPIN_CYCLES = 200_000
@@ -98,6 +102,19 @@ RAGGED_SHAPES = [(4, 5, 3), (1, 7, 1), (3, 130, 9), (9, 257, 5), (2, 1, 2), (17,
 K1_EDGE_SHAPES = [(4, 1023, 8), (4, 1025, 9), (3, 4097, 16), (1, 4097, 12), (5, 513, 24),
                   (16, 511, 17), (2, 300, 40)]
 K1_WIDE_EDGE_SHAPES = [(4, 4096, 4104), (4, 2048, 520), (16, 4096, 4100), (7, 1000, 64008)]
+# (M, K, N) at the edges of K1's prefill path (M > 16): 64-row blocks (M =
+# 17, 63, 64, 65, 128, 256), 32-deep k-tiles in a 3-stage ring (K = 31,
+# 33, 64, 96, a ragged tail at 1000, 4095, 4097), scalar A loads (K % 8 !=
+# 0) and scalar B loads (N % 8 != 0: 17, 33, 511, 2113, 4100, 4225, 8449),
+# and N at each strip width's wave edge on 132 SMs (2112 | 2113 for 16 | 32
+# columns, 4224 | 4225 for 32 | 16, 8448 | 8449 for 64 | 16).  Every odd
+# case has zero and NaR patterns planted in a middle k-tile of A and B, a
+# slow tile between fast ones.  A copy of tests/test_torch_kernels.py's
+# PREFILL_EDGE_SHAPES, which owns it (the CPU tests run it cut to K <= 300).
+K1_PREFILL_EDGE_SHAPES = [(17, 31, 16), (63, 33, 17), (64, 4095, 33), (65, 4097, 511),
+                          (128, 4096, 4100), (256, 1000, 512), (17, 64, 16), (64, 96, 4104),
+                          (48, 4096, 2112), (48, 4096, 2113), (64, 4096, 4224), (64, 2048, 4225),
+                          (48, 1024, 8448), (33, 1024, 8449)]
 # M of decode batches with 1-4 live slots, and the M <= 16 branch's top
 K1_DECODE_MS = (1, 2, 3, 4, 16)
 # K1's decode floor: ALU-pipe operations of one log_word and of one
@@ -398,8 +415,10 @@ class Smoke:
                 same(f"plam_matmul ragged {shape} {str(bb.dtype)[6:]}", plam_matmul(at, bb, P16),
                      plam_matmul(at, bb, P16, use_kernel=False))
             torch.cuda.synchronize()
+        prefill_cases = self.check_prefill_edges(same)
         k1_ok = len(failures) == n_before
-        log(f"K1 plam_matmul vs plain: {'bit-identical' if k1_ok else failures[n_before:]}")
+        log(f"K1 plam_matmul vs plain: {'bit-identical' if k1_ok else failures[n_before:]} "
+            f"(with {prefill_cases} prefill-edge cases)")
         fused = self.check_fused_encode(same, failures, sweep)
         k1_ok = k1_ok and fused["ok"]
 
@@ -420,6 +439,47 @@ class Smoke:
                                    "failures": failures}
         if failures:
             raise AssertionError("; ".join(failures))
+
+    def check_prefill_edges(self, same) -> int:
+        """K1's prefill path at K1_PREFILL_EDGE_SHAPES against its plain
+        version, bit for bit: A as int32 patterns, f32 and bf16
+        activations, B as int16 and int32 patterns.  Operands hold no zero
+        or NaR pattern (every full tile runs the fast loop) except in the
+        odd cases, which plant both in a middle k-tile of A and of B, and
+        zero, inf and NaN there in the activations.  Returns the number of
+        kernel calls checked."""
+        torch = self.torch
+        import numpy as np
+
+        from repro_torch.kernels.plam_matmul import plam_matmul, plam_matmul_float
+        from repro_torch.numerics import P16
+
+        cases = 0
+        for i, (m, k, n) in enumerate(K1_PREFILL_EDGE_SHAPES):
+            rng = np.random.default_rng(1000 + i)
+            a = rng.integers(1, 1 << 16, (m, k)).astype(np.int32)
+            b = rng.integers(1, 1 << 16, (k, n)).astype(np.int32)
+            a[a == P16.nar] = 1
+            b[b == P16.nar] = 1
+            x = rng.standard_normal((m, k)).astype(np.float32)
+            if i % 2:
+                t = (k // 32) // 2 * 32  # the first k of a middle tile
+                k1, k2, k3 = (min(k - 1, t + d) for d in (1, 2, 5))
+                a[m // 2, k3], a[m - 1, k1] = P16.nar, 0
+                b[k3, n // 2], b[k2, n - 1] = 0, P16.nar
+                x[m // 2, k3], x[m - 1, k1], x[0, k2] = 0.0, np.inf, np.nan
+            at, b32 = torch.from_numpy(a).to(self.dev), torch.from_numpy(b).to(self.dev)
+            b16 = ((b32 ^ 0x8000) - 0x8000).to(torch.int16)
+            xf = torch.from_numpy(x).to(self.dev)
+            tag = f"prefill edge ({m}, {k}, {n}){' planted' if i % 2 else ''}"
+            for name, fn, xa in [("patterns", plam_matmul, at), ("f32", plam_matmul_float, xf),
+                                 ("bf16", plam_matmul_float, xf.to(torch.bfloat16))]:
+                want = fn(xa, b32, P16, use_kernel=False)
+                for bb in (b16, b32):
+                    same(f"{tag} A={name} B={str(bb.dtype)[6:]}", fn(xa, bb, P16), want)
+                    cases += 1
+            torch.cuda.synchronize()
+        return cases
 
     def check_fused_encode(self, same, failures, sweep) -> dict:
         """K1 over float activations (plam_matmul_float, the route of
@@ -983,8 +1043,12 @@ class Smoke:
         valid = all(len(o) == 16 and all(0 <= t < cfg.vocab for t in o) for o in outs)
         for h in handles:
             log(f"  req {h.rid}: {done[h.rid]}")
-        # the counted run's step latencies, before the profile adds steps
+        # the counted run's step latencies and seconds, before the profile
+        # adds steps and prefills
         run_steps = list(st.step_latency_s)
+        counted = {"steps": st.steps, "prefills": st.prefills,
+                   "decode_steps": st.decode_steps, "prefill_s": st.prefill_s,
+                   "decode_s": st.decode_s}
         log(f"step latency over the {len(run_steps)} steps: p50 "
             f"{np.quantile(run_steps, 0.5) * 1e3:.1f} ms, p95 "
             f"{np.quantile(run_steps, 0.95) * 1e3:.1f} ms, first {run_steps[0] * 1e3:.1f} ms")
@@ -995,10 +1059,8 @@ class Smoke:
             if step_launches[k] != v:
                 bad[f"{k} in one decode step"] = (step_launches[k], v)
         self.results["serve"] = {
-            "layers": layers, "prompt_lens": lens, "steps": st.steps,
-            "prefills": st.prefills, "decode_steps": st.decode_steps,
-            "prefill_s": st.prefill_s, "decode_s": st.decode_s, "wall_s": wall,
-            "decode_tok_per_s": decode_tokens / st.decode_s,
+            "layers": layers, "prompt_lens": lens, **counted, "wall_s": wall,
+            "decode_tok_per_s": decode_tokens / counted["decode_s"],
             "step_p50_s": st.latency_p50(), "step_p95_s": st.latency_p95(),
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "engine_build_s": build_s, "launches": counts, "expected": expect,
@@ -1177,8 +1239,28 @@ class Smoke:
             src = f.read()
         word_ops, row_ops = (int(re.search(rf"constexpr int {c} = (\d+);", src).group(1))
                              for c in ("kLogWordAluOps", "kProductAluOpsPerRow"))
-        log(f"K1 ALU-pipe operations (counted in plam_matmul.cu): log_word {word_ops}, "
+        log(f"K1 ALU-pipe operations (counted in plam_matmul.cuh): log_word {word_ops}, "
             f"product {row_ops} a row")
+        # ... and the prefill path's floor: the instructions of its blocks
+        # (fast-loop products, k steps, decoded elements, from the hand count
+        # in the same header), at INSTR_LANES_PER_SM a clock, over the waves of blocks
+        # that the busiest SM runs, at the strip width the library chooses
+        p_prod, p_step, p_pat, p_bf16 = (
+            int(re.search(rf"constexpr int {c} = (\d+);", src).group(1))
+            for c in ("kPrefillProductInstr", "kPrefillStepInstr", "kPrefillPatternInstr",
+                      "kPrefillExactBf16Instr"))
+        log(f"K1 prefill instructions (counted in plam_matmul.cuh): product {p_prod}, "
+            f"k step {p_step}, pattern decode {p_pat}, bf16 decode {p_bf16}")
+        from repro_torch.kernels import _lib
+
+        def k1_floor(m, k, n, a_instr):
+            """(strip width or None, floor ms) of a K1 call; A decodes at a_instr"""
+            if m <= 16:
+                return None, (k * n * word_ops + m * k * n * row_ops) / int_rate * 1e3
+            bn = _lib.library().plam_matmul_prefill_width(m, n, 1, 16, 1)
+            waves = -(-(-(-n // bn) * -(-m // 64)) // SMS)
+            per_block = k * (64 * bn * p_prod + 256 * p_step + bn * p_pat + 64 * a_instr)
+            return bn, waves * per_block / (INSTR_LANES_PER_SM * self.clock_mhz * 1e6) * 1e3
         k1_main = None
         # wq/wo is timed first and once more last: the first reading of a
         # phase has read high (a start-up effect, or the shape's own time)
@@ -1190,9 +1272,10 @@ class Smoke:
             ms = timed(lambda: plam_matmul(a, b, P16), reps=10)
             plain = self.events_ms(lambda: plam_matmul(a, b, P16, use_kernel=False),
                                    reps=1, warmup=0)
-            floor = (k * n * word_ops + m * k * n * row_ops) / int_rate * 1e3 if m <= 16 else None
+            bn, floor = k1_floor(m, k, n, p_pat)
             again = " (again, last)" if i == len(k1_runs) - 1 else ""
-            add("plam_matmul", f"M={m} K={k} N={n} B=int16{again}", ms, plain,
+            strip = f" BN={bn}" if bn else ""
+            add("plam_matmul", f"M={m} K={k} N={n} B=int16{strip}{again}", ms, plain,
                 m * k * 4 + k * n * 2 + m * n * 4, m * k * n, int_rate, floor_ms=floor)
             del a, b
         # K1 over bf16 activations (plam_dense: one launch, the serving
@@ -1215,8 +1298,9 @@ class Smoke:
                 host[name].append(self.host_us(fused if name == "fused" else pair))
             plain = self.events_ms(lambda: plam_dense(x, b, P16, use_kernel=False), reps=1,
                                    warmup=0)
-            floor = (k * n * word_ops + m * k * n * row_ops) / int_rate * 1e3 if m <= 16 else None
-            row = add("plam_matmul", f"fused M={m} K={k} N={n} A=bf16 B=int16",
+            bn, floor = k1_floor(m, k, n, p_bf16)
+            strip = f" BN={bn}" if bn else ""
+            row = add("plam_matmul", f"fused M={m} K={k} N={n} A=bf16 B=int16{strip}",
                       (mean(turns["fused"][:2]), mean(turns["fused"][2:])), plain,
                       m * k * 2 + k * n * 2 + m * n * 4, m * k * n, int_rate, floor_ms=floor)
             row.update({"turns_ms": turns, "pair_ms": mean(turns["pair"][:2]),

@@ -132,6 +132,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "plam_matmul_launch": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     "plam_dense_launch": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    "plam_matmul_prefill_width": [_I, _I, _I, _I, _I],
     "posit_encode_launch": [_P, _I, _P, _I, ctypes.c_int64, _I, _I, _P],
     "posit_decode_launch": [_P, _I, _P, ctypes.c_int64, _I, _I, _P],
     "posit_quantize_launch": [_P, _I, _P, ctypes.c_int64, _I, _I, _P],

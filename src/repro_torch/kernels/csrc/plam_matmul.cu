@@ -13,3 +13,14 @@ extern "C" int plam_matmul_launch(const void* a, const void* b, int b_is_int16, 
   return plam_mm::launch_matmul<plam_mm::kPatternA>(a, 0, b, b_is_int16, c, m, n, k, posit_n,
                                                     posit_es, stream);
 }
+
+// The strip width (columns of a block) that a call with m > 16 runs at, as
+// launch_matmul would choose it; 0 if the card's SM count cannot be read.
+// chip_smoke.py logs it beside K1's prefill times.
+extern "C" int plam_matmul_prefill_width(int m, int n, int b_is_int16, int posit_n,
+                                         int posit_es) {
+  int sms = 0;
+  if (plam_mm::card_sms(&sms) != cudaSuccess) return 0;
+  const plam::Spec sp = plam::make_spec(posit_n, posit_es);
+  return plam_mm::prefill_width(plam_mm::fixed_spec(b_is_int16 != 0, sp), m, n, sms);
+}

@@ -80,22 +80,79 @@
 //   path, runs with the spec compiled in (plam::FixedSpec), so that
 //   decode_fields' masks, shifts and branches fold into immediates.
 //
-// The prefill path (M > 16) is the tiled kernel at the end of this file,
-// which the decode path's design leaves as it was: there a decoded B
-// word serves 64 rows, so the decode is amortised, and the M * N outputs
-// alone give every SM work.  Its limits (serial k-tiles
-// behind two barriers, no loads in flight) are for a later change.
+// The prefill path (M > 16): a decoded B word serves up to 64 rows, so the
+// decode is amortised and the products bind.  One fixed register-tiled
+// kernel:
+// - 256 threads own a 64-row x BN-column block, each TM = 4 rows x TN =
+//   BN/16 columns (16, 8 or 4 independent f32 chains), k ascending.
+// - Each k-tile (BK = 32) is decoded once into uint32 words in shared
+//   memory, word 0 meaning zero or NaR as in the decode path: A k-major
+//   [BK][64], B [BK][BN], so that a thread reads its 4 A words and its TN
+//   B words with one 16-byte and one 4- to 16-byte load per k step.  It
+//   loads 8 k steps of words before adding them.
+// - A tile with no 0 word where an output is kept (the decoders OR their
+//   notes into the barrier that ends the iteration, __syncthreads_or) runs
+//   the fast loop: per product one integer add (the A word's bias comes off
+//   once per k step) and one f32 add, no branch and no select.  Otherwise,
+//   and at a ragged K tail, the slow loop skips the products of 0 words.
+//   Random posit weights hold no zero pattern and posits never round to
+//   zero, so on the serve path every full tile is fast.
+// - Loads stay in flight: a 3-stage cp.async ring of raw tiles; iteration
+//   t copies tile t + 2, decodes tile t + 1 and adds tile t, behind one
+//   barrier.  Every thread copies one 4-, 8- or 16-byte piece of B (BN =
+//   16, 32, 64 over int16) and 16 bytes a copy of A, and decodes what it
+//   copied.  Rows that do not start on 16 bytes (K % 4 != 0 for 4-byte A,
+//   K % 8 != 0 for bf16, N % 8 != 0 for int16 B, N % 4 != 0 for int32 B)
+//   are read with guarded scalar loads at decode time.
+// - int16 B at Posit<16,1> runs with the spec compiled in, and BN from
+//   prefill_width (waves of blocks over the SMs, times BN): 32 at N =
+//   4096 and 11008, 16 at N = 512.  Other (B type, spec) pairs run the
+//   run-time spec at BN = 32.
+//
+// Its instructions, counted by hand as above (one per operator, compare,
+// select, load or store on a lane's values; spec and address constants
+// hoisted and not counted):
+//
+//   fast loop, a thread's k step   1 A load (4 words), 1 B load (TN
+//                                  words), 4 bias subtracts         = 6
+//   fast loop, a product           1 integer add, 1 f32 add         = 2
+//   decode, an element             log_word 33 (a B or an A pattern),
+//                                  a_word 8 (a bf16 in the exact
+//                                  range: unpack, exponent 2,
+//                                  range 2, low half 2, select)
+//                                  + 4 (unpack or address, the zero
+//                                  note 2, store)                   = 37 | 12
+//
+// A thread adds 128 * TN products a tile and decodes 8 A elements and
+// BN / 8 B patterns, so a product costs, over bf16 A in range:
+//
+//                   BN = 16   BN = 32   BN = 64
+//   fast loop         3.50      2.75      2.38   (2 + 6 / (4 TN))
+//   A decode          0.75      0.38      0.19   (8 * 12 / (128 TN))
+//   B decode          0.58      0.58      0.58   (37 / 64)
+//   total             4.83      3.71      3.14   instructions
+//
+// chip_smoke.py reads these counts for K1's prefill floor, at 4 warp
+// instructions started per SM and clock.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "posit.cuh"
 
 // the hand counts above, which chip_smoke.py reads for K1's decode floor
 constexpr int kLogWordAluOps = 19;
 constexpr int kProductAluOpsPerRow = 2;
+// ... and for its prefill floor: instructions of a fast-loop product, of a
+// thread's k step, and of a decoded element (a pattern, or a bf16 in the
+// exact range)
+constexpr int kPrefillProductInstr = 2;
+constexpr int kPrefillStepInstr = 6;
+constexpr int kPrefillPatternInstr = 37;
+constexpr int kPrefillExactBf16Instr = 12;
 
 namespace plam_mm {
 
@@ -449,101 +506,301 @@ cudaError_t dispatch_decode(const void* a, int a_mode, const TB* b, float* c, in
 
 // -- the prefill path (M > 16) ---------------------------------------------
 
-template <int BM, int BN, int BK, int TM, int TN, typename TB, int AK>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-plam_matmul_kernel(const void* __restrict__ A_, int a_mode, const TB* __restrict__ B,
-                   float* __restrict__ C, int M, int N, int K, plam::Spec sp) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr int TX = BN / TN;  // threads along N
-  constexpr int kAPerThread = BM * BK / NT;
-  static_assert(BM * BK % NT == 0, "A tile");
-  constexpr uint32_t kBias = 127u << 23;
-  // A is stored k-major with one pad column: the decode loop writes it
-  // with consecutive threads on consecutive k, conflict-free
-  __shared__ uint32_t a_word[BK][BM + 1];
-  __shared__ uint32_t b_word[BK][BN];
-  __shared__ bool a_ok[BK][BM + 1];
-  __shared__ bool b_ok[BK][BN];
+constexpr int kPrefillThreads = 256;  // 16 row groups x 16 column groups
+constexpr int kPrefillBM = 64;        // rows of a block
+constexpr int kPrefillBK = 32;        // k-tile depth
+constexpr int kPrefillTM = 4;         // rows a thread owns
+constexpr int kPrefillStages = 3;     // cp.async ring depth
+constexpr int kPrefillBatch = 8;      // k steps whose words a thread loads before adding
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int m0 = blockIdx.y * BM;
+// cp.async of BYTES (4, 8 or 16); with `full` false the destination is
+// zero-filled
+template <int BYTES>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src, bool full) {
+  if constexpr (BYTES == 16) {
+    cp_async_16(dst, src, full);
+  } else if constexpr (BYTES == 8) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                 "r"(full ? 8 : 0)
+                 : "memory");
+  } else {
+    static_assert(BYTES == 4, "cp.async copies 4, 8 or 16 bytes");
+    cp_async_4(dst, src, full);
+  }
+}
+
+template <int BN, typename TB>
+struct PrefillTile {
+  static constexpr int BM = kPrefillBM, BK = kPrefillBK, TM = kPrefillTM;
+  static constexpr int TN = BN / 16;                            // columns a thread owns
+  static constexpr int BPT = BK * BN / kPrefillThreads;         // B patterns a thread copies
+  static constexpr int BCOPY = BPT * (int)sizeof(TB);           // ... in one copy of 4-16 bytes
+  static constexpr int CPR = BN / BPT;                          // copies per B tile row
+  static constexpr int APT = BM * BK / kPrefillThreads;         // A elements a thread decodes
+  // shared memory: A words [2][BK][BM] and B words [2][BK][BN] (uint32);
+  // raw A [kStages][512 copies of 16 bytes] (bf16 fills half); raw B
+  // [kStages][256 copies of BCOPY bytes], each in the order of the copies
+  static constexpr size_t kWa = 2 * BK * BM * 4;
+  static constexpr size_t kWb = 2 * BK * BN * 4;
+  static constexpr size_t kRawAStage = BM * BK * 4;
+  static constexpr size_t kRawA = kPrefillStages * kRawAStage;
+  static constexpr size_t kRawBStage = (size_t)kPrefillThreads * BCOPY;
+  static constexpr size_t kSmem = kWa + kWb + kRawA + kPrefillStages * kRawBStage;
+  static_assert(BN % 16 == 0 && (BCOPY == 4 || BCOPY == 8 || BCOPY == 16), "tile shape");
+  static_assert(APT == 8 && BK % kPrefillBatch == 0, "tile shape");
+};
+
+// C[m0.., n0..] for one 64-row block and one BN-column strip.  a_vec: A
+// rows are staged with 16-byte cp.async (K % 4 == 0 for 4-byte elements,
+// K % 8 == 0 for bf16, an aligned base); b_vec: B rows likewise (N % 8 ==
+// 0 for int16, N % 4 == 0 for int32).  Otherwise the decode reads them
+// with guarded scalar loads.
+template <int BN, typename TB, class SP, int AK>
+__global__ void __launch_bounds__(kPrefillThreads)
+plam_matmul_prefill_kernel(const void* __restrict__ A_, int a_mode, bool a_vec,
+                           const TB* __restrict__ B, bool b_vec, float* __restrict__ C, int M,
+                           int N, int K, SP sp) {
+  using T = PrefillTile<BN, TB>;
+  constexpr int BM = T::BM, BK = T::BK, TM = T::TM, TN = T::TN, BPT = T::BPT, CPR = T::CPR;
+  constexpr uint32_t kBias = 127u << 23;
+  const bool a4 = AK == kPatternA || a_mode == kAF32;  // 4-byte A elements, else bf16
   const uint32_t* const A = (const uint32_t*)A_;
   const uint16_t* const A16 = (const uint16_t*)A_;
-  const int n0 = blockIdx.x * BN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* const wa = (uint32_t*)smem;
+  uint32_t* const wb = (uint32_t*)(smem + T::kWa);
+  unsigned char* const raw_a = smem + T::kWa + T::kWb;
+  unsigned char* const raw_b = raw_a + T::kRawA;
 
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int tiles = (K + BK - 1) / BK;
+  // A: every thread decodes 8 elements of row r; B: BPT patterns of row
+  // bk, columns bn.., the ones it copied
+  const int r = tid % BM, q = tid / BM;  // q in [0, 4)
+  const bool row_in = m0 + r < M;
+  const int bk = tid / CPR, bn = (tid % CPR) * BPT;
+
+  // Start tile t's copies into ring slot t % kStages: one commit group per
+  // call, empty past the last tile, so that the group count stays uniform.
+  auto start_copies = [&](int t) {
+    if (t < tiles) {
+      const int k0 = t * BK;
+      const int slot = t % kPrefillStages;
+      unsigned char* const ra = raw_a + slot * T::kRawAStage;
+      if (a_vec) {
+        if (a4) {  // two copies of 4 elements: k 4q.. and 16 + 4q..
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int gk = k0 + 4 * (q + 4 * j);
+            const bool in = row_in && gk < K;  // K % 4 == 0: all four or none
+            cp_async_16(ra + (tid + j * kPrefillThreads) * 16,
+                        in ? A + (size_t)(m0 + r) * K + gk : A, in);
+          }
+        } else {  // one copy of 8 bf16: k 8q..
+          const int gk = k0 + 8 * q;
+          const bool in = row_in && gk < K;  // K % 8 == 0
+          cp_async_16(ra + tid * 16, in ? A16 + (size_t)(m0 + r) * K + gk : A16, in);
+        }
+      }
+      if (b_vec) {
+        const int gk = k0 + bk, gn = n0 + bn;
+        const bool in = gk < K && gn < N;  // N % BPT == 0: all or none
+        cp_async_n<T::BCOPY>(raw_b + slot * T::kRawBStage + tid * T::BCOPY,
+                             in ? B + (size_t)gk * N + gn : B, in);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // Decode tile t (what this thread copied) into word buffer t & 1, word 0
+  // meaning zero or NaR.  Returns whether it wrote a 0 word where a row, a
+  // column and k are in range: a slow tile.
+  auto decode = [&](int t) {
+    const int k0 = t * BK;
+    const int slot = t % kPrefillStages;
+    uint32_t* const wa_t = wa + (t & 1) * BK * BM;
+    uint32_t* const wb_t = wb + (t & 1) * BK * BN;
+    bool zero = false;
+    // the element's k in the tile: k-major words, conflict-free (a warp
+    // writes 32 consecutive rows)
+    uint32_t x[8];
+    int kk[8];
+    if (a_vec && a4) {
+      const uint4* const ra = (const uint4*)(raw_a + slot * T::kRawAStage);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint4 v = ra[tid + j * kPrefillThreads];
+        const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[4 * j + e] = w4[e], kk[4 * j + e] = 4 * (q + 4 * j) + e;
+      }
+    } else if (a_vec) {
+      const uint4 v = ((const uint4*)(raw_a + slot * T::kRawAStage))[tid];
+      const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        x[e] = e % 2 ? w4[e / 2] & 0xFFFF0000u : w4[e / 2] << 16;
+        kk[e] = 8 * q + e;
+      }
+    } else {  // guarded scalar loads, nothing staged: k q, q + 4, ...
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        kk[e] = q + 4 * e;
+        const int gk = k0 + kk[e];
+        const size_t at = (size_t)(m0 + r) * K + gk;
+        x[e] = !(row_in && gk < K) ? 0u : a4 ? A[at] : bf16_bits(A16[at]);
+      }
+    }
+    // float A: the exact case of all 8 first, with no branch, then the full
+    // encode where one needs it (rare on the serve path), so that the 8
+    // range checks run side by side
+    uint32_t aw[8];
+    bool full[8], any_full = false;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if constexpr (AK == kPatternA) {
+        bool ok;
+        aw[e] = plam::log_word(x[e], sp, ok);
+      } else {
+        aw[e] = plam::a_word_exact(x[e], sp, full[e]);
+        any_full |= full[e];
+      }
+    }
+    if (AK == kFloatA && any_full) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (full[e]) aw[e] = plam::a_word_full(x[e], sp);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      wa_t[kk[e] * BM + r] = aw[e];
+      zero |= aw[e] == 0u && row_in && k0 + kk[e] < K;
+    }
+
+    const int gk = k0 + bk;
+    uint32_t bits[BPT];
+    if (b_vec) {
+      uint32_t raw[T::BCOPY / 4];
+      const unsigned char* const rb = raw_b + slot * T::kRawBStage + tid * T::BCOPY;
+      if constexpr (T::BCOPY == 16) {
+        const uint4 v = *(const uint4*)rb;
+        raw[0] = v.x, raw[1] = v.y, raw[2] = v.z, raw[3] = v.w;
+      } else if constexpr (T::BCOPY == 8) {
+        const uint2 v = *(const uint2*)rb;
+        raw[0] = v.x, raw[1] = v.y;
+      } else {
+        raw[0] = *(const uint32_t*)rb;
+      }
+#pragma unroll
+      for (int e = 0; e < BPT; ++e) {
+        if constexpr (sizeof(TB) == 2) {
+          bits[e] = (raw[e / 2] >> (16 * (e % 2))) & 0xFFFFu;
+        } else {
+          bits[e] = raw[e];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < BPT; ++e) {
+        const int gn = n0 + bn + e;
+        bits[e] = gk < K && gn < N ? load_bits(B[(size_t)gk * N + gn]) : 0u;
+      }
+    }
+    uint32_t w[BPT];
+#pragma unroll
+    for (int e = 0; e < BPT; ++e) {
+      bool ok;
+      w[e] = plam::log_word(bits[e], sp, ok);
+      zero |= w[e] == 0u && gk < K && n0 + bn + e < N;
+    }
+    uint32_t* const dst = wb_t + bk * BN + bn;
+    if constexpr (BPT % 4 == 0) {
+#pragma unroll
+      for (int v = 0; v < BPT / 4; ++v) {
+        *(uint4*)(dst + 4 * v) = make_uint4(w[4 * v], w[4 * v + 1], w[4 * v + 2], w[4 * v + 3]);
+      }
+    } else {
+      static_assert(BPT == 2, "B words a thread");
+      *(uint2*)dst = make_uint2(w[0], w[1]);
+    }
+    return zero;
+  };
+
+  // Add tile t's products in k order: rows ty*TM.., columns tx*TN...  A
+  // word keeps its bias, and every valid word is at least 64 << 23, so a
+  // word of 0 marks zero or NaR.  A fast tile has no such word where an
+  // output is kept: each product is one integer add and one f32 add.  A
+  // slow tile skips the products of a 0 word, which are +0.0 and would
+  // leave the sum's bits as they are (the sum is never -0.0 or NaN).
+  // Rows and columns out of range may sum anything: they are not stored.
+  const int tx = tid % 16, ty = tid / 16;
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // decode the A tile once; consecutive threads walk k (A is row-major).
-    // Every load is issued before any decode, so that a tile pays one
-    // load latency and not one an element: a_word's branch to the full
-    // encode otherwise keeps the compiler from hoisting the loads.
-    uint32_t a_raw[kAPerThread];
+  auto sum = [&](int t, bool slow) {
+    const uint32_t* const wa_t = wa + (t & 1) * BK * BM + ty * TM;
+    const uint32_t* const wb_t = wb + (t & 1) * BK * BN + tx * TN;
 #pragma unroll
-    for (int j = 0; j < kAPerThread; ++j) {
-      const int idx = tid + j * NT;
-      const int gm = m0 + idx / BK, gk = k0 + idx % BK;
-      const size_t at = (size_t)gm * K + gk;
-      a_raw[j] = !(gm < M && gk < K)                  ? 0u
-                 : AK == kPatternA || a_mode == kAF32 ? A[at]
-                                                      : bf16_bits(A16[at]);
-    }
+    for (int k8 = 0; k8 < BK; k8 += kPrefillBatch) {
+      uint32_t a[kPrefillBatch][TM], b[kPrefillBatch][TN];
 #pragma unroll
-    for (int j = 0; j < kAPerThread; ++j) {
-      const int idx = tid + j * NT;
-      const int mm = idx / BK, kk = idx % BK;
-      uint32_t w;
-      bool ok;
-      if (AK == kPatternA) {
-        w = plam::log_word(a_raw[j], sp, ok);
-      } else {
-        w = plam::a_word(a_raw[j], sp);
-        ok = w != 0u;  // every valid word is at least 64 << 23
-      }
-      a_word[kk][mm] = w - kBias;  // bias pre-subtracted once per A element
-      a_ok[kk][mm] = ok;
-    }
-    // decode the B tile once; consecutive threads walk n (B is row-major)
-    for (int idx = tid; idx < BK * BN; idx += NT) {
-      const int kk = idx / BN, nn = idx % BN;
-      const int gk = k0 + kk, gn = n0 + nn;
-      const uint32_t bits = (gk < K && gn < N) ? load_bits(B[(size_t)gk * N + gn]) : 0u;
-      bool ok;
-      b_word[kk][nn] = plam::log_word(bits, sp, ok);
-      b_ok[kk][nn] = ok;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      uint32_t aw[TM], bw[TN];
-      bool av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        aw[i] = a_word[kk][ty * TM + i];
-        av[i] = a_ok[kk][ty * TM + i];
-      }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        bw[j] = b_word[kk][tx + j * TX];
-        bv[j] = b_ok[kk][tx + j * TX];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          // one integer add is the whole multiplier; always add, so that
-          // the accumulator sees the same +0.0 terms as the reference
-          const float v = (av[i] && bv[j]) ? __uint_as_float(aw[i] + bw[j]) : 0.0f;
-          acc[i][j] = acc[i][j] + v;
+      for (int u = 0; u < kPrefillBatch; ++u) {
+        const uint4 v = *(const uint4*)(wa_t + (k8 + u) * BM);
+        a[u][0] = v.x, a[u][1] = v.y, a[u][2] = v.z, a[u][3] = v.w;
+        const uint32_t* const bp = wb_t + (k8 + u) * BN;
+        if constexpr (TN == 4) {
+          const uint4 w4 = *(const uint4*)bp;
+          b[u][0] = w4.x, b[u][1] = w4.y, b[u][2] = w4.z, b[u][3] = w4.w;
+        } else if constexpr (TN == 2) {
+          const uint2 w2 = *(const uint2*)bp;
+          b[u][0] = w2.x, b[u][1] = w2.y;
+        } else {
+          b[u][0] = *bp;
         }
+      }
+      if (!slow) {
+#pragma unroll
+        for (int u = 0; u < kPrefillBatch; ++u)
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const uint32_t ap = a[u][i] - kBias;
+#pragma unroll
+            for (int j = 0; j < TN; ++j) acc[i][j] = acc[i][j] + __uint_as_float(ap + b[u][j]);
+          }
+      } else {
+#pragma unroll
+        for (int u = 0; u < kPrefillBatch; ++u)
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j)
+              if (a[u][i] != 0u && b[u][j] != 0u) {
+                acc[i][j] = acc[i][j] + __uint_as_float(a[u][i] + b[u][j] - kBias);
+              }
+      }
     }
-    __syncthreads();
+  };
+
+  // Iteration t: copy tile t + 2, decode tile t + 1, add tile t, then one
+  // barrier, which also ORs the decoders' notes into tile t + 1's flag.  A
+  // ragged K tail is always slow: its padding must add +0.0.
+  const auto tail = [&](int t) { return (t + 1) * BK > K; };
+  start_copies(0);
+  start_copies(1);
+  cp_async_wait<1>();  // tile 0 has landed
+  bool slow = __syncthreads_or(decode(0) || tail(0));
+  for (int t = 0; t < tiles; ++t) {
+    start_copies(t + 2);  // into the slot of tile t - 1, decoded two barriers ago
+    cp_async_wait<1>();  // tile t + 1 has landed
+    const bool next = t + 1 < tiles && (decode(t + 1) || tail(t + 1));
+    sum(t, slow);
+    slow = __syncthreads_or(next);
   }
 
 #pragma unroll
@@ -552,37 +809,84 @@ plam_matmul_kernel(const void* __restrict__ A_, int a_mode, const TB* __restrict
     if (gm >= M) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + j * TX;
+      const int gn = n0 + tx * TN + j;
       if (gn < N) C[(size_t)gm * N + gn] = acc[i][j];
     }
   }
 }
 
-template <int BM, int BN, int BK, int TM, int TN, typename TB, int AK>
-void launch(const void* a, int a_mode, const TB* b, float* c, int m, int n, int k,
-            plam::Spec sp, cudaStream_t stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  plam_matmul_kernel<BM, BN, BK, TM, TN, TB, AK>
-      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(a, a_mode, b, c, m, n, k, sp);
+template <int BN, typename TB, int AK, class SP>
+cudaError_t launch_prefill(const void* a, int a_mode, bool a_vec, const TB* b, bool b_vec,
+                           float* c, int m, int n, int k, SP sp, cudaStream_t stream) {
+  constexpr size_t smem = PrefillTile<BN, TB>::kSmem;
+  auto kernel = plam_matmul_prefill_kernel<BN, TB, SP, AK>;
+  // set once per instantiation, at its first launch
+  static const cudaError_t attr =
+      smem > 48 * 1024
+          ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+          : cudaSuccess;
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((n + BN - 1) / BN, (m + kPrefillBM - 1) / kPrefillBM);
+  kernel<<<grid, kPrefillThreads, smem, stream>>>(a, a_mode, a_vec, b, b_vec, c, m, n, k, sp);
+  return cudaSuccess;
+}
+
+// The prefill strip width whose grid finishes first: a block's work grows
+// as BN, and the ceil(N / BN) * ceil(M / 64) blocks run in waves over the
+// card's SMs, so the cost is waves * BN.  Ties go to the wider strip.
+// Only the compiled Posit<16,1> spec over int16 B has the three widths;
+// every other (B type, spec) runs at 32 columns.
+inline int prefill_width(bool fixed, int m, int n, int sms) {
+  if (!fixed) return 32;
+  int best_bn = 64;
+  long best = -1;
+  for (int bn = 64; bn >= 16; bn /= 2) {
+    const long blocks = (long)((n + bn - 1) / bn) * ((m + kPrefillBM - 1) / kPrefillBM);
+    const long cost = (blocks + sms - 1) / sms * bn;
+    if (best < 0 || cost < best) best = cost, best_bn = bn;
+  }
+  return best_bn;
+}
+
+template <typename TB, int AK, class SP>
+cudaError_t dispatch_prefill(const void* a, int a_mode, const TB* b, float* c, int m, int n,
+                             int k, SP sp, cudaStream_t stream) {
+  const bool a4 = AK == kPatternA || a_mode == kAF32;
+  const bool a_vec = k % (a4 ? 4 : 8) == 0 && (reinterpret_cast<uintptr_t>(a) & 15u) == 0;
+  const bool b_vec = n % (16 / (int)sizeof(TB)) == 0 && (reinterpret_cast<uintptr_t>(b) & 15u) == 0;
+  if constexpr (std::is_same<SP, plam::Spec>::value) {
+    return launch_prefill<32, TB, AK>(a, a_mode, a_vec, b, b_vec, c, m, n, k, sp, stream);
+  } else {
+    int sms = 0;
+    const cudaError_t e = card_sms(&sms);
+    if (e != cudaSuccess) return e;
+    switch (prefill_width(true, m, n, sms)) {
+      case 64: return launch_prefill<64, TB, AK>(a, a_mode, a_vec, b, b_vec, c, m, n, k, sp, stream);
+      case 32: return launch_prefill<32, TB, AK>(a, a_mode, a_vec, b, b_vec, c, m, n, k, sp, stream);
+      default: return launch_prefill<16, TB, AK>(a, a_mode, a_vec, b, b_vec, c, m, n, k, sp, stream);
+    }
+  }
 }
 
 template <typename TB, int AK, class SP>
 cudaError_t dispatch_rows(const void* a, int a_mode, const TB* b, float* c, int m, int n, int k,
                           SP sp, cudaStream_t stream) {
-  return m <= 4 ? dispatch_decode<4, TB, AK>(a, a_mode, b, c, m, n, k, sp, stream)  // decode
+  if (m > 16) return dispatch_prefill<TB, AK>(a, a_mode, b, c, m, n, k, sp, stream);
+  return m <= 4 ? dispatch_decode<4, TB, AK>(a, a_mode, b, c, m, n, k, sp, stream)
                 : dispatch_decode<16, TB, AK>(a, a_mode, b, c, m, n, k, sp, stream);
+}
+
+// Whether a call runs with the spec compiled in: int16 B at Posit<16,1>,
+// the prequantized weights of the serving path
+inline bool fixed_spec(bool b_is_int16, const plam::Spec& sp) {
+  return b_is_int16 && sp.n == 16 && sp.es == 1;
 }
 
 template <typename TB, int AK>
 cudaError_t dispatch(const void* a, int a_mode, const TB* b, float* c, int m, int n, int k,
                      plam::Spec sp, cudaStream_t stream) {
-  if (m > 16) {
-    launch<64, 32, 32, 4, 2, TB, AK>(a, a_mode, b, c, m, n, k, sp, stream);  // prefill
-    return cudaSuccess;
-  }
-  // prequantized weights (int16 Posit<16,1>) get the spec compiled in
   if constexpr (sizeof(TB) == 2) {
-    if (sp.n == 16 && sp.es == 1) {
+    if (fixed_spec(true, sp)) {
       return dispatch_rows<TB, AK>(a, a_mode, b, c, m, n, k, plam::FixedSpec<16, 1>{}, stream);
     }
   }

@@ -200,13 +200,34 @@ __device__ __forceinline__ uint32_t log_word(uint32_t bits, const S& sp, bool& v
 // copy.  Zero gives word 0 (invalid); everything else (f32 values with
 // more than 8 significant bits, scales outside the range, subnormals
 // (minpos), inf and NaN (NaR, word 0)) takes the full encode and decode.
+//
+// a_word_exact is its common case alone, without a branch: x where x is a
+// bf16 value in the exact range, else 0, and `full` set where a_word must
+// take the full encode (x neither exact nor zero).  A loader of many
+// elements takes it for all of them first and the full encode only where
+// one needs it.
+template <class S>
+__device__ __forceinline__ uint32_t a_word_exact(uint32_t x, const S& sp, bool& full) {
+  const int e = (int)((x >> 23) & 0xFFu) - 127;
+  const bool exact = (x & 0xFFFFu) == 0u && e >= sp.exact_lo && e <= sp.exact_hi;
+  full = !exact && (x & 0x7FFFFFFFu) != 0u;
+  return exact ? x : 0u;
+}
+
+template <class S>
+__device__ __forceinline__ uint32_t a_word_full(uint32_t x, const S& sp) {
+  bool valid;
+  return log_word(encode_f32_bits(x, sp), sp, valid);
+}
+
+// a_word keeps its early returns: written with a_word_exact, the decode
+// path (one element at a time) ran 1-2% slower at M = 4 on the H100.
 template <class S>
 __device__ __forceinline__ uint32_t a_word(uint32_t x, const S& sp) {
   const int e = (int)((x >> 23) & 0xFFu) - 127;
   if ((x & 0xFFFFu) == 0u && e >= sp.exact_lo && e <= sp.exact_hi) return x;
   if ((x & 0x7FFFFFFFu) == 0u) return 0u;
-  bool valid;
-  return log_word(encode_f32_bits(x, sp), sp, valid);
+  return a_word_full(x, sp);
 }
 
 }  // namespace plam

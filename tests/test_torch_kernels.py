@@ -53,19 +53,33 @@ EDGE_SHAPES = [(4, 1023, 8), (4, 1025, 9), (3, 4097, 16), (1, 4097, 12), (5, 513
                (16, 511, 17), (2, 300, 40)]
 K1_SHAPES = RAGGED_SHAPES + EDGE_SHAPES
 K1_IDS = ["x".join(map(str, s)) for s in K1_SHAPES]
+# (M, K, N) at the edges of the kernel's prefill path (M > 16): 64-row
+# blocks, 32-deep k-tiles in a 3-stage ring with a ragged tail, scalar A
+# (K % 8 != 0) and B (N % 8 != 0) loads, and N at each strip width's wave
+# edge on 132 SMs.  Odd cases plant zero and NaR patterns in a middle
+# k-tile (_prefill_operands).  chip_smoke.py checks the kernel at a copy;
+# here the plain versions run at _cpu_size of each shape.
+PREFILL_EDGE_SHAPES = [(17, 31, 16), (63, 33, 17), (64, 4095, 33), (65, 4097, 511),
+                       (128, 4096, 4100), (256, 1000, 512), (17, 64, 16), (64, 96, 4104),
+                       (48, 4096, 2112), (48, 4096, 2113), (64, 4096, 4224), (64, 2048, 4225),
+                       (48, 1024, 8448), (33, 1024, 8449)]
+PREFILL_IDS = ["x".join(map(str, s)) for s in PREFILL_EDGE_SHAPES]
 
 
 def test_chip_smoke_checks_k1_at_these_shapes():
     """chip_smoke.py (which runs without the tests) keeps copies of
-    RAGGED_SHAPES and EDGE_SHAPES; they must not drift from these."""
+    RAGGED_SHAPES, EDGE_SHAPES and PREFILL_EDGE_SHAPES; they must not
+    drift from these."""
     import ast
     import pathlib
 
     tree = ast.parse((pathlib.Path(__file__).parents[1] / "chip_smoke.py").read_text())
+    names = ("RAGGED_SHAPES", "K1_EDGE_SHAPES", "K1_PREFILL_EDGE_SHAPES")
     lists = {t.id: ast.literal_eval(node.value) for node in tree.body
              if isinstance(node, ast.Assign) for t in node.targets if isinstance(t, ast.Name)
-             and t.id in ("RAGGED_SHAPES", "K1_EDGE_SHAPES")}
-    assert lists == {"RAGGED_SHAPES": RAGGED_SHAPES, "K1_EDGE_SHAPES": EDGE_SHAPES}
+             and t.id in names}
+    assert lists == {"RAGGED_SHAPES": RAGGED_SHAPES, "K1_EDGE_SHAPES": EDGE_SHAPES,
+                     "K1_PREFILL_EDGE_SHAPES": PREFILL_EDGE_SHAPES}
 
 
 def _ragged_operands(shape):
@@ -78,6 +92,34 @@ def _ragged_operands(shape):
     a.flat[:: max(1, a.size // 7)] = P16.nar
     b.flat[:: max(1, b.size // 5)] = 0
     return a, b
+
+
+def _cpu_size(shape):
+    """A prefill edge shape cut to the CPU: K above 300 to 256 + K % 32 (the
+    same ragged tail and K % 8), N above 128 to 64 + N % 64 (the same N % 8)."""
+    m, k, n = shape
+    return m, k if k <= 300 else 256 + k % 32, n if n <= 128 else 64 + n % 64
+
+
+def _prefill_operands(shape, case):
+    """chip_smoke.py's prefill-edge operands (case is the shape's index):
+    int32 A and B patterns with no zero or NaR, and f32 activations; odd
+    cases plant zero and NaR patterns (zero, inf and NaN activations) in a
+    middle k-tile of A and of B."""
+    m, k, n = shape
+    rng = np.random.default_rng(1000 + case)
+    a = rng.integers(1, 1 << 16, (m, k)).astype(np.int32)
+    b = rng.integers(1, 1 << 16, (k, n)).astype(np.int32)
+    a[a == P16.nar] = 1
+    b[b == P16.nar] = 1
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    if case % 2:
+        t = (k // 32) // 2 * 32  # the first k of a middle tile
+        k1, k2, k3 = (min(k - 1, t + d) for d in (1, 2, 5))
+        a[m // 2, k3], a[m - 1, k1] = P16.nar, 0
+        b[k3, n // 2], b[k2, n - 1] = 0, P16.nar
+        x[m // 2, k3], x[m - 1, k1], x[0, k2] = 0.0, np.inf, np.nan
+    return a, b, x
 
 
 def _bits(x) -> np.ndarray:
@@ -114,6 +156,29 @@ def test_plam_dense_plain_bit_identical_to_jax_kernel(shape):
     want = jops.plam_dense(jnp.asarray(x), jnp.asarray(b), JSpec(16, 1), interpret=True)
     got = ops.plam_dense(torch.from_numpy(x), torch.from_numpy(b), P16)
     assert np.array_equal(_bits(want), got.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("case", range(len(PREFILL_EDGE_SHAPES)), ids=PREFILL_IDS)
+def test_plam_matmul_plain_bit_identical_at_prefill_edges(case):
+    """The plain plam_matmul (int32 and int16 B) and plam_dense (f32 and
+    bf16 activations) at the prefill path's edge shapes, cut to the CPU,
+    planted zero and NaR tiles included, against the JAX plam_matmul_seqref
+    of the JAX encode, bit for bit."""
+    from repro.numerics import encode as j_encode
+
+    a, b, x = _prefill_operands(_cpu_size(PREFILL_EDGE_SHAPES[case]), case)
+    spec = JSpec(16, 1)
+    bt = torch.from_numpy(b)
+    want = _bits(j_seqref(jnp.asarray(a), jnp.asarray(b), spec))
+    for bb in (bt, pack16(bt)):
+        got = ops.plam_matmul_bits(torch.from_numpy(a), bb, P16)
+        assert np.array_equal(got.numpy().view(np.uint32), want)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    for xt, xj in [(torch.from_numpy(x), x), (xb, xb.to(torch.float32).numpy())]:
+        want = _bits(j_seqref(j_encode(jnp.asarray(xj), spec), jnp.asarray(b), spec))
+        for bb in (bt, pack16(bt)):
+            got = ops.plam_dense(xt, bb, P16)
+            assert np.array_equal(got.numpy().view(np.uint32), want)
 
 
 def test_posit_codec_plain_matches_jax_kernels():
@@ -374,6 +439,20 @@ def test_cuda_plam_matmul_bit_identical(cuda_device, shape):
         assert torch.equal(got.view(torch.int32),
                            ops.plam_matmul_bits(a, bb, P16, use_kernel=False).view(torch.int32))
         assert torch.equal(got.cpu(), ops.plam_matmul_bits(a.cpu(), b.cpu(), P16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(PREFILL_EDGE_SHAPES)), ids=PREFILL_IDS)
+def test_cuda_plam_matmul_prefill_edges_bit_identical(cuda_device, case):
+    """The kernel's prefill path at the full edge shapes against its plain
+    version: pattern, f32 and bf16 A; int32 and int16 B."""
+    a, b, x = (torch.from_numpy(t).to(cuda_device)
+               for t in _prefill_operands(PREFILL_EDGE_SHAPES[case], case))
+    for fn, xa in [(ops.plam_matmul_bits, a), (ops.plam_dense, x),
+                   (ops.plam_dense, x.to(torch.bfloat16))]:
+        want = fn(xa, b, P16, use_kernel=False).view(torch.int32)
+        for bb in (b, pack16(b)):
+            assert torch.equal(fn(xa, bb, P16).view(torch.int32), want)
 
 
 @pytest.mark.cuda
