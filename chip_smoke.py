@@ -12,7 +12,10 @@ own lines:
 1. device      — the card's name and power limit (nvidia-smi), the torch
    device, and the kernels' build from ``src/repro_torch/kernels/csrc``.
 2. kernels     — each CUDA kernel against its plain PyTorch version on
-   the card at its paths' shapes: the posit codec (K3), the PLAM matmul
+   the card at its paths' shapes: the posit codec (K3; its encode's bf16
+   table at eight specs, and all 65,536 bf16 patterns through its table
+   and computed paths, at odd offsets and at the table threshold's
+   edges), the PLAM matmul
    (K1: yi-6b's shapes at M = 4 and 64, every decode-batch M at one of
    them, ragged shapes at its decode path's tile, stage, strip and branch
    edges, and its prefill path's edges with planted zero and NaR k-tiles
@@ -35,7 +38,10 @@ own lines:
    -> ``submit`` -> ``run``; the launch counts must match 7L+1 weight
    encodes (K3) at build, 7L+1 PLAM matmuls and no codec call per
    forward (the activations are encoded inside K1), and L attention
-   calls per decode step.
+   calls per decode step.  Then an engine that keeps its bf16 weights
+   (``prequantize=False``) serves the same requests: 7L+1 K3 and 7L+1
+   K1 launches a forward, no second table build, and the same greedy
+   tokens.
 5. e2e         — a 2-layer full-width model runs one prefill and 4
    decode steps on the kernels and on the plain versions; last logits
    must agree within a stated tolerance.
@@ -49,7 +55,9 @@ own lines:
    time alone).  K1 over bf16 activations (one launch) is timed beside
    the codec-then-matmul pair it replaced, in turns, with each one's host
    time per call, and again on the activations one step of a seeded
-   full-depth engine gives it.  K2 is timed at the serving shape and at a long paged
+   full-depth engine gives it.  K3's encode is timed at weight and
+   activation shapes on both paths (``K3_TIMES``), beside a copy of the
+   same bytes.  K2 is timed at the serving shape and at a long paged
    context, and K5 also at other split sizes.
 
 It exits non-zero if any phase fails, if no CUDA device is present, or if
@@ -151,6 +159,36 @@ HOST_SPIN_CYCLES = 40_000_000
 # needs (a table encode) and those of its design, counted by hand in the
 # header of its source
 K3_SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "posit_codec.cu")
+# K3's encode paths: the card's bf16 table against its plain version at
+# K3_TABLE_SPECS, and the table and computed paths at K3_PATH_SPECS
+# (copies of tests/test_torch_kernels.py's TABLE_SPECS and
+# TABLE_PATH_SPECS, which a test there holds equal)
+K3_TABLE_SPECS = [(16, 1), (16, 2), (16, 0), (12, 1), (10, 1), (8, 1), (8, 0), (6, 0)]
+K3_PATH_SPECS = [(16, 1), (16, 2), (10, 1), (8, 0)]
+# the weight shapes the serve path encodes at which K3 is held against
+# its plain version (wk/wv: 64 blocks; wg/wu: the grid capped at 2 x SMs;
+# the unembed: the longest loop; a copy of the test file's WEIGHT_SHAPES,
+# held equal there), and the lanes a plain call takes at a time (it holds
+# int64 temporaries of every lane)
+K3_WEIGHT_SHAPES = [(4096, 512), (4096, 11008), (4096, 64000)]
+K3_PLAIN_LANES = 1 << 25
+# the K3_TIMES shapes whose host time per call is read: the table path
+# (wk/wv) and the computed path (a decode activation)
+K3_HOST_SHAPES = [(4096, 512), (4, 4096)]
+# the table path's fill probe (Smoke.time_table_fill): its shapes and
+# outputs, and the lanes a block of the one variation the design allows
+K3_FILL_SHAPES = [((4096, 512), "int16"), ((4096, 11008), "int16"),
+                  ((4096, 11008), "int32"), ((4096, 64000), "int16")]
+K3_FILL_VARIANT_LANES = 65536
+# K3's timed calls, (shape, input, output): a wg/wu weight (engine build,
+# and every forward without prequantized weights) to int16 and int32, wk/wv
+# (where the table fill's share shows), the unembed, the wg/wu weight over
+# uniformly random finite bf16 bit patterns (the lookups' bank spread), an
+# f32 weight (computed path) and the activation shapes (computed path)
+K3_TIMES = [((4096, 11008), "bf16", "int16"), ((4096, 11008), "bf16", "int32"),
+            ((4096, 512), "bf16", "int16"), ((4096, 64000), "bf16", "int16"),
+            ((4096, 11008), "bf16 bits", "int16"), ((4096, 11008), "f32", "int32"),
+            ((4, 4096), "bf16", "int32"), ((64, 11008), "bf16", "int32")]
 # K2 tolerances.  The kernel keeps scores, probabilities and sums in f32
 # and rounds once to bf16 at the end, so against the plain version run in
 # f32 it differs by that rounding (2^-9 of |out| <= 1 here) and sum order.
@@ -378,8 +416,11 @@ class Smoke:
                          posit_encode(xt, P16, out_dtype=od, use_kernel=False))
                 same(f"quantize {tag}", posit_quantize(xt, P16),
                      posit_quantize(xt, P16, use_kernel=False))
+        paths = self.check_encode_paths(same, failures, sweep)
         k3_ok = not failures
-        log(f"K3 posit codec vs plain: {'bit-identical' if k3_ok else failures}")
+        log(f"K3 posit codec vs plain: {'bit-identical' if k3_ok else failures} (decode over "
+            f"all patterns; encode and quantize over the f32 sweep and the activation shapes, "
+            f"f32 and bf16; {paths['calls']} encode calls over both paths)")
 
         # K1 — main-path shapes, int16 B (and int32 B for one shape); at
         # K = N = 4096 every decode-batch M, int16 and int32
@@ -432,13 +473,112 @@ class Smoke:
                            "posit_mul": 0.0 if k4_ok else None,
                            "decode_attention": k5["err_f32"]}
         self.results["kernels"] = {"k1_bit_identical": k1_ok, "k1_fused": fused,
-                                   "k3_bit_identical": k3_ok,
+                                   "k3_bit_identical": k3_ok, "k3_paths": paths,
                                    "k2": k2,
                                    "k4_bit_identical": k4_ok, "k5": k5,
                                    "canaries": canaries,
                                    "failures": failures}
         if failures:
             raise AssertionError("; ".join(failures))
+
+    def check_encode_paths(self, same, failures, sweep) -> dict:
+        """K3's encode against its plain version, bit for bit, on both
+        paths: the card's table (built by the computed path) against
+        bf16_table_plain at K3_TABLE_SPECS, each built once; all 65,536
+        bf16 patterns tiled and shuffled to 2^20 + 13 lanes at
+        K3_PATH_SPECS, int16 and int32 out, through the table path (the
+        whole) and the computed path (two halves under the threshold), an
+        input at element offsets 1, 2 and 4 (head lanes; the output off
+        its 16-byte boundary, or on it after the head at 4 -> int32); at
+        Posit<16,1>, lanes at the threshold - 1, + 0, + 1 and + 7; the f32
+        sweep at an odd offset, at Posit<16,1> (the spec compiled in) and
+        Posit<16,2> (given at run time); and seeded bf16 weights at
+        K3_WEIGHT_SHAPES (64 blocks of 4 strides at wk/wv; beyond, the
+        grid capped at 2 x SMs, ~21 and ~121 strides on 132 SMs) at
+        Posit<16,1>, the plain version computed K3_PLAIN_LANES at a
+        time."""
+        torch = self.torch
+        import numpy as np
+
+        from repro_torch.kernels import _lib
+        from repro_torch.kernels.posit_codec import (
+            TABLE_MIN_NUMEL,
+            bf16_table,
+            bf16_table_plain,
+            encode_path,
+            encode_plain,
+            posit_encode,
+        )
+        from repro_torch.numerics import P16, PositSpec
+
+        _lib.reset_launches()
+        for n, es in K3_TABLE_SPECS:
+            spec = PositSpec(n, es)
+            before = _lib.launches["posit_codec_table"]
+            same(f"bf16 table {spec}", bf16_table(spec, self.dev),
+                 bf16_table_plain(spec).to(self.dev))
+            built_now = _lib.launches["posit_codec_table"] - before
+            bf16_table(spec, self.dev)  # cached: no second build
+            if built_now > 1 or _lib.launches["posit_codec_table"] != before + built_now:
+                failures.append(f"table {spec}: {built_now} builds, then "
+                                f"{_lib.launches['posit_codec_table'] - before - built_now} more")
+        built = _lib.launches["posit_codec_table"]
+        size = TABLE_MIN_NUMEL + 13
+        pats = np.tile(np.arange(1 << 16, dtype=np.uint16), size // (1 << 16) + 1)[:size]
+        np.random.default_rng(21).shuffle(pats)
+        x = torch.from_numpy(pats.view(np.int16).copy()).to(self.dev).view(torch.bfloat16)
+        calls, h = 0, size // 2
+        for n, es in K3_PATH_SPECS:
+            spec = PositSpec(n, es)
+            assert encode_path(x.dtype, size, spec) == "table"
+            assert encode_path(x.dtype, h + 1, spec) == "computed"
+            for od in (torch.int16, torch.int32):
+                tag = f"{spec} -> {str(od)[6:]}"
+                want = encode_plain(x, spec, od)
+                same(f"encode table path, all bf16 patterns {tag}",
+                     posit_encode(x, spec, out_dtype=od), want)
+                same(f"encode computed path, all bf16 patterns {tag}",
+                     torch.cat([posit_encode(x[:h], spec, out_dtype=od),
+                                posit_encode(x[h:], spec, out_dtype=od)]), want)
+                for off in (1, 2, 4):
+                    same(f"encode table path, x[{off}:] {tag}",
+                         posit_encode(x[off:], spec, out_dtype=od), want[off:])
+                calls += 5
+            torch.cuda.synchronize()
+        for d in (-1, 0, 1, 7):
+            xs = x[:TABLE_MIN_NUMEL + d]
+            for od in (torch.int16, torch.int32):
+                same(f"encode {xs.numel()} lanes (threshold {d:+d}) -> {str(od)[6:]}",
+                     posit_encode(xs, P16, out_dtype=od), encode_plain(xs, P16, od))
+                calls += 1
+        for spec in (P16, PositSpec(16, 2)):
+            for od in (torch.int16, torch.int32):
+                same(f"encode f32 sweep[1:] {spec} -> {str(od)[6:]}",
+                     posit_encode(sweep[1:], spec, out_dtype=od),
+                     encode_plain(sweep[1:], spec, od))
+                calls += 1
+        torch.cuda.synchronize()
+        g = self.gen(17)
+        for shape in K3_WEIGHT_SHAPES:
+            w = self.k3_input(g, shape, "bf16")
+            rows = max(1, K3_PLAIN_LANES // shape[1])
+            for od in (torch.int16, torch.int32):
+                want = torch.cat([encode_plain(w[r:r + rows], P16, od)
+                                  for r in range(0, shape[0], rows)])
+                same(f"encode weight {list(shape)} bf16 -> {str(od)[6:]}",
+                     posit_encode(w, P16, out_dtype=od), want)
+                calls += 1
+                del want
+            del w
+            torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"K3 encode paths: {built} table builds for {len(K3_TABLE_SPECS)} specs "
+            f"{K3_TABLE_SPECS} (at most one each; Posit<16,1>'s may come from the sweep "
+            f"above); {calls} encode calls at {K3_PATH_SPECS} (all bf16 patterns, "
+            f"{size} lanes, table and computed path, odd offsets), the threshold "
+            f"{TABLE_MIN_NUMEL} -1/+0/+1/+7, the f32 sweep at an odd offset and the "
+            f"weights {K3_WEIGHT_SHAPES}")
+        return {"table_builds": built, "calls": calls}
 
     def check_prefill_edges(self, same) -> int:
         """K1's prefill path at K1_PREFILL_EDGE_SHAPES against its plain
@@ -1004,9 +1144,10 @@ class Smoke:
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         build_encodes = _lib.launches["posit_codec"]
+        build_tables = _lib.launches["posit_codec_table"]
         n_int16 = sum(p.numel() for p in eng.model.parameters() if p.dtype == torch.int16)
-        log(f"engine build {build_s:.1f} s: {build_encodes} weight encodes (K3), "
-            f"{n_int16 / 1e9:.3f} G int16 weights, "
+        log(f"engine build {build_s:.1f} s: {build_encodes} weight encodes (K3; "
+            f"{build_tables} table builds), {n_int16 / 1e9:.3f} G int16 weights, "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
         if build_encodes != 7 * layers + 1:
             raise AssertionError(f"expected {7 * layers + 1} weight encodes, got {build_encodes}")
@@ -1041,8 +1182,8 @@ class Smoke:
         bad = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
         outs = [done[h.rid] for h in handles]
         valid = all(len(o) == 16 and all(0 <= t < cfg.vocab for t in o) for o in outs)
-        for h in handles:
-            log(f"  req {h.rid}: {done[h.rid]}")
+        for rid in [h.rid for h in handles]:
+            log(f"  req {rid}: {done[rid]}")
         # the counted run's step latencies and seconds, before the profile
         # adds steps and prefills
         run_steps = list(st.step_latency_s)
@@ -1068,12 +1209,93 @@ class Smoke:
             "run_step_p50_s": float(np.quantile(run_steps, 0.5)),
             "run_step_p95_s": float(np.quantile(run_steps, 0.95)),
             "outputs": outs, "decode_profile": profile}
-        del eng
+        del eng, handles  # a handle holds its engine
         torch.cuda.empty_cache()
         if bad:
             raise AssertionError(f"launch counts (got, expected): {bad}")
         if not valid:
             raise AssertionError("a request did not return 16 valid tokens")
+        self.serve_unquantized(cfg, opts, prompts, outs, build_tables)
+
+    def serve_unquantized(self, cfg, opts, prompts, want, build_tables):
+        """The same requests on an engine that keeps its bf16 weights
+        (prequantize=False, ServeOptions' default): each forward encodes
+        every weight (K3, bf16 -> int16 on the table path) before its K1
+        launch.  Gates: no launch at build; 7L+1 K3 and 7L+1 K1 launches a
+        forward and L K2 a decode step; no table build in the run, and at
+        most one over the phase (the prequantized build's, or phase
+        kernels', is reused); the prequantized run's greedy tokens."""
+        torch = self.torch
+        import numpy as np
+
+        from repro_torch.kernels import _lib
+        from repro_torch.serving import build_engine
+
+        layers = cfg.n_layers
+        opts = dataclasses.replace(opts, prequantize=False)
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        eng = build_engine(cfg, opts, init_seed=0)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        at_build = {k: v for k, v in _lib.launches.items() if v}
+        _lib.reset_launches()  # the path's run starts here
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, arrival_step=i, **opts.submit_kwargs())
+                   for i, p in enumerate(prompts)]
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_lib.launches)
+        self.path_launches["posit_codec"] = (self.path_launches.get("posit_codec", 0)
+                                             + counts["posit_codec"])
+        st = eng.stats
+        forwards = st.prefills + st.decode_steps
+        decode_tokens = st.generated_tokens - st.prefills
+        per_forward = 7 * layers + 1
+        expect = {"plam_matmul": per_forward * forwards, "posit_codec": per_forward * forwards,
+                  "paged_decode_attention": layers * st.decode_steps, "posit_codec_table": 0}
+        bad = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
+        if at_build:
+            bad["launches at build"] = (at_build, {})
+        if build_tables > 1:
+            bad["table builds over the phase"] = (build_tables, 1)
+        outs = [done[h.rid] for h in handles]
+        run_steps = list(st.step_latency_s)
+        # the counted run's, before the profile adds steps
+        counted = {"prefills": st.prefills, "decode_steps": st.decode_steps,
+                   "prefill_s": st.prefill_s, "decode_s": st.decode_s}
+        decode_s = st.decode_s
+        log(f"unquantized bf16 weights (prequantize=False): build {build_s:.1f} s, served "
+            f"{len(done)} requests in {st.steps} steps, {wall:.2f} s wall: prefill "
+            f"{st.prefill_s:.2f} s over {st.prefills} prefills, decode {decode_s:.2f} s over "
+            f"{st.decode_steps} steps ({decode_tokens / decode_s:.2f} decode tok/s), step p50 "
+            f"{np.quantile(run_steps, 0.5) * 1e3:.1f} ms, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"launches: {counts} (forwards {forwards}, decode steps {st.decode_steps})")
+        log(f"greedy tokens {'equal to' if outs == want else 'DIFFER from'} the prequantized "
+            f"run's")
+        profile, step_launches = self.profile_decode(eng, prompts)
+        step_expect = {"plam_matmul": per_forward, "posit_codec": per_forward,
+                       "paged_decode_attention": layers, "posit_codec_table": 0}
+        for k, v in step_expect.items():
+            if step_launches[k] != v:
+                bad[f"{k} in one decode step"] = (step_launches[k], v)
+        self.results["serve"]["unquantized"] = {
+            "engine_build_s": build_s, "wall_s": wall, **counted,
+            "decode_tok_per_s": decode_tokens / decode_s,
+            "run_step_p50_s": float(np.quantile(run_steps, 0.5)),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts,
+            "expected": expect, "decode_step_launches": step_launches, "outputs": outs,
+            "tokens_equal": outs == want, "decode_profile": profile}
+        del eng, handles
+        torch.cuda.empty_cache()
+        if bad:
+            raise AssertionError(f"unquantized serve, launch counts (got, expected): {bad}")
+        if outs != want:
+            raise AssertionError("unquantized serve: greedy tokens differ from the "
+                                 "prequantized run's")
 
     def profile_decode(self, eng, prompts):
         """Launches of one decode step with all 4 slots busy, then device
@@ -1125,9 +1347,18 @@ class Smoke:
                     if "decode_attention_core" in name and "true>" in name)
         log(f"  K2 (decode_attention_core, paged): {k2_us / busy:.2%} of device time, "
             f"{k2_us / 1e3:.3f} ms")
+        # K1's and K3's kernels, and the device's copy kernels (casts
+        # among them), by kernel name
+        kernels = {name: us for name, us in by_name.items() if not name.startswith("aten::")}
+        k1_us = sum(us for name, us in kernels.items() if "plam_matmul" in name)
+        k3_us = sum(us for name, us in kernels.items() if "encode_" in name and "kernel" in name)
+        copy_us = sum(us for name, us in kernels.items() if "copy" in name)
+        log(f"  K1 {k1_us / 1e3:.3f} ms, K3 (weight encodes) {k3_us / 1e3:.3f} ms, copy "
+            f"kernels {copy_us / 1e3:.3f} ms over the 2 steps")
         return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
                 "idle_share": 1 - busy / wall_us,
                 "k2_ms": k2_us / 1e3, "k2_share": k2_us / busy,
+                "k1_ms": k1_us / 1e3, "k3_ms": k3_us / 1e3, "copy_ms": copy_us / 1e3,
                 "top": [[name, us / 1e3] for name, us in top]}, step_launches
 
     # -- phase 5 -------------------------------------------------------------
@@ -1217,8 +1448,9 @@ class Smoke:
             if floor_ms is not None:
                 row["design_floor_ms"] = floor_ms
             rows.append(row)
+            plain = "not measured" if plain_ms is None else f"{plain_ms:.3f} ms"
             log(f"time {name} {shape}: {ms:.4f} ms, device {dev_ms:.4f} ms (plain "
-                f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}"
+                f"{plain}, bound {row['bound_ms']:.4f} ms by {row['bound_by']}"
                 + (f", library {lib_ms:.4f} ms, device {lib_dev_ms:.4f} ms"
                    if lib_ms is not None else "")
                 + (f", design floor {floor_ms:.4f} ms" if floor_ms is not None else "") + ")")
@@ -1315,29 +1547,8 @@ class Smoke:
                 k1_main = row
             del x, b
         self.time_fused_on_serve_activations()
-        # K3 at the activation shapes (bf16 -> int32) and one weight (->
-        # int16); the bound is the larger of the bytes and the ALU-pipe
-        # operations a table encode needs, and beside it the design's floor
-        # (its own operations), both hand counts in its source
-        with open(K3_SOURCE) as f:
-            src = f.read()
-        k3_bound_ops, k3_ops = (int(re.search(rf"constexpr int {c} = (\d+);", src).group(1))
-                                for c in ("kEncodeBoundAluOpsPerLane", "kEncodeAluOpsPerLane"))
-        log(f"K3 ALU-pipe operations a bf16 encode lane needs (counted in posit_codec.cu): "
-            f"{k3_bound_ops} (a table encode: the bound), {k3_ops} (this design: its floor)")
-        k3_main = None
-        for shape, od in [((4, 4096), torch.int32), ((64, 11008), torch.int32),
-                          ((4096, 11008), torch.int16)]:
-            x = torch.randn(shape, generator=g, device=self.dev).to(torch.bfloat16)
-            ms = timed(lambda: posit_encode(x, P16, out_dtype=od), reps=20)
-            plain = self.events_ms(
-                lambda: posit_encode(x, P16, out_dtype=od, use_kernel=False), reps=2)
-            out_b = 4 if od == torch.int32 else 2
-            row = add("posit_codec", f"encode {list(shape)} bf16->{str(od)[6:]}", ms, plain,
-                      x.numel() * (2 + out_b), x.numel() * k3_bound_ops, int_rate,
-                      floor_ms=x.numel() * k3_ops / int_rate * 1e3)
-            if shape == (4096, 11008):  # the weight encode: K3's path now
-                k3_main = row
+        k3_main = self.time_encode(add, int_rate)
+        self.time_table_fill()
         # K2 at the serving shape (4 sequences of yi-6b heads, bf16 pool) and
         # at a long paged context; the library yardstick is SDPA over the
         # cache gathered beforehand (it leaves out K2's block-table walk)
@@ -1461,6 +1672,163 @@ class Smoke:
         self.results["fused_on_serve_activations"] = rows
         del seen
         torch.cuda.empty_cache()
+
+    def k3_input(self, g, shape, kind):
+        """A seeded K3 input: "f32" and "bf16" weights N(0, 1/K) (the
+        activation shapes N(0, 1)), "bf16 bits" uniform over the 65,024
+        finite bf16 patterns."""
+        torch = self.torch
+        if kind == "bf16 bits":
+            pats = torch.arange(1 << 16, dtype=torch.int32, device=self.dev)
+            finite = pats[(pats & 0x7F80) != 0x7F80]
+            pick = torch.randint(0, finite.numel(), shape, generator=g, device=self.dev)
+            return finite[pick].to(torch.int16).view(torch.bfloat16)
+        scale = shape[0] ** -0.5 if shape[0] >= 4096 else 1.0
+        x = torch.randn(shape, generator=g, device=self.dev) * scale
+        return x if kind == "f32" else x.to(torch.bfloat16)
+
+    def time_encode(self, add, int_rate):
+        """K3's encode at K3_TIMES, Posit<16,1>: window and spun, beside
+        its bound (the bytes; the ALU-pipe operations a table encode
+        needs), the floor of the path it takes (the larger of the bytes
+        and the path's operations, hand counts in its source), the plain
+        version (not at the unembed: its int64 temporaries would take
+        tens of GB), and a copy of the same bytes (a torch conversion from
+        the input's bits to the output type: what the card's elementwise
+        kernels reach here); at K3_HOST_SHAPES also the host time per
+        call.  Returns the row of the weight encode [4096, 11008] bf16 ->
+        int16."""
+        torch = self.torch
+        from repro_torch.kernels.posit_codec import encode_path, posit_encode
+        from repro_torch.numerics import P16
+
+        with open(K3_SOURCE) as f:
+            src = f.read()
+        ops = {c: int(re.search(rf"constexpr int {c} = (\d+);", src).group(1))
+               for c in ("kEncodeBoundAluOpsPerLane", "kEncodeFixedAluOpsPerLane",
+                         "kEncodeTableAluOpsPerLane")}
+        log(f"K3 ALU-pipe operations a lane (counted in posit_codec.cu): {ops}")
+        path_ops = {"table": ops["kEncodeTableAluOpsPerLane"],
+                    "computed": ops["kEncodeFixedAluOpsPerLane"]}
+        g = self.gen(15)
+        main = None
+        for shape, kind, od_name in K3_TIMES:
+            od = getattr(torch, od_name)
+            x = self.k3_input(g, shape, kind)
+            n = x.numel()
+            path = encode_path(x.dtype, n, P16)
+            ms = self.timed(lambda: posit_encode(x, P16, out_dtype=od), reps=20)
+            plain = None
+            if n <= 1 << 26:
+                plain = self.events_ms(
+                    lambda: posit_encode(x, P16, out_dtype=od, use_kernel=False), reps=2)
+            word = x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+            dst = torch.empty(shape, dtype=od, device=self.dev)
+            copy_ms = self.timed(lambda: dst.copy_(word), reps=20)
+            bytes_ = n * (x.element_size() + dst.element_size())
+            floor = max(bytes_ / HBM_BYTES_PER_S, n * path_ops[path] / int_rate) * 1e3
+            row = add("posit_codec", f"encode {list(shape)} {kind}->{od_name} ({path} path)",
+                      ms, plain, bytes_, n * ops["kEncodeBoundAluOpsPerLane"], int_rate,
+                      floor_ms=floor)
+            row.update({"path": path, "copy_ms": copy_ms[0], "copy_device_ms": copy_ms[1]})
+            log(f"  copy of the same bytes: {copy_ms[0]:.4f} ms, device {copy_ms[1]:.4f} ms; "
+                f"the encode's device time over it {row['device_ms'] / copy_ms[1]:.3f}")
+            if shape in K3_HOST_SHAPES:
+                row["host_us"] = self.host_us(lambda: posit_encode(x, P16, out_dtype=od))
+                log(f"  host per call: {row['host_us']:.2f} us")
+            if (shape, kind, od_name) == ((4096, 11008), "bf16", "int16"):
+                main = row
+            del x, word, dst
+        torch.cuda.empty_cache()
+        return main
+
+    def time_table_fill(self):
+        """The table fill's share of K3's table path, and the one variation
+        its design allows (K3_FILL_VARIANT_LANES lanes a block): this
+        tree's posit_codec.cu beside two variants made from its text, one
+        with the fill taken out (its output is garbage; only its time is
+        read) and one with more lanes a block, each built into a library of
+        its own under build/ (both nvcc at once) and called through
+        posit_encode_launch on one input and output at K3_FILL_SHAPES
+        (Posit<16,1>), in turns (design, variants, variants, design), spun
+        after an L2 flush.  These launches pass no wrapper: no count moves."""
+        torch = self.torch
+        import ctypes
+
+        from repro_torch.kernels import _lib
+        from repro_torch.kernels.posit_codec import bf16_table
+        from repro_torch.numerics import P16
+
+        with open(K3_SOURCE) as f:
+            src = f.read()
+        fill = "for (int i = threadIdx.x; i < kTableBytes / 16; i += blockDim.x) smem[i] = src[i];"
+        lanes = "constexpr int kTableLanesPerBlock = 32768;"
+        if fill not in src or lanes not in src:
+            raise AssertionError("table fill probe: posit_codec.cu's fill loop or lanes a "
+                                 "block, which the probe rewrites, changed")
+        texts = {"no fill": src.replace(fill, "(void)src;"),
+                 f"{K3_FILL_VARIANT_LANES} lanes a block":
+                     src.replace(lanes, lanes.replace("32768", str(K3_FILL_VARIANT_LANES)))}
+        out_dir = os.path.join(ROOT, "build", "k3_fill_probe")
+        os.makedirs(out_dir, exist_ok=True)
+        t0 = time.perf_counter()
+        procs = []
+        try:
+            for i, (name, text) in enumerate(texts.items()):
+                cu, so = (os.path.join(out_dir, f"variant{i}{ext}") for ext in (".cu", ".so"))
+                with open(cu, "w") as f:
+                    f.write(text)
+                cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, f"-I{os.path.dirname(K3_SOURCE)}",
+                       "-shared", cu, "-o", so]
+                procs.append((name, so, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            libs = {"design": _lib.library()}
+            for name, so, proc in procs:
+                out, _ = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(f"table fill probe: nvcc failed on {name}:\n{out}")
+                lib = ctypes.CDLL(so)
+                lib.posit_encode_launch.argtypes = _lib._SIGNATURES["posit_encode_launch"]
+                lib.posit_encode_launch.restype = ctypes.c_int
+                libs[name] = lib
+        finally:
+            for _, _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        log(f"K3 table fill probe: variants built in {time.perf_counter() - t0:.1f} s")
+        table = bf16_table(P16, self.dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        g = self.gen(19)
+        rows = []
+        for shape, od_name in K3_FILL_SHAPES:
+            od = getattr(torch, od_name)
+            x = self.k3_input(g, shape, "bf16")
+            out = torch.empty(shape, dtype=od, device=self.dev)
+
+            def call(lib):
+                def fn():
+                    err = lib.posit_encode_launch(
+                        x.data_ptr(), _lib.DTYPE_CODES[x.dtype], out.data_ptr(),
+                        _lib.DTYPE_CODES[od], x.numel(), P16.n, P16.es, table.data_ptr(),
+                        stream)
+                    if err:
+                        raise RuntimeError(f"table fill probe: launch failed ({err})")
+                return fn
+
+            turns = {name: [] for name in libs}
+            for name in list(libs) + list(libs)[::-1]:
+                turns[name].append(self.events_ms(call(libs[name]), reps=30, spin=True))
+            design = sum(turns["design"]) / 2
+            share = (design - sum(turns["no fill"]) / 2) / design
+            rows.append({"shape": list(shape), "out": od_name, "device_ms": turns,
+                         "fill_share": share})
+            log(f"  table fill probe {list(shape)} bf16->{od_name}, spun ms in turns: "
+                + "; ".join(f"{k} {[round(v, 4) for v in vs]}" for k, vs in turns.items())
+                + f"; fill share {share:.3f}")
+            del x, out
+        torch.cuda.empty_cache()
+        self.results["k3_table_fill"] = rows
 
     def time_posit_mul(self, add, int_rate):
         """K4 over 2^24 seeded Posit<16,1> pairs: 12 bytes a lane, and the

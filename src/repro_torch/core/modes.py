@@ -5,10 +5,12 @@
   (straight-through gradients), exact multiply; f32 or bf16 carrier.
 * ``plam_sim``         — every scalar product is the paper's
   logarithm-approximate multiplication, antilogged to linear f32 and
-  accumulated.  The weight goes through the codec kernel, the
-  activations are encoded inside the PLAM matmul kernel, which sums the
-  products (``repro_torch.kernels``); prequantized int16 weights skip
-  the weight encode.
+  accumulated.  The weight goes through the codec kernel to the
+  patterns ``quantize_params`` would store (int16 for n <= 16), a bf16
+  weight straight from its bits, with no f32 copy; the activations are
+  encoded inside the PLAM matmul kernel, which sums the products
+  (``repro_torch.kernels``).  Prequantized weights skip the weight
+  encode.
 * ``mitchell_f32``     — parsed for policy parity, not yet served
   (``ROADMAP.md``, queue 1).
 
@@ -71,17 +73,27 @@ def _quantize_bf16(x: torch.Tensor, spec: PositSpec) -> torch.Tensor:
 
 
 def _plam_matmul(x, w, spec: PositSpec, use_kernel: Optional[bool]):
-    """PLAM matmul of linear operands: the weight through the codec
-    kernel, then ``plam_dense``, which encodes the activations inside
-    the PLAM kernel.
+    """PLAM matmul of f32 or bf16 operands: the weight through the codec
+    kernel to int16 patterns where n <= 16 (int32 otherwise), then
+    ``plam_dense``, which encodes the activations inside the PLAM kernel.
+    A bf16 value is its f32 value exactly, and the PLAM kernel gives the
+    same bits over int16 and int32 patterns, so the result is that of f32
+    operands and int32 patterns.
 
     The reference sums each K-chunk with ``jnp.sum``, so the two agree to
     f32 rounding, not bit for bit.
     """
     from repro_torch.kernels.ops import plam_dense, posit_encode
 
-    wb = posit_encode(w.contiguous(), spec, use_kernel=use_kernel)
+    out_dtype = torch.int16 if spec.n <= 16 else torch.int32
+    wb = posit_encode(w.contiguous(), spec, out_dtype=out_dtype, use_kernel=use_kernel)
     return plam_dense(x, wb, spec, use_kernel=use_kernel)
+
+
+def _codec_float(t: torch.Tensor) -> torch.Tensor:
+    """t as the codec and the PLAM kernel take it: f32 and bf16 as they
+    are, other floats cast to f32."""
+    return t if t.dtype in (torch.float32, torch.bfloat16) else t.to(torch.float32)
 
 
 def _pattern_matmul(x, w_pat, ncfg: NumericsConfig, out_dtype, use_kernel):
@@ -129,7 +141,7 @@ def nmatmul(x, w, ncfg: NumericsConfig, out_dtype=None,
             wq = w.to(f32) if ncfg.prequantized_weights else quantize(w.to(f32), spec)
         out = torch.matmul(xq, wq)
     elif ncfg.mode == "plam_sim":
-        out = _plam_matmul(x.to(f32), w.to(f32), ncfg.spec, use_kernel)
+        out = _plam_matmul(_codec_float(x), _codec_float(w), ncfg.spec, use_kernel)
     elif ncfg.mode == "mitchell_f32":
         raise NotImplementedError(
             "mitchell_f32 is not ported yet (ROADMAP.md, queue 1: mitchell_f32)")

@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .modes import NumericsConfig
+from .modes import NumericsConfig, _codec_float
 from .policy import layer_segments, site_for
 
 # Parameter path -> site role (the reference's table).
@@ -116,9 +116,7 @@ def quantize_params(cfg, model: nn.Module, *, pack: bool = True,
             continue
         spec = site_cfg.spec
         out_dtype = torch.int16 if pack and spec.n <= 16 else torch.int32
-        x = param.detach()
-        if x.dtype not in (torch.float32, torch.bfloat16):
-            x = x.to(torch.float32)
+        x = _codec_float(param.detach())
         bits = posit_encode(x.contiguous(), spec, out_dtype=out_dtype,
                             use_kernel=use_kernel)
         owner, attr = _owner(model, name)

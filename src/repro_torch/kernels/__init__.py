@@ -7,14 +7,15 @@
   ``csrc/paged_decode_attention.cu``, on the split-key core of
   ``csrc/decode_attention.cuh`` that K5 shares)
 * ``posit_codec``             — posit encode / decode / quantize (K3,
-  ``csrc/posit_codec.cu``)
+  ``csrc/posit_codec.cu``; a bf16 weight's encode looks its patterns up
+  in a table in shared memory, built once per spec and device)
 * ``posit_mul``               — element-wise PLAM and exact posit products
   (K4, ``csrc/posit_mul.cu``)
 * ``decode_attention``        — contiguous-cache decode attention split
   along the keys (K5, ``csrc/decode_attention.cu``)
 
 Kernels are built on first use (``_lib.library``); launches are counted
-in ``_lib.launches``.
+in ``_lib.launches`` (K3's table builds apart, as ``posit_codec_table``).
 """
 from ._lib import launches, reset_launches  # noqa: F401
 from .decode_attention import (  # noqa: F401

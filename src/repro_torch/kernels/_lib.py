@@ -41,6 +41,7 @@ launches: Dict[str, int] = {
     "plam_matmul": 0,
     "paged_decode_attention": 0,
     "posit_codec": 0,
+    "posit_codec_table": 0,  # K3's bf16 tables, built once per (spec, device)
     "posit_mul": 0,
     "decode_attention": 0,
 }
@@ -133,7 +134,7 @@ _SIGNATURES = {
     "plam_matmul_launch": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     "plam_dense_launch": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     "plam_matmul_prefill_width": [_I, _I, _I, _I, _I],
-    "posit_encode_launch": [_P, _I, _P, _I, ctypes.c_int64, _I, _I, _P],
+    "posit_encode_launch": [_P, _I, _P, _I, ctypes.c_int64, _I, _I, _P, _P],
     "posit_decode_launch": [_P, _I, _P, ctypes.c_int64, _I, _I, _P],
     "posit_quantize_launch": [_P, _I, _P, ctypes.c_int64, _I, _I, _P],
     "paged_decode_attention_launch": [

@@ -10,49 +10,93 @@
 // the float mode.  Build without --use_fast_math / FTZ.
 //
 // Where it runs: the serving path's activations are encoded inside the
-// PLAM matmul (plam_matmul.cuh, kFloatA), so this kernel encodes the
-// weights once at engine build (quantize_params, bf16 -> int16) and
-// serves the conformance oracle and the linear plam_sim path's weights.
+// PLAM matmul (plam_matmul.cuh, kFloatA), so this kernel encodes weights:
+// once at engine build (quantize_params, bf16 -> int16), and on every
+// forward of the plam_sim path without prequantized weights (core/modes.py,
+// bf16 -> int16).  It also serves the conformance oracle.
 //
 // What bounds it on an H100: bytes.  A bf16 input has only 65,536
-// values, so an encode that looks its pattern up in a 128 KB table in
-// shared memory needs one operation a lane on its value (the table index
-// from the input's bits; loads, stores and address arithmetic left out)
-// against 2 + 2 bytes (bf16 -> int16) at 3.35 TB/s: 0.054 ms for a
-// [4096, 11008] weight.  That count is K3's bound.
+// values, so an encode that looks its pattern up in a table needs one
+// operation a lane on its value (the table index from the input's bits;
+// loads, stores and address arithmetic left out) against 2 + 2 bytes
+// (bf16 -> int16) at 3.35 TB/s: 0.054 ms for a [4096, 11008] weight.
+// That count is K3's bound.
 //
-// This design computes the fields for a spec given at run time instead.
-// Its operations a lane, counted by hand as posit_mul.cu counts K4's (one
-// for each operator, comparison or select on a lane's values; values of
-// the spec alone hoisted; loop and address arithmetic left out), are its
-// design floor, not the function's:
+// Encode takes one of two paths; the wrapper picks it
+// (posit_codec.py::encode_path) and passes the table for the first:
 //
-//                       ALU-only   add-like
-//   encode_fields           33         12   (posit_mul.cu's count)
-//   encode_f32_bits glue     9          1   (zero test: and, compare,
-//                                            select; exponent: shift,
-//                                            and; NaR test: compare,
-//                                            select; sign shift,
-//                                            mantissa and; scale - 127)
-//   encode lane             42         13   = 55
+// - The table path: bf16 input, n <= 16, at least 2^20 lanes (every
+//   weight).  By sign symmetry, p(x) = sign(x) ? (0 - p(|x|)) & mask_n :
+//   p(|x|) (true for +-0, and for inf and NaN, whose NaR negates to
+//   itself), so the patterns of the 32,768 non-negative bf16 patterns
+//   give all 65,536: 64 KB of uint16, indexed by bits & 0x7FFF, built
+//   once per (spec, device) by the computed path below.  Each block copies
+//   the table into shared memory with 16-byte loads (64 KB, not the full
+//   128 KB, so that two blocks of 1024 threads fit on an SM and all 64
+//   warps keep loads in flight; the sign costs three operations a lane),
+//   then takes 8-lane chunks in a grid-stride loop, two in flight a
+//   thread: one 16-byte load of 8 bf16, 8 lookups, one 16-byte store of
+//   8 int16 or two of 4 int32 (the uint16 zero-extended, as
+//   repro.numerics.encode returns bits & mask_n).  Blocks: min(2 x SMs,
+//   ceil(n / 32768)).
+// - The computed path, for everything else (f32 input, n > 16, fewer
+//   lanes: activations, the conformance vectors): posit.cuh's
+//   encode_f32_bits on each lane, with the spec compiled in at
+//   Posit<16,1> (plam::FixedSpec) and given at run time otherwise, over
+//   the same 8-lane chunks with 16-byte loads and stores.
 //
-// At 64 ALU lanes per SM per clock that is 42 / 64 SM-clocks a lane:
-// 0.113 ms for the weight on 132 SMs at 1980 MHz, 2.1x the bound.  The
-// design reads and writes one 32-bit word (or one 16-bit word) per
-// thread, coalesced, in a grid-stride loop; encode writes int16 directly
-// when the caller stores 16-bit patterns, so weights are never staged in
-// int32.
+// Both paths take the lanes before x's first 16-byte boundary (a view at
+// an odd element offset, such as x[1:]) and the tail after the last whole
+// chunk one at a time; where out is not on a 16-byte boundary at that
+// lane, the chunks store lane by lane.
+//
+// Operations a lane, counted by hand as posit_mul.cu counts K4's (one for
+// each operator, comparison or select on a lane's values; values of the
+// spec alone hoisted; loop and address arithmetic, loads and stores left
+// out):
+//
+//                                      ALU-only   add-like
+//   encode_fields                          33         12   (posit_mul.cu's count)
+//   encode_f32_bits glue                    9          1   (zero test: and,
+//                                                           compare, select;
+//                                                           exponent: shift,
+//                                                           and; NaR test:
+//                                                           compare, select;
+//                                                           sign shift,
+//                                                           mantissa and;
+//                                                           scale - 127)
+//   computed lane, run-time spec           42         13   = 55
+//   with Posit<16,1> compiled in:
+//     shift_out = 24 - avail lies in [11, 24], so kept's compare, shl
+//     and select, round_bit's select and sticky_mask's compare and
+//     select fold away                     -6         -1
+//   computed lane, Posit<16,1>             36         12   = 48
+//   table lane                              5          1   (index and, sign
+//                                                           test, negate,
+//                                                           mask and, select;
+//                                                           the second bf16
+//                                                           of a word: its
+//                                                           shift, and the
+//                                                           pack: an or,
+//                                                           half a lane each)
+//
+// At 64 ALU lanes per SM per clock (132 SMs at 1980 MHz), a [4096, 11008]
+// encode takes at least 0.113 ms at a run-time spec, 0.097 ms at
+// Posit<16,1> (an f32 input's bytes bound is 0.108 ms), and 0.013 ms on
+// the table path, below its bytes: these are the paths' design floors.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 #include "posit.cuh"
 
 // the counts above, which chip_smoke.py reads from this file: K3's bound
-// (a table encode of bf16 input) and this design's floor
+// (a table encode of bf16 input) and the floors of the paths it times
 constexpr int kEncodeBoundAluOpsPerLane = 1;
-constexpr int kEncodeAluOpsPerLane = 42;
+constexpr int kEncodeFixedAluOpsPerLane = 36;
+constexpr int kEncodeTableAluOpsPerLane = 5;
 
 namespace {
 
@@ -66,18 +110,197 @@ __device__ __forceinline__ uint32_t f32_bits(__nv_bfloat16 x) {
 __device__ __forceinline__ uint32_t pattern_bits(int32_t b) { return (uint32_t)b; }
 __device__ __forceinline__ uint32_t pattern_bits(int16_t b) { return (uint32_t)(uint16_t)b; }
 
-__device__ __forceinline__ void store_pattern(int32_t* p, uint32_t bits) { *p = (int32_t)bits; }
-__device__ __forceinline__ void store_pattern(int16_t* p, uint32_t bits) {
-  *p = (int16_t)(uint16_t)bits;  // pack16: the low 16 bits
+// -- encode --------------------------------------------------------------
+// Lanes are raw words: uint32_t for f32 input and int32 output, uint16_t
+// for bf16 input and int16 output (the low 16 bits of the pattern).
+
+constexpr int kChunk = 8;  // lanes a chunk
+constexpr int kThreads = 256;
+constexpr int kTableEntries = 1 << 15;  // the non-negative bf16 patterns
+constexpr int kTableBytes = kTableEntries * 2;
+constexpr int kTableThreads = 1024;
+constexpr int kTableLanesPerBlock = 32768;
+
+// 8 lanes of U as one or two 16-byte words
+template <typename U>
+struct Chunk {
+  uint4 w[sizeof(U) / 2];
+};
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-template <typename TIn, typename TOut>
-__global__ void encode_kernel(const TIn* __restrict__ x, TOut* __restrict__ out, int64_t n,
-                              plam::Spec sp) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x)
-    store_pattern(out + i, plam::encode_f32_bits(f32_bits(x[i]), sp));
+template <typename U>
+__device__ __forceinline__ Chunk<U> load_chunk(const U* p) {
+  Chunk<U> c;
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(U) / 2); ++i) c.w[i] = __ldcs(q + i);
+  return c;
 }
+
+template <typename U>
+__device__ __forceinline__ uint32_t lane_of(const Chunk<U>& c, int j) {
+  if constexpr (sizeof(U) == 2) {
+    return (word(c.w[0], j >> 1) >> (16 * (j & 1))) & 0xFFFFu;
+  } else {
+    return word(c.w[j >> 2], j & 3);
+  }
+}
+
+// op over a chunk's 8 lanes, stored 16 bytes at a time where o is on a
+// 16-byte boundary (vec), lane by lane otherwise
+template <typename UIn, typename UOut, class Op>
+__device__ __forceinline__ void put_chunk(UOut* o, const Chunk<UIn>& in, Op op, bool vec) {
+  uint32_t p[kChunk];
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) p[j] = op(lane_of(in, j));
+  if (vec) {
+    uint4* q = reinterpret_cast<uint4*>(o);
+    if constexpr (sizeof(UOut) == 2) {
+      __stcs(q, make_uint4((p[0] & 0xFFFFu) | (p[1] << 16), (p[2] & 0xFFFFu) | (p[3] << 16),
+                           (p[4] & 0xFFFFu) | (p[5] << 16), (p[6] & 0xFFFFu) | (p[7] << 16)));
+    } else {
+      __stcs(q, make_uint4(p[0], p[1], p[2], p[3]));
+      __stcs(q + 1, make_uint4(p[4], p[5], p[6], p[7]));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) o[j] = (UOut)p[j];
+  }
+}
+
+// out[i] = op(x[i]) for i < n.  Lanes [0, head) (before x's first
+// 16-byte boundary) and those past the last whole chunk one at a time;
+// the chunks from head on in a grid-stride loop, kDepth in flight a
+// thread.
+template <int kDepth, typename UIn, typename UOut, class Op>
+__device__ __forceinline__ void encode_stream(const UIn* __restrict__ x, UOut* __restrict__ out,
+                                              int64_t n, int head, bool out_vec, Op op) {
+  const int64_t tid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t chunks = (n - head) / kChunk;
+  const int64_t tail = head + chunks * kChunk;
+  if (tid < head) out[tid] = (UOut)op((uint32_t)x[tid]);
+  if (tid < n - tail) out[tail + tid] = (UOut)op((uint32_t)x[tail + tid]);
+  const UIn* xv = x + head;
+  UOut* ov = out + head;
+  int64_t c = tid;
+  for (; c + (kDepth - 1) * stride < chunks; c += kDepth * stride) {
+    Chunk<UIn> in[kDepth];
+#pragma unroll
+    for (int d = 0; d < kDepth; ++d) in[d] = load_chunk(xv + (c + d * stride) * kChunk);
+#pragma unroll
+    for (int d = 0; d < kDepth; ++d) put_chunk(ov + (c + d * stride) * kChunk, in[d], op, out_vec);
+  }
+  for (; c < chunks; c += stride) put_chunk(ov + c * kChunk, load_chunk(xv + c * kChunk), op, out_vec);
+}
+
+template <typename UIn, typename UOut, class S>
+__global__ void encode_kernel(const UIn* __restrict__ x, UOut* __restrict__ out, int64_t n,
+                              int head, bool out_vec, S sp) {
+  encode_stream<1>(x, out, n, head, out_vec, [=](uint32_t r) {
+    return plam::encode_f32_bits(sizeof(UIn) == 2 ? r << 16 : r, sp);
+  });
+}
+
+// table: kTableEntries uint16 patterns on a 16-byte boundary
+template <typename UOut>
+__global__ void __launch_bounds__(kTableThreads, 2)
+    encode_table_kernel(const uint16_t* __restrict__ x, UOut* __restrict__ out, int64_t n,
+                        int head, bool out_vec, const uint16_t* __restrict__ table,
+                        uint32_t mask_n) {
+  extern __shared__ uint4 smem[];
+  const uint4* src = reinterpret_cast<const uint4*>(table);
+  for (int i = threadIdx.x; i < kTableBytes / 16; i += blockDim.x) smem[i] = src[i];
+  __syncthreads();
+  const uint16_t* tab = reinterpret_cast<const uint16_t*>(smem);
+  encode_stream<2>(x, out, n, head, out_vec, [=](uint32_t r) {
+    const uint32_t t = tab[r & 0x7FFFu];
+    return (r & 0x8000u) ? ((0u - t) & mask_n) : t;
+  });
+}
+
+struct Layout {
+  int head;      // lanes before x's first 16-byte boundary
+  bool out_vec;  // out + head is on a 16-byte boundary
+};
+
+template <typename UIn, typename UOut>
+Layout layout(const UIn* x, const UOut* out, int64_t n) {
+  const int64_t to_edge = (int64_t)(((16u - ((uintptr_t)x & 15u)) & 15u) / sizeof(UIn));
+  const int head = (int)(to_edge < n ? to_edge : n);
+  return {head, ((uintptr_t)(out + head) & 15u) == 0};
+}
+
+int grid_for(int64_t n) {
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  return (int)(blocks < 132 * 16 ? blocks : 132 * 16);  // 16 blocks per SM
+}
+
+template <typename UIn, typename UOut, class S>
+int run_computed(const UIn* x, UOut* out, int64_t n, S sp, cudaStream_t s) {
+  const Layout l = layout(x, out, n);
+  const int64_t chunks = (n - l.head) / kChunk;
+  encode_kernel<<<grid_for(chunks > 0 ? chunks : 1), kThreads, 0, s>>>(x, out, n, l.head,
+                                                                        l.out_vec, sp);
+  return (int)cudaGetLastError();
+}
+
+template <class S>
+int launch_computed(const void* x, int x_dtype, void* out, int out_dtype, int64_t n, S sp,
+                    cudaStream_t s) {
+  if (x_dtype == kF32 && out_dtype == kI32)
+    return run_computed((const uint32_t*)x, (uint32_t*)out, n, sp, s);
+  if (x_dtype == kF32 && out_dtype == kI16)
+    return run_computed((const uint32_t*)x, (uint16_t*)out, n, sp, s);
+  if (x_dtype == kBF16 && out_dtype == kI32)
+    return run_computed((const uint16_t*)x, (uint32_t*)out, n, sp, s);
+  if (x_dtype == kBF16 && out_dtype == kI16)
+    return run_computed((const uint16_t*)x, (uint16_t*)out, n, sp, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The current device's SM count, read once per (output type, device)
+// together with the table kernel's shared-memory attribute, which is set
+// then.  A refused attribute is returned on every call.
+template <typename UOut>
+cudaError_t table_kernel_ready(int* sms) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> ready[kMaxDevices];  // the device's SMs once set, else 0
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int count = ready[dev].load(std::memory_order_acquire);
+  if (count == 0) {
+    e = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(encode_table_kernel<UOut>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kTableBytes);
+    if (e != cudaSuccess) return e;
+    ready[dev].store(count, std::memory_order_release);
+  }
+  *sms = count;
+  return cudaSuccess;
+}
+
+template <typename UOut>
+int launch_table(const uint16_t* x, UOut* out, int64_t n, const uint16_t* table, uint32_t mask_n,
+                 cudaStream_t s) {
+  int sms = 0;
+  const cudaError_t e = table_kernel_ready<UOut>(&sms);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t want = (n + kTableLanesPerBlock - 1) / kTableLanesPerBlock;
+  const int blocks = (int)(want < 2 * sms ? want : 2 * sms);
+  const Layout l = layout(x, out, n);
+  encode_table_kernel<<<blocks, kTableThreads, kTableBytes, s>>>(x, out, n, l.head, l.out_vec,
+                                                                  table, mask_n);
+  return (int)cudaGetLastError();
+}
+
+// -- decode and quantize ----------------------------------------------------
 
 template <typename TIn>
 __global__ void decode_kernel(const TIn* __restrict__ bits, float* __restrict__ out, int64_t n,
@@ -95,34 +318,29 @@ __global__ void quantize_kernel(const TIn* __restrict__ x, float* __restrict__ o
     out[i] = plam::decode_f32(plam::encode_f32_bits(f32_bits(x[i]), sp), sp);
 }
 
-constexpr int kThreads = 256;
-
-int grid_for(int64_t n) {
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  return (int)(blocks < 132 * 16 ? blocks : 132 * 16);  // 16 blocks per SM
-}
-
 }  // namespace
 
-// x: f32 or bf16 [n]; out: int32 or int16 [n] (int16 only for n <= 16 posits).
+// x: f32 or bf16 [n]; out: int32 or int16 [n] (int16 only for n <= 16
+// posits).  table: null for the computed path; for the table path (bf16
+// x, n <= 16) the patterns of the 32,768 non-negative bf16 patterns,
+// uint16 on a 16-byte boundary.
 extern "C" int posit_encode_launch(const void* x, int x_dtype, void* out, int out_dtype,
-                                   int64_t n, int posit_n, int posit_es, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  const plam::Spec sp = plam::make_spec(posit_n, posit_es);
+                                   int64_t n, int posit_n, int posit_es, const void* table,
+                                   void* stream) {
+  if (n <= 0 || (out_dtype == kI16 && posit_n > 16)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int g = grid_for(n);
-  if (x_dtype == kF32 && out_dtype == kI32) {
-    encode_kernel<<<g, kThreads, 0, s>>>((const float*)x, (int32_t*)out, n, sp);
-  } else if (x_dtype == kF32 && out_dtype == kI16) {
-    encode_kernel<<<g, kThreads, 0, s>>>((const float*)x, (int16_t*)out, n, sp);
-  } else if (x_dtype == kBF16 && out_dtype == kI32) {
-    encode_kernel<<<g, kThreads, 0, s>>>((const __nv_bfloat16*)x, (int32_t*)out, n, sp);
-  } else if (x_dtype == kBF16 && out_dtype == kI16) {
-    encode_kernel<<<g, kThreads, 0, s>>>((const __nv_bfloat16*)x, (int16_t*)out, n, sp);
-  } else {
+  if (table != nullptr) {
+    if (x_dtype != kBF16 || posit_n > 16 || ((uintptr_t)table & 15u) != 0)
+      return (int)cudaErrorInvalidValue;
+    const uint32_t mask_n = (1u << posit_n) - 1u;
+    const uint16_t* t = (const uint16_t*)table;
+    if (out_dtype == kI16) return launch_table((const uint16_t*)x, (uint16_t*)out, n, t, mask_n, s);
+    if (out_dtype == kI32) return launch_table((const uint16_t*)x, (uint32_t*)out, n, t, mask_n, s);
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  if (posit_n == 16 && posit_es == 1)
+    return launch_computed(x, x_dtype, out, out_dtype, n, plam::FixedSpec<16, 1>{}, s);
+  return launch_computed(x, x_dtype, out, out_dtype, n, plam::make_spec(posit_n, posit_es), s);
 }
 
 // bits: int32 or int16 [n]; out: f32 [n].

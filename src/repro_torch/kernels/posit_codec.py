@@ -6,7 +6,10 @@ Port of the Pallas TPU kernels in ``repro/kernels/posit_codec.py``:
 * K3, ``posit_encode / posit_decode / posit_quantize`` as
   ``csrc/posit_codec.cu``: element-wise f32/bf16 -> pattern (RNE on the
   pattern, saturating, never to zero or NaR), pattern -> f32, and
-  decode . encode.
+  decode . encode.  Encode takes one of two paths (:func:`encode_path`):
+  a bf16 weight looks its patterns up in a table of the 32,768
+  non-negative bf16 patterns in shared memory (:func:`bf16_table`), the
+  rest computes each lane's fields.
 * K4, ``plam_mul_elementwise / exact_mul_elementwise`` as
   ``csrc/posit_mul.cu``: pattern x pattern -> pattern, the PLAM product
   and the exact product with RNE (the conformance oracles' multipliers).
@@ -17,7 +20,7 @@ tensors.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -38,6 +41,15 @@ from . import _lib
 _FLOATS = (torch.float32, torch.bfloat16)
 _PATTERNS = (torch.int32, torch.int16)
 
+#: lanes from which a bf16 encode takes the table path (every weight of
+#: the serving models); fewer (activations, conformance vectors) compute
+TABLE_MIN_NUMEL = 1 << 20
+#: the non-negative bf16 patterns, whose posits give all 65,536 by sign
+TABLE_ENTRIES = 1 << 15
+
+# (n, es, device index) -> the card's table, built once
+_tables: Dict[Tuple[int, int, Optional[int]], torch.Tensor] = {}
+
 
 def encode_plain(x: torch.Tensor, spec: PositSpec, out_dtype=torch.int32):
     bits = encode(x, spec)
@@ -50,6 +62,48 @@ def decode_plain(bits: torch.Tensor, spec: PositSpec):
 
 def quantize_plain(x: torch.Tensor, spec: PositSpec):
     return decode(encode(x, spec), spec)
+
+
+def encode_path(x_dtype: torch.dtype, numel: int, spec: PositSpec) -> str:
+    """The kernel path that encodes ``numel`` lanes of ``x_dtype`` at
+    ``spec``, for int16 and int32 patterns alike: ``"table"`` for bf16
+    with n <= 16 from TABLE_MIN_NUMEL lanes, ``"computed"`` otherwise."""
+    if x_dtype == torch.bfloat16 and spec.n <= 16 and numel >= TABLE_MIN_NUMEL:
+        return "table"
+    return "computed"
+
+
+def bf16_table_plain(spec: PositSpec) -> torch.Tensor:
+    """The table path's table, plain: the Posit<n,es> patterns of the
+    32,768 non-negative bf16 patterns (entry ``bits & 0x7FFF``), int16
+    holding the uint16 patterns."""
+    mags = torch.arange(TABLE_ENTRIES, dtype=torch.int16).view(torch.bfloat16)
+    return pack16(encode(mags, spec))
+
+
+def bf16_table(spec: PositSpec, device: torch.device) -> torch.Tensor:
+    """The table path's table on ``device``: built once per (spec,
+    device) by the computed path over the 32,768 non-negative bf16
+    patterns (counted as ``posit_codec_table``), then cached."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (spec.n, spec.es, device.index)
+    table = _tables.get(key)
+    if table is None:
+        mags = torch.arange(TABLE_ENTRIES, dtype=torch.int16, device=device).view(torch.bfloat16)
+        table = torch.empty(TABLE_ENTRIES, dtype=torch.int16, device=device)
+        _encode_launch(mags, table, spec, None, "posit_codec_table")
+        _tables[key] = table
+    return table
+
+
+def _encode_launch(x, out, spec, table, counter):
+    err = _lib.library().posit_encode_launch(
+        x.data_ptr(), _lib.DTYPE_CODES[x.dtype], out.data_ptr(), _lib.DTYPE_CODES[out.dtype],
+        x.numel(), spec.n, spec.es, None if table is None else table.data_ptr(),
+        _lib.stream_ptr(x))
+    _lib.check_launch(counter, err)
 
 
 def posit_encode(
@@ -69,10 +123,9 @@ def posit_encode(
     _lib.require(x, "x", _FLOATS)
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     if x.numel():
-        err = _lib.library().posit_encode_launch(
-            x.data_ptr(), _lib.DTYPE_CODES[x.dtype], out.data_ptr(),
-            _lib.DTYPE_CODES[out_dtype], x.numel(), spec.n, spec.es, _lib.stream_ptr(x))
-        _lib.check_launch("posit_codec", err)
+        table = (bf16_table(spec, x.device)
+                 if encode_path(x.dtype, x.numel(), spec) == "table" else None)
+        _encode_launch(x, out, spec, table, "posit_codec")
     return out
 
 

@@ -52,7 +52,8 @@ def _port_engine(tc, params=None, **kw):
     return build_engine(tc, opts, params=params, device="cpu"), opts
 
 
-@pytest.mark.parametrize("policy,prequantize", [("plam_sim:16:1", True), ("f32", False)])
+@pytest.mark.parametrize("policy,prequantize", [("plam_sim:16:1", True), ("f32", False),
+                                                ("plam_sim:16:1", False)])
 def test_engine_greedy_tokens_match_reference(policy, prequantize):
     """Three staggered requests over two slots (admission waits for a
     retirement): identical greedy tokens in both engines."""
@@ -77,6 +78,22 @@ def test_engine_greedy_tokens_match_reference(policy, prequantize):
     assert teng.stats.decode_steps == jeng.stats.decode_steps
     assert teng.stats.padding_waste() == pytest.approx(jeng.stats.padding_waste())
     assert all(v == 0 for v in _lib.launches.values())  # CPU: plain versions only
+
+
+def test_engine_prequantized_or_not_gives_the_same_tokens():
+    """bf16 weights (the serve path's): a plam_sim engine that encodes
+    them on every forward gives the tokens of one that stored their
+    int16 patterns at build."""
+    tc = t_get_config("yi-6b").reduced().with_numerics("default=plam_sim:16:1")
+    assert tc.param_dtype == "bfloat16"
+    outs = []
+    for prequantize in (True, False):
+        eng, _ = _port_engine(tc, prequantize=prequantize)
+        hs = [eng.submit(p, max_new_tokens=4, arrival_step=i)
+              for i, p in enumerate(_prompts(tc.vocab))]
+        done = eng.run()
+        outs.append([done[h.rid] for h in hs])
+    assert outs[0] == outs[1]
 
 
 @pytest.fixture

@@ -27,6 +27,7 @@ from repro.kernels.decode_attention import (  # noqa: E402
 from repro.kernels.ref import plam_matmul_seqref as j_seqref  # noqa: E402
 from repro.numerics import PositSpec as JSpec  # noqa: E402
 from repro_torch.kernels import _lib, ops  # noqa: E402
+from repro_torch.kernels import posit_codec as pc  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention,
     decode_attention_kernel,
@@ -80,6 +81,21 @@ def test_chip_smoke_checks_k1_at_these_shapes():
              and t.id in names}
     assert lists == {"RAGGED_SHAPES": RAGGED_SHAPES, "K1_EDGE_SHAPES": EDGE_SHAPES,
                      "K1_PREFILL_EDGE_SHAPES": PREFILL_EDGE_SHAPES}
+
+
+def test_chip_smoke_checks_k3_at_these_specs():
+    """chip_smoke.py keeps copies of TABLE_SPECS, TABLE_PATH_SPECS and
+    WEIGHT_SHAPES."""
+    import ast
+    import pathlib
+
+    tree = ast.parse((pathlib.Path(__file__).parents[1] / "chip_smoke.py").read_text())
+    names = ("K3_TABLE_SPECS", "K3_PATH_SPECS", "K3_WEIGHT_SHAPES")
+    lists = {t.id: ast.literal_eval(node.value) for node in tree.body
+             if isinstance(node, ast.Assign) for t in node.targets if isinstance(t, ast.Name)
+             and t.id in names}
+    assert lists == {"K3_TABLE_SPECS": TABLE_SPECS, "K3_PATH_SPECS": TABLE_PATH_SPECS,
+                     "K3_WEIGHT_SHAPES": WEIGHT_SHAPES}
 
 
 def _ragged_operands(shape):
@@ -199,6 +215,123 @@ def test_posit_codec_plain_matches_jax_kernels():
     # bf16 activations encode as their exact f32 values
     xb = torch.from_numpy(x).to(torch.bfloat16)
     assert torch.equal(ops.posit_encode(xb, P16), ops.posit_encode(xb.float(), P16))
+
+
+# the specs at which the encode's table path is checked (n <= 16)
+TABLE_SPECS = [(16, 1), (16, 2), (16, 0), (12, 1), (10, 1), (8, 1), (8, 0), (6, 0)]
+TABLE_IDS = [f"p{n}es{es}" for n, es in TABLE_SPECS]
+# the table path at Posit<16,1> and three other specs on the card
+TABLE_PATH_SPECS = [(16, 1), (16, 2), (10, 1), (8, 0)]
+# the serve path's weight shapes at which the card's encode is checked:
+# wk/wv, wg/wu (the grid capped at 2 x SMs) and the unembed
+WEIGHT_SHAPES = [(4096, 512), (4096, 11008), (4096, 64000)]
+
+
+def _all_bf16() -> torch.Tensor:
+    """The 65,536 bf16 patterns, in pattern order."""
+    return torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+
+
+def _tiled_bf16(n: int, seed: int = 0) -> torch.Tensor:
+    """n lanes of the 65,536 bf16 patterns tiled and shuffled."""
+    pats = np.tile(np.arange(1 << 16, dtype=np.uint16), n // (1 << 16) + 1)[:n]
+    np.random.default_rng(seed).shuffle(pats)
+    return torch.from_numpy(pats.view(np.int16).copy()).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,es", TABLE_SPECS, ids=TABLE_IDS)
+def test_bf16_table_plain_with_sign_rule_matches_jax_encode(n, es):
+    """The table of the 32,768 non-negative bf16 patterns, with the sign
+    rule p = sign ? (0 - t) & mask_n : t, gives the JAX encode of every
+    one of the 65,536 bf16 patterns (+-0, subnormals, inf and NaN
+    included)."""
+    from repro.numerics import encode as j_encode
+
+    spec = PositSpec(n, es)
+    table = pc.bf16_table_plain(spec).numpy().view(np.uint16).astype(np.uint32)
+    assert table.shape == (pc.TABLE_ENTRIES,)
+    bits = np.arange(1 << 16, dtype=np.uint32)
+    t = table[bits & 0x7FFF]
+    got = np.where(bits & 0x8000, (np.uint32(0) - t) & np.uint32(spec.mask_n), t)
+    want = np.asarray(j_encode(jnp.asarray((bits << 16).view(np.float32)), JSpec(n, es)))
+    assert np.array_equal(got.astype(np.int64), want.astype(np.int64))
+
+
+def _table_lookup(x, table, spec, out_dtype):
+    """csrc/posit_codec.cu's table lookup, plain: a bf16 lane's pattern
+    is its magnitude's entry, negated and masked to n bits where its sign
+    bit is set; int16 keeps the low 16 bits, int32 zero-extends them."""
+    bits = x.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+    t = table.to(torch.int32)[(bits & 0x7FFF).long()] & 0xFFFF
+    p = torch.where(bits >= 0x8000, (0 - t) & spec.mask_n, t)
+    return pack16(p) if out_dtype == torch.int16 else p
+
+
+@pytest.mark.parametrize("n,es", TABLE_SPECS, ids=TABLE_IDS)
+def test_table_lookup_mirror_equals_encode_plain(n, es):
+    """The kernel's lookup, plain (magnitude index, negate and mask, int16
+    packing, int32 zero-extension), equals encode_plain on all 65,536 bf16
+    patterns at int16 and int32 output."""
+    spec = PositSpec(n, es)
+    x, table = _all_bf16(), pc.bf16_table_plain(spec)
+    for od in (torch.int16, torch.int32):
+        got = _table_lookup(x, table, spec, od)
+        assert got.dtype == od and torch.equal(got, pc.encode_plain(x, spec, od))
+    wide = _table_lookup(x, table, spec, torch.int32)
+    assert int(wide.min()) >= 0 and int(wide.max()) <= spec.mask_n  # zero-extended
+
+
+def test_encode_path_rule():
+    """bf16 with n <= 16 takes the table from TABLE_MIN_NUMEL lanes on;
+    f32, n > 16 and fewer lanes compute."""
+    th, bf = pc.TABLE_MIN_NUMEL, torch.bfloat16
+    for n, es in TABLE_SPECS:
+        spec = PositSpec(n, es)
+        assert pc.encode_path(bf, th - 1, spec) == "computed"
+        assert pc.encode_path(bf, th, spec) == "table"
+        assert pc.encode_path(bf, th + 1, spec) == "table"
+    for numel in (th - 1, th, th + 1):
+        assert pc.encode_path(bf, numel, PositSpec(17, 1)) == "computed"
+        assert pc.encode_path(torch.float32, numel, P16) == "computed"
+    assert pc.encode_path(bf, 45_088_768, P16) == "table"  # a [4096, 11008] weight
+    assert pc.encode_path(bf, 64 * 11008, P16) == "computed"  # a prefill activation
+
+
+def test_posit_encode_views_at_element_offsets():
+    """A view at an element offset (the kernel's head lanes) is legal
+    input and encodes as the same lanes of the whole."""
+    x = _tiled_bf16(1001)
+    for od in (torch.int16, torch.int32):
+        whole = ops.posit_encode(x, P16, out_dtype=od)
+        for off in (1, 2, 4):
+            got = ops.posit_encode(x[off:], P16, out_dtype=od)
+            assert got.dtype == od and torch.equal(got, whole[off:])
+
+
+def test_nmatmul_plam_sim_bf16_operands_same_bits_as_f32_and_int32(monkeypatch):
+    """plam_sim on bf16 operands encodes the weight to int16 patterns
+    from its bf16 bits, and gives the bits of the earlier path (both
+    operands cast to f32, the weight encoded to int32 patterns)."""
+    from repro_torch.core.modes import PLAM16, nmatmul
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((5, 70)).astype(np.float32)
+    w = (rng.standard_normal((70, 9)) * 0.1).astype(np.float32)
+    x[0, :6] = [0.0, -0.0, 1e-30, -3e20, 2.0 ** -20, 4097.0]  # outside the exact range
+    w[:4, 0] = [0.0, 1e-38, -5e15, 2.0 ** 14]
+    xb, wb = torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16()
+    before = ops.plam_dense(xb.float(), ops.posit_encode(wb.float(), P16), P16)
+    seen, encode = [], ops.posit_encode
+
+    def spy(t, *args, **kw):
+        seen.append((t.dtype, kw.get("out_dtype")))
+        return encode(t, *args, **kw)
+
+    monkeypatch.setattr(ops, "posit_encode", spy)
+    got = nmatmul(xb, wb, PLAM16, out_dtype=torch.float32)
+    assert seen == [(torch.bfloat16, torch.int16)]
+    assert torch.equal(got.view(torch.int32), before.view(torch.int32))
+    assert torch.equal(nmatmul(xb, wb, PLAM16), before.to(torch.bfloat16))
 
 
 def _paged_case(seed=0, dtype=np.float32, lengths=(1, 6, 11), max_blk=None, h=4, kv=2,
@@ -462,6 +595,75 @@ def test_cuda_posit_codec_bit_identical(cuda_device):
                        ops.posit_decode(pats, P16, use_kernel=False).view(torch.int32))
     x = torch.randn(1 << 16, device=cuda_device) * 1e3
     assert torch.equal(ops.posit_encode(x, P16), ops.posit_encode(x, P16, use_kernel=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,es", TABLE_SPECS, ids=TABLE_IDS)
+def test_cuda_bf16_table_equals_plain(cuda_device, n, es):
+    spec = PositSpec(n, es)
+    assert torch.equal(pc.bf16_table(spec, cuda_device).cpu(), pc.bf16_table_plain(spec))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,es", TABLE_PATH_SPECS,
+                         ids=[f"p{n}es{es}" for n, es in TABLE_PATH_SPECS])
+def test_cuda_encode_both_paths_bit_identical(cuda_device, n, es):
+    """All 65,536 bf16 patterns tiled and shuffled to 2^20 + 13 lanes:
+    the table path over the whole, the computed path over two halves, and
+    inputs at element offsets 1, 2 and 4 (head lanes; the output off its
+    16-byte boundary, or on it after the head at 4 -> int32)."""
+    spec, size = PositSpec(n, es), pc.TABLE_MIN_NUMEL + 13
+    x = _tiled_bf16(size).to(cuda_device)
+    assert pc.encode_path(x.dtype, size, spec) == "table"
+    h = size // 2
+    for od in (torch.int16, torch.int32):
+        want = pc.encode_plain(x, spec, od)
+        assert torch.equal(ops.posit_encode(x, spec, out_dtype=od), want)
+        halves = [ops.posit_encode(part, spec, out_dtype=od) for part in (x[:h], x[h:])]
+        assert torch.equal(torch.cat(halves), want)
+        for off in (1, 2, 4):
+            assert torch.equal(ops.posit_encode(x[off:], spec, out_dtype=od), want[off:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WEIGHT_SHAPES, ids=["wkv", "wgu", "unembed"])
+def test_cuda_encode_weight_shapes_bit_identical(cuda_device, shape):
+    """Seeded bf16 weights at the serve path's shapes, where the table
+    path's grid is capped at 2 x SMs and each thread's loop strides many
+    times, against the plain version computed 2^25 lanes at a time."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    w = (torch.randn(shape, generator=g, device=cuda_device) * shape[0] ** -0.5).bfloat16()
+    rows = max(1, (1 << 25) // shape[1])
+    for od in (torch.int16, torch.int32):
+        want = torch.cat([pc.encode_plain(w[r:r + rows], P16, od)
+                          for r in range(0, shape[0], rows)])
+        assert torch.equal(ops.posit_encode(w, P16, out_dtype=od), want)
+
+
+@pytest.mark.cuda
+def test_cuda_encode_at_the_table_threshold(cuda_device):
+    x = _tiled_bf16(pc.TABLE_MIN_NUMEL + 7, seed=1).to(cuda_device)
+    for size in (pc.TABLE_MIN_NUMEL + d for d in (-1, 0, 1, 7)):
+        for od in (torch.int16, torch.int32):
+            assert torch.equal(ops.posit_encode(x[:size], P16, out_dtype=od),
+                               pc.encode_plain(x[:size], P16, od))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,es", [(16, 1), (16, 2), (32, 2)])
+def test_cuda_encode_f32_sweep_bit_identical(cuda_device, n, es):
+    """f32 values over every scale and the edges (Posit<16,1>: the spec
+    compiled in), aligned and at an odd element offset."""
+    spec = PositSpec(n, es)
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal(1 << 18) * np.exp2(rng.integers(-140, 128, 1 << 18))).astype(
+        np.float32)
+    x[:8] = [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -3e38, 1.0]
+    xt = torch.from_numpy(x).to(cuda_device)
+    for od in (torch.int16, torch.int32) if n <= 16 else (torch.int32,):
+        for part in (xt, xt[3:]):
+            assert torch.equal(ops.posit_encode(part, spec, out_dtype=od),
+                               pc.encode_plain(part, spec, od))
 
 
 @pytest.mark.cuda
