@@ -4,9 +4,9 @@
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--layers N]
-                          [--phases device,kernels,conformance,serve,e2e,times]
+                          [--phases device,kernels,conformance,serve,serve_paths,e2e,times]
 
-It imports ``repro_torch`` (never JAX) and runs six phases, each on its
+It imports ``repro_torch`` (never JAX) and runs seven phases, each on its
 own lines:
 
 1. device      — the card's name and power limit (nvidia-smi), the torch
@@ -22,7 +22,8 @@ own lines:
    over pattern, f32 and bf16 A; and K1 over float activations, which it encodes itself,
    over all 65,536 bf16 patterns and a seeded f32 sweep with its edges,
    at ragged M, K and N and at every projection shape at the serve
-   path's M) and the element-wise posit multipliers (K4) bit for bit, the
+   path's M, the chunk width and the verify rows) and the element-wise
+   posit multipliers (K4) bit for bit, the
    paged (K2) and contiguous (K5) decode attention within stated
    tolerances, at serving and long contexts and at the length edges of
    their shared core (0 included) in every dtype pair they take, and
@@ -42,10 +43,21 @@ own lines:
    (``prequantize=False``) serves the same requests: 7L+1 K3 and 7L+1
    K1 launches a forward, no second table build, and the same greedy
    tokens.
-5. e2e         — a 2-layer full-width model runs one prefill and 4
+5. serve_paths — the multi-token paged path at full width and depth:
+   a 2-layer model's chunked prefill against its whole-prompt prefill
+   (logits and pool), then, on one prequantized yi-6b handed to every
+   engine, the serve phase's requests with chunked prefill, with
+   recompute preemption on a pool just large enough for the longest
+   request, and with n-gram speculative decoding, and a shared-prefix
+   request set with the prefix cache on and off.  Each run is held to
+   its plain run's greedy tokens (or, where a token differs, to a top-2
+   margin of the plain context below the logit tolerance) and to the
+   launches of each forward: 7L+1 K1, L K2 on a one-token decode step
+   and none on a chunk or verify forward, no K3.
+6. e2e         — a 2-layer full-width model runs one prefill and 4
    decode steps on the kernels and on the plain versions; last logits
    must agree within a stated tolerance.
-6. times       — CUDA-event times of each kernel, its plain version and
+7. times       — CUDA-event times of each kernel, its plain version and
    (for attention) ``scaled_dot_product_attention``, beside each
    kernel's bound (and, for K1, the floor of its design, with the strip
    width of its prefill path).  Each
@@ -57,8 +69,11 @@ own lines:
    time per call, and again on the activations one step of a seeded
    full-depth engine gives it.  K3's encode is timed at weight and
    activation shapes on both paths (``K3_TIMES``), beside a copy of the
-   same bytes.  K2 is timed at the serving shape and at a long paged
-   context, and K5 also at other split sizes.
+   same bytes; its decode and quantize at 2^24 and 4,096 lanes beside
+   their bytes bound and a copy of the same bytes.  K1 is also timed at
+   the chunk width and the verify rows (M = 32, 20).  K2 is timed at
+   the serving shape and at a long paged context, and K5 also at other
+   split sizes.
 
 It exits non-zero if any phase fails, if no CUDA device is present, or if
 ``repro_torch`` cannot be imported.  Its last line is
@@ -80,7 +95,7 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ["device", "kernels", "conformance", "serve", "e2e", "times"]
+PHASES = ["device", "kernels", "conformance", "serve", "serve_paths", "e2e", "times"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 CUDA-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -138,6 +153,19 @@ K1_FUSED_MS = (1, 2, 3, 4, 5, 16, 17, 64)
 # with 4 slots, and prefills of prompts padded to 48 and 64 tokens; the
 # fused kernel is checked at every K1_SHAPES (K, N) at each of them
 K1_SERVE_MS = (4, 48, 64)
+# M of the multi-token paged path (phase serve_paths): the verify rows,
+# 4 slots x (spec_k = 4 drafts + 1), and the chunk width (32; the ragged
+# final chunk is 16 or 32).  The fused kernel is checked (bf16 A) and
+# timed at every K1_SHAPES (K, N) at each of them.
+K1_CHUNK_MS = (20, 32)
+# phase serve_paths: the chunk width and the speculative burst
+SERVE_CHUNK = 32
+SERVE_SPEC_K = 4
+# the prefix-cache request set: a shared 48-token prefix (3 blocks), four
+# suffixes (the first 16 tokens, so that its prompt is block-aligned and
+# the fifth request, its exact repeat, copies on write)
+PREFIX_LEN = 48
+PREFIX_SUFFIX_LENS = (16, 8, 12, 14)
 # every PLANT-th activation of those checks is a sweep value (most lie
 # outside the exact bf16 range), so that both of a_word's branches run
 # in one warp, as on the serve path's own activations
@@ -175,6 +203,12 @@ K3_PLAIN_LANES = 1 << 25
 # the K3_TIMES shapes whose host time per call is read: the table path
 # (wk/wv) and the computed path (a decode activation)
 K3_HOST_SHAPES = [(4096, 512), (4, 4096)]
+# K3's decode and quantize (the conformance oracle's): (operation, input)
+# at each of K3_OTHER_LANES, Posit<16,1> (2^24 lanes, and the 4,096 lanes
+# of a Posit<16,1> vector file)
+K3_OTHER_TIMES = [("decode", "int16"), ("decode", "int32"), ("quantize", "f32"),
+                  ("quantize", "bf16")]
+K3_OTHER_LANES = (1 << 24, 4096)
 # the table path's fill probe (Smoke.time_table_fill): its shapes and
 # outputs, and the lanes a block of the one variation the design allows
 K3_FILL_SHAPES = [((4096, 512), "int16"), ((4096, 11008), "int16"),
@@ -629,7 +663,8 @@ class Smoke:
         sweep with its edges (+-0, +-inf, NaN, subnormals, 3e38, 2^+-60)
         and its bf16 rounding, at every M of K1_FUSED_MS (K = N = 4096) and
         at K1_FUSED_KN (M = 4 and 64); and the serve path's shapes, every
-        K1_SHAPES (K, N) at each M of K1_SERVE_MS, f32 and bf16, over
+        K1_SHAPES (K, N) at each M of K1_SERVE_MS, f32 and bf16, and at
+        each M of K1_CHUNK_MS (the chunk and verify paths), bf16, over
         N(0, 1) values with every PLANT-th one a sweep value (the unembed's
         N = 64000 is the one shape that takes the 64-column strip kernel
         over float A).  Each plain result is computed once
@@ -685,7 +720,8 @@ class Smoke:
             acts[:16] = sweep[-16:]  # the edges
             acts = acts.view(m_top, k)
             for xs in (acts, acts.to(torch.bfloat16)):
-                for m in K1_SERVE_MS:
+                ms = K1_SERVE_MS + (K1_CHUNK_MS if xs.dtype == torch.bfloat16 else ())
+                for m in ms:
                     for kk, n in K1_SHAPES:
                         if kk == k:
                             check(f"serve shape {str(xs.dtype)[6:]}", xs[:m].contiguous(), n)
@@ -696,7 +732,8 @@ class Smoke:
             f"{'bit-identical' if ok else failures[n_before:]} over {cases} (A, N) cases, "
             f"int16 and int32 B (all 65,536 bf16 patterns; f32 sweep and edges and its bf16 "
             f"rounding at M {list(K1_FUSED_MS)} and (K, N) {K1_FUSED_KN} at M = 4, 64; "
-            f"f32 and bf16 at every K1_SHAPES (K, N) at M {list(K1_SERVE_MS)})")
+            f"f32 and bf16 at every K1_SHAPES (K, N) at M {list(K1_SERVE_MS)}, bf16 at M "
+            f"{list(K1_CHUNK_MS)})")
         return {"ok": ok, "cases": cases}
 
     def paged_case(self, g, lengths, max_blk=None, h=32, kv=4, hd=128, bs=16,
@@ -1156,6 +1193,7 @@ class Smoke:
         g = torch.Generator().manual_seed(7)
         lens = torch.randint(32, 65, (4,), generator=g).tolist()
         prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist() for n in lens]
+        self.serve_prompts = prompts
         _lib.reset_launches()  # the main path's run starts here
         t0 = time.perf_counter()
         handles = [eng.submit(p, arrival_step=i, **opts.submit_kwargs())
@@ -1363,6 +1401,274 @@ class Smoke:
 
     # -- phase 5 -------------------------------------------------------------
 
+    def phase_serve_paths(self):
+        """The multi-token paged path: the 2-layer model check, then the
+        four engine runs at full width and depth on one prequantized
+        model, each beside its plain run."""
+        torch = self.torch
+        from repro_torch.core.prequant import quantize_params
+        from repro_torch.kernels import _lib
+        from repro_torch.models import transformer as tf
+        from repro_torch.serving import ServeOptions
+
+        model_check = self.check_chunk_model()
+        cfg = self.yi_cfg(32)
+        layers = cfg.n_layers
+        torch.cuda.reset_peak_memory_stats()
+        model = tf.lm_init(cfg, seed=0, device=self.dev)
+        quantize_params(cfg, model)  # the serve phase's weights, encoded once
+        base = ServeOptions(max_new_tokens=16, block_size=16, max_slots=4, num_blocks=64,
+                            max_seq_len=128, prequantize=True)
+        g = torch.Generator().manual_seed(7)  # the serve phase's requests
+        lens = torch.randint(32, 65, (4,), generator=g).tolist()
+        prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist() for n in lens]
+        serve = self.results.get("serve", {})
+        if serve.get("layers") == layers and getattr(self, "serve_prompts", None) == prompts:
+            plain = {"outputs": serve["outputs"], "prefill_s": serve["prefill_s"],
+                     "prefills": serve["prefills"], "from": "phase serve"}
+        else:
+            run = self.serve_run("plain", cfg, model, base, prompts)
+            plain = {**run, "from": "this phase"}
+        res = {"layers": layers, "prompt_lens": lens, "model_check": model_check,
+               "plain": {k: v for k, v in plain.items() if k != "calls"}}
+        failures = []
+
+        def hold(name, run, want, ctx_prompts):
+            """Gate a run: its launches per forward, then its tokens against
+            the plain run's (or the plain context's top-2 margin)."""
+            res[name] = run
+            failures.extend(f"{name}: {f}" for f in self.forward_gates(run, layers))
+            diffs = self.token_diffs(cfg, model, ctx_prompts, run["outputs"], want)
+            run["token_diffs"] = diffs
+            for d in diffs:
+                if d["plain_top2_margin"] >= E2E_LOGIT_TOL:
+                    failures.append(f"{name}: tokens differ at {d} with a margin of at "
+                                    f"least {E2E_LOGIT_TOL}")
+            log(f"  {name}: greedy tokens "
+                + ("equal to the plain run's" if not diffs else f"differ: {diffs}"))
+
+        # 1. chunked prefill
+        opts = dataclasses.replace(base, prefill_chunk=SERVE_CHUNK)
+        run = self.serve_run("chunked", cfg, model, opts, prompts)
+        log(f"  prefill s per request: chunked {run['prefill_s'] / len(prompts):.4f} "
+            f"({run['prefills']} chunk forwards), whole-prompt "
+            f"{plain['prefill_s'] / plain['prefills']:.4f} ({plain['from']})")
+        hold("chunked", run, plain["outputs"], prompts)
+        # 2. recompute preemption on the pool the longest request needs alone.
+        # Under equal priorities the seeded requests would run one at a
+        # time on it (a later arrival waits behind the earlier one and
+        # never takes its blocks), so each arrival is given a higher
+        # priority than the last: it preempts the request running, which
+        # resumes through the chunk path later.
+        from repro_torch.serving.kv_cache import BlockAllocator
+        from repro_torch.serving.scheduler import Request, Scheduler
+
+        sizer = Scheduler(BlockAllocator(2, base.block_size), base.max_slots, base.max_seq_len)
+        need = max(sizer.blocks_needed(Request(rid=0, prompt=p, max_new_tokens=16))
+                   for p in prompts)
+        opts = dataclasses.replace(base, prefill_chunk=SERVE_CHUNK, preemption="recompute",
+                                   num_blocks=need + 1)
+        run = self.serve_run("preempt", cfg, model, opts, prompts,
+                             priorities=range(len(prompts)))
+        log(f"  preemption: pool {need} blocks, {run['preemptions']} preemptions, "
+            f"{run['resumes']} resumes, resume latency mean {run['resume_latency_mean_s']:.4f} s "
+            f"(steps {run['resume_latency_steps']})")
+        if run["preemptions"] < 1 or run["resumes"] < 1:
+            failures.append("preempt: no preemption or no resume")
+        if not any(c[0] == "chunk" and c[3] for c in run["calls"]):
+            failures.append("preempt: no resume went through the chunk path")
+        hold("preempt", run, plain["outputs"], prompts)
+        # 3. n-gram speculative decoding
+        opts = dataclasses.replace(base, spec_k=SERVE_SPEC_K, spec_draft="ngram")
+        run = self.serve_run("spec", cfg, model, opts, prompts)
+        log(f"  spec: {run['spec_steps']} verify steps, acceptance rate "
+            f"{run['acceptance_rate']:.4f}, tokens per verify step "
+            f"{run['tokens_per_verify_step']:.4f}")
+        if run["spec_steps"] < 1:
+            failures.append("spec: no verify step ran")
+        hold("spec", run, plain["outputs"], prompts)
+        # 4. the prefix cache, on and off
+        g = torch.Generator().manual_seed(23)
+        shared = torch.randint(0, cfg.vocab, (PREFIX_LEN,), generator=g).tolist()
+        pprompts = [shared + torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+                    for n in PREFIX_SUFFIX_LENS]
+        pprompts.append(list(pprompts[0]))  # the exact repeat: copy-on-write
+        off = self.serve_run("prefix_off", cfg, model, base, pprompts)
+        res["prefix_off"] = off
+        failures.extend(f"prefix_off: {f}" for f in self.forward_gates(off, layers))
+        opts = dataclasses.replace(base, prefix_cache=True)
+        run = self.serve_run("prefix", cfg, model, opts, pprompts)
+        log(f"  prefix cache: cached_len {run['cached_len']} (sum {sum(run['cached_len'])}), "
+            f"hits {run['cache']['hits']}, copies on write {run['cache']['cow_copies']}")
+        if sum(run["cached_len"]) <= 0 or run["cache"]["cow_copies"] < 1:
+            failures.append("prefix: no cache hit or no copy-on-write")
+        hold("prefix", run, off["outputs"], pprompts)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        self.results["serve_paths"] = res
+        for name in ("plam_matmul", "paged_decode_attention"):
+            self.path_launches[name] = self.path_launches.get(name, 0) + sum(
+                res[r]["launches"][name] for r in ("chunked", "preempt", "spec", "prefix"))
+        del model
+        torch.cuda.empty_cache()
+        if failures:
+            raise AssertionError("; ".join(failures))
+
+    def serve_run(self, name, cfg, model, opts, prompts, priorities=None):
+        """Serve ``prompts`` (one step apart, the serve phase's 16 new tokens;
+        ``priorities``, one a request, else 0) on an engine over ``model``,
+        the launch counts set to 0 just before the run and read just
+        after.  Each forward's kind, M and launches are recorded by
+        wrapping the engine's model API."""
+        torch = self.torch
+        import numpy as np
+
+        from repro_torch.kernels import _lib
+        from repro_torch.serving import build_engine
+
+        eng = build_engine(cfg, opts, params=model)
+        calls = []
+
+        def counted(kind, fn):
+            def call(model, tokens, *args, **kw):
+                before = dict(_lib.launches)
+                resume = kind == "chunk" and bool(eng._prefilling) and \
+                    eng._prefilling[0].resume_ctx is not None
+                out = fn(model, tokens, *args, **kw)
+                calls.append((kind, tokens.numel(), {k: _lib.launches[k] - before[k]
+                                                     for k in before}, resume))
+                return out
+            return call
+
+        api = eng.api
+        eng.api = dataclasses.replace(
+            api, paged_prefill=counted("prefill", api.paged_prefill),
+            paged_prefill_chunk=counted("chunk", api.paged_prefill_chunk),
+            paged_decode_step=counted("decode", api.paged_decode_step),
+            paged_score_tokens=counted("verify", api.paged_score_tokens))
+        _lib.reset_launches()  # this path's run starts here
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, max_new_tokens=16, arrival_step=i, priority=pr)
+                   for i, (p, pr) in enumerate(zip(prompts, priorities or [0] * len(prompts)))]
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_lib.launches)
+        st = eng.stats
+        ms = sorted({(kind, m) for kind, m, _, _ in calls})
+        run = {"outputs": [done[h.rid] for h in handles], "wall_s": wall, "steps": st.steps,
+               "prefills": st.prefills, "decode_steps": st.decode_steps,
+               "prefill_s": st.prefill_s, "decode_s": st.decode_s,
+               "step_p50_s": st.latency_p50(), "launches": counts, "calls": calls,
+               "forward_m": ms, "preemptions": st.preemptions, "resumes": st.resumes,
+               "resume_latency_mean_s": st.resume_latency_mean_s(),
+               "resume_latency_steps": st.resume_latency_steps,
+               "spec_steps": st.spec_steps, "acceptance_rate": st.acceptance_rate(),
+               "tokens_per_verify_step": st.tokens_per_verify_step(),
+               "cached_len": [h.cached_len for h in handles],
+               "cache": {k: getattr(eng.allocator, k) for k in
+                         ("hits", "misses", "tokens_saved", "cow_copies", "evictions")}}
+        decode_tokens = st.generated_tokens - len(prompts)
+        log(f"{name}: {len(done)} requests in {st.steps} steps, {wall:.2f} s wall: prefill "
+            f"{st.prefill_s:.2f} s over {st.prefills} forwards, decode/verify {st.decode_s:.2f} s "
+            f"over {st.decode_steps} steps ({decode_tokens / st.decode_s:.2f} tok/s), step p50 "
+            f"{np.quantile(st.step_latency_s, 0.5) * 1e3:.1f} ms; forwards (kind, M) {ms}; "
+            f"launches {counts}")
+        del eng, handles
+        return run
+
+    def forward_gates(self, run, layers):
+        """Launches per forward: 7L+1 K1 on every forward, L K2 on a
+        one-token decode step and none on a prefill, chunk or verify
+        forward, and nothing else (no K3: the weights are int16 patterns
+        and K1 encodes the activations)."""
+        bad = []
+        for kind, m, got, _ in run["calls"]:
+            want = {k: 0 for k in got}
+            want["plam_matmul"] = 7 * layers + 1
+            want["paged_decode_attention"] = layers if kind == "decode" else 0
+            if got != want:
+                bad.append(f"{kind} forward at M={m}: launches {got}, expected {want}")
+        total = sum(c[2]["plam_matmul"] for c in run["calls"])
+        if total != run["launches"]["plam_matmul"] or total == 0:
+            bad.append(f"K1 launched {run['launches']['plam_matmul']} times in the run, "
+                       f"{total} in its counted forwards")
+        return bad[:4]
+
+    def token_diffs(self, cfg, model, prompts, got, want):
+        """Each request whose greedy tokens differ from the plain run's: the
+        first differing position and the plain context's top-2 logit margin
+        there (a whole-context prefill of the prompt and the plain run's
+        tokens before it, on the kernels)."""
+        torch = self.torch
+        from repro_torch.models import transformer as tf
+
+        diffs = []
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g == w:
+                continue
+            pos = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
+            ctx = prompts[i] + w[:pos]
+            bs = 16
+            s_pad = -(-len(ctx) // bs) * bs
+            toks = torch.zeros((1, s_pad), dtype=torch.int32, device=self.dev)
+            toks[0, :len(ctx)] = torch.tensor(ctx, dtype=torch.int32)
+            kp, vp = tf.paged_kv_pool_init(cfg, s_pad // bs + 1, bs, torch.bfloat16, self.dev)
+            blocks = torch.arange(1, s_pad // bs + 1, dtype=torch.int32, device=self.dev)
+            logits, _ = tf.paged_prefill(cfg, model, toks, kp, vp, blocks, len(ctx))
+            top = torch.topk(logits[0, -1].float(), 2).values
+            diffs.append({"request": i, "position": pos, "got": g[pos] if pos < len(g) else None,
+                          "want": w[pos] if pos < len(w) else None,
+                          "plain_top2_margin": float(top[0] - top[1])})
+            del kp, vp
+        return diffs
+
+    def check_chunk_model(self):
+        """At phase e2e's 2-layer full width: a 64-token prompt prefilled in
+        two chunks of 32 against one whole-prompt prefill, both on the
+        kernels; last logits within E2E_LOGIT_TOL, every written pool
+        position within K2_TOL_BF16, and 7L+1 K1 launches a chunk, no K2
+        and no K3."""
+        torch = self.torch
+        from repro_torch.core.prequant import quantize_params
+        from repro_torch.kernels import _lib
+        from repro_torch.models import transformer as tf
+
+        cfg = self.yi_cfg(2)
+        model = tf.lm_init(cfg, seed=1, device=self.dev)
+        quantize_params(cfg, model)
+        g = torch.Generator().manual_seed(19)
+        prompt = torch.randint(0, cfg.vocab, (1, 64), generator=g).to(self.dev)
+        bs = 16
+        row = torch.tensor([1, 2, 3, 4, 0, 0, 0, 0, 0], dtype=torch.int32, device=self.dev)
+        kp_a, vp_a = tf.paged_kv_pool_init(cfg, 8, bs, torch.bfloat16, self.dev)
+        want, _ = tf.paged_prefill(cfg, model, prompt, kp_a, vp_a, row[:4], 64)
+        kp_b, vp_b = tf.paged_kv_pool_init(cfg, 8, bs, torch.bfloat16, self.dev)
+        _lib.reset_launches()
+        for start in (0, SERVE_CHUNK):
+            got, _ = tf.paged_prefill_chunk(cfg, model, prompt[:, start:start + SERVE_CHUNK],
+                                            kp_b, vp_b, row, start, SERVE_CHUNK - 1)
+        torch.cuda.synchronize()
+        used = dict(_lib.launches)
+        err = float((got.float() - want.float()).abs().max())
+        pool_err = max(float((a[:, 1:5].float() - b[:, 1:5].float()).abs().max())
+                       for a, b in ((kp_a, kp_b), (vp_a, vp_b)))
+        agree = int(got.float().argmax()) == int(want.float().argmax())
+        log(f"chunked prefill, 2-layer full width, 64 tokens in 2 chunks of {SERVE_CHUNK}: "
+            f"last-logit max_abs_err {err:.3e} (tol {E2E_LOGIT_TOL}), pool max_abs_err "
+            f"{pool_err:.3e} (tol {K2_TOL_BF16}), argmax {'equal' if agree else 'differs'}, "
+            f"launches {used}")
+        del model, kp_a, vp_a, kp_b, vp_b
+        torch.cuda.empty_cache()
+        expect = {k: 0 for k in used}
+        expect["plam_matmul"] = 2 * (7 * cfg.n_layers + 1)
+        if err > E2E_LOGIT_TOL or pool_err > K2_TOL_BF16 or used != expect:
+            raise AssertionError(f"chunked prefill model check: err {err}, pool {pool_err}, "
+                                 f"launches {used} (expected {expect})")
+        return {"max_abs_err": err, "pool_max_abs_err": pool_err, "argmax_equal": agree,
+                "launches": used}
+
+    # -- phase 6 -------------------------------------------------------------
+
     def phase_e2e(self):
         torch = self.torch
         from repro_torch.core.prequant import quantize_params
@@ -1416,7 +1722,7 @@ class Smoke:
                 or used["posit_codec"] != 0):
             raise AssertionError(f"e2e: err {err} finite {finite} launches {used}")
 
-    # -- phase 6 -------------------------------------------------------------
+    # -- phase 7 -------------------------------------------------------------
 
     def phase_times(self):
         torch = self.torch
@@ -1546,8 +1852,24 @@ class Smoke:
             if (m, k, n) == (4, 4096, 11008):
                 k1_main = row
             del x, b
+        # K1 at the multi-token paged path's M (the verify rows and the chunk
+        # width), fused over bf16 activations as the path calls it
+        for m in K1_CHUNK_MS:
+            for k, n in K1_SHAPES:
+                x = torch.randn((m, k), generator=g, device=self.dev).to(torch.bfloat16)
+                b = posit_encode(torch.randn((k, n), generator=g, device=self.dev) * k ** -0.5,
+                                 P16, out_dtype=torch.int16)
+                ms = timed(lambda: plam_dense(x, b, P16), reps=10)
+                plain = self.events_ms(lambda: plam_dense(x, b, P16, use_kernel=False),
+                                       reps=1, warmup=0)
+                bn, floor = k1_floor(m, k, n, p_bf16)
+                add("plam_matmul", f"fused M={m} K={k} N={n} A=bf16 B=int16 BN={bn} "
+                    f"({'verify' if m < SERVE_CHUNK else 'chunk'})", ms, plain,
+                    m * k * 2 + k * n * 2 + m * n * 4, m * k * n, int_rate, floor_ms=floor)
+                del x, b
         self.time_fused_on_serve_activations()
         k3_main = self.time_encode(add, int_rate)
+        self.time_decode_quantize(add)
         self.time_table_fill()
         # K2 at the serving shape (4 sequences of yi-6b heads, bf16 pool) and
         # at a long paged context; the library yardstick is SDPA over the
@@ -1742,6 +2064,42 @@ class Smoke:
         torch.cuda.empty_cache()
         return main
 
+    def time_decode_quantize(self, add):
+        """K3's decode and quantize (the conformance oracle's calls) at
+        K3_OTHER_TIMES and K3_OTHER_LANES, Posit<16,1>: window and spun,
+        beside the bytes bound (each input read once, each f32 output
+        written once), the plain version and a copy of the same bytes (a
+        torch conversion of the input into the f32 output)."""
+        torch = self.torch
+        from repro_torch.kernels.posit_codec import posit_decode, posit_quantize
+        from repro_torch.numerics import P16
+
+        g = self.gen(21)
+        for lanes in K3_OTHER_LANES:
+            for op, kind in K3_OTHER_TIMES:
+                if op == "decode":
+                    x = torch.randint(0, 1 << 16, (lanes,), generator=g, device=self.dev,
+                                      dtype=torch.int32)
+                    if kind == "int16":
+                        x = ((x ^ 0x8000) - 0x8000).to(torch.int16)
+                    fn = posit_decode
+                else:
+                    x = torch.randn((lanes,), generator=g, device=self.dev)
+                    if kind == "bf16":
+                        x = x.to(torch.bfloat16)
+                    fn = posit_quantize
+                ms = self.timed(lambda: fn(x, P16), reps=20)
+                plain = self.events_ms(lambda: fn(x, P16, use_kernel=False), reps=2)
+                dst = torch.empty((lanes,), dtype=torch.float32, device=self.dev)
+                copy_ms = self.timed(lambda: dst.copy_(x), reps=20)
+                row = add("posit_codec", f"{op} [{lanes}] {kind}->float32", ms, plain,
+                          lanes * (x.element_size() + 4), 0, 1.0)
+                row.update({"copy_ms": copy_ms[0], "copy_device_ms": copy_ms[1]})
+                log(f"  copy of the same bytes: {copy_ms[0]:.4f} ms, device "
+                    f"{copy_ms[1]:.4f} ms")
+                del x, dst
+        torch.cuda.empty_cache()
+
     def time_table_fill(self):
         """The table fill's share of K3's table path, and the one variation
         its design allows (K3_FILL_VARIANT_LANES lanes a block): this
@@ -1923,7 +2281,8 @@ class Smoke:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
-                    help="yi-6b depth for the serve phase (widths are never cut)")
+                    help="yi-6b depth for the serve phase (widths are never cut; "
+                         "serve_paths always runs all 32 layers)")
     ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args()
     try:

@@ -79,18 +79,39 @@ def attn_apply(
     positions,
     rope_theta: float = 10_000.0,
     kv_cache=None,
-    cache_len: Optional[int] = None,
+    cache_len=None,
     softcap=None,
     use_kernel: Optional[bool] = None,
 ):
     """Returns (out [B,S,d], kv): the cache (if one was passed) with the
-    span written at ``cache_len`` in place, or the fresh (k, v)."""
+    span written at ``cache_len`` in place, or the fresh (k, v).
+
+    ``cache_len`` is an int (one offset shared by the batch) or an
+    integer tensor [B] (multi-token paged scoring: every slot writes its
+    span at its own offset and attends causally over its own prefix,
+    under a [B, 1, Sq, Sk] mask).  As the reference's
+    ``dynamic_update_slice`` does, an offset past ``Sk - S`` is clamped
+    so that the span stays inside the cache."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, ncfg, n_heads, n_kv, head_dim, use_kernel)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
 
-    if kv_cache is not None:
+    if kv_cache is not None and torch.is_tensor(cache_len):
+        # every slot at its own offset
+        ck, cv = kv_cache
+        s_k = ck.shape[1]
+        span = torch.arange(s, device=x.device)
+        rows = cache_len.to(torch.long).clamp(0, s_k - s)[:, None] + span  # [B, S]
+        bidx = torch.arange(b, device=x.device)[:, None]
+        ck.index_put_((bidx, rows), k.to(ck.dtype))
+        cv.index_put_((bidx, rows), v.to(cv.dtype))
+        qi = cache_len.to(torch.long)[:, None] + span  # [B, Sq]
+        ki = torch.arange(s_k, device=x.device)
+        m = (ki[None, None, :] <= qi[:, :, None])[:, None]  # [B, 1, Sq, Sk]
+        out = attn_core(q, ck, cv, m, softcap)
+        new_kv = (ck, cv)
+    elif kv_cache is not None:
         # write the span at cache_len, attend causally over the cache prefix
         ck, cv = kv_cache
         ck[:, cache_len:cache_len + s] = k.to(ck.dtype)

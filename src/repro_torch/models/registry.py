@@ -17,7 +17,10 @@ class ModelAPI:
     init: Callable  # (seed=0, device=None) -> model
     paged_pool_init: Callable  # (num_blocks, block_size, dtype, device) -> pools
     paged_prefill: Callable  # (model, tokens, kp, vp, block_ids, true_len, use_kernel)
+    # (model, tokens, kp, vp, block_ids, cache_len, last_idx, use_kernel)
+    paged_prefill_chunk: Callable
     paged_decode_step: Callable  # (model, token, kp, vp, tables, lengths, use_kernel)
+    paged_score_tokens: Callable  # (model, tokens [B,W], kp, vp, tables, lengths, use_kernel)
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
@@ -36,10 +39,22 @@ def build(cfg: ModelConfig) -> ModelAPI:
         return _tf.paged_prefill(cfg, model, tokens, k_pool, v_pool, block_ids,
                                  true_len, use_kernel)
 
+    def paged_prefill_chunk(model, tokens, k_pool, v_pool, block_ids, cache_len,
+                            last_idx, use_kernel=None):
+        return _tf.paged_prefill_chunk(cfg, model, tokens, k_pool, v_pool, block_ids,
+                                       cache_len, last_idx, use_kernel)
+
     def paged_decode_step(model, token, k_pool, v_pool, block_tables, lengths,
                           use_kernel=None):
         return _tf.paged_decode_step(cfg, model, token, k_pool, v_pool, block_tables,
                                      lengths, use_kernel)
 
+    def paged_score_tokens(model, tokens, k_pool, v_pool, block_tables, lengths,
+                           use_kernel=None):
+        return _tf.paged_score_tokens(cfg, model, tokens, k_pool, v_pool, block_tables,
+                                      lengths, use_kernel)
+
     return ModelAPI(cfg=cfg, init=init, paged_pool_init=paged_pool_init,
-                    paged_prefill=paged_prefill, paged_decode_step=paged_decode_step)
+                    paged_prefill=paged_prefill, paged_prefill_chunk=paged_prefill_chunk,
+                    paged_decode_step=paged_decode_step,
+                    paged_score_tokens=paged_score_tokens)

@@ -24,7 +24,7 @@ from repro_torch.core.dense import dense, dense_init
 from repro_torch.core.policy import site_for
 
 from .attention import Attention, attn_apply, attn_apply_paged
-from .common import RMSNorm, iter_layers, rmsnorm
+from .common import RMSNorm, iter_layers, multi_token_positions, rmsnorm
 from .mlp import MLP, mlp_apply
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -182,6 +182,91 @@ def paged_prefill(cfg: ModelConfig, model: DenseLM, tokens, k_pool, v_pool, bloc
     v_pool[:, ids] = cv[:, 0].reshape(kv_shape)
     last = hidden[:, true_len - 1:true_len]
     return lm_logits(cfg, model, last, use_kernel), (k_pool, v_pool)
+
+
+def _paged_gather_forward(cfg: ModelConfig, model: DenseLM, tokens, k_pool, v_pool,
+                          block_tables, lengths, use_kernel: Optional[bool] = None):
+    """The gather -> attend -> write machinery of every multi-token paged
+    path (chunked prefill, speculative verify).
+
+    tokens: [B, W] a token span per slot; block_tables: int32 [B, max_blk]
+    full table rows (scratch-padded); lengths: int32 [B] tokens already
+    cached per slot, so token j of slot b sits at position
+    ``lengths[b] + j``.  Layer by layer, each slot's blocks are gathered
+    into a contiguous [B, S, kv, hd] cache, the span runs through
+    ``attn_apply`` with per-slot offsets, and the span's K/V are written
+    into the pools in place.  A position past a slot's owned blocks goes
+    through the padded table row to scratch block 0, which no live mask
+    admits; an offset past ``S - W`` is clamped as in the reference, so
+    nothing is written out of bounds.  Returns (hidden [B, W, d] after
+    the final norm, (k_pool, v_pool)).
+    """
+    b, w = tokens.shape
+    block_size = k_pool.shape[2]
+    s = block_tables.shape[1] * block_size
+    dev = tokens.device
+    tables = block_tables.to(torch.long)
+    flat = tables.reshape(-1)
+    # the cache rows the span lands on, and their (block, offset) in the pool
+    rows = lengths.to(torch.long).clamp(0, s - w)[:, None] + torch.arange(w, device=dev)
+    bidx = torch.arange(b, device=dev)[:, None]
+    blk = tables.gather(1, rows // block_size)
+    off = rows % block_size
+    x = embed_tokens(cfg, model, tokens)
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    positions = multi_token_positions(lengths, w)
+    for i, nsite in iter_layers(cfg.numerics, cfg.n_layers):
+        kp, vp = k_pool[i], v_pool[i]
+        ck = kp[flat].reshape(b, s, *kp.shape[2:])
+        cv = vp[flat].reshape(b, s, *vp.shape[2:])
+        x, _ = _layer_fwd(cfg, nsite, model.blocks[i], x, positions, (ck, cv), lengths,
+                          use_kernel)
+        kp.index_put_((blk, off), ck[bidx, rows])
+        vp.index_put_((blk, off), cv[bidx, rows])
+    return rmsnorm(model.ln_f, x), (k_pool, v_pool)
+
+
+@torch.no_grad()
+def paged_prefill_chunk(cfg: ModelConfig, model: DenseLM, tokens, k_pool, v_pool,
+                        block_ids, cache_len: int, last_idx: int,
+                        use_kernel: Optional[bool] = None):
+    """Prefill ONE chunk of one request through the multi-token path.
+
+    tokens: [1, C], C the engine's chunk width (a block-size multiple;
+    the ragged final chunk right-padded to a block multiple); block_ids:
+    int32 [max_blk] the request's full, scratch-padded table row;
+    cache_len: prompt tokens already cached; last_idx: chunk-local index
+    of the last real token, whose logits seed decoding on the final
+    chunk.  Padding past the real tokens is written beyond them, where
+    the causal mask never reads it before decode overwrites it.
+    Returns (logits [1, 1, V] at last_idx, (k_pool, v_pool)).
+    """
+    if tokens.shape[0] != 1:
+        raise ValueError("chunked prefill admits one request at a time")
+    lengths = torch.tensor([cache_len], dtype=torch.int32, device=tokens.device)
+    hidden, pools = _paged_gather_forward(cfg, model, tokens, k_pool, v_pool,
+                                          block_ids[None, :], lengths, use_kernel)
+    last = hidden[:, last_idx:last_idx + 1]
+    return lm_logits(cfg, model, last, use_kernel), pools
+
+
+@torch.no_grad()
+def paged_score_tokens(cfg: ModelConfig, model: DenseLM, tokens, k_pool, v_pool,
+                       block_tables, lengths, use_kernel: Optional[bool] = None):
+    """Score a W-token span per slot in one batched call (the speculative
+    verify step).
+
+    tokens: [B, W], token 0 each slot's last sampled, uncached token and
+    tokens 1..W-1 its drafts; block_tables: int32 [B, max_blk]; lengths:
+    int32 [B] committed cache length per slot.  Writes K/V for all W
+    tokens at lengths..lengths+W-1 (the engine rolls rejected tails back)
+    and returns (logits [B, W, V], (k_pool, v_pool)): logits[:, j] is the
+    distribution of the token after tokens[:, j].
+    """
+    hidden, pools = _paged_gather_forward(cfg, model, tokens, k_pool, v_pool,
+                                          block_tables, lengths, use_kernel)
+    return lm_logits(cfg, model, hidden, use_kernel), pools
 
 
 @torch.no_grad()

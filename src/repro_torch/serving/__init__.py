@@ -9,6 +9,7 @@ from .kv_cache import (  # noqa: F401
     padded_prompt_len,
 )
 from .scheduler import Request, RequestState, Scheduler  # noqa: F401
+from .spec import Drafter, NgramDrafter, make_drafter  # noqa: F401
 
 __all__ = [
     "ContinuousBatchingEngine",

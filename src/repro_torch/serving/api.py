@@ -1,16 +1,20 @@
 """The public serving API: options, engine factory, request handles.
 
 Port of ``repro/serving/api.py``.  :class:`ServeOptions` keeps the
-reference's field names.  Options of features this slice does not serve
-yet raise ``NotImplementedError`` naming their ``ROADMAP.md`` item; they
-are never silently ignored.  Tracing is one of them, so ``trace``
-defaults to False here (the reference defaults it to True).
+reference's field names.  Chunked prefill, speculative decoding,
+recompute preemption and the prefix cache are served.  Options of
+features not ported yet (tensor parallelism, tracing and profiling, the
+static engine, and a draft model as ``spec_draft``) raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item; they are
+never silently ignored.  Tracing is one of them, so ``trace`` defaults
+to False here (the reference defaults it to True).
 
 Typical use::
 
     from repro_torch.serving import ServeOptions, build_engine
 
-    eng = build_engine(cfg, ServeOptions(prequantize=True))
+    eng = build_engine(cfg, ServeOptions(prequantize=True, prefill_chunk=32,
+                                         spec_k=4, prefix_cache=True))
     handle = eng.submit(prompt, max_new_tokens=16)
     tokens = handle.result()
 """
@@ -73,10 +77,6 @@ class ServeOptions:
         """Raise for every option of a later slice that is set."""
         later = [
             (self.tp != 1, "tp", "tensor parallelism"),
-            (self.prefill_chunk != 0, "prefill_chunk", "chunked prefill"),
-            (self.spec_k != 0, "spec_k", "speculative decoding"),
-            (self.preemption != "off", "preemption", "preemption"),
-            (self.prefix_cache, "prefix_cache", "prefix cache"),
             (self.trace or self.profile, "trace/profile", "observability"),
             (self.engine == "static", "engine='static'", "static engine"),
         ]
@@ -97,6 +97,11 @@ class ServeOptions:
             cache_dtype=self.cache_dtype,
             use_kernel=self.use_kernel,
             prequantize=self.prequantize,
+            prefill_chunk=self.prefill_chunk,
+            spec_k=self.spec_k,
+            spec_draft=self.spec_draft,
+            preemption=self.preemption,
+            prefix_cache=self.prefix_cache,
             clock=self.clock,
         )
 

@@ -2,7 +2,8 @@
 
 A copy of ``repro/serving/scheduler.py`` (host-side, no JAX), kept in
 the port so the port imports nothing of the JAX package.  The port's
-engine runs it under ``preemption="off"`` so far.
+engine runs it under both regimes below, with chunked prefill,
+speculative bursts and the prefix cache, as the reference's does.
 
 A `Request` moves WAITING -> RUNNING -> FINISHED, with two extra
 terminal/parking states: CANCELLED (deadline expiry or client abort)

@@ -3,7 +3,9 @@
 Both engines get the same prompts on the same (converted) weights and
 must give identical greedy tokens.  The port-only tests cover the
 engine's bookkeeping: in-place scrubs, cancellation, deadlines,
-sampling, and the options of later slices, which must raise.
+sampling, and the options of later slices, which must raise.  Chunked
+prefill, preemption, the prefix cache and speculative decoding have
+files of their own (``tests/test_torch_{chunked,preemption,prefix_cache,spec}.py``).
 """
 import dataclasses
 
@@ -161,10 +163,13 @@ def test_engine_rejects_oversized_request(port_engine):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("tp", 2), ("prefill_chunk", 8), ("spec_k", 2), ("preemption", "recompute"),
-    ("prefix_cache", True), ("trace", True), ("profile", True), ("engine", "static"),
+    ("tp", 2), ("trace", True), ("profile", True), ("engine", "static"),
+    ("spec_draft", "model:yi-6b"),
 ])
 def test_later_slice_options_raise(field, value):
     _, tc = _cfgs("f32")
+    opts = {field: value}
+    if field == "spec_draft":
+        opts["spec_k"] = 2  # the drafter is made only when speculative decoding is on
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_engine(tc, ServeOptions(**{field: value}), device="cpu")
+        build_engine(tc, ServeOptions(**opts), device="cpu")
