@@ -4,9 +4,9 @@
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--layers N]
-                          [--phases device,kernels,conformance,serve,serve_paths,e2e,times]
+                          [--phases device,kernels,conformance,serve,serve_paths,observe,e2e,times]
 
-It imports ``repro_torch`` (never JAX) and runs seven phases, each on its
+It imports ``repro_torch`` (never JAX) and runs eight phases, each on its
 own lines:
 
 1. device      — the card's name and power limit (nvidia-smi), the torch
@@ -54,10 +54,25 @@ own lines:
    margin of the plain context below the logit tolerance) and to the
    launches of each forward: 7L+1 K1, L K2 on a one-token decode step
    and none on a chunk or verify forward, no K3.
-6. e2e         — a 2-layer full-width model runs one prefill and 4
+6. observe     — serving observability at full width and depth, on the
+   serve phase's requests and encoded weights: three runs with tracing
+   off and three with it on, in turns (equal greedy tokens, the serve
+   phase's launch counts, the trace's grammar, each request's breakdown
+   summing to its submit -> terminal time within 1e-9 s; step p50, decode
+   tok/s and the host time inside the trace recorder reported); one run
+   with the profiler spans inside ``torch.profiler``, each kernel
+   attributed to the span whose host interval holds its launch call (by
+   correlation id in the exported trace), per span its count, host ms and
+   device ms, and the host's share of the decode step with and without
+   the profiler (every K1 and K2 launch of a decode step inside its
+   ``serve.decode`` span); then ``python -m repro_torch.launch.serve`` at
+   full width, writing a Chrome trace, JSON lines and Prometheus files
+   that the port's checkers must accept (a plam_sim MAC counter above 0,
+   the prefix-cache families, ``steps=`` equal to ``serve_steps_total``).
+7. e2e         — a 2-layer full-width model runs one prefill and 4
    decode steps on the kernels and on the plain versions; last logits
    must agree within a stated tolerance.
-7. times       — CUDA-event times of each kernel, its plain version and
+8. times       — CUDA-event times of each kernel, its plain version and
    (for attention) ``scaled_dot_product_attention``, beside each
    kernel's bound (and, for K1, the floor of its design, with the strip
    width of its prefill path).  Each
@@ -95,7 +110,8 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ["device", "kernels", "conformance", "serve", "serve_paths", "e2e", "times"]
+PHASES = ["device", "kernels", "conformance", "serve", "serve_paths", "observe", "e2e",
+          "times"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 CUDA-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -161,6 +177,14 @@ K1_CHUNK_MS = (20, 32)
 # phase serve_paths: the chunk width and the speculative burst
 SERVE_CHUNK = 32
 SERVE_SPEC_K = 4
+# phase observe: the engine's profiler spans, and the serve CLI's run (the
+# serve phase's width and depth, prompts of 64 tokens); the CLI is given
+# this long to build its model and serve
+OBSERVE_SPANS = ("serve.prefill", "serve.decode", "serve.verify", "serve.scrub", "serve.cow")
+OBSERVE_CLI = ["--arch", "yi-6b", "--continuous", "--prequantized", "--numerics-policy",
+               "default=plam_sim:16:1", "--batch", "4", "--prompt-len", "64",
+               "--new-tokens", "16"]
+OBSERVE_CLI_TIMEOUT_S = 300
 # the prefix-cache request set: a shared 48-token prefix (3 blocks), four
 # suffixes (the first 16 tokens, so that its prompt is block-aligned and
 # the fifth request, its exact repeat, copies on write)
@@ -283,6 +307,61 @@ K4_OPS = {"plam_mul_elementwise": "kPlamMulAluOpsPerLane",
 
 def log(msg: str = "") -> None:
     print(msg, flush=True)
+
+
+def attribute_to_spans(events):
+    """Attribute the card's work in a ``torch.profiler`` Chrome trace to
+    the engine's spans: each kernel, copy and fill goes to the span
+    (``user_annotation`` in ``OBSERVE_SPANS``) whose host interval holds
+    the CUDA API call that launched it, joined by correlation id.
+    Returns (by span name: count, host ms, device ms, K1 and K2 launches;
+    the same for work outside every span, with the launches whose call
+    was not found; [K1, K2] launched in each decode span, by its start;
+    K1 launches outside a prefill, decode or verify span and K2 launches
+    outside a decode span)."""
+    import bisect
+
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("cat") == "user_annotation" and e.get("name") in OBSERVE_SPANS)
+    starts = [sp[0] for sp in spans]
+    launched_at = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and corr is not None:
+            launched_at[corr] = e["ts"]
+    by_span = {}
+    for t_start, t_end, name in spans:
+        row = by_span.setdefault(name, {"count": 0, "host_ms": 0.0, "device_ms": 0.0,
+                                        "k1": 0, "k2": 0})
+        row["count"] += 1
+        row["host_ms"] += (t_end - t_start) / 1e3
+    outside = {"device_ms": 0.0, "k1": 0, "k2": 0, "unmatched": 0}
+    per_decode = {}
+    misplaced = []
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        name = e.get("name", "")
+        k1 = e["cat"] == "kernel" and "plam_matmul" in name
+        k2 = e["cat"] == "kernel" and "decode_attention_core" in name and "true>" in name
+        t = launched_at.get((e.get("args") or {}).get("correlation"))
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        span = spans[i] if i >= 0 and t <= spans[i][1] else None
+        row = by_span[span[2]] if span is not None else outside
+        row["device_ms"] += e.get("dur", 0) / 1e3
+        row["k1"] += k1
+        row["k2"] += k2
+        if t is None:
+            outside["unmatched"] += 1
+        where = span[2] if span is not None else None
+        if (k1 and where not in ("serve.prefill", "serve.decode", "serve.verify")) or (
+                k2 and where != "serve.decode"):
+            misplaced.append((name[:60], where))
+        if where == "serve.decode":
+            c = per_decode.setdefault(span[0], [0, 0])
+            c[0] += k1
+            c[1] += k2
+    return by_span, outside, per_decode, misplaced
 
 
 class Smoke:
@@ -1508,6 +1587,8 @@ class Smoke:
         for name in ("plam_matmul", "paged_decode_attention"):
             self.path_launches[name] = self.path_launches.get(name, 0) + sum(
                 res[r]["launches"][name] for r in ("chunked", "preempt", "spec", "prefix"))
+        if "observe" in self.args.phases.split(","):
+            self.yi_model = model  # phase observe serves the same encoded weights
         del model
         torch.cuda.empty_cache()
         if failures:
@@ -1669,6 +1750,294 @@ class Smoke:
 
     # -- phase 6 -------------------------------------------------------------
 
+    def phase_observe(self):
+        """Serving observability at full width and depth on the serve phase's
+        requests and encoded weights: tracing on and off in turns (tokens,
+        launches, the trace's grammar and breakdowns), the profiler spans
+        with each kernel attributed to the span that launched it, the host's
+        share of the decode step read with and without the profiler, and the
+        serve CLI with its trace and metrics files."""
+        torch = self.torch
+        import numpy as np
+
+        from repro_torch.core.prequant import quantize_params
+        from repro_torch.models import transformer as tf
+        from repro_torch.serving import ServeOptions
+
+        cfg = self.yi_cfg(32)
+        layers = cfg.n_layers
+        model = getattr(self, "yi_model", None)
+        self.yi_model = None
+        if model is None:
+            model = tf.lm_init(cfg, seed=0, device=self.dev)
+            quantize_params(cfg, model)
+        base = ServeOptions(max_new_tokens=16, block_size=16, max_slots=4, num_blocks=64,
+                            max_seq_len=128, prequantize=True)
+        g = torch.Generator().manual_seed(7)  # the serve phase's requests
+        lens = torch.randint(32, 65, (4,), generator=g).tolist()
+        prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist() for n in lens]
+        failures = []
+        res = {"layers": layers, "prompt_lens": lens}
+
+        # 1. tracing off and on, in turns, on the same model
+        runs = []
+        for i in range(6):
+            trace = bool(i % 2)
+            run = self.observed_run(cfg, model, dataclasses.replace(base, trace=trace),
+                                    prompts, failures, f"trace={trace} run {i // 2 + 1}")
+            runs.append(run)
+        want = runs[0]["outputs"]
+        if any(r["outputs"] != want for r in runs):
+            failures.append("greedy tokens differ between runs with tracing on and off")
+        summary = {}
+        for trace in (False, True):
+            mine = [r for r in runs if r["trace"] == trace]
+            summary[f"trace_{'on' if trace else 'off'}"] = {
+                "step_p50_ms": [r["step_p50_ms"] for r in mine],
+                "median_step_p50_ms": float(np.median([r["step_p50_ms"] for r in mine])),
+                "decode_tok_per_s": [r["decode_tok_per_s"] for r in mine],
+                "median_decode_tok_per_s": float(np.median(
+                    [r["decode_tok_per_s"] for r in mine]))}
+        on, off = summary["trace_on"], summary["trace_off"]
+        log(f"observe: tracing off, step p50 {off['step_p50_ms']} ms (median "
+            f"{off['median_step_p50_ms']:.3f}), decode tok/s {off['decode_tok_per_s']} (median "
+            f"{off['median_decode_tok_per_s']:.3f}); on, step p50 {on['step_p50_ms']} ms "
+            f"(median {on['median_step_p50_ms']:.3f}), decode tok/s {on['decode_tok_per_s']} "
+            f"(median {on['median_decode_tok_per_s']:.3f})")
+        res["runs"] = runs
+        res["tracing"] = summary
+
+        # 2. the spans under the profiler
+        spans = self.profiled_spans(cfg, model, dataclasses.replace(base, profile=True),
+                                    prompts, want, failures)
+        res["spans"] = spans
+        if spans is not None and "serve.decode" in spans["by_span"]:
+            dec = spans["by_span"]["serve.decode"]
+            host_ms = dec["host_ms"] / dec["count"]
+            dev_ms = dec["device_ms"] / dec["count"]
+            step_ms = on["median_step_p50_ms"]
+            res["host_share"] = {
+                "decode_span_host_ms": host_ms, "decode_span_device_ms": dev_ms,
+                "under_profiler": 1 - dev_ms / host_ms,
+                "trace_on_median_step_p50_ms": step_ms,
+                "without_profiler": 1 - dev_ms / step_ms}
+            log(f"host share of the decode step: under the profiler {1 - dev_ms / host_ms:.4f} "
+                f"(serve.decode host {host_ms:.3f} ms, device {dev_ms:.3f} ms a span); without "
+                f"it {1 - dev_ms / step_ms:.4f} (device {dev_ms:.3f} ms a span against the "
+                f"tracing-on median step p50 {step_ms:.3f} ms)")
+        del model
+        torch.cuda.empty_cache()
+
+        # 3. the CLI at full width, as a user runs it
+        res["cli"] = self.observe_cli(failures)
+        self.results["observe"] = res
+        if failures:
+            raise AssertionError("; ".join(failures[:8]))
+
+    def observed_run(self, cfg, model, opts, prompts, failures, name):
+        """Serve ``prompts`` one step apart on an engine over ``model``, the
+        launch counts set to 0 just before the run and read just after;
+        gate each forward's launches (7L+1 K1, no K3; L K2 a decode step)
+        and, with tracing on, the trace's grammar and each request's
+        breakdown against its submit -> terminal time."""
+        torch = self.torch
+        import numpy as np
+
+        from repro_torch.kernels import _lib
+        from repro_torch.serving import build_engine
+
+        layers = cfg.n_layers
+        eng = build_engine(cfg, opts, params=model)
+        emit_s = [0.0]  # host seconds inside the trace recorder's emit
+        if opts.trace:
+            emit = eng.trace.emit
+
+            def timed_emit(*args, **kw):
+                t = time.perf_counter()
+                ev = emit(*args, **kw)
+                emit_s[0] += time.perf_counter() - t
+                return ev
+            eng.trace.emit = timed_emit
+        _lib.reset_launches()  # this path's run starts here
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, arrival_step=i, **opts.submit_kwargs())
+                   for i, p in enumerate(prompts)]
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_lib.launches)
+        for k in ("plam_matmul", "paged_decode_attention"):
+            self.path_launches[k] = self.path_launches.get(k, 0) + counts[k]
+        st = eng.stats
+        forwards = st.prefills + st.decode_steps
+        expect = {"plam_matmul": (7 * layers + 1) * forwards, "posit_codec": 0,
+                  "paged_decode_attention": layers * st.decode_steps}
+        bad = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
+        if bad:
+            failures.append(f"{name}: launch counts (got, expected) {bad}")
+        worst = 0.0
+        if opts.trace:
+            eng.trace.validate()
+            for h in handles:
+                evs, bd = h.trace(), h.breakdown()
+                parts = bd.queue_s + bd.prefill_s + bd.decode_s + bd.parked_s
+                worst = max(worst, abs(parts - bd.total_s),
+                            abs(bd.total_s - (evs[-1].t - evs[0].t)))
+            if worst > 1e-9:
+                failures.append(f"{name}: a breakdown misses its total by {worst}")
+        elif eng.trace is not None:
+            failures.append(f"{name}: trace=False but the engine records a trace")
+        decode_tokens = st.generated_tokens - st.prefills
+        run = {"trace": opts.trace, "outputs": [done[h.rid] for h in handles], "wall_s": wall,
+               "steps": st.steps, "decode_steps": st.decode_steps, "prefills": st.prefills,
+               "step_p50_ms": st.latency_p50() * 1e3, "step_p95_ms": st.latency_p95() * 1e3,
+               "decode_s": st.decode_s, "decode_tok_per_s": decode_tokens / st.decode_s,
+               "launches": counts, "expected": expect, "breakdown_worst_err_s": worst,
+               "events": len(eng.trace) if eng.trace is not None else 0,
+               "emit_ms": emit_s[0] * 1e3}
+        log(f"  {name}: {st.steps} steps, {wall:.2f} s wall, step p50 {run['step_p50_ms']:.3f} ms "
+            f"p95 {run['step_p95_ms']:.3f} ms, {run['decode_tok_per_s']:.2f} decode tok/s, "
+            f"{run['events']} events in {run['emit_ms']:.3f} ms of emit, launches {counts}")
+        del eng, handles
+        return run
+
+    def profiled_spans(self, cfg, model, opts, prompts, want, failures):
+        """One traced run with the engine's profiler spans inside
+        ``torch.profiler``.  Each kernel, copy and fill on the card is
+        attributed to the span whose host interval holds the runtime call
+        that launched it (the correlation id joins the two in the exported
+        trace); per span: count, host ms inside it, device ms of what it
+        launched, and its K1/K2 launches.  Gate: every K1 launch inside a
+        prefill, decode or verify span, every K2 launch inside a decode
+        span, 7L+1 K1 and L K2 in each decode span.  The profiler's own
+        ``key_averages()`` reading of the spans' device time is logged
+        beside it."""
+        torch = self.torch
+        import tempfile
+
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.serving import build_engine
+
+        layers = cfg.n_layers
+        if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
+            failures.append("spans: this torch cannot trace the card")
+            return None
+        eng = build_engine(cfg, opts, params=model)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            handles = [eng.submit(p, arrival_step=i, **opts.submit_kwargs())
+                       for i, p in enumerate(prompts)]
+            done = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        st = eng.stats
+        if [done[h.rid] for h in handles] != want:
+            failures.append("spans: greedy tokens differ from the unprofiled runs'")
+        ka = {}
+        for evt in prof.key_averages():
+            if evt.key in OBSERVE_SPANS:
+                us = getattr(evt, "device_time_total", None)
+                if us is None:
+                    us = getattr(evt, "cuda_time_total", 0)
+                ka[evt.key] = {"count": evt.count, "cpu_ms": evt.cpu_time_total / 1e3,
+                               "device_ms": us / 1e3}
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)
+        by_span, outside, per_decode, misplaced = attribute_to_spans(
+            events["traceEvents"] if isinstance(events, dict) else events)
+        dec = by_span.get("serve.decode", {"count": 0})
+        if dec["count"] != st.decode_steps:
+            failures.append(f"spans: {dec['count']} serve.decode spans for "
+                            f"{st.decode_steps} decode steps")
+        if misplaced:
+            failures.append(f"spans: {len(misplaced)} K1/K2 launches outside their span, "
+                            f"e.g. {misplaced[:3]}")
+        wrong = [c for c in per_decode.values() if c != [7 * layers + 1, layers]]
+        if wrong or len(per_decode) != dec["count"]:
+            failures.append(f"spans: decode spans with (K1, K2) launches other than "
+                            f"({7 * layers + 1}, {layers}): {wrong[:3]} "
+                            f"({len(per_decode)} of {dec['count']} spans launched K1/K2)")
+        busy = sum(r["device_ms"] for r in by_span.values()) + outside["device_ms"]
+        log(f"spans under torch.profiler (one traced, profiled run, {st.steps} steps, "
+            f"{wall * 1e3:.1f} ms wall, device busy {busy:.3f} ms): attributed by correlation "
+            f"id from each runtime launch call to the span holding it")
+        for name in OBSERVE_SPANS:
+            if name in by_span:
+                r = by_span[name]
+                log(f"  {name}: {r['count']} spans, host {r['host_ms']:.3f} ms, device "
+                    f"{r['device_ms']:.3f} ms, K1 {r['k1']}, K2 {r['k2']}; key_averages: "
+                    f"{ka.get(name)}")
+        log(f"  outside every span: device {outside['device_ms']:.3f} ms, K1 {outside['k1']}, "
+            f"K2 {outside['k2']}, {outside['unmatched']} with no launch call found")
+        del eng, handles
+        return {"wall_ms": wall * 1e3, "busy_ms": busy, "steps": st.steps,
+                "decode_steps": st.decode_steps, "by_span": by_span, "outside": outside,
+                "key_averages": ka, "method": "correlation id"}
+
+    def observe_cli(self, failures):
+        """``python -m repro_torch.launch.serve`` at full width, once
+        writing a Chrome trace and once JSON lines, each with a Prometheus
+        file; the port's checkers must accept them, the per-mode MAC
+        counter read above 0, and the summary line's steps equal
+        ``serve_steps_total``."""
+        import tempfile
+
+        from repro_torch.serving.observability import check_prom_file, check_trace_file
+
+        out = {}
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        with tempfile.TemporaryDirectory() as tmp:
+            for trace in ("t.json", "t.jsonl"):
+                prom = os.path.join(tmp, f"m_{trace}.prom")
+                argv = OBSERVE_CLI + ["--trace-out", os.path.join(tmp, trace),
+                                      "--metrics-out", prom]
+                t0 = time.perf_counter()
+                proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"] + argv,
+                                      cwd=ROOT, env=env, capture_output=True, text=True,
+                                      timeout=OBSERVE_CLI_TIMEOUT_S)
+                secs = time.perf_counter() - t0
+                lines = proc.stdout.splitlines()
+                run = {"argv": argv, "rc": proc.returncode, "seconds": secs,
+                       "stdout": lines[:20]}
+                out[trace] = run
+                if proc.returncode != 0:
+                    failures.append(f"cli ({trace}): exit {proc.returncode}: "
+                                    f"{proc.stderr.strip().splitlines()[-3:]}")
+                    continue
+                log(f"serve CLI ({secs:.1f} s, --trace-out {trace}): {lines[0]}")
+                text = open(prom).read()
+                run["prom_samples"] = check_prom_file(prom)
+                if trace.endswith(".jsonl"):
+                    run["trace_counts"] = check_trace_file(os.path.join(tmp, trace))
+                    if run["trace_counts"]["terminal"] != 4:
+                        failures.append(f"cli: trace counts {run['trace_counts']}")
+                else:
+                    with open(os.path.join(tmp, trace)) as f:
+                        phs = {e["ph"] for e in json.load(f)["traceEvents"]}
+                    if not {"X", "i", "M"} <= phs:
+                        failures.append(f"cli: the Chrome trace holds only {phs}")
+                macs = re.search(r'^serve_macs_total\{mode="plam_sim:16:1"\} (\S+)$', text, re.M)
+                run["macs_plam"] = float(macs.group(1)) if macs else None
+                if not macs or float(macs.group(1)) <= 0:
+                    failures.append("cli: serve_macs_total{mode=\"plam_sim:16:1\"} missing or 0")
+                fams = sorted(set(re.findall(r"^(serve_prefix_cache_\w+)", text, re.M)))
+                run["prefix_cache_families"] = fams
+                if len(fams) < 4:
+                    failures.append(f"cli: prefix-cache families {fams}")
+                steps = re.search(r" steps=(\d+)", lines[0])
+                total = re.search(r"^serve_steps_total (\S+)$", text, re.M)
+                run["steps"] = int(steps.group(1)) if steps else None
+                if not steps or not total or float(total.group(1)) != int(steps.group(1)):
+                    failures.append(f"cli: steps= {steps and steps.group(1)} against "
+                                    f"serve_steps_total {total and total.group(1)}")
+        return out
+
+    # -- phase 7 -------------------------------------------------------------
+
     def phase_e2e(self):
         torch = self.torch
         from repro_torch.core.prequant import quantize_params
@@ -1722,7 +2091,7 @@ class Smoke:
                 or used["posit_codec"] != 0):
             raise AssertionError(f"e2e: err {err} finite {finite} launches {used}")
 
-    # -- phase 7 -------------------------------------------------------------
+    # -- phase 8 -------------------------------------------------------------
 
     def phase_times(self):
         torch = self.torch
@@ -2282,7 +2651,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="yi-6b depth for the serve phase (widths are never cut; "
-                         "serve_paths always runs all 32 layers)")
+                         "serve_paths and observe always run all 32 layers)")
     ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args()
     try:

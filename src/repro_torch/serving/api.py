@@ -1,13 +1,12 @@
 """The public serving API: options, engine factory, request handles.
 
 Port of ``repro/serving/api.py``.  :class:`ServeOptions` keeps the
-reference's field names.  Chunked prefill, speculative decoding,
-recompute preemption and the prefix cache are served.  Options of
-features not ported yet (tensor parallelism, tracing and profiling, the
-static engine, and a draft model as ``spec_draft``) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item; they are
-never silently ignored.  Tracing is one of them, so ``trace`` defaults
-to False here (the reference defaults it to True).
+reference's field names and defaults.  Chunked prefill, speculative
+decoding, recompute preemption, the prefix cache, tracing (on by
+default) and profiler spans are served.  Options of features not ported
+yet (tensor parallelism, the static engine, and a draft model as
+``spec_draft``) raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item; they are never silently ignored.
 
 Typical use::
 
@@ -16,7 +15,8 @@ Typical use::
     eng = build_engine(cfg, ServeOptions(prequantize=True, prefill_chunk=32,
                                          spec_k=4, prefix_cache=True))
     handle = eng.submit(prompt, max_new_tokens=16)
-    tokens = handle.result()
+    tokens = handle.result()          # drives the engine to completion
+    print(handle.breakdown())         # queue/prefill/decode/parked split
 """
 from __future__ import annotations
 
@@ -34,7 +34,11 @@ from .scheduler import Request, RequestState
 #: families served by the continuous-batching engine under engine="auto"
 PAGED_FAMILIES = ("dense",)
 
-_LATER = "is not ported yet (ROADMAP.md, queue 1: {})"
+#: the message of an option whose slice is not ported yet, and those
+#: slices by ROADMAP.md queue 1 item
+LATER = "is not ported yet (ROADMAP.md, queue 1, item {})"
+TENSOR_PARALLELISM = "12: tensor parallelism"
+STATIC_ENGINE = "11: the static engine"
 
 
 @dataclasses.dataclass
@@ -69,20 +73,19 @@ class ServeOptions:
     clock: Optional[object] = None
 
     # -- observability -----------------------------------------------------
-    trace: bool = False
+    trace: bool = True
     profile: bool = False
     time_steps: bool = False  # static engine only
 
     def check_supported(self) -> None:
         """Raise for every option of a later slice that is set."""
         later = [
-            (self.tp != 1, "tp", "tensor parallelism"),
-            (self.trace or self.profile, "trace/profile", "observability"),
-            (self.engine == "static", "engine='static'", "static engine"),
+            (self.tp != 1, "tp", TENSOR_PARALLELISM),
+            (self.engine == "static", "engine='static'", STATIC_ENGINE),
         ]
         for is_set, name, item in later:
             if is_set:
-                raise NotImplementedError(f"ServeOptions.{name} " + _LATER.format(item))
+                raise NotImplementedError(f"ServeOptions.{name} " + LATER.format(item))
 
     def paged(self) -> PagedServeConfig:
         """Project onto the continuous engine's internal config."""
@@ -103,6 +106,8 @@ class ServeOptions:
             preemption=self.preemption,
             prefix_cache=self.prefix_cache,
             clock=self.clock,
+            trace=self.trace,
+            profile=self.profile,
         )
 
     def submit_kwargs(self) -> dict:
@@ -120,7 +125,9 @@ class SubmitHandle:
 
     Every ``Request`` attribute (``rid``, ``state``, ``output``, ...) is
     delegated; :meth:`result` drives the engine until this request is
-    terminal and :meth:`cancel` aborts it.
+    terminal, :meth:`cancel` aborts it, :meth:`trace` gives its trace
+    events (empty when tracing is off) and :meth:`breakdown` its
+    queue/prefill/decode/parked latency split (None when tracing is off).
     """
 
     __slots__ = ("_engine", "_request")
@@ -143,6 +150,19 @@ class SubmitHandle:
 
     def cancel(self) -> None:
         self._engine.cancel(self._request)
+
+    def trace(self) -> list:
+        """This request's TraceEvents, in emission order."""
+        if self._engine.trace is None:
+            return []
+        return self._engine.trace.request_events(self._request.rid)
+
+    def breakdown(self):
+        """Latency split (RequestBreakdown) once terminal; None when
+        tracing is off."""
+        if self._engine.trace is None:
+            return None
+        return self._engine.trace.breakdown(self._request.rid)
 
     def __getattr__(self, name: str):
         if name.startswith("_"):
@@ -172,7 +192,7 @@ def build_engine(
         kind = "continuous" if cfg.family in PAGED_FAMILIES else "static"
     if kind == "static":
         raise NotImplementedError(
-            f"the static engine (family {cfg.family!r}) " + _LATER.format("static engine"))
+            f"the static engine (family {cfg.family!r}) " + LATER.format(STATIC_ENGINE))
     if kind != "continuous":
         raise ValueError(
             f"unknown engine kind {opts.engine!r}; use 'auto', 'continuous' or 'static'")

@@ -10,9 +10,14 @@ resumes by recomputing its committed context through the chunk path),
 the content-addressed prefix cache (``prefix_cache``: leading cached
 blocks are shared, the miss suffix prefilled through the chunk path, a
 shared tail block copied on write), retirement, deadline expiry and
-cancellation, and one batched scrub of freed blocks per flush.  Tensor
-parallelism, observability and the static engine are later slices
-(``ROADMAP.md``, queue 1).
+cancellation, and one batched scrub of freed blocks per flush.  The
+engine is observable as the reference's is: a typed per-request trace
+(``self.trace``, on unless ``trace=False``), a metrics registry wired
+with live sources (``self.metrics``), ``stream()``, and, with
+``profile=True``, a ``torch.profiler.record_function`` span around
+each phase's launches (``serving/observability.py``).  Tensor
+parallelism and the static engine are later slices (``ROADMAP.md``,
+queue 1).
 
 Unlike the reference, whose arrays are immutable, the port updates its
 device state in place: prefill, chunk, verify and decode write K/V into
@@ -26,7 +31,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -37,13 +42,26 @@ from repro_torch.models import ModelAPI, build
 from repro_torch.models.transformer import torch_dtype
 
 from .kv_cache import SCRATCH_BLOCK, BlockAllocator, padded_prompt_len
+from .observability import (
+    MetricsRegistry,
+    TraceRecorder,
+    macs_per_token_by_mode,
+    phase_annotation,
+)
 from .scheduler import Request, RequestState, Scheduler
 from .spec import make_drafter
 
 
 @dataclasses.dataclass
 class ServeStats:
-    """Padding/utilization/latency accounting (the reference's fields)."""
+    """Padding/utilization/latency accounting (the reference's fields).
+
+    A façade over the engine's metrics registry: once the engine binds
+    it (``_registry``), the latency quantiles are computed through the
+    registry's ``serve_step_latency_seconds`` histogram, whose live
+    source is this object's own ``step_latency_s``.  An unbound
+    instance computes them from the list.
+    """
 
     steps: int = 0
     prefills: int = 0  # prefill calls: whole prompts and chunks
@@ -70,6 +88,9 @@ class ServeStats:
     # these include the device's work
     prefill_s: float = 0.0
     decode_s: float = 0.0
+    # observability binding (engine-managed)
+    _registry: Optional[MetricsRegistry] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     def padding_waste(self) -> float:
         """Fraction of engine capacity spent on padding/idle slots."""
@@ -82,6 +103,8 @@ class ServeStats:
         self.step_latency_s.append(seconds)
 
     def latency_quantile(self, q: float) -> float:
+        if self._registry is not None:
+            return self._registry.histogram("serve_step_latency_seconds").quantile(q)
         if not self.step_latency_s:
             return 0.0
         return float(np.quantile(np.asarray(self.step_latency_s), q))
@@ -144,6 +167,12 @@ class PagedServeConfig:
     prefix_cache: content-addressed sharing of full prompt blocks
         (``kv_cache.BlockAllocator``); hits skip prefill, the miss suffix
         goes through the chunk path.
+    trace: record one typed ``TraceEvent`` per request lifecycle
+        transition (host-side appends), the source of the per-request
+        latency breakdown and of the JSON-lines / Chrome trace exports.
+    profile: wrap each engine phase's launches in a
+        ``torch.profiler.record_function`` span (meaningful only inside
+        a ``torch.profiler`` capture).
     """
 
     block_size: int = 16
@@ -161,6 +190,8 @@ class PagedServeConfig:
     preemption: str = "off"
     prefix_cache: bool = False
     clock: Optional[object] = None  # monotonic seconds; None = time.monotonic
+    trace: bool = True
+    profile: bool = False
 
 
 class ContinuousBatchingEngine:
@@ -247,11 +278,120 @@ class ContinuousBatchingEngine:
         self._step_no = 0
         self._next_rid = 0
         self.stats = ServeStats()
+        # observability: the trace recorder (event timestamps from the
+        # engine's clock), the registry wired with live sources, and the
+        # opt-in profiler spans
+        self._profile = pcfg.profile
+        self.trace: Optional[TraceRecorder] = (
+            TraceRecorder(clock=self._clock,
+                          occupancy=lambda: (self.allocator.num_free,
+                                             self.allocator.num_used))
+            if pcfg.trace else None)
+        self.metrics = MetricsRegistry()
+        self._wire_metrics()
+        self.stats._registry = self.metrics
 
     @property
     def current_step(self) -> int:
         """Engine step counter (arrival_step values are absolute)."""
         return self._step_no
+
+    def _wire_metrics(self) -> None:
+        """Register every serving metric with a live source over engine
+        state: collection reads current values on demand, so the hot path
+        pays nothing and an ``eng.stats = ServeStats()`` reset shows at
+        once.  The per-numerics-mode MAC counters resolve each matmul site
+        through ``repro_torch.core.policy``."""
+        m = self.metrics
+        counters = {
+            "serve_steps_total": ("engine steps run", lambda: self.stats.steps),
+            "serve_prefills_total": ("prefill calls (whole-prompt or chunk)",
+                                     lambda: self.stats.prefills),
+            "serve_prefill_tokens_total": ("real prompt tokens written",
+                                           lambda: self.stats.prefill_tokens),
+            "serve_prefill_padding_total": ("bucket/chunk padding tokens",
+                                            lambda: self.stats.prefill_padding),
+            "serve_decode_steps_total": ("batched decode/verify steps",
+                                         lambda: self.stats.decode_steps),
+            "serve_generated_tokens_total": ("committed output tokens",
+                                             lambda: self.stats.generated_tokens),
+            "serve_drafted_tokens_total": ("speculative tokens drafted",
+                                           lambda: self.stats.drafted_tokens),
+            "serve_accepted_tokens_total": ("speculative tokens accepted",
+                                            lambda: self.stats.accepted_tokens),
+            "serve_preemptions_total": ("running sequences evicted",
+                                        lambda: self.stats.preemptions),
+            "serve_resumes_total": ("recompute-resume re-admissions",
+                                    lambda: self.stats.resumes),
+            "serve_deadline_cancelled_total": ("requests cancelled at deadline",
+                                               lambda: self.stats.deadline_cancelled),
+            "serve_prefix_cache_hits_total": ("prefix-cache block hits at admission",
+                                              lambda: self.allocator.hits),
+            "serve_prefix_cache_misses_total": ("prefix-cache block misses at admission",
+                                                lambda: self.allocator.misses),
+            "serve_prefix_cache_evictions_total": (
+                "idle cached blocks reclaimed under pool pressure",
+                lambda: self.allocator.evictions),
+            "serve_prefill_tokens_saved_total": (
+                "prompt tokens skipped via prefix-cache hits",
+                lambda: self.allocator.tokens_saved),
+            "serve_prefix_cache_cow_total": ("copy-on-write block duplications",
+                                             lambda: self.allocator.cow_copies),
+        }
+        for name, (help_, src) in counters.items():
+            m.counter(name, help_).set_source(src)
+        gauges = {
+            "serve_pool_blocks_free": ("KV pool blocks on the free list",
+                                       lambda: self.allocator.num_free),
+            "serve_pool_blocks_used": ("KV pool blocks owned by live sequences",
+                                       lambda: self.allocator.num_used),
+            "serve_pool_utilization": ("fraction of allocatable KV pool in use",
+                                       self.allocator.utilization),
+            "serve_prefix_cached_blocks": (
+                "pool blocks holding registered prefix-cache content",
+                lambda: self.allocator.num_cached),
+            "serve_waiting_requests": ("submitted, not yet admitted",
+                                       lambda: self.scheduler.num_waiting),
+            "serve_preempted_requests": ("parked awaiting recompute-resume",
+                                         lambda: self.scheduler.num_preempted),
+            "serve_running_requests": ("admitted sequences holding a slot",
+                                       lambda: self.scheduler.num_running),
+            "serve_padding_waste": ("capacity fraction lost to padding/idle slots",
+                                    lambda: self.stats.padding_waste()),
+            "serve_spec_acceptance_rate": ("fraction of drafts the target accepted",
+                                           lambda: self.stats.acceptance_rate()),
+            "serve_tokens_per_verify_step": ("committed tokens per verify step per slot",
+                                             lambda: self.stats.tokens_per_verify_step()),
+            "serve_tok_per_s": (
+                "generated tokens over summed step wall time",
+                lambda: (self.stats.generated_tokens / t
+                         if (t := sum(self.stats.step_latency_s)) else 0.0)),
+        }
+        for name, (help_, src) in gauges.items():
+            m.gauge(name, help_).set_source(src)
+        m.histogram("serve_step_latency_seconds",
+                    "wall seconds per engine step").set_source(
+                        lambda: self.stats.step_latency_s)
+        try:
+            by_mode = macs_per_token_by_mode(self.cfg)
+        except Exception:  # exotic family/policy: MAC attribution is best-effort
+            by_mode = {}
+        for mode, macs in sorted(by_mode.items()):
+            m.counter("serve_macs_total", "forward-pass MACs by resolved numerics mode",
+                      mode=mode).set_source(
+                lambda macs=macs: macs * (self.stats.prefill_tokens
+                                          + self.stats.generated_tokens))
+        if self.drafter is not None:
+            m.counter("serve_draft_proposals_total", "drafter propose() calls").set_source(
+                lambda: getattr(self.drafter, "proposals", 0))
+            m.counter("serve_draft_proposed_tokens_total",
+                      "tokens proposed by drafter").set_source(
+                lambda: getattr(self.drafter, "proposed_tokens", 0))
+
+    def _emit(self, etype: str, rid: int, **payload) -> None:
+        """Trace hook: record one typed event (no-op when tracing is off)."""
+        if self.trace is not None:
+            self.trace.emit(etype, rid, self._step_no, **payload)
 
     # -- request intake ----------------------------------------------------
 
@@ -284,6 +424,9 @@ class ContinuousBatchingEngine:
         )
         self._next_rid += 1
         self.scheduler.submit(req)
+        self._emit("SUBMIT", req.rid, prompt_len=req.prompt_len,
+                   max_new=req.max_new_tokens, priority=req.priority,
+                   arrival_step=req.arrival_step)
         return SubmitHandle(self, req)
 
     def cancel(self, req) -> None:
@@ -293,6 +436,7 @@ class ContinuousBatchingEngine:
         if req.state in (RequestState.FINISHED, RequestState.CANCELLED):
             return
         self._cancel(req, self._step_no)
+        self._emit("CANCEL", req.rid, reason="client", out_len=len(req.output))
 
     # -- engine loop -------------------------------------------------------
 
@@ -305,6 +449,8 @@ class ContinuousBatchingEngine:
         for req in self.scheduler.expired(self._clock()):
             self._cancel(req, step)
             self.stats.deadline_cancelled += 1
+            self._emit("DEADLINE", req.rid, deadline_s=req.deadline_s,
+                       out_len=len(req.output))
             finished.append(req)
 
         for req in self.scheduler.admit(step, on_preempt=self._on_preempt):
@@ -312,7 +458,13 @@ class ContinuousBatchingEngine:
                 self.stats.resumes += 1
                 self.stats.resume_latency_steps.append(step - req.preempted_step)
                 self.stats.resume_latency_s.append(self._clock() - req.preempted_time)
+                self._emit("RESUME", req.rid, slot=req.slot, blocks=len(req.alloc.blocks),
+                           parked_steps=step - req.preempted_step,
+                           cached_len=req.cached_len)
                 req.preempted_step = -1
+            else:
+                self._emit("ADMIT", req.rid, slot=req.slot, blocks=len(req.alloc.blocks),
+                           cached_len=req.cached_len)
             if self.pcfg.prefill_chunk:
                 # blocks and slot reserved; the prompt is fed chunkwise
                 self._prefilling.append(req)
@@ -344,6 +496,12 @@ class ContinuousBatchingEngine:
         self.stats.steps += 1
         self._step_no += 1
         self.stats.record_step(time.perf_counter() - t0)
+        # the registry's sources read self.stats live, so a swapped-in
+        # ServeStats() is already reflected; only the façade's
+        # back-pointer needs refreshing
+        if self.stats._registry is not self.metrics:
+            self.stats._registry = self.metrics
+        self.metrics.tick(self._step_no)
         return finished
 
     def run(self) -> Dict[int, List[int]]:
@@ -354,6 +512,32 @@ class ContinuousBatchingEngine:
             for req in self.step():
                 done[req.rid] = req.output
         return done
+
+    def stream(self, prompt: List[int], **submit_kw) -> Iterator[dict]:
+        """Submit one prompt and drive the engine, yielding progress as
+        dicts: ``{"tokens": [...]}`` for tokens committed since the last
+        yield, interleaved (in emission order) with ``{"event":
+        TraceEvent}`` for this request's trace events when tracing is on.
+        Other queued requests keep making progress.  Ends after the
+        request's terminal event (FINISH / CANCEL / DEADLINE)."""
+        handle = self.submit(prompt, **submit_kw)
+        req = handle.request
+        n_tok = 0
+        n_evt = 0
+        if self.trace is not None:
+            for ev in self.trace.request_events(req.rid)[n_evt:]:
+                n_evt += 1
+                yield {"event": ev}
+        while req.state not in (RequestState.FINISHED, RequestState.CANCELLED):
+            self.step()
+            if self.trace is not None:
+                for ev in self.trace.request_events(req.rid)[n_evt:]:
+                    n_evt += 1
+                    yield {"event": ev}
+            if len(req.output) > n_tok:
+                new = req.output[n_tok:]
+                n_tok = len(req.output)
+                yield {"tokens": new}
 
     # -- internals ---------------------------------------------------------
 
@@ -376,9 +560,10 @@ class ContinuousBatchingEngine:
         toks = np.zeros((1, s_pad), np.int32)
         toks[0, :plen] = req.prefill_tokens
         block_ids = self._tensor(np.asarray(req.alloc.blocks[: s_pad // bs], np.int32))
-        logits, _ = self.api.paged_prefill(
-            self.model, self._tensor(toks), self._k_pool, self._v_pool, block_ids,
-            plen, use_kernel=self.pcfg.use_kernel)
+        with phase_annotation("serve.prefill", self._profile):
+            logits, _ = self.api.paged_prefill(
+                self.model, self._tensor(toks), self._k_pool, self._v_pool, block_ids,
+                plen, use_kernel=self.pcfg.use_kernel)
         req.prefill_pos = plen
         req.verified_len = plen
         req.drafted_len = s_pad  # pad positions hold junk K/V until overwritten
@@ -387,6 +572,8 @@ class ContinuousBatchingEngine:
         self.stats.prefills += 1
         self.stats.prefill_tokens += plen
         self.stats.prefill_padding += s_pad - plen
+        self._emit("PREFILL_CHUNK", req.rid, start=0, tokens=plen, width=s_pad, done=True,
+                   out_len=len(req.output))
 
     def _prefill_span(self, req: Request, start: int, real: int, width: int) -> np.ndarray:
         """Write ``real`` prefill tokens from ``start`` (padded to ``width``)
@@ -395,9 +582,10 @@ class ContinuousBatchingEngine:
         toks[0, :real] = req.prefill_tokens[start:start + real]
         table_row = self._tensor(
             np.asarray(req.alloc.table_row(self.max_blocks_per_seq), np.int32))
-        logits, _ = self.api.paged_prefill_chunk(
-            self.model, self._tensor(toks), self._k_pool, self._v_pool, table_row,
-            start, real - 1, use_kernel=self.pcfg.use_kernel)
+        with phase_annotation("serve.prefill", self._profile):
+            logits, _ = self.api.paged_prefill_chunk(
+                self.model, self._tensor(toks), self._k_pool, self._v_pool, table_row,
+                start, real - 1, use_kernel=self.pcfg.use_kernel)
         req.prefill_pos = start + real
         req.verified_len = start + real
         # padding past capacity lands on the scratch block through the
@@ -423,6 +611,8 @@ class ContinuousBatchingEngine:
         last = self._prefill_span(req, start, remaining, width)
         self._finish_prefill(req, last)
         self.stats.prefill_s += time.perf_counter() - t0
+        self._emit("PREFILL_CHUNK", req.rid, start=start, tokens=remaining, width=width,
+                   done=True, out_len=len(req.output))
 
     def _do_prefill_chunk(self, req: Request) -> bool:
         """Write ONE chunk of ``req``'s prefill context into its blocks.
@@ -437,11 +627,14 @@ class ContinuousBatchingEngine:
         start = req.prefill_pos
         remaining = req.prefill_len - start
         width = chunk if remaining > chunk else padded_prompt_len(remaining, bs)
-        last = self._prefill_span(req, start, min(remaining, chunk), width)
+        real = min(remaining, chunk)
+        last = self._prefill_span(req, start, real, width)
         done = req.prefill_done
         if done:
             self._finish_prefill(req, last)
         self.stats.prefill_s += time.perf_counter() - t0
+        self._emit("PREFILL_CHUNK", req.rid, start=start, tokens=real, width=width, done=done,
+                   out_len=len(req.output))
         return done
 
     def _finish_prefill(self, req: Request, last_logits: np.ndarray) -> None:
@@ -470,15 +663,16 @@ class ContinuousBatchingEngine:
     def _do_decode(self, step: int) -> List[Request]:
         self._flush_scrubs()
         t0 = time.perf_counter()
-        logits, _ = self.api.paged_decode_step(
-            self.model,
-            self._tensor(self._last_tok[:, None]),
-            self._k_pool,
-            self._v_pool,
-            self._tensor(self._tables),
-            self._tensor(self._lengths),
-            use_kernel=self.pcfg.use_kernel,
-        )
+        with phase_annotation("serve.decode", self._profile):
+            logits, _ = self.api.paged_decode_step(
+                self.model,
+                self._tensor(self._last_tok[:, None]),
+                self._k_pool,
+                self._v_pool,
+                self._tensor(self._tables),
+                self._tensor(self._lengths),
+                use_kernel=self.pcfg.use_kernel,
+            )
         logits = logits[:, 0].float().cpu().numpy()
         self.stats.decode_s += time.perf_counter() - t0
 
@@ -495,6 +689,7 @@ class ContinuousBatchingEngine:
             req.drafted_len = max(req.drafted_len, req.verified_len)
             self._last_tok[slot] = tok
             self.stats.generated_tokens += 1
+            self._emit("DECODE", req.rid, new_tokens=1, out_len=len(req.output))
             if req.is_done():
                 self._release(req, step)
                 finished.append(req)
@@ -516,17 +711,21 @@ class ContinuousBatchingEngine:
         tokens = np.zeros((m, w), np.int32)
         tokens[:, 0] = self._last_tok
         drafts: Dict[int, List[int]] = {}
+        propose_hist = self.metrics.histogram("serve_draft_propose_seconds")
         for slot, req in active:
+            td = time.perf_counter()
             d = [int(t) for t in self.drafter.propose(req, k)]
+            propose_hist.observe(time.perf_counter() - td)
             if len(d) != k:
                 raise ValueError(f"the drafter proposed {len(d)} tokens, not {k}")
             drafts[slot] = d
             tokens[slot, 1:] = d
         t0 = time.perf_counter()
-        logits, _ = self.api.paged_score_tokens(
-            self.model, self._tensor(tokens), self._k_pool, self._v_pool,
-            self._tensor(self._tables), self._tensor(self._lengths),
-            use_kernel=self.pcfg.use_kernel)
+        with phase_annotation("serve.verify", self._profile):
+            logits, _ = self.api.paged_score_tokens(
+                self.model, self._tensor(tokens), self._k_pool, self._v_pool,
+                self._tensor(self._tables), self._tensor(self._lengths),
+                use_kernel=self.pcfg.use_kernel)
         targets = logits.float().argmax(-1).cpu().numpy()  # [m, w]
         self.stats.decode_s += time.perf_counter() - t0
 
@@ -555,6 +754,8 @@ class ContinuousBatchingEngine:
             self._lengths[slot] = base + committed
             self._last_tok[slot] = req.output[-1]
             self.scheduler.rollback(req, base + committed)
+            self._emit("VERIFY", req.rid, k=k, accepted=a, new_tokens=committed,
+                       out_len=len(req.output))
             if req.is_done():
                 self._release(req, step)
                 finished.append(req)
@@ -573,8 +774,12 @@ class ContinuousBatchingEngine:
         for req in active:
             if req.state is not RequestState.RUNNING:
                 continue  # evicted by a more deserving grower above
+            before = len(req.alloc.blocks)
             if self.scheduler.grow(req, req.verified_len + w, self._on_preempt, step):
                 self._tables[req.slot] = req.alloc.table_row(self.max_blocks_per_seq)
+                after = len(req.alloc.blocks)
+                if after != before:
+                    self._emit("GROW", req.rid, new_blocks=after - before, blocks=after)
 
     def _on_preempt(self, req: Request, slot: int, scrub: List[int]) -> None:
         """Scheduler callback: queue every block the victim wrote that
@@ -589,6 +794,8 @@ class ContinuousBatchingEngine:
         if hook is not None:
             hook(req)
         self.stats.preemptions += 1
+        self._emit("PREEMPT", req.rid, blocks_freed=len(scrub),
+                   preempt_count=req.preempt_count, out_len=len(req.output))
 
     def _reset_slot(self, slot: int) -> None:
         self._tables[slot] = SCRATCH_BLOCK
@@ -609,6 +816,7 @@ class ContinuousBatchingEngine:
         slot = req.slot
         self._scrub_pending.extend(self.scheduler.retire(req, step))
         self._reset_slot(slot)
+        self._emit("FINISH", req.rid, out_len=len(req.output))
 
     def _flush_scrubs(self) -> None:
         """Zero every pending freed block (retires, preemptions, cancels,
@@ -617,10 +825,11 @@ class ContinuousBatchingEngine:
         self._scrub_pending.extend(self.allocator.drain_evicted())
         if not self._scrub_pending:
             return
-        ids = self._tensor(np.asarray(self._scrub_pending, np.int64))
-        self._scrub_pending = []
-        self._k_pool.index_fill_(1, ids, 0)
-        self._v_pool.index_fill_(1, ids, 0)
+        blocks, self._scrub_pending = self._scrub_pending, []
+        with phase_annotation("serve.scrub", self._profile):
+            ids = self._tensor(np.asarray(blocks, np.int64))
+            self._k_pool.index_fill_(1, ids, 0)
+            self._v_pool.index_fill_(1, ids, 0)
 
     def _apply_cow(self, req: Request) -> None:
         """Copy-on-write before a shared tail block takes writes: the one
@@ -632,8 +841,9 @@ class ContinuousBatchingEngine:
         src = req.cow_src
         self._flush_scrubs()
         dst = req.alloc.blocks[req.cached_len // self.pcfg.block_size]
-        self._k_pool[:, dst].copy_(self._k_pool[:, src])
-        self._v_pool[:, dst].copy_(self._v_pool[:, src])
+        with phase_annotation("serve.cow", self._profile):
+            self._k_pool[:, dst].copy_(self._k_pool[:, src])
+            self._v_pool[:, dst].copy_(self._v_pool[:, src])
         req.cow_src = None
         self._scrub_pending.extend(self.allocator.release([src]))
 

@@ -61,8 +61,13 @@ class NgramDrafter:
             raise ValueError(f"need 1 <= min_n <= max_n, got {min_n}, {max_n}")
         self.max_n = max_n
         self.min_n = min_n
+        # read live by the engine's metrics registry
+        self.proposals = 0
+        self.proposed_tokens = 0
 
     def propose(self, req: Request, k: int) -> List[int]:
+        self.proposals += 1
+        self.proposed_tokens += k
         ctx = req.prompt + req.output
         fallback = ctx[-1] if ctx else 0
         for n in range(self.max_n, self.min_n - 1, -1):
@@ -92,6 +97,6 @@ def make_drafter(spec: str, target_cfg: ModelConfig) -> Drafter:
     if spec.startswith("model:"):
         raise NotImplementedError(
             f"spec_draft={spec!r}: a draft model runs on the static engine, which is "
-            "not ported yet (ROADMAP.md, queue 1: static engine)")
+            "not ported yet (ROADMAP.md, queue 1, item 11: the static engine)")
     raise ValueError(
         f"unknown drafter spec {spec!r}; use 'ngram', 'ngram:N' or 'model:<arch>'")

@@ -163,7 +163,7 @@ def test_engine_rejects_oversized_request(port_engine):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("tp", 2), ("trace", True), ("profile", True), ("engine", "static"),
+    ("tp", 2), ("engine", "static"),
     ("spec_draft", "model:yi-6b"),
 ])
 def test_later_slice_options_raise(field, value):
