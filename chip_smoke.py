@@ -4,9 +4,10 @@
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--layers N]
-                          [--phases device,kernels,conformance,serve,serve_paths,observe,e2e,times]
+                          [--phases device,kernels,conformance,serve,serve_paths,observe,moe,
+                                    e2e,times]
 
-It imports ``repro_torch`` (never JAX) and runs eight phases, each on its
+It imports ``repro_torch`` (never JAX) and runs nine phases, each on its
 own lines:
 
 1. device      — the card's name and power limit (nvidia-smi), the torch
@@ -26,9 +27,15 @@ own lines:
    posit multipliers (K4) bit for bit, the
    paged (K2) and contiguous (K5) decode attention within stated
    tolerances, at serving and long contexts and at the length edges of
-   their shared core (0 included) in every dtype pair they take, and
+   their shared core (0 included) in every dtype pair they take (and at
+   the MoE models' head layouts), and
    over seeded random shapes with NaN in every element they must not
-   read.  Then K5's public entry point runs once per yi-6b layer at
+   read.  K1 over a stack of experts (one launch) is held bit for bit to
+   its grouped plain version over deepseek-moe-16b's and
+   granite-moe-1b-a400m's first 8 experts at every M an expert's buffer
+   has on the serve path, to the 2-D kernel run expert by expert over
+   all 64 and 32 experts, and at ragged stacks; the 2-D kernel also at
+   granite's unembed.  Then K5's public entry point runs once per yi-6b layer at
    yi-6b's widths (K5 has no serving path).
 3. conformance — ``python -m repro_torch.conformance check`` and
    ``fuzz --seed 0 --count 2048`` in-process on the default device, so
@@ -69,10 +76,23 @@ own lines:
    full width, writing a Chrome trace, JSON lines and Prometheus files
    that the port's checkers must accept (a plam_sim MAC counter above 0,
    the prefix-cache families, ``steps=`` equal to ``serve_steps_total``).
-7. e2e         — a 2-layer full-width model runs one prefill and 4
+7. moe         — the MoE family at full width: deepseek-moe-16b (28
+   layers, 64 experts top-6, 2 shared) serves the serve phase's requests
+   with its bf16 weights encoded on every forward (10L+1 K3 and 10L+1 K1
+   launches a forward, 3L of them over all 64 experts at once; L K2 a
+   decode step), then with its weights encoded once in place
+   (``quantize_params``: 10L+1 encodes, the router kept f32; no K3 a
+   forward) and the same greedy tokens; tok/s, step latency, peak memory
+   and a profile of two decode steps (K1, K2, and the dispatch glue
+   around them); then granite-moe-1b-a400m (24 layers, 32 experts top-8)
+   prequantized: 7L+1 K1 a forward.  ``--layers`` cuts both depths.
+8. e2e         — a 2-layer full-width model runs one prefill and 4
    decode steps on the kernels and on the plain versions; last logits
-   must agree within a stated tolerance.
-8. times       — CUDA-event times of each kernel, its plain version and
+   must agree within a stated tolerance.  The same for a 2-layer
+   deepseek-moe-16b over 2 decode steps, with the router's top-k margin
+   logged wherever the two runs route a token differently; and
+   ``mitchell_f32`` (plain torch) on the card against the CPU.
+9. times       — CUDA-event times of each kernel, its plain version and
    (for attention) ``scaled_dot_product_attention``, beside each
    kernel's bound (and, for K1, the floor of its design, with the strip
    width of its prefill path).  Each
@@ -86,7 +106,9 @@ own lines:
    activation shapes on both paths (``K3_TIMES``), beside a copy of the
    same bytes; its decode and quantize at 2^24 and 4,096 lanes beside
    their bytes bound and a copy of the same bytes.  K1 is also timed at
-   the chunk width and the verify rows (M = 32, 20).  K2 is timed at
+   the chunk width and the verify rows (M = 32, 20), and over a stack of
+   deepseek's 64 experts at M = 1 and 7, beside its bytes bound and, in
+   turns, the 64 launches of the 2-D kernel it replaces.  K2 is timed at
    the serving shape and at a long paged context, and K5 also at other
    split sizes.
 
@@ -98,6 +120,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -110,8 +133,8 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ["device", "kernels", "conformance", "serve", "serve_paths", "observe", "e2e",
-          "times"]
+PHASES = ["device", "kernels", "conformance", "serve", "serve_paths", "observe", "moe",
+          "e2e", "times"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 CUDA-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -269,6 +292,42 @@ LENGTH_EDGES = [0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 129]
 # encoding of the next activations can amplify to a pattern step
 # (2^-12 relative); logits are ~N(0, 1) at random init.
 E2E_LOGIT_TOL = 0.1
+# The MoE family (phase moe): each arch's expert count and its expert
+# projections (K, N), wg/wu then wd
+MOE_ARCHS = ("deepseek-moe-16b", "granite-moe-1b-a400m")
+MOE_EXPERTS = {"deepseek-moe-16b": 64, "granite-moe-1b-a400m": 32}
+MOE_SHAPES = {"deepseek-moe-16b": [(2048, 1408), (1408, 2048)],
+              "granite-moe-1b-a400m": [(1024, 512), (512, 1024)]}
+# K1 over a stack of experts: the M (cap) of an expert's buffer.  At
+# deepseek's widths: 1 a decode step at 4 slots, 2 a verify over 4 x 5
+# rows, 3 a 32-token chunk, 5 and 7 the serve prompts' prefills padded to
+# 48 and 64 tokens, 60 a 512-token prompt (the prefill path); at
+# granite's: 1 a decode step, 15 and 20 those two prefills.  Phase moe
+# also records the caps its runs reach and holds the kernel at each of
+# them.  The grouped plain version runs over the first K1_GROUPED_PLAIN_E
+# experts (cut experts, never K or N); the grouped kernel is held to the
+# 2-D kernel over all of them.
+K1_GROUPED_MS = (1, 2, 3, 5, 7, 15, 20, 60)
+K1_GROUPED_PLAIN_E = 8
+# E = 3 stacks at ragged (M, K, N): scalar loads, a ragged k tail, the
+# prefill path's 64-row edge; zero and NaR planted
+K1_GROUPED_RAGGED = [(17, 33, 17), (5, 1025, 9), (65, 4097, 511)]
+# granite's unembed (odd N), at a decode step's M and a prefill's
+K1_GRANITE_UNEMBED = (1024, 49155)
+K1_GRANITE_UNEMBED_MS = (4, 64)
+# times: the grouped kernel at deepseek's expert projections and the M of
+# a decode step and a prefill
+K1_GROUPED_TIME_MS = (1, 7)
+# mitchell_f32 (phase e2e): nmatmul at yi-6b's projections at M = 4 on the
+# card against the CPU over the first MITCHELL_CPU_N columns (columns are
+# independent; the CPU would take minutes over the unembed's 64,000).  The
+# two add the same f32 products in another order within each 64-wide
+# chunk: rtol 1e-5, and an atol of 1e-6 for sums that cancel to near zero
+# (|out| is ~1 here)
+MITCHELL_M = 4
+MITCHELL_CPU_N = 1024
+MITCHELL_RTOL = 1e-5
+MITCHELL_ATOL = 1e-6
 # K5 at yi-6b's widths: batch 4, 32 q heads over 4 kv heads, hd 128, a
 # 4096-key contiguous cache with ragged lengths.
 K5_SHAPE = dict(b=4, h=32, kv=4, hd=128, s=4096)
@@ -575,17 +634,20 @@ class Smoke:
             f"(with {prefill_cases} prefill-edge cases)")
         fused = self.check_fused_encode(same, failures, sweep)
         k1_ok = k1_ok and fused["ok"]
+        grouped = self.check_grouped_k1(same, failures)
 
         k2 = self.check_paged_attention(failures)
         k4_ok = self.check_posit_mul(same, failures)
         k5 = self.check_decode_attention(failures)
         canaries = self.check_canaries(failures)
         self.kernel_err = {"plam_matmul": 0.0 if k1_ok else None,
+                           "plam_matmul_grouped": 0.0 if grouped["ok"] else None,
                            "posit_codec": 0.0 if k3_ok else None,
                            "paged_decode_attention": k2["err_f32"],
                            "posit_mul": 0.0 if k4_ok else None,
                            "decode_attention": k5["err_f32"]}
         self.results["kernels"] = {"k1_bit_identical": k1_ok, "k1_fused": fused,
+                                   "k1_grouped": grouped,
                                    "k3_bit_identical": k3_ok, "k3_paths": paths,
                                    "k2": k2,
                                    "k4_bit_identical": k4_ok, "k5": k5,
@@ -815,6 +877,120 @@ class Smoke:
             f"{list(K1_CHUNK_MS)})")
         return {"ok": ok, "cases": cases}
 
+    def check_grouped_k1(self, same, failures) -> dict:
+        """K1 over a stack of experts ([E, M, K] x [E, K, N], one launch),
+        bit for bit: against its grouped plain version over the first
+        K1_GROUPED_PLAIN_E experts of deepseek's and granite's stacks at
+        K1_GROUPED_MS, f32 and bf16 A, int16 and int32 B; against the 2-D
+        kernel run expert by expert over all 64 and 32 experts; at E = 1
+        against the 2-D call; at E = 3 over K1_GROUPED_RAGGED with zero and
+        NaR (zero, inf and NaN in float A) planted, pattern, f32 and bf16 A.
+        Then the 2-D kernel at granite's unembed (odd N) against its plain
+        version.  Each launch over a stack counts under plam_matmul_grouped."""
+        torch = self.torch
+        import numpy as np
+
+        from repro_torch.kernels import _lib
+        from repro_torch.kernels.plam_matmul import plam_matmul, plam_matmul_float
+        from repro_torch.kernels.posit_codec import posit_encode
+        from repro_torch.numerics import P16
+
+        n_before = len(failures)
+        g = self.gen(17)
+        cases = 0
+
+        def stack(e, k, n):
+            w = torch.randn((e, k, n), generator=g, device=self.dev) * k ** -0.5
+            b32 = posit_encode(w, P16)
+            return b32, ((b32 ^ 0x8000) - 0x8000).to(torch.int16)
+
+        def dt(t):
+            return str(t.dtype)[6:]
+
+        # 1. the first experts, against the grouped plain version
+        for arch, shapes in MOE_SHAPES.items():
+            for k, n in shapes:
+                b32, b16 = stack(K1_GROUPED_PLAIN_E, k, n)
+                for m in K1_GROUPED_MS:
+                    x = torch.randn((K1_GROUPED_PLAIN_E, m, k), generator=g, device=self.dev)
+                    for xa in (x, x.to(torch.bfloat16)):
+                        want = plam_matmul_float(xa, b32, P16, use_kernel=False)
+                        for bb in (b16, b32):
+                            same(f"grouped K1 {arch} E={K1_GROUPED_PLAIN_E} M={m} K={k} N={n} "
+                                 f"A={dt(xa)} B={dt(bb)} vs plain",
+                                 plam_matmul_float(xa, bb, P16), want)
+                            cases += 1
+                    torch.cuda.synchronize()
+        # 2. every expert, against the 2-D kernel expert by expert
+        for arch, shapes in MOE_SHAPES.items():
+            e = MOE_EXPERTS[arch]
+            for k, n in shapes:
+                b32, b16 = stack(e, k, n)
+                for m in K1_GROUPED_MS:
+                    x = torch.randn((e, m, k), generator=g, device=self.dev).to(torch.bfloat16)
+                    for bb in ((b16, b32) if m == 1 else (b16,)):
+                        before = _lib.launches["plam_matmul_grouped"]
+                        got = plam_matmul_float(x, bb, P16)
+                        if _lib.launches["plam_matmul_grouped"] != before + 1:
+                            failures.append(f"grouped K1 {arch}: not one grouped launch")
+                        want = torch.stack([plam_matmul_float(x[i], bb[i], P16)
+                                            for i in range(e)])
+                        same(f"grouped K1 {arch} E={e} M={m} K={k} N={n} B={dt(bb)} vs 2-D",
+                             got, want)
+                        cases += 1
+                del b32, b16
+                torch.cuda.synchronize()
+        # 3. E = 1 against the 2-D call, and E = 3 at ragged shapes
+        for m, k, n in [(4, 2048, 1408), (60, 1408, 2048)]:
+            b32, b16 = stack(1, k, n)
+            x = torch.randn((1, m, k), generator=g, device=self.dev).to(torch.bfloat16)
+            same(f"grouped K1 E=1 M={m} K={k} N={n} vs 2-D", plam_matmul_float(x, b16, P16),
+                 plam_matmul_float(x[0], b16[0], P16)[None])
+            cases += 1
+        for i, (m, k, n) in enumerate(K1_GROUPED_RAGGED):
+            rng = np.random.default_rng(2000 + i)
+            a = rng.integers(0, 1 << 16, (3, m, k)).astype(np.int32)
+            b = rng.integers(0, 1 << 16, (3, k, n)).astype(np.int32)
+            a.flat[:: max(1, a.size // 7)] = P16.nar
+            b.flat[:: max(1, b.size // 5)] = 0
+            x = rng.standard_normal((3, m, k)).astype(np.float32)
+            x[1, m // 2, k // 2], x[2, m - 1, 0], x[0, 0, k - 1] = 0.0, np.inf, np.nan
+            at, b32 = torch.from_numpy(a).to(self.dev), torch.from_numpy(b).to(self.dev)
+            b16 = ((b32 ^ 0x8000) - 0x8000).to(torch.int16)
+            xf = torch.from_numpy(x).to(self.dev)
+            for name, fn, xa in [("patterns", plam_matmul, at), ("f32", plam_matmul_float, xf),
+                                 ("bf16", plam_matmul_float, xf.to(torch.bfloat16))]:
+                want = fn(xa, b32, P16, use_kernel=False)
+                for bb in (b16, b32):
+                    tag = f"grouped K1 ragged E=3 ({m}, {k}, {n}) A={name} B={dt(bb)}"
+                    got = fn(xa, bb, P16)
+                    same(f"{tag} vs plain", got, want)
+                    same(f"{tag} vs 2-D", got, torch.stack([fn(xa[j], bb[j], P16)
+                                                            for j in range(3)]))
+                    cases += 2
+            torch.cuda.synchronize()
+        # 4. the 2-D kernel at granite's unembed (odd N)
+        k, n = K1_GRANITE_UNEMBED
+        b32 = posit_encode(torch.randn((k, n), generator=g, device=self.dev) * k ** -0.5, P16)
+        b16 = ((b32 ^ 0x8000) - 0x8000).to(torch.int16)
+        for m in K1_GRANITE_UNEMBED_MS:
+            x = torch.randn((m, k), generator=g, device=self.dev).to(torch.bfloat16)
+            want = plam_matmul_float(x, b32, P16, use_kernel=False)
+            for bb in (b16, b32):
+                same(f"K1 granite unembed M={m} K={k} N={n} B={dt(bb)}",
+                     plam_matmul_float(x, bb, P16), want)
+                cases += 1
+        torch.cuda.synchronize()
+        ok = len(failures) == n_before
+        log(f"K1 over a stack of experts: {'bit-identical' if ok else failures[n_before:]} over "
+            f"{cases} cases (the first {K1_GROUPED_PLAIN_E} experts of deepseek's and granite's "
+            f"stacks {MOE_SHAPES} against the grouped plain version at M "
+            f"{list(K1_GROUPED_MS)}, f32 and bf16 A, int16 and int32 B; all "
+            f"{list(MOE_EXPERTS.values())} experts against the 2-D kernel expert by expert; "
+            f"E = 1; E = 3 at {K1_GROUPED_RAGGED} with zero and NaR planted); the 2-D kernel at "
+            f"granite's unembed {K1_GRANITE_UNEMBED} at M {list(K1_GRANITE_UNEMBED_MS)}")
+        return {"ok": ok, "cases": cases}
+
     def paged_case(self, g, lengths, max_blk=None, h=32, kv=4, hd=128, bs=16,
                    q_dtype=None, kv_dtype=None):
         """Seeded K2 inputs: each sequence owns ceil(length / bs) pool blocks
@@ -865,7 +1041,10 @@ class Smoke:
                  ("long", dict(lengths=K2_LONG_LENGTHS, max_blk=K2_LONG_MAX_BLK), pairs[:1]),
                  (f"edges (split {sk})", dict(lengths=edges, max_blk=K2_LONG_MAX_BLK), pairs),
                  ("serving edges", dict(lengths=[0, 1, 15, 16, 17, 79, 80], max_blk=5), pairs)]
-        for h, kv, hd in [(48, 4, 128), (16, 1, 256), (8, 8, 64), (8, 4, 32), (4, 2, 16)]:
+        # ... and deepseek-moe-16b's (16 kv heads of 16, group 1) and
+        # granite-moe-1b-a400m's (16 over 8, hd 64)
+        for h, kv, hd in [(48, 4, 128), (16, 1, 256), (8, 8, 64), (8, 4, 32), (4, 2, 16),
+                          (16, 16, 128), (16, 8, 64)]:
             cases.append((f"h={h} kv={kv} hd={hd}",
                           dict(lengths=[0, 5, 300, 700], max_blk=48, h=h, kv=kv, hd=hd),
                           [(bf, bf), (f32, f32)]))
@@ -1472,10 +1651,23 @@ class Smoke:
         copy_us = sum(us for name, us in kernels.items() if "copy" in name)
         log(f"  K1 {k1_us / 1e3:.3f} ms, K3 (weight encodes) {k3_us / 1e3:.3f} ms, copy "
             f"kernels {copy_us / 1e3:.3f} ms over the 2 steps")
+        # the device kernels outside K1, K2 and K3 (casts, norms, rope, the
+        # MoE dispatch's softmax, sort, cumsum, scatter and gather)
+        glue = sorted(((name, us) for name, us in kernels.items()
+                       if "plam_matmul" not in name and "decode_attention_core" not in name
+                       and not ("encode_" in name and "kernel" in name)),
+                      key=lambda kv: -kv[1])
+        glue_us = sum(us for _, us in glue)
+        log(f"  outside K1, K2 and K3: {glue_us / 1e3:.3f} ms ({glue_us / busy:.1%}) over "
+            f"{len(glue)} kernel names; the top ones:")
+        for name, us in glue[:8]:
+            log(f"    {us / 1e3:8.3f} ms  {name[:100]}")
         return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
                 "idle_share": 1 - busy / wall_us,
                 "k2_ms": k2_us / 1e3, "k2_share": k2_us / busy,
                 "k1_ms": k1_us / 1e3, "k3_ms": k3_us / 1e3, "copy_ms": copy_us / 1e3,
+                "glue_ms": glue_us / 1e3,
+                "glue_top": [[name, us / 1e3] for name, us in glue[:8]],
                 "top": [[name, us / 1e3] for name, us in top]}, step_launches
 
     # -- phase 5 -------------------------------------------------------------
@@ -1639,7 +1831,9 @@ class Smoke:
         run = {"outputs": [done[h.rid] for h in handles], "wall_s": wall, "steps": st.steps,
                "prefills": st.prefills, "decode_steps": st.decode_steps,
                "prefill_s": st.prefill_s, "decode_s": st.decode_s,
-               "step_p50_s": st.latency_p50(), "launches": counts, "calls": calls,
+               "step_p50_s": st.latency_p50(), "step_p95_s": st.latency_p95(),
+               "decode_tokens": st.generated_tokens - len(prompts),
+               "launches": counts, "calls": calls,
                "forward_m": ms, "preemptions": st.preemptions, "resumes": st.resumes,
                "resume_latency_mean_s": st.resume_latency_mean_s(),
                "resume_latency_steps": st.resume_latency_steps,
@@ -2038,6 +2232,256 @@ class Smoke:
 
     # -- phase 7 -------------------------------------------------------------
 
+    def moe_cfg(self, arch):
+        """``arch`` at full width, its depth cut by --layers, under the serve
+        phase's policy."""
+        from repro_torch.configs import get_config
+
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, n_layers=min(self.args.layers, cfg.n_layers))
+        return cfg.with_numerics("default=plam_sim:16:1")
+
+    def moe_prompts(self, vocab):
+        """The serve phase's four seeded prompts (32-64 tokens of yi-6b's
+        64,000-token vocabulary), each token taken modulo ``vocab``."""
+        torch = self.torch
+        g = torch.Generator().manual_seed(7)
+        lens = torch.randint(32, 65, (4,), generator=g).tolist()
+        prompts = [torch.randint(0, 64000, (n,), generator=g).tolist() for n in lens]
+        return lens, [[t % vocab for t in p] for p in prompts]
+
+    def moe_gates(self, run, cfg, encodes):
+        """Launches per forward of a MoE model: (7 + 3 with shared experts) L
+        + 1 K1, 3L of them over a stack of experts; K3 as many as K1 when
+        the weights are encoded on every forward, else none; L K2 on a
+        one-token decode step and none on a prefill; nothing else."""
+        layers = cfg.n_layers
+        k1 = (7 + (3 if cfg.n_shared_experts else 0)) * layers + 1
+        bad = []
+        for kind, m, got, _ in run["calls"]:
+            want = {k: 0 for k in got}
+            want.update(plam_matmul=k1, plam_matmul_grouped=3 * layers,
+                        posit_codec=k1 if encodes else 0,
+                        paged_decode_attention=layers if kind == "decode" else 0)
+            if got != want:
+                bad.append(f"{kind} forward at M={m}: launches {got}, expected {want}")
+        for name in ("plam_matmul", "plam_matmul_grouped"):
+            total = sum(c[2][name] for c in run["calls"])
+            if total != run["launches"][name] or total == 0:
+                bad.append(f"{name} launched {run['launches'][name]} times in the run, "
+                           f"{total} in its counted forwards")
+        return bad[:4]
+
+    def count_moe_path(self, launches):
+        """Adds a MoE run's launches to the kernels line, each launch in one
+        row: K1 over a stack of experts under plam_matmul_grouped only."""
+        own = dict(launches, plam_matmul=launches["plam_matmul"]
+                   - launches["plam_matmul_grouped"])
+        for name in ("plam_matmul", "plam_matmul_grouped", "paged_decode_attention"):
+            self.path_launches[name] = self.path_launches.get(name, 0) + own[name]
+
+    @contextlib.contextmanager
+    def recording_caps(self):
+        """The set of every cap (the M of an expert's buffer) that
+        ``moe.route`` is given while the block runs."""
+        from repro_torch.models import moe as moe_mod
+
+        route, caps = moe_mod.route, set()
+
+        def recorded(logits, top_k, cap):
+            caps.add(cap)
+            return route(logits, top_k, cap)
+
+        moe_mod.route = recorded
+        try:
+            yield caps
+        finally:
+            moe_mod.route = route
+
+    def check_moe_caps(self, arch, moe, caps, failures) -> dict:
+        """Grouped K1 at every cap the runs of ``arch`` reached, on layer 0's
+        int16 expert stacks (wg: K = d, N = f; wd: K = f, N = d; wu is wg's
+        shape) with bf16 A, as the path gives them: the first
+        K1_GROUPED_PLAIN_E experts against the grouped plain version, every
+        expert against the 2-D kernel, bit for bit."""
+        torch = self.torch
+        from repro_torch.kernels.plam_matmul import plam_matmul_float
+        from repro_torch.numerics import P16
+
+        g, cases, n_before, plain_e = self.gen(23), 0, len(failures), K1_GROUPED_PLAIN_E
+        for m in sorted(caps):
+            for name in ("wg", "wd"):
+                w = getattr(moe, name)
+                e, k, n = w.shape
+                x = torch.randn((e, m, k), generator=g, device=self.dev).to(torch.bfloat16)
+                got = plam_matmul_float(x, w, P16)
+                plain = plam_matmul_float(x[:plain_e], w[:plain_e], P16, use_kernel=False)
+                per = torch.stack([plam_matmul_float(x[i], w[i], P16) for i in range(e)])
+                for what, part, want in (("plain", got[:plain_e], plain), ("2-D", got, per)):
+                    if not torch.equal(part.view(torch.int32), want.view(torch.int32)):
+                        failures.append(f"{arch} grouped K1 M={m} {name} (K={k}, N={n}): "
+                                        f"differs from the {what} version")
+                    cases += 1
+            torch.cuda.synchronize()
+        ok = len(failures) == n_before
+        log(f"  {arch} grouped K1 at the caps its runs reached {sorted(caps)}, layer 0's wg "
+            f"and wd, bf16 A: {'bit-identical' if ok else failures[n_before:]} over {cases} "
+            f"cases (the first {plain_e} experts against the plain version, all against the "
+            f"2-D kernel)")
+        return {"caps": sorted(caps), "cases": cases, "ok": ok}
+
+    def phase_moe(self):
+        """The MoE family at full width on the serve phase's requests:
+        deepseek-moe-16b (all 28 layers unless --layers cuts them) with its
+        bf16 weights encoded on every forward, then encoded once in place
+        (quantize_params) and served again (the same greedy tokens), read
+        under the profiler; then granite-moe-1b-a400m, prequantized, served
+        twice (the same tokens: the run is deterministic).  After
+        each model's runs, grouped K1 is held to its plain version and to
+        the 2-D kernel at every cap those runs reached."""
+        torch = self.torch
+        import gc
+
+        import numpy as np
+
+        from repro_torch.core.prequant import quantize_params
+        from repro_torch.kernels import _lib
+        from repro_torch.models import transformer as tf
+        from repro_torch.serving import ServeOptions, build_engine
+
+        self.yi_model = None  # the earlier phases' model
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log(f"moe: {free / 2**30:.2f} GiB free of {total / 2**30:.2f} GiB, "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, after freeing the "
+            f"earlier phases' models")
+        res = {"free_gib_at_start": free / 2**30}
+        failures = []
+        base = ServeOptions(max_new_tokens=16, block_size=16, max_slots=4, num_blocks=64,
+                            max_seq_len=128, prequantize=False)
+
+        # 1. deepseek-moe-16b, bf16 weights encoded on every forward
+        cfg = self.moe_cfg("deepseek-moe-16b")
+        layers = cfg.n_layers
+        lens, prompts = self.moe_prompts(cfg.vocab)
+        log(f"moe: deepseek-moe-16b d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv} hd "
+            f"{cfg.hd} experts {cfg.n_experts} top-{cfg.top_k} moe_d_ff {cfg.moe_d_ff} shared "
+            f"{cfg.n_shared_experts} vocab {cfg.vocab} layers {layers} param/act "
+            f"{cfg.param_dtype}/{cfg.act_dtype} policy default=plam_sim:16:1; prompt lens {lens}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = tf.lm_init(cfg, seed=0, device=self.dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        bf16_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        log(f"  seeded init {init_s:.1f} s: {n_params / 1e9:.3f} G parameters, "
+            f"{bf16_bytes / 1e9:.2f} GB, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        with self.recording_caps() as caps:
+            plain = self.serve_run("deepseek bf16 weights", cfg, model, base, prompts)
+        failures.extend(f"bf16 weights: {f}" for f in self.moe_gates(plain, cfg, True))
+        res["deepseek_bf16"] = {k: v for k, v in plain.items() if k != "calls"}
+
+        # 2. the same weights encoded once, in place
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        _, meta = quantize_params(cfg, model)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        at_build = dict(_lib.launches)
+        router = model.blocks[0].moe.router
+        int16_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        log(f"  quantize_params in place {quant_s:.2f} s: {at_build['posit_codec']} encodes "
+            f"({at_build['posit_codec_table']} table builds), {len(meta)} sites, router "
+            f"{router.dtype}; weights {int16_bytes / 1e9:.2f} GB, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if at_build["posit_codec"] != 10 * layers + 1:
+            failures.append(f"quantize_params: {at_build['posit_codec']} encodes, expected "
+                            f"{10 * layers + 1}")
+        if router.dtype != torch.float32 or "layers/moe/router" in meta:
+            failures.append("quantize_params: the router did not stay f32")
+        torch.cuda.reset_peak_memory_stats()
+        with self.recording_caps() as more:
+            run = self.serve_run("deepseek prequantized", cfg, model, base, prompts)
+        caps |= more
+        failures.extend(f"prequantized: {f}" for f in self.moe_gates(run, cfg, False))
+        if run["outputs"] != plain["outputs"]:
+            failures.append("deepseek: greedy tokens differ between the bf16 and the "
+                            "prequantized weights")
+        decode_tok_s = run["decode_tokens"] / run["decode_s"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  deepseek prequantized: decode {decode_tok_s:.2f} tok/s, step p50 "
+            f"{run['step_p50_s'] * 1e3:.2f} ms, p95 {run['step_p95_s'] * 1e3:.2f} ms, prefill "
+            f"{run['prefill_s']:.3f} s over {run['prefills']} prefills, peak {peak:.2f} GiB "
+            f"(weights {int16_bytes / 2**30:.2f} GiB); tokens "
+            f"{'equal to' if run['outputs'] == plain['outputs'] else 'DIFFER from'} the bf16 "
+            f"run's")
+        self.count_moe_path(run["launches"])
+        self.path_launches["posit_codec"] = (self.path_launches.get("posit_codec", 0)
+                                             + at_build["posit_codec"])
+        eng = build_engine(cfg, base, params=model)
+        profile, step_launches = self.profile_decode(eng, prompts)
+        del eng
+        step_want = {"plam_matmul": 10 * layers + 1, "plam_matmul_grouped": 3 * layers,
+                     "paged_decode_attention": layers, "posit_codec": 0}
+        step_bad = {k: (step_launches[k], v) for k, v in step_want.items()
+                    if step_launches[k] != v}
+        if step_bad:
+            failures.append(f"deepseek decode step launches (got, expected): {step_bad}")
+        ds_caps = self.check_moe_caps("deepseek-moe-16b", model.blocks[0].moe, caps, failures)
+        res["deepseek"] = {
+            "layers": layers, "prompt_lens": lens, "params": n_params, "init_s": init_s,
+            "bf16_weight_bytes": bf16_bytes, "int16_weight_bytes": int16_bytes,
+            "quantize_s": quant_s, "encodes_at_build": at_build["posit_codec"],
+            "meta_sites": len(meta), "decode_tok_per_s": decode_tok_s, "peak_gib": peak,
+            "tokens_equal": run["outputs"] == plain["outputs"],
+            "decode_step_launches": step_launches, "decode_profile": profile,
+            "k1_at_caps": ds_caps, **{k: v for k, v in run.items() if k != "calls"}}
+        del model, router
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3. granite-moe-1b-a400m, prequantized
+        cfg = self.moe_cfg("granite-moe-1b-a400m")
+        layers = cfg.n_layers
+        _, prompts = self.moe_prompts(cfg.vocab)
+        log(f"moe: granite-moe-1b-a400m d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv} "
+            f"hd {cfg.hd} experts {cfg.n_experts} top-{cfg.top_k} moe_d_ff {cfg.moe_d_ff} vocab "
+            f"{cfg.vocab} layers {layers}, prequantized")
+        model = tf.lm_init(cfg, seed=0, device=self.dev)
+        quantize_params(cfg, model)
+        with self.recording_caps() as caps:
+            run = self.serve_run("granite prequantized", cfg, model, base, prompts)
+        failures.extend(f"granite: {f}" for f in self.moe_gates(run, cfg, False))
+        if not all(len(o) == 16 and all(0 <= t < cfg.vocab for t in o) for o in run["outputs"]):
+            failures.append("granite: a request did not return 16 valid tokens")
+        # idle slots' rows steer the capacity drops of live ones: a second
+        # run must give the same tokens
+        again = self.serve_run("granite prequantized, again", cfg, model, base, prompts)
+        if again["outputs"] != run["outputs"]:
+            failures.append("granite: a second run of the same requests gave other tokens")
+        log(f"  granite prequantized: decode {run['decode_tokens'] / run['decode_s']:.2f} tok/s, "
+            f"step p50 {run['step_p50_s'] * 1e3:.2f} ms, p95 {run['step_p95_s'] * 1e3:.2f} ms")
+        eng = build_engine(cfg, base, params=model)
+        profile, _ = self.profile_decode(eng, prompts)
+        del eng
+        g_caps = self.check_moe_caps("granite-moe-1b-a400m", model.blocks[0].moe, caps, failures)
+        res["granite"] = {"layers": layers, "k1_at_caps": g_caps,
+                          "tokens_repeat": again["outputs"] == run["outputs"],
+                          "decode_tok_per_s": run["decode_tokens"] / run["decode_s"],
+                          "decode_profile": profile,
+                          **{k: v for k, v in run.items() if k != "calls"}}
+        self.count_moe_path(run["launches"])
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.results["moe"] = res
+        if failures:
+            raise AssertionError("; ".join(failures[:8]))
+
+    # -- phase 8 -------------------------------------------------------------
+
     def phase_e2e(self):
         torch = self.torch
         from repro_torch.core.prequant import quantize_params
@@ -2087,11 +2531,125 @@ class Smoke:
         del model
         torch.cuda.empty_cache()
         served = ("plam_matmul", "paged_decode_attention")
+        failures = []
         if (not finite or err > E2E_LOGIT_TOL or min(used[k] for k in served) == 0
                 or used["posit_codec"] != 0):
-            raise AssertionError(f"e2e: err {err} finite {finite} launches {used}")
+            failures.append(f"e2e: err {err} finite {finite} launches {used}")
+        failures += self.e2e_moe()
+        failures += self.e2e_mitchell()
+        if failures:
+            raise AssertionError("; ".join(failures))
 
-    # -- phase 8 -------------------------------------------------------------
+    def e2e_moe(self):
+        """A 2-layer full-width deepseek-moe-16b, prequantized: one prefill
+        and 2 decode steps on the kernels and on the plain versions; the last
+        logits within E2E_LOGIT_TOL.  Every routing call is recorded, and
+        where the two runs route a token differently the router's top-k
+        margin there (the k-th probability less the next one) is logged."""
+        torch = self.torch
+        from repro_torch.core.prequant import quantize_params
+        from repro_torch.kernels import _lib
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.models import transformer as tf
+
+        cfg = dataclasses.replace(self.moe_cfg("deepseek-moe-16b"), n_layers=2)
+        model = tf.lm_init(cfg, seed=1, device=self.dev)
+        quantize_params(cfg, model)
+        g = torch.Generator().manual_seed(11)
+        prompt = torch.randint(0, cfg.vocab, (1, 16), generator=g).to(self.dev)
+        bs, nb, slots = 16, 8, 4
+        table = torch.zeros((slots, 4), dtype=torch.int32, device=self.dev)
+        table[0, :2] = torch.tensor([3, 5], dtype=torch.int32)
+        route = moe_mod.route
+        routes = []
+
+        def recorded(logits, top_k, cap):
+            out = route(logits, top_k, cap)
+            routes[-1].append((logits.detach().clone(), out[1].clone()))
+            return out
+
+        def run(use_kernel):
+            routes.append([])
+            kp, vp = tf.paged_kv_pool_init(cfg, nb, bs, torch.bfloat16, self.dev)
+            logits, _ = tf.paged_prefill(cfg, model, prompt, kp, vp, table[0, :1], 16,
+                                         use_kernel=use_kernel)
+            tok = int(logits[0, -1].float().argmax())
+            toks, last = [tok], None
+            lengths = torch.tensor([16, 0, 0, 0], dtype=torch.int32, device=self.dev)
+            for _ in range(2):
+                token = torch.zeros((slots, 1), dtype=torch.int32, device=self.dev)
+                token[0, 0] = tok
+                logits, _ = tf.paged_decode_step(cfg, model, token, kp, vp, table, lengths,
+                                                 use_kernel=use_kernel)
+                last = logits[0, 0].float()
+                tok = int(last.argmax())
+                toks.append(tok)
+                lengths[0] += 1
+            return last, toks
+
+        moe_mod.route = recorded
+        try:
+            _lib.reset_launches()
+            got, got_toks = run(None)
+            used = dict(_lib.launches)
+            want, want_toks = run(False)
+        finally:
+            moe_mod.route = route
+        err = float((got - want).abs().max())
+        finite = bool(torch.isfinite(got).all())
+        differ = []
+        for call, ((lg, eid), (_, eid_plain)) in enumerate(zip(*routes)):
+            k = cfg.top_k
+            rows = (eid.view(-1, k) != eid_plain.view(-1, k)).any(dim=1).nonzero()[:, 0]
+            probs = torch.softmax(lg.float(), dim=-1).sort(dim=-1, descending=True).values
+            for r in rows.tolist():
+                differ.append({"call": call, "token": r,
+                               "topk_margin": float(probs[r, k - 1] - probs[r, k])})
+        log(f"e2e 2-layer full-width deepseek-moe-16b: last-logit max_abs_err {err:.3e} (tol "
+            f"{E2E_LOGIT_TOL}, |logits| max {float(want.abs().max()):.2f}), greedy "
+            f"{got_toks} vs {want_toks}, kernel launches {used}; routing differs at "
+            f"{len(differ)} (call, token) of {sum(r[1].numel() // cfg.top_k for r in routes[0])}"
+            + (f": {differ[:8]}" if differ else ""))
+        self.results["e2e"]["moe"] = {"max_abs_err": err, "tokens": [got_toks, want_toks],
+                                      "launches": used, "routing_differs": differ}
+        del model
+        torch.cuda.empty_cache()
+        if (not finite or err > E2E_LOGIT_TOL or used["plam_matmul_grouped"] != 3 * 2 * 3
+                or used["posit_codec"] != 0):
+            return [f"e2e moe: err {err} finite {finite} launches {used}"]
+        return []
+
+    def e2e_mitchell(self):
+        """mitchell_f32 (plain torch on both sides): nmatmul at yi-6b's
+        projections at M = MITCHELL_M on the card against the same call on
+        the CPU, over the first MITCHELL_CPU_N columns, within rtol
+        MITCHELL_RTOL and atol MITCHELL_ATOL."""
+        torch = self.torch
+        from repro_torch.core.modes import NumericsConfig, nmatmul
+
+        ncfg = NumericsConfig(mode="mitchell_f32")
+        g = torch.Generator().manual_seed(29)
+        worst, worst_abs, failures = 0.0, 0.0, []
+        for k, n in K1_SHAPES:
+            x = torch.randn((MITCHELL_M, k), generator=g).to(torch.bfloat16)
+            w = (torch.randn((k, n), generator=g) * k ** -0.5).to(torch.bfloat16)
+            got = nmatmul(x.to(self.dev), w.to(self.dev), ncfg, out_dtype=torch.float32).cpu()
+            cols = min(n, MITCHELL_CPU_N)
+            want = nmatmul(x, w[:, :cols].contiguous(), ncfg, out_dtype=torch.float32)
+            diff = (got[:, :cols] - want).abs()
+            # torch.allclose's criterion: |got - want| <= atol + rtol |want|
+            ratio = float((diff / (MITCHELL_ATOL + MITCHELL_RTOL * want.abs())).max())
+            worst, worst_abs = max(worst, ratio), max(worst_abs, float(diff.max()))
+            if ratio > 1.0 or not bool(torch.isfinite(got).all()):
+                failures.append(f"mitchell_f32 K={k} N={n}: |diff| over the allowed {ratio}")
+        log(f"e2e mitchell_f32 nmatmul on the card vs the CPU at yi-6b's projections, M = "
+            f"{MITCHELL_M} (the first {MITCHELL_CPU_N} columns): largest |diff| "
+            f"{worst_abs:.3e}, largest |diff| / (atol + rtol |want|) {worst:.3f} (rtol "
+            f"{MITCHELL_RTOL}, atol {MITCHELL_ATOL}; at most 1)")
+        self.results["e2e"]["mitchell"] = {"max_abs_diff": worst_abs, "allclose_ratio": worst}
+        return failures
+
+    # -- phase 9 -------------------------------------------------------------
 
     def phase_times(self):
         torch = self.torch
@@ -2236,6 +2794,7 @@ class Smoke:
                     f"({'verify' if m < SERVE_CHUNK else 'chunk'})", ms, plain,
                     m * k * 2 + k * n * 2 + m * n * 4, m * k * n, int_rate, floor_ms=floor)
                 del x, b
+        k1_grouped_main = self.time_grouped(add, int_rate, word_ops, row_ops, mean)
         self.time_fused_on_serve_activations()
         k3_main = self.time_encode(add, int_rate)
         self.time_decode_quantize(add)
@@ -2267,6 +2826,9 @@ class Smoke:
         self.kernels = {
             "plam_matmul": (k1_main, "src/repro_torch/kernels/csrc/plam_matmul.cuh",
                             "src/repro/kernels/plam_matmul.py:123"),
+            "plam_matmul_grouped": (k1_grouped_main,
+                                    "src/repro_torch/kernels/csrc/plam_matmul.cuh",
+                                    "src/repro/kernels/plam_matmul.py:123"),
             "paged_decode_attention": (
                 k2_main, "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
                 "src/repro/kernels/decode_attention.py:184"),
@@ -2277,6 +2839,65 @@ class Smoke:
             "decode_attention": (k5_main, "src/repro_torch/kernels/csrc/decode_attention.cu",
                                  "src/repro/kernels/decode_attention.py:83"),
         }
+
+    def time_grouped(self, add, int_rate, word_ops, row_ops, mean):
+        """K1 over a stack of experts at deepseek-moe-16b's expert
+        projections (64 experts) at K1_GROUPED_TIME_MS, window and spun,
+        beside its bytes bound (every int16 pattern read once) and its
+        decode path's floor (as the 2-D kernel's, over E experts); then, in
+        turns (loop, grouped, grouped, loop), the 64 launches of the 2-D
+        kernel that it replaces, with each one's host time per call.
+        ``word_ops`` and ``row_ops`` are the 2-D kernel's ALU-pipe counts
+        that phase_times read from K1_SOURCE.  Returns the row of the decode
+        step's wg/wu projection (M = 1)."""
+        torch = self.torch
+        from repro_torch.kernels.ops import plam_dense
+        from repro_torch.kernels.posit_codec import posit_encode
+        from repro_torch.numerics import P16
+
+        g = self.gen(19)
+        e = MOE_EXPERTS["deepseek-moe-16b"]
+        main = None
+        for k, n in MOE_SHAPES["deepseek-moe-16b"]:
+            b = posit_encode(torch.randn((e, k, n), generator=g, device=self.dev) * k ** -0.5,
+                             P16, out_dtype=torch.int16)
+            for m in K1_GROUPED_TIME_MS:
+                x = torch.randn((e, m, k), generator=g, device=self.dev).to(torch.bfloat16)
+                grouped = lambda: plam_dense(x, b, P16)  # noqa: E731
+                xs, bs = list(x.unbind(0)), list(b.unbind(0))
+                loop = lambda: [plam_dense(xi, bi, P16) for xi, bi in zip(xs, bs)]  # noqa: E731
+                turns = {"loop": [], "grouped": []}
+                for spin in (False, True):
+                    for name in ("loop", "grouped", "grouped", "loop"):
+                        fn = grouped if name == "grouped" else loop
+                        turns[name].append(self.events_ms(fn, reps=10, spin=spin))
+                host = {"loop": [], "grouped": []}
+                for name in ("loop", "grouped", "grouped", "loop"):
+                    host[name].append(self.host_us(grouped if name == "grouped" else loop,
+                                                   calls=50))
+                plain = self.events_ms(lambda: plam_dense(x, b, P16, use_kernel=False),
+                                       reps=1, warmup=0)
+                # the decode path's floor, as for the 2-D kernel: every B
+                # pattern decoded once and every product's ALU-pipe operations
+                floor = e * (k * n * word_ops + m * k * n * row_ops) / int_rate * 1e3
+                row = add("plam_matmul_grouped", f"E={e} M={m} K={k} N={n} A=bf16 B=int16",
+                          (mean(turns["grouped"][:2]), mean(turns["grouped"][2:])), plain,
+                          e * (m * k * 2 + k * n * 2 + m * n * 4), e * m * k * n, int_rate,
+                          floor_ms=floor)
+                row.update({"turns_ms": turns, "loop_ms": mean(turns["loop"][:2]),
+                            "loop_device_ms": mean(turns["loop"][2:]), "host_us": host,
+                            "grouped_host_us": mean(host["grouped"]),
+                            "loop_host_us": mean(host["loop"])})
+                tl, tg, hl, hg = turns["loop"], turns["grouped"], host["loop"], host["grouped"]
+                log(f"  grouped vs {e} 2-D launches, in turns (loop, grouped, grouped, loop): "
+                    f"window {[round(v, 4) for v in (tl[0], tg[0], tg[1], tl[1])]} ms, spun "
+                    f"{[round(v, 4) for v in (tl[2], tg[2], tg[3], tl[3])]} ms; host per call "
+                    f"{[round(v, 1) for v in (hl[0], hg[0], hg[1], hl[1])]} us")
+                if main is None:
+                    main = row
+                del x
+            del b
+        return main
 
     def serve_activations(self):
         """What K1 is given on the serve path: a seeded full-width engine
@@ -2650,8 +3271,9 @@ class Smoke:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
-                    help="yi-6b depth for the serve phase (widths are never cut; "
-                         "serve_paths and observe always run all 32 layers)")
+                    help="yi-6b depth for the serve phase, and at most the MoE models' "
+                         "depth in the moe phase (widths are never cut; serve_paths and "
+                         "observe always run all 32 layers)")
     ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args()
     try:

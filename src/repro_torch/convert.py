@@ -3,7 +3,9 @@
 ``params_from_jax`` takes the reference's parameter pytree as numpy
 arrays (nested dicts; per-layer leaves stacked on a leading [L] axis)
 and returns the port's ``DenseLM`` holding the same values, the stacked
-axis split across blocks.  Leaves may be float32, bfloat16 passed as a
+axis split across blocks.  A MoE block's leaves (``layers/moe/router``
+[L, d, E], the expert stacks ``layers/moe/w{g,u,d}`` [L, E, K, N] and
+the shared experts' ``layers/moe/shared/*``) come across the same way.  Leaves may be float32, bfloat16 passed as a
 ``uint16`` view, or int16/int32 posit patterns of prequantized weights;
 each keeps its dtype.  With the same parameters both packages compute
 the same function.  This module imports numpy and torch only.

@@ -11,8 +11,16 @@
   encoded inside the PLAM matmul kernel, which sums the products
   (``repro_torch.kernels``).  Prequantized weights skip the weight
   encode.
-* ``mitchell_f32``     — parsed for policy parity, not yet served
-  (``ROADMAP.md``, queue 1).
+* ``mitchell_f32``     — float-domain Mitchell (Cheng et al. [20]): each
+  product the f32 bit patterns added as fixed-point logs, K-chunked and
+  summed in f32 as the reference's jnp path does; plain torch (the
+  reference has no kernel for it either).
+
+``nmatmul`` also takes a stack of expert weights, w [E, K, N] with x
+[E, C, K], giving [E, C, N]: row block e times weight e, what the
+reference computes as ``jax.vmap`` over the MoE layer's experts.  Under
+``plam_sim`` the stack goes through the codec kernel and the PLAM
+kernel in one launch each.
 
 ``use_kernel`` selects kernel or plain version as in
 ``repro_torch.kernels.ops``.
@@ -23,8 +31,9 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.numerics import PositSpec, decode, quantize, unpack16
+from repro_torch.numerics import PositSpec, decode, mitchell_mul_f32, quantize, unpack16
 
 MODES = ("f32", "bf16", "posit_quant", "plam_sim", "mitchell_f32")
 
@@ -90,6 +99,31 @@ def _plam_matmul(x, w, spec: PositSpec, use_kernel: Optional[bool]):
     return plam_dense(x, wb, spec, use_kernel=use_kernel)
 
 
+def _mitchell_matmul(x, w, chunk: int):
+    """Float-domain Mitchell matmul, K-chunked (the reference's
+    ``_mitchell_matmul_jnp``): K is zero-padded to a multiple of the chunk
+    (a zero operand gives a +0.0 product), each chunk's products are summed
+    in f32 and added to an f32 accumulator.  w [K, N] with x [..., K], or a
+    stack w [E, K, N] with x [E, C, K], whose experts' rows are chunked each
+    on their own, as under the reference's vmap."""
+    f32 = torch.float32
+    k, n = x.shape[-1], w.shape[-1]
+    lead = x.shape[:-1]
+    groups = w.shape[0] if w.dim() == 3 else 1
+    x3 = x.to(f32).reshape(groups, -1, k)  # [G, M, K]
+    w3 = w.to(f32).reshape(groups, k, n)  # [G, K, N]
+    chunk = min(chunk, k)
+    pad = (-k) % chunk
+    if pad:
+        x3 = F.pad(x3, (0, pad))
+        w3 = F.pad(w3, (0, 0, 0, pad))
+    acc = torch.zeros((groups, x3.shape[1], n), dtype=f32, device=x.device)
+    for c0 in range(0, k + pad, chunk):
+        prods = mitchell_mul_f32(x3[:, :, c0:c0 + chunk, None], w3[:, None, c0:c0 + chunk, :])
+        acc = acc + torch.sum(prods, dim=2, dtype=f32)
+    return acc.reshape(*lead, n)
+
+
 def _codec_float(t: torch.Tensor) -> torch.Tensor:
     """t as the codec and the PLAM kernel take it: f32 and bf16 as they
     are, other floats cast to f32."""
@@ -117,12 +151,16 @@ def _pattern_matmul(x, w_pat, ncfg: NumericsConfig, out_dtype, use_kernel):
 
 def nmatmul(x, w, ncfg: NumericsConfig, out_dtype=None,
             use_kernel: Optional[bool] = None):
-    """Numerics-aware x @ w; x: [..., K], w: [K, N].
+    """Numerics-aware x @ w; x: [..., K], w: [K, N]; or a stack of experts,
+    x: [E, C, K], w: [E, K, N] -> [E, C, N].
 
     Integer-dtype ``w`` is read as pre-encoded Posit<n,es> patterns
     (prequantized weight storage).
     """
     out_dtype = out_dtype or x.dtype
+    if w.dim() == 3 and (x.dim() != 3 or x.shape[0] != w.shape[0]):
+        raise ValueError(f"a stack of {w.shape[0]} experts takes x [E, C, K], "
+                         f"got {tuple(x.shape)}")
     if not w.is_floating_point():
         return _pattern_matmul(x, w, ncfg, out_dtype, use_kernel)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -143,8 +181,7 @@ def nmatmul(x, w, ncfg: NumericsConfig, out_dtype=None,
     elif ncfg.mode == "plam_sim":
         out = _plam_matmul(_codec_float(x), _codec_float(w), ncfg.spec, use_kernel)
     elif ncfg.mode == "mitchell_f32":
-        raise NotImplementedError(
-            "mitchell_f32 is not ported yet (ROADMAP.md, queue 1: mitchell_f32)")
+        out = _mitchell_matmul(x, w, ncfg.plam_chunk)
     else:  # pragma: no cover
         raise ValueError(ncfg.mode)
     return out.to(out_dtype)

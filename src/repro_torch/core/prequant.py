@@ -5,7 +5,10 @@ Port of ``repro/core/prequant.py`` over an ``nn.Module`` model.
 its matmul site role, and where the numerics policy resolves that site
 to a posit mode (``posit_quant`` / ``plam_sim``) replaces the weight,
 in place and one tensor at a time, with its Posit<n,es> patterns
-(encoded by the codec kernel on the card; int16 for n <= 16).
+(encoded by the codec kernel on the card; int16 for n <= 16).  A MoE
+block's expert stack [E, K, N] is one tensor, encoded in one call; its
+f32 router resolves to ``f32`` under the policy's baseline rule and
+stays as it is.
 ``core.modes.nmatmul`` recognises integer weights and consumes them
 without re-encoding.
 

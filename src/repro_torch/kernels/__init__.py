@@ -2,7 +2,8 @@
 
 * ``plam_matmul``             — the PLAM matmul (K1, ``csrc/plam_matmul.cuh``;
   entry points ``plam_matmul.cu`` over posit patterns and ``plam_dense.cu``
-  over float activations, which it encodes itself)
+  over float activations, which it encodes itself; either also over a
+  stack of experts in one launch)
 * ``paged_decode_attention``  — paged decode attention (K2,
   ``csrc/paged_decode_attention.cu``, on the split-key core of
   ``csrc/decode_attention.cuh`` that K5 shares)
@@ -15,7 +16,8 @@
   along the keys (K5, ``csrc/decode_attention.cu``)
 
 Kernels are built on first use (``_lib.library``); launches are counted
-in ``_lib.launches`` (K3's table builds apart, as ``posit_codec_table``).
+in ``_lib.launches`` (K3's table builds apart, as ``posit_codec_table``;
+K1's launches over a stack of experts also as ``plam_matmul_grouped``).
 """
 from ._lib import launches, reset_launches  # noqa: F401
 from .decode_attention import (  # noqa: F401

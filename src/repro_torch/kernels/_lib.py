@@ -39,6 +39,7 @@ NVCC_FLAGS = [
 #: launches per kernel since the last reset_launches()
 launches: Dict[str, int] = {
     "plam_matmul": 0,
+    "plam_matmul_grouped": 0,  # the K1 launches above that run over an expert axis
     "paged_decode_attention": 0,
     "posit_codec": 0,
     "posit_codec_table": 0,  # K3's bf16 tables, built once per (spec, device)
@@ -130,9 +131,10 @@ def build() -> pathlib.Path:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
-    "plam_matmul_launch": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
-    "plam_dense_launch": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    "plam_matmul_launch": [_P, _P, _I, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I, _P],
+    "plam_dense_launch": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _L, _L, _L, _I, _I, _P],
     "plam_matmul_prefill_width": [_I, _I, _I, _I, _I],
     "posit_encode_launch": [_P, _I, _P, _I, ctypes.c_int64, _I, _I, _P, _P],
     "posit_decode_launch": [_P, _I, _P, ctypes.c_int64, _I, _I, _P],

@@ -5,13 +5,14 @@
 #include "plam_matmul.cuh"
 
 // a: int32 [m, k]; b: int32 (b_is_int16 == 0) or int16 [k, n]; c: f32 [m, n],
-// all contiguous on the device.  Launches on `stream`; returns the
-// cudaError_t of the launch.
+// all contiguous on the device, for each of e experts, expert z's a, b and
+// c starting sa, sb and sc elements after expert z-1's (e = 1: one call).
+// Launches on `stream`; returns the cudaError_t of the launch.
 extern "C" int plam_matmul_launch(const void* a, const void* b, int b_is_int16, void* c,
-                                  int m, int n, int k, int posit_n, int posit_es,
-                                  void* stream) {
-  return plam_mm::launch_matmul<plam_mm::kPatternA>(a, 0, b, b_is_int16, c, m, n, k, posit_n,
-                                                    posit_es, stream);
+                                  int m, int n, int k, int e, long long sa, long long sb,
+                                  long long sc, int posit_n, int posit_es, void* stream) {
+  return plam_mm::launch_matmul<plam_mm::kPatternA>(a, 0, b, b_is_int16, c, m, n, k, e, sa, sb,
+                                                    sc, posit_n, posit_es, stream);
 }
 
 // The strip width (columns of a block) that a call with m > 16 runs at, as
@@ -22,5 +23,5 @@ extern "C" int plam_matmul_prefill_width(int m, int n, int b_is_int16, int posit
   int sms = 0;
   if (plam_mm::card_sms(&sms) != cudaSuccess) return 0;
   const plam::Spec sp = plam::make_spec(posit_n, posit_es);
-  return plam_mm::prefill_width(plam_mm::fixed_spec(b_is_int16 != 0, sp), m, n, sms);
+  return plam_mm::prefill_width(plam_mm::fixed_spec(b_is_int16 != 0, sp), m, n, 1, sms);
 }

@@ -109,6 +109,15 @@
 //   4096 and 11008, 16 at N = 512.  Other (B type, spec) pairs run the
 //   run-time spec at BN = 32.
 //
+// Grouped over experts: the reference runs the expert projections of its
+// MoE layer as jax.vmap over [E, C, K] x [E, K, N] (repro/models/moe.py),
+// which batches the Pallas kernel over an expert axis.  Here both paths
+// put the expert in blockIdx.z: a block offsets A, B and C by its
+// expert's strides (Group) and then runs the tile above unchanged, so
+// that one launch covers all E experts, each bit-identical to a launch
+// of its own.  The strip widths count the E * blocks of the whole grid.
+// E = 1 is the ungrouped launch.
+//
 // Its instructions, counted by hand as above (one per operator, compare,
 // select, load or store on a lane's values; spec and address constants
 // hoisted and not counted):
@@ -165,6 +174,17 @@ enum AMode {
                      // elements of a row a 4-byte cp.async
   kABf16Scalar = 2,  // other bf16: guarded 2-byte loads while decoding
 };
+
+// An expert axis: the grid's z index picks the expert, whose A, B and C
+// start sa, sb and sc elements after the previous expert's
+struct Group {
+  long long sa, sb, sc;
+};
+
+// A at the block's expert: 4-byte elements (patterns, f32) or bf16
+__device__ __forceinline__ const void* expert_a(const void* a, bool a4, const Group& g) {
+  return (const unsigned char*)a + (size_t)blockIdx.z * (size_t)g.sa * (a4 ? 4 : 2);
+}
 
 __device__ __forceinline__ uint32_t bf16_bits(uint16_t h) { return (uint32_t)h << 16; }
 
@@ -228,12 +248,15 @@ struct DecodeTile {
 template <int MT, int BN, typename TB, bool VEC, class SP, int AK>
 __global__ void __launch_bounds__(DecodeTile<MT, BN, TB, VEC>::THREADS)
 plam_matmul_decode_kernel(const void* __restrict__ A_, int a_mode, const TB* __restrict__ B,
-                          float* __restrict__ C, int M, int N, int K, SP sp) {
+                          float* __restrict__ C, int M, int N, int K, Group grp, SP sp) {
   using D = DecodeTile<MT, BN, TB, VEC>;
   constexpr int BK = D::BK, EPC = D::EPC, CPR = D::CPR, RM = D::RM;
   // 4-byte A elements (patterns or f32) are staged one a cp.async; bf16
   // pairs k-major (pair p: row p % MT, k 2 (p / MT) and one more)
   const bool a_words = AK == kPatternA || a_mode == kAF32;
+  A_ = expert_a(A_, a_words, grp);
+  B += (size_t)blockIdx.z * (size_t)grp.sb;
+  C += (size_t)blockIdx.z * (size_t)grp.sc;
   const uint32_t* const A = (const uint32_t*)A_;
   const uint16_t* const A16 = (const uint16_t*)A_;
   constexpr uint32_t kBias = 127u << 23;
@@ -434,7 +457,7 @@ plam_matmul_decode_kernel(const void* __restrict__ A_, int a_mode, const TB* __r
 
 template <int MT, int BN, typename TB, bool VEC, class SP, int AK>
 cudaError_t launch_decode(const void* a, int a_mode, const TB* b, float* c, int m, int n, int k,
-                          SP sp, cudaStream_t stream) {
+                          int e, Group grp, SP sp, cudaStream_t stream) {
   constexpr size_t smem = DecodeTile<MT, BN, TB, VEC>::kSmem;
   auto kernel = plam_matmul_decode_kernel<MT, BN, TB, VEC, SP, AK>;
   // set once per instantiation, at its first launch
@@ -443,27 +466,30 @@ cudaError_t launch_decode(const void* a, int a_mode, const TB* b, float* c, int 
           ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
           : cudaSuccess;
   if (attr != cudaSuccess) return attr;
-  kernel<<<(n + BN - 1) / BN, DecodeTile<MT, BN, TB, VEC>::THREADS, smem, stream>>>(
-      a, a_mode, b, c, m, n, k, sp);
+  const dim3 grid((n + BN - 1) / BN, 1, e);
+  kernel<<<grid, DecodeTile<MT, BN, TB, VEC>::THREADS, smem, stream>>>(a, a_mode, b, c, m, n,
+                                                                      k, grp, sp);
   return cudaSuccess;
 }
 
 template <int MT, int BN, typename TB, int AK, class SP>
 cudaError_t launch_strip(bool vec, const void* a, int a_mode, const TB* b, float* c, int m,
-                         int n, int k, SP sp, cudaStream_t stream) {
-  return vec ? launch_decode<MT, BN, TB, true, SP, AK>(a, a_mode, b, c, m, n, k, sp, stream)
-             : launch_decode<MT, BN, TB, false, SP, AK>(a, a_mode, b, c, m, n, k, sp, stream);
+                         int n, int k, int e, Group grp, SP sp, cudaStream_t stream) {
+  return vec ? launch_decode<MT, BN, TB, true, SP, AK>(a, a_mode, b, c, m, n, k, e, grp, sp,
+                                                       stream)
+             : launch_decode<MT, BN, TB, false, SP, AK>(a, a_mode, b, c, m, n, k, e, grp, sp,
+                                                        stream);
 }
 
 // The strip width (8 to 64 columns, at least min_bn) whose grid finishes
 // first: a block's work grows as BN + MT (its B columns and the A rows it
-// decodes again), and the blocks run in waves over the card's SMs, so the
-// cost is waves * (BN + MT).  Ties go to the wider strip.
-inline int strip_width(int n, int mt, int min_bn, int sms) {
+// decodes again), and the e * ceil(n / BN) blocks run in waves over the
+// card's SMs, so the cost is waves * (BN + MT).  Ties go to the wider strip.
+inline int strip_width(int n, int e, int mt, int min_bn, int sms) {
   int best_bn = min_bn;
   long best = -1;
   for (int bn = 64; bn >= min_bn; bn /= 2) {
-    const long waves = ((n + bn - 1) / bn + sms - 1) / sms;
+    const long waves = ((long)e * ((n + bn - 1) / bn) + sms - 1) / sms;
     const long cost = waves * (bn + mt);
     if (best < 0 || cost < best) best = cost, best_bn = bn;
   }
@@ -486,19 +512,21 @@ inline cudaError_t card_sms(int* sms) {
 
 template <int MT, typename TB, int AK, class SP>
 cudaError_t dispatch_decode(const void* a, int a_mode, const TB* b, float* c, int m, int n,
-                            int k, SP sp, cudaStream_t stream) {
+                            int k, int e, Group grp, SP sp, cudaStream_t stream) {
   constexpr int kEpc = 16 / (int)sizeof(TB);
-  const bool vec = n % kEpc == 0 && (reinterpret_cast<uintptr_t>(b) & 15u) == 0;
+  // every expert's B rows start on 16 bytes
+  const bool vec = n % kEpc == 0 && grp.sb % kEpc == 0 &&
+                   (reinterpret_cast<uintptr_t>(b) & 15u) == 0;
   int sms = 0;
-  const cudaError_t e = card_sms(&sms);
-  if (e != cudaSuccess) return e;
-  switch (strip_width(n, MT, MT == 4 ? 8 : 16, sms)) {
-    case 64: return launch_strip<MT, 64, TB, AK>(vec, a, a_mode, b, c, m, n, k, sp, stream);
-    case 32: return launch_strip<MT, 32, TB, AK>(vec, a, a_mode, b, c, m, n, k, sp, stream);
-    case 16: return launch_strip<MT, 16, TB, AK>(vec, a, a_mode, b, c, m, n, k, sp, stream);
+  const cudaError_t err = card_sms(&sms);
+  if (err != cudaSuccess) return err;
+  switch (strip_width(n, e, MT, MT == 4 ? 8 : 16, sms)) {
+    case 64: return launch_strip<MT, 64, TB, AK>(vec, a, a_mode, b, c, m, n, k, e, grp, sp, stream);
+    case 32: return launch_strip<MT, 32, TB, AK>(vec, a, a_mode, b, c, m, n, k, e, grp, sp, stream);
+    case 16: return launch_strip<MT, 16, TB, AK>(vec, a, a_mode, b, c, m, n, k, e, grp, sp, stream);
     default:
       if constexpr (MT == 4) {
-        return launch_strip<MT, 8, TB, AK>(vec, a, a_mode, b, c, m, n, k, sp, stream);
+        return launch_strip<MT, 8, TB, AK>(vec, a, a_mode, b, c, m, n, k, e, grp, sp, stream);
       }
       return cudaErrorInvalidValue;
   }
@@ -560,11 +588,14 @@ template <int BN, typename TB, class SP, int AK>
 __global__ void __launch_bounds__(kPrefillThreads)
 plam_matmul_prefill_kernel(const void* __restrict__ A_, int a_mode, bool a_vec,
                            const TB* __restrict__ B, bool b_vec, float* __restrict__ C, int M,
-                           int N, int K, SP sp) {
+                           int N, int K, Group grp, SP sp) {
   using T = PrefillTile<BN, TB>;
   constexpr int BM = T::BM, BK = T::BK, TM = T::TM, TN = T::TN, BPT = T::BPT, CPR = T::CPR;
   constexpr uint32_t kBias = 127u << 23;
   const bool a4 = AK == kPatternA || a_mode == kAF32;  // 4-byte A elements, else bf16
+  A_ = expert_a(A_, a4, grp);
+  B += (size_t)blockIdx.z * (size_t)grp.sb;
+  C += (size_t)blockIdx.z * (size_t)grp.sc;
   const uint32_t* const A = (const uint32_t*)A_;
   const uint16_t* const A16 = (const uint16_t*)A_;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -817,7 +848,8 @@ plam_matmul_prefill_kernel(const void* __restrict__ A_, int a_mode, bool a_vec,
 
 template <int BN, typename TB, int AK, class SP>
 cudaError_t launch_prefill(const void* a, int a_mode, bool a_vec, const TB* b, bool b_vec,
-                           float* c, int m, int n, int k, SP sp, cudaStream_t stream) {
+                           float* c, int m, int n, int k, int e, Group grp, SP sp,
+                           cudaStream_t stream) {
   constexpr size_t smem = PrefillTile<BN, TB>::kSmem;
   auto kernel = plam_matmul_prefill_kernel<BN, TB, SP, AK>;
   // set once per instantiation, at its first launch
@@ -826,22 +858,24 @@ cudaError_t launch_prefill(const void* a, int a_mode, bool a_vec, const TB* b, b
           ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
           : cudaSuccess;
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((n + BN - 1) / BN, (m + kPrefillBM - 1) / kPrefillBM);
-  kernel<<<grid, kPrefillThreads, smem, stream>>>(a, a_mode, a_vec, b, b_vec, c, m, n, k, sp);
+  const dim3 grid((n + BN - 1) / BN, (m + kPrefillBM - 1) / kPrefillBM, e);
+  kernel<<<grid, kPrefillThreads, smem, stream>>>(a, a_mode, a_vec, b, b_vec, c, m, n, k, grp,
+                                                  sp);
   return cudaSuccess;
 }
 
 // The prefill strip width whose grid finishes first: a block's work grows
-// as BN, and the ceil(N / BN) * ceil(M / 64) blocks run in waves over the
-// card's SMs, so the cost is waves * BN.  Ties go to the wider strip.
+// as BN, and the e * ceil(N / BN) * ceil(M / 64) blocks run in waves over
+// the card's SMs, so the cost is waves * BN.  Ties go to the wider strip.
 // Only the compiled Posit<16,1> spec over int16 B has the three widths;
 // every other (B type, spec) runs at 32 columns.
-inline int prefill_width(bool fixed, int m, int n, int sms) {
+inline int prefill_width(bool fixed, int m, int n, int e, int sms) {
   if (!fixed) return 32;
   int best_bn = 64;
   long best = -1;
   for (int bn = 64; bn >= 16; bn /= 2) {
-    const long blocks = (long)((n + bn - 1) / bn) * ((m + kPrefillBM - 1) / kPrefillBM);
+    const long blocks =
+        (long)e * ((n + bn - 1) / bn) * ((m + kPrefillBM - 1) / kPrefillBM);
     const long cost = (blocks + sms - 1) / sms * bn;
     if (best < 0 || cost < best) best = cost, best_bn = bn;
   }
@@ -850,30 +884,40 @@ inline int prefill_width(bool fixed, int m, int n, int sms) {
 
 template <typename TB, int AK, class SP>
 cudaError_t dispatch_prefill(const void* a, int a_mode, const TB* b, float* c, int m, int n,
-                             int k, SP sp, cudaStream_t stream) {
+                             int k, int e, Group grp, SP sp, cudaStream_t stream) {
   const bool a4 = AK == kPatternA || a_mode == kAF32;
-  const bool a_vec = k % (a4 ? 4 : 8) == 0 && (reinterpret_cast<uintptr_t>(a) & 15u) == 0;
-  const bool b_vec = n % (16 / (int)sizeof(TB)) == 0 && (reinterpret_cast<uintptr_t>(b) & 15u) == 0;
+  // every expert's A and B rows start on 16 bytes
+  const int a_epc = a4 ? 4 : 8, b_epc = 16 / (int)sizeof(TB);
+  const bool a_vec = k % a_epc == 0 && grp.sa % a_epc == 0 &&
+                     (reinterpret_cast<uintptr_t>(a) & 15u) == 0;
+  const bool b_vec = n % b_epc == 0 && grp.sb % b_epc == 0 &&
+                     (reinterpret_cast<uintptr_t>(b) & 15u) == 0;
   if constexpr (std::is_same<SP, plam::Spec>::value) {
-    return launch_prefill<32, TB, AK>(a, a_mode, a_vec, b, b_vec, c, m, n, k, sp, stream);
+    return launch_prefill<32, TB, AK>(a, a_mode, a_vec, b, b_vec, c, m, n, k, e, grp, sp, stream);
   } else {
     int sms = 0;
-    const cudaError_t e = card_sms(&sms);
-    if (e != cudaSuccess) return e;
-    switch (prefill_width(true, m, n, sms)) {
-      case 64: return launch_prefill<64, TB, AK>(a, a_mode, a_vec, b, b_vec, c, m, n, k, sp, stream);
-      case 32: return launch_prefill<32, TB, AK>(a, a_mode, a_vec, b, b_vec, c, m, n, k, sp, stream);
-      default: return launch_prefill<16, TB, AK>(a, a_mode, a_vec, b, b_vec, c, m, n, k, sp, stream);
+    const cudaError_t err = card_sms(&sms);
+    if (err != cudaSuccess) return err;
+    switch (prefill_width(true, m, n, e, sms)) {
+      case 64:
+        return launch_prefill<64, TB, AK>(a, a_mode, a_vec, b, b_vec, c, m, n, k, e, grp, sp,
+                                          stream);
+      case 32:
+        return launch_prefill<32, TB, AK>(a, a_mode, a_vec, b, b_vec, c, m, n, k, e, grp, sp,
+                                          stream);
+      default:
+        return launch_prefill<16, TB, AK>(a, a_mode, a_vec, b, b_vec, c, m, n, k, e, grp, sp,
+                                          stream);
     }
   }
 }
 
 template <typename TB, int AK, class SP>
 cudaError_t dispatch_rows(const void* a, int a_mode, const TB* b, float* c, int m, int n, int k,
-                          SP sp, cudaStream_t stream) {
-  if (m > 16) return dispatch_prefill<TB, AK>(a, a_mode, b, c, m, n, k, sp, stream);
-  return m <= 4 ? dispatch_decode<4, TB, AK>(a, a_mode, b, c, m, n, k, sp, stream)
-                : dispatch_decode<16, TB, AK>(a, a_mode, b, c, m, n, k, sp, stream);
+                          int e, Group grp, SP sp, cudaStream_t stream) {
+  if (m > 16) return dispatch_prefill<TB, AK>(a, a_mode, b, c, m, n, k, e, grp, sp, stream);
+  return m <= 4 ? dispatch_decode<4, TB, AK>(a, a_mode, b, c, m, n, k, e, grp, sp, stream)
+                : dispatch_decode<16, TB, AK>(a, a_mode, b, c, m, n, k, e, grp, sp, stream);
 }
 
 // Whether a call runs with the spec compiled in: int16 B at Posit<16,1>,
@@ -884,29 +928,36 @@ inline bool fixed_spec(bool b_is_int16, const plam::Spec& sp) {
 
 template <typename TB, int AK>
 cudaError_t dispatch(const void* a, int a_mode, const TB* b, float* c, int m, int n, int k,
-                     plam::Spec sp, cudaStream_t stream) {
+                     int e, Group grp, plam::Spec sp, cudaStream_t stream) {
   if constexpr (sizeof(TB) == 2) {
     if (fixed_spec(true, sp)) {
-      return dispatch_rows<TB, AK>(a, a_mode, b, c, m, n, k, plam::FixedSpec<16, 1>{}, stream);
+      return dispatch_rows<TB, AK>(a, a_mode, b, c, m, n, k, e, grp, plam::FixedSpec<16, 1>{},
+                                   stream);
     }
   }
-  return dispatch_rows<TB, AK>(a, a_mode, b, c, m, n, k, sp, stream);
+  return dispatch_rows<TB, AK>(a, a_mode, b, c, m, n, k, e, grp, sp, stream);
 }
 
-// One launch of either entry point: b int32 (b_is_int16 == 0) or int16
-// [k, n], c f32 [m, n], contiguous on the device; returns the
-// cudaError_t of the launch.
+// One launch of either entry point over e experts: expert z's b, int32
+// (b_is_int16 == 0) or int16 [k, n], starts sb elements after expert z-1's,
+// its a [m, k] sa elements and its f32 c [m, n] sc elements after, each
+// contiguous on the device (e = 1: one plain [m, k] x [k, n] call).
+// Returns the cudaError_t of the launch.
 template <int AK>
 inline int launch_matmul(const void* a, int a_mode, const void* b, int b_is_int16, void* c, int m,
-                  int n, int k, int posit_n, int posit_es, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+                         int n, int k, int e, long long sa, long long sb, long long sc,
+                         int posit_n, int posit_es, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || e <= 0 || e > 65535) return (int)cudaErrorInvalidValue;
+  if (sa < 0 || sb < 0 || sc < 0) return (int)cudaErrorInvalidValue;
   const plam::Spec sp = plam::make_spec(posit_n, posit_es);
   const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e =
+  const Group grp{sa, sb, sc};
+  const cudaError_t err =
       b_is_int16
-          ? dispatch<int16_t, AK>(a, a_mode, (const int16_t*)b, (float*)c, m, n, k, sp, s)
-          : dispatch<int32_t, AK>(a, a_mode, (const int32_t*)b, (float*)c, m, n, k, sp, s);
-  if (e != cudaSuccess) return (int)e;
+          ? dispatch<int16_t, AK>(a, a_mode, (const int16_t*)b, (float*)c, m, n, k, e, grp, sp, s)
+          : dispatch<int32_t, AK>(a, a_mode, (const int32_t*)b, (float*)c, m, n, k, e, grp, sp,
+                                  s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

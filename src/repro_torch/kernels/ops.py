@@ -48,7 +48,16 @@ def plam_dense(
     weights are stored pre-encoded (int32, or int16 for n <= 16), the
     deployment layout for posit inference.  Leading batch dims of x are
     flattened into M.  Returns f32 [..., N].
+
+    A stack of expert weights, w_bits [E, K, N] with x [E, C, K], gives
+    f32 [E, C, N], row block e times weight e (the reference's
+    ``jax.vmap`` over experts), in one launch over all experts.
     """
+    if w_bits.dim() == 3:
+        if x.dim() != 3:
+            raise ValueError(f"a stack of experts takes x [E, C, K], got {tuple(x.shape)}")
+        x3 = x if x.dtype in (torch.float32, torch.bfloat16) else x.to(torch.float32)
+        return plam_matmul_float(x3.contiguous(), w_bits, spec, use_kernel=use_kernel)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.dtype not in (torch.float32, torch.bfloat16):

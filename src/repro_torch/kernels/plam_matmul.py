@@ -13,6 +13,13 @@ kernel unpacks in registers, so the weight is never widened in memory.
 encodes them inside the same kernel's A loader (``csrc/plam_dense.cu``):
 one launch where an encode and a matmul were two, bit-identical to its
 plain version ``plam_matmul_seqref(encode(x), B)``.
+
+Both take a stack of experts too, A [E, M, K] against B [E, K, N] giving
+[E, M, N]: what the reference's ``jax.vmap`` over the MoE layer's
+experts computes.  It is one launch over all E experts (the expert in
+the kernel's grid), each expert's block bit-identical to a launch of its
+own, and it counts once under ``plam_matmul`` and once under
+``plam_matmul_grouped``.
 """
 from __future__ import annotations
 
@@ -32,29 +39,38 @@ def _check_spec(spec: PositSpec) -> None:
 
 
 def _check_operands(a: torch.Tensor, b_bits: torch.Tensor, spec: PositSpec) -> None:
+    """[M, K] x [K, N], or a stack of experts [E, M, K] x [E, K, N]."""
     _check_spec(spec)
-    if a.dim() != 2 or b_bits.dim() != 2 or a.shape[1] != b_bits.shape[0]:
+    rank = a.dim()
+    if (rank not in (2, 3) or b_bits.dim() != rank or a.shape[-1] != b_bits.shape[-2]
+            or a.shape[:-2] != b_bits.shape[:-2]):
         raise ValueError(f"shapes {tuple(a.shape)} x {tuple(b_bits.shape)}")
     if b_bits.dtype == torch.int16 and spec.n > 16:
         raise ValueError("int16 patterns hold posits of at most 16 bits")
 
 
 def _launch(entry, a: torch.Tensor, a_args, b_bits: torch.Tensor, spec: PositSpec):
-    """One launch of a K1 entry point on CUDA operands -> f32 [M, N]."""
-    _lib.require(b_bits, "b_bits", (torch.int32, torch.int16), 2)
+    """One launch of a K1 entry point on CUDA operands -> f32 [M, N], or
+    [E, M, N] over a stack of E experts (the expert in the grid)."""
+    _lib.require(b_bits, "b_bits", (torch.int32, torch.int16), a.dim())
     if b_bits.device != a.device:
         raise ValueError("A and b_bits must be on one device")
-    m, k = a.shape
-    n = b_bits.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    grouped = a.dim() == 3
+    e = a.shape[0] if grouped else 1
+    m, k = a.shape[-2:]
+    n = b_bits.shape[-1]
+    out = torch.empty((*a.shape[:-1], n), dtype=torch.float32, device=a.device)
     if out.numel() == 0:
         return out
     if k == 0:
         return out.zero_()
     err = getattr(_lib.library(), entry)(
         a.data_ptr(), *a_args, b_bits.data_ptr(), int(b_bits.dtype == torch.int16),
-        out.data_ptr(), m, n, k, spec.n, spec.es, _lib.stream_ptr(a))
+        out.data_ptr(), m, n, k, e, m * k, k * n, m * n, spec.n, spec.es,
+        _lib.stream_ptr(a))
     _lib.check_launch("plam_matmul", err)
+    if grouped:
+        _lib.launches["plam_matmul_grouped"] += 1
     return out
 
 
@@ -67,13 +83,14 @@ def plam_matmul(
 ) -> torch.Tensor:
     """C = A (x)_PLAM B with linear-f32 accumulation.
 
-    a_bits: int32 [M, K] patterns; b_bits: int32 or int16 [K, N].
-    Returns f32 [M, N].  ``use_kernel`` as in ``_lib.wants_kernel``.
+    a_bits: int32 [M, K] patterns; b_bits: int32 or int16 [K, N] (or
+    [E, M, K] and [E, K, N]).  Returns f32 [M, N] ([E, M, N]).
+    ``use_kernel`` as in ``_lib.wants_kernel``.
     """
     _check_operands(a_bits, b_bits, spec)
     if not _lib.wants_kernel(a_bits, use_kernel):
         return plam_matmul_seqref(a_bits, b_bits, spec)
-    _lib.require(a_bits, "a_bits", (torch.int32,), 2)
+    _lib.require(a_bits, "a_bits", (torch.int32,), a_bits.dim())
     return _launch("plam_matmul_launch", a_bits, (), b_bits, spec)
 
 
@@ -86,12 +103,13 @@ def plam_matmul_float(
 ) -> torch.Tensor:
     """C = encode(x) (x)_PLAM B with the encode inside the kernel.
 
-    x: f32 or bf16 [M, K] activations; b_bits: int32 or int16 [K, N].
-    Returns f32 [M, N], the bits of ``plam_matmul(encode(x), b_bits)``.
-    ``use_kernel`` as in ``_lib.wants_kernel``.
+    x: f32 or bf16 [M, K] activations; b_bits: int32 or int16 [K, N] (or
+    [E, M, K] and [E, K, N]).  Returns f32 [M, N] ([E, M, N]), the bits of
+    ``plam_matmul(encode(x), b_bits)``.  ``use_kernel`` as in
+    ``_lib.wants_kernel``.
     """
     _check_operands(x, b_bits, spec)
     if not _lib.wants_kernel(x, use_kernel):
         return plam_matmul_seqref(encode(x, spec), b_bits, spec)
-    _lib.require(x, "x", (torch.float32, torch.bfloat16), 2)
+    _lib.require(x, "x", (torch.float32, torch.bfloat16), x.dim())
     return _launch("plam_dense_launch", x, (_lib.DTYPE_CODES[x.dtype],), b_bits, spec)

@@ -4,7 +4,9 @@
 kernel: bit-identical to it and to the reference package's
 ``plam_matmul_seqref`` on any shape, because all three accumulate the
 same f32 products with k strictly ascending from +0.0.  It loops over k
-on [M, N] tiles, so it runs at full width on the card too (slowly).
+on [M, N] tiles, so it runs at full width on the card too (slowly).  Over
+a stack of experts ([E, M, K] x [E, K, N]) it is the same loop on
+[E, M, N] tiles: one k loop for all experts, not one per expert.
 """
 from __future__ import annotations
 
@@ -38,7 +40,8 @@ def _patterns(bits: torch.Tensor) -> torch.Tensor:
 
 
 def plam_matmul_seqref(a_bits: torch.Tensor, b_bits: torch.Tensor, spec: PositSpec):
-    """Sequential-k PLAM matmul: a int32 [M, K], b int32/int16 [K, N] -> f32.
+    """Sequential-k PLAM matmul: a int32 [M, K], b int32/int16 [K, N] -> f32
+    [M, N]; or a stack of experts, a [E, M, K] and b [E, K, N] -> [E, M, N].
 
     Each product is ``bitcast(sign_a ^ sign_b | (la - bias + lb))``, which
     is ``numerics.plam_product_f32`` bit for bit, and the sum walks k in
@@ -47,13 +50,14 @@ def plam_matmul_seqref(a_bits: torch.Tensor, b_bits: torch.Tensor, spec: PositSp
     sa, la, va = log_words(a_bits, spec)
     sb, lb, vb = log_words(_patterns(b_bits), spec)
     la_pre = torch.where(va, la - BIAS, torch.zeros_like(la))
-    m, k = a_bits.shape
-    n = b_bits.shape[1]
-    acc = torch.zeros((m, n), dtype=torch.float32, device=a_bits.device)
+    k = a_bits.shape[-1]
+    n = b_bits.shape[-1]
+    acc = torch.zeros((*a_bits.shape[:-1], n), dtype=torch.float32, device=a_bits.device)
     zero = torch.zeros((), dtype=torch.float32, device=a_bits.device)
     for i in range(k):
-        word = (la_pre[:, i, None] + lb[None, i, :]) | (sa[:, i, None] ^ sb[None, i, :])
-        ok = va[:, i, None] & vb[None, i, :]
+        word = ((la_pre[..., i, None] + lb[..., None, i, :])
+                | (sa[..., i, None] ^ sb[..., None, i, :]))
+        ok = va[..., i, None] & vb[..., None, i, :]
         acc = acc + torch.where(ok, word.view(torch.float32), zero)
     return acc
 

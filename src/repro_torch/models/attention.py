@@ -128,6 +128,22 @@ def attn_apply(
     return out, new_kv
 
 
+def paged_write(lengths, block_tables, block_size: int):
+    """Where a decode step writes each row's new K/V, the same for every
+    layer: (block, slot, source row).  Idle slots all write the scratch
+    block's first key and read it back; under MoE their K/V differ (the
+    capacity drops differ by rank), so every row writes the K/V of the
+    last row with its destination: the reference's last-wins result,
+    which ``index_put_`` leaves undefined for a duplicate index on the
+    card."""
+    bidx = torch.arange(lengths.shape[0], device=lengths.device)
+    lens = lengths.to(torch.long)
+    blk = block_tables[bidx, lens // block_size].to(torch.long)
+    slot = lens % block_size
+    dest = blk * block_size + slot
+    return blk, slot, torch.where(dest[:, None] == dest[None, :], bidx, -1).amax(dim=1)
+
+
 def attn_apply_paged(
     p: Attention,
     x,
@@ -140,6 +156,7 @@ def attn_apply_paged(
     k_pages,
     v_pages,
     block_tables,
+    write,
     rope_theta: float = 10_000.0,
     softcap=None,
     use_kernel: Optional[bool] = None,
@@ -148,10 +165,11 @@ def attn_apply_paged(
 
     x: [B, 1, d]; k_pages/v_pages: [num_blocks, block_size, kv, hd] pool
     views for this layer; block_tables: int32 [B, max_blk]; lengths:
-    int32 [B] tokens already cached per sequence.  The new token's K/V
-    are written into each sequence's tail block in place, then attention
-    reads through the block table (``repro_torch.kernels``).  Returns
-    (out [B, 1, d], (k_pages, v_pages)).
+    int32 [B] tokens already cached per sequence; write: the step's
+    :func:`paged_write`.  The new token's K/V are written into each
+    sequence's tail block in place, then attention reads through the
+    block table (``repro_torch.kernels``).  Returns (out [B, 1, d],
+    (k_pages, v_pages)).
     """
     from repro_torch.kernels.decode_attention import paged_decode_attention
 
@@ -160,19 +178,15 @@ def attn_apply_paged(
         raise ValueError("paged attention is a single-token decode path")
     if softcap is not None:
         raise NotImplementedError("paged decode does not support logit softcap")
-    block_size = k_pages.shape[1]
     q, k, v = _project_qkv(p, x, ncfg, n_heads, n_kv, head_dim, use_kernel)
     positions = decode_positions(lengths)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
 
     # write the new token into each sequence's tail block
-    bidx = torch.arange(b, device=x.device)
-    lens = lengths.to(torch.long)
-    blk = block_tables[bidx, lens // block_size].to(torch.long)
-    slot = lens % block_size
-    k_pages.index_put_((blk, slot), k[:, 0].to(k_pages.dtype))
-    v_pages.index_put_((blk, slot), v[:, 0].to(v_pages.dtype))
+    blk, slot, src = write
+    k_pages.index_put_((blk, slot), k[src, 0].to(k_pages.dtype))
+    v_pages.index_put_((blk, slot), v[src, 0].to(v_pages.dtype))
 
     out = paged_decode_attention(
         q[:, 0].contiguous(), k_pages, v_pages, block_tables, lengths + 1,

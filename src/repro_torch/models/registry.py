@@ -1,6 +1,7 @@
 """Uniform model API over the architecture families (port of the ``dense``
-branch of ``repro/models/registry.py``; the other families are still to
-be ported, ``ROADMAP.md`` queue 1)."""
+and ``moe`` branches of ``repro/models/registry.py``, which share the
+transformer's paged entry points; the other families are still to be
+ported, ``ROADMAP.md`` queue 1, item 11)."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,9 +25,8 @@ class ModelAPI:
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family != "dense" or cfg.n_experts:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1)")
+    if cfg.family not in _tf.FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} " + _tf.LATER_FAMILY)
 
     def init(seed: int = 0, device=None):
         return _tf.lm_init(cfg, seed=seed, device=device)

@@ -1,11 +1,12 @@
-"""Decoder-only transformer LM, dense family (port of the dense subset of
-``repro/models/transformer.py``).
+"""Decoder-only transformer LM, dense and MoE families (port of the dense
+and MoE subset of ``repro/models/transformer.py``).
 
 The model is an ``nn.Module``: token embedding, an ``nn.ModuleList`` of
 blocks (the reference stacks layers on a leading [L] axis and scans
-them) and the final norm and unembedding.  The functions below mirror
-the reference's public entry points and take the model where the
-reference takes its parameter pytree.
+them) and the final norm and unembedding.  A block's FFN is an MLP, or
+with ``cfg.n_experts`` a MoE layer (``models/moe.py``).  The functions
+below mirror the reference's public entry points and take the model
+where the reference takes its parameter pytree.
 
 Numerics: every matmul resolves a *site* (``attn.qkv``, ``mlp.down``,
 ``lm_head``, ...) against ``cfg.numerics``; layer-range policy rules
@@ -23,9 +24,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dense import dense, dense_init
 from repro_torch.core.policy import site_for
 
-from .attention import Attention, attn_apply, attn_apply_paged
+from .attention import Attention, attn_apply, attn_apply_paged, paged_write
 from .common import RMSNorm, iter_layers, multi_token_positions, rmsnorm
 from .mlp import MLP, mlp_apply
+from .moe import MoE, moe_apply
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -41,20 +43,29 @@ class Block(nn.Module):
         self.ln1 = RMSNorm(cfg.d_model, device=device, dtype=dtype)
         self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, **kw)
         self.ln2 = RMSNorm(cfg.d_model, device=device, dtype=dtype)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.glu, **kw)
+        if cfg.n_experts:
+            self.moe = MoE(cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.n_shared_experts,
+                           cfg.moe_d_ff, cfg.glu, **kw)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.glu, **kw)
+
+
+#: the families this module builds; the others are still to be ported
+FAMILIES = ("dense", "moe")
+LATER_FAMILY = "is not ported yet (ROADMAP.md, queue 1, item 11: the other families)"
 
 
 class DenseLM(nn.Module):
     """Parameters in the reference's layout: ``embed`` [V, d], per-block
-    weights [d_in, d_out], ``ln_f``, and ``unembed`` [d, V] unless the
-    embeddings are tied."""
+    weights [d_in, d_out] (a MoE block's experts stacked [E, d_in,
+    d_out]), ``ln_f``, and ``unembed`` [d, V] unless the embeddings are
+    tied.  Built for the dense and the MoE family."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device: torch.device):
         super().__init__()
-        if cfg.family != "dense" or cfg.n_experts:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1)")
+        if cfg.family not in FAMILIES:
+            raise NotImplementedError(f"family {cfg.family!r} " + LATER_FAMILY)
         dtype = torch_dtype(cfg.param_dtype)
         self.embed = nn.Parameter(
             (torch.randn((cfg.vocab, cfg.d_model), generator=generator, device=device)
@@ -74,7 +85,9 @@ class DenseLM(nn.Module):
 
 
 def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> DenseLM:
-    """The port's own seeded init, drawn on ``device`` (CUDA by default)."""
+    """The port's own seeded init, drawn on ``device`` (CUDA by default),
+    one tensor at a time in f32 and cast to the parameter dtype, so that
+    no f32 copy of the model is ever held."""
     from repro_torch.device import resolve_device
 
     device = resolve_device(device)
@@ -84,6 +97,11 @@ def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> DenseLM:
 
 
 def _ffn_fwd(cfg: ModelConfig, nsite, blk: Block, hn, use_kernel):
+    """The post-attention half of a block (MoE or dense MLP)."""
+    if cfg.n_experts:
+        return moe_apply(blk.moe, hn, nsite, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor, act=cfg.act,
+                         groups=cfg.moe_groups, use_kernel=use_kernel)
     return mlp_apply(blk.mlp, hn, nsite, cfg.act, use_kernel=use_kernel)
 
 
@@ -283,13 +301,14 @@ def paged_decode_step(cfg: ModelConfig, model: DenseLM, token, k_pool, v_pool,
     x = embed_tokens(cfg, model, token)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    write = paged_write(lengths, block_tables, k_pool.shape[2])
     for i, nsite in iter_layers(cfg.numerics, cfg.n_layers):
         blk = model.blocks[i]
         h, _ = attn_apply_paged(
             blk.attn, rmsnorm(blk.ln1, x), nsite,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
             lengths=lengths, k_pages=k_pool[i], v_pages=v_pool[i],
-            block_tables=block_tables, rope_theta=cfg.rope_theta,
+            block_tables=block_tables, write=write, rope_theta=cfg.rope_theta,
             softcap=cfg.attn_logit_softcap, use_kernel=use_kernel,
         )
         x = x + h

@@ -32,7 +32,7 @@ from .engine import ContinuousBatchingEngine, PagedServeConfig
 from .scheduler import Request, RequestState
 
 #: families served by the continuous-batching engine under engine="auto"
-PAGED_FAMILIES = ("dense",)
+PAGED_FAMILIES = ("dense", "moe")
 
 #: the message of an option whose slice is not ported yet, and those
 #: slices by ROADMAP.md queue 1 item

@@ -202,13 +202,6 @@ def test_pattern_matmul_plam_is_bit_identical():
     assert np.array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
 
 
-def test_mitchell_mode_is_not_served_yet():
-    from repro_torch.core.modes import NumericsConfig
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nmatmul(torch.ones(2, 3), torch.ones(3, 4), NumericsConfig(mode="mitchell_f32"))
-
-
 def test_lm_init_is_seeded():
     _, tc = _cfgs("f32")
     a = t_tf.lm_init(tc, seed=3, device="cpu")
