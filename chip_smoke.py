@@ -5,9 +5,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--layers N]
                           [--phases device,kernels,conformance,serve,serve_paths,observe,moe,
-                                    e2e,times]
+                                    train,e2e,times]
 
-It imports ``repro_torch`` (never JAX) and runs nine phases, each on its
+It imports ``repro_torch`` (never JAX) and runs ten phases, each on its
 own lines:
 
 1. device      — the card's name and power limit (nvidia-smi), the torch
@@ -35,8 +35,10 @@ own lines:
    granite-moe-1b-a400m's first 8 experts at every M an expert's buffer
    has on the serve path, to the 2-D kernel run expert by expert over
    all 64 and 32 experts, and at ragged stacks; the 2-D kernel also at
-   granite's unembed.  Then K5's public entry point runs once per yi-6b layer at
-   yi-6b's widths (K5 has no serving path).
+   granite's unembed.  K3's quantize at the training path's weight and
+   activation shapes, bf16 and f32, bit for bit.  Then K5's public entry
+   point runs once per yi-6b layer at yi-6b's widths (K5 has no serving
+   path).
 3. conformance — ``python -m repro_torch.conformance check`` and
    ``fuzz --seed 0 --count 2048`` in-process on the default device, so
    the ``cuda`` oracle runs K3 and K4 beside the golden, torch, table and
@@ -86,13 +88,31 @@ own lines:
    and a profile of two decode steps (K1, K2, and the dispatch glue
    around them); then granite-moe-1b-a400m (24 layers, 32 experts top-8)
    prequantized: 7L+1 K1 a forward.  ``--layers`` cuts both depths.
-8. e2e         — a 2-layer full-width model runs one prefill and 4
+8. train       — training and the paper's Table II: full-width yi-6b
+   (bf16, remat, ``posit_quant:16:1``) cut to 8 layers takes 6 AdamW
+   steps through ``train.loop.make_train_step`` (losses finite and
+   falling; every gradient finite and not all zero; per step K3's
+   quantize launched 28L+4 times, the forward's 14L+2 and the remat
+   recompute's as many; no plain codec call), reported as step seconds,
+   tokens/s, the share of the f32 peak and peak memory; the trained
+   weights served under ``default=plam_sim:16:1`` kept bf16 and then
+   prequantized (7L+1 K1 a forward, L K2 a decode step, equal tokens),
+   with ``calibrate`` on them in between; ``python -m
+   repro_torch.launch.train``'s fault drill (restarts=1, final_step=8,
+   the policy in the manifest; resumed losses within 1e-3 of an
+   uninterrupted run's); the five Table II setups trained in f32 and
+   evaluated under f32, posit16 (K3) and plam16 (K3 and K1), top-1 and
+   top-5, beside the reference's own ``--quick`` rows.  K1 is held bit for
+   bit to its plain version at every (A, B) shape and dtype that the
+   Table II evaluations and ``calibrate``'s trials launched it with, on
+   the operands and output of the first such launch.
+9. e2e         — a 2-layer full-width model runs one prefill and 4
    decode steps on the kernels and on the plain versions; last logits
    must agree within a stated tolerance.  The same for a 2-layer
    deepseek-moe-16b over 2 decode steps, with the router's top-k margin
    logged wherever the two runs route a token differently; and
    ``mitchell_f32`` (plain torch) on the card against the CPU.
-9. times       — CUDA-event times of each kernel, its plain version and
+10. times      — CUDA-event times of each kernel, its plain version and
    (for attention) ``scaled_dot_product_attention``, beside each
    kernel's bound (and, for K1, the floor of its design, with the strip
    width of its prefill path).  Each
@@ -105,7 +125,8 @@ own lines:
    full-depth engine gives it.  K3's encode is timed at weight and
    activation shapes on both paths (``K3_TIMES``), beside a copy of the
    same bytes; its decode and quantize at 2^24 and 4,096 lanes beside
-   their bytes bound and a copy of the same bytes.  K1 is also timed at
+   their bytes bound and a copy of the same bytes, and its quantize at
+   the training path's largest weights.  K1 is also timed at
    the chunk width and the verify rows (M = 32, 20), and over a stack of
    deepseek's 64 experts at M = 1 and 7, beside its bytes bound and, in
    turns, the 64 launches of the 2-D kernel it replaces.  K2 is timed at
@@ -134,7 +155,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ["device", "kernels", "conformance", "serve", "serve_paths", "observe", "moe",
-          "e2e", "times"]
+          "train", "e2e", "times"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 CUDA-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -328,6 +349,50 @@ MITCHELL_M = 4
 MITCHELL_CPU_N = 1024
 MITCHELL_RTOL = 1e-5
 MITCHELL_ATOL = 1e-6
+# phase train: K1's plain version over row slices of at most
+# K1_PLAIN_LANES lanes of A and of the output (its int64 and int32
+# temporaries), when it is held to a recorded launch
+K1_PLAIN_LANES = 1 << 26
+# K3's quantize at the training path's shapes (yi-6b, batch 8 x seq 128 =
+# 1024 tokens): every weight of a block and the unembed, bf16 and f32, and
+# the two activation widths; the plain version runs over row slices of at
+# most K3_PLAIN_LANES lanes (its int64 temporaries)
+K3_QUANT_WEIGHT_SHAPES = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096),
+                          (4096, 64000)]
+K3_QUANT_ACT_SHAPES = [(1024, 4096), (1024, 11008)]
+# phase times: K3 quantize at the training path's two largest weights and
+# an activation
+K3_QUANT_TIMES = [((4096, 11008), "bf16"), ((4096, 64000), "bf16"), ((1024, 4096), "f32")]
+# phase train: full-width yi-6b cut to TRAIN_LAYERS layers (AdamW's f32 m and
+# v over all 32 layers' 6.06 B parameters are 48.5 GB and bf16 parameters
+# and gradients 24.2 GB more, which leaves no safe room on 80 GB for the
+# activations and the codec's f32 outputs), TRAIN_STEPS AdamW steps at the
+# CLI's defaults (seq 128, batch 8, lr 1e-3)
+TRAIN_LAYERS = 8
+TRAIN_STEPS = 6
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 128, 8, 1e-3
+# the CLI's fault drill, and its resumed losses against an uninterrupted run
+TRAIN_CLI = ["--arch", "yi-6b", "--reduced", "--steps", "8", "--ckpt-every", "2",
+             "--simulate-failure", "5"]
+TRAIN_RESUME_RTOL = 1e-3
+TRAIN_CLI_TIMEOUT_S = 300
+# the paper's Table II setups (benchmarks/table2_accuracy.py:36-43): name,
+# model, widths, data and training sizes
+TABLE2_SETUPS = [
+    ("isolet-syn", "mlp", (617, 128, 64, 26), dict(n=4000, epochs=12, lr=1e-3)),
+    ("ucihar-syn", "mlp", (561, 512, 512, 6), dict(n=4000, epochs=10, lr=1e-3)),
+    ("mnist-syn", "lenet5", dict(hw=28, ch=1, classes=10), dict(n=3000, epochs=8, lr=1e-3)),
+    ("svhn-syn", "lenet5", dict(hw=28, ch=3, classes=10), dict(n=3000, epochs=8, lr=1e-3)),
+    ("cifar10-syn", "cifarnet", dict(hw=32, ch=3, classes=10), dict(n=3000, epochs=8, lr=1e-3)),
+]
+# the reference's own Table II rows, from `python benchmarks/table2_accuracy.py
+# --quick` on the CPU (its two MLP rows at n = 2200, 6 epochs): top-1 f32,
+# posit16, plam16, then top-5 f32, posit16, plam16
+TABLE2_QUICK = dict(n=2200, epochs=6)
+TABLE2_REFERENCE_QUICK = {"isolet-syn": (0.8200, 0.8200, 0.8180, 0.9830, 0.9830, 0.9810),
+                          "ucihar-syn": (0.9970, 0.9970, 0.9960, 1.0000, 1.0000, 1.0000)}
+TABLE2_BAR = 0.02  # the reference's stated bar on plam16 - f32 top-1 (not gated)
+CALIBRATE_BUDGET = 0.02
 # K5 at yi-6b's widths: batch 4, 32 q heads over 4 kv heads, hd 128, a
 # 4096-key contiguous cache with ragged lengths.
 K5_SHAPE = dict(b=4, h=32, kv=4, hd=128, s=4096)
@@ -635,6 +700,8 @@ class Smoke:
         fused = self.check_fused_encode(same, failures, sweep)
         k1_ok = k1_ok and fused["ok"]
         grouped = self.check_grouped_k1(same, failures)
+        training = self.check_quantize_shapes(same, failures)
+        k3_ok = k3_ok and training["ok"]
 
         k2 = self.check_paged_attention(failures)
         k4_ok = self.check_posit_mul(same, failures)
@@ -647,7 +714,7 @@ class Smoke:
                            "posit_mul": 0.0 if k4_ok else None,
                            "decode_attention": k5["err_f32"]}
         self.results["kernels"] = {"k1_bit_identical": k1_ok, "k1_fused": fused,
-                                   "k1_grouped": grouped,
+                                   "k1_grouped": grouped, "k3_training_shapes": training,
                                    "k3_bit_identical": k3_ok, "k3_paths": paths,
                                    "k2": k2,
                                    "k4_bit_identical": k4_ok, "k5": k5,
@@ -655,6 +722,36 @@ class Smoke:
                                    "failures": failures}
         if failures:
             raise AssertionError("; ".join(failures))
+
+    def check_quantize_shapes(self, same, failures) -> dict:
+        """K3's quantize at the training path's weights (bf16 and f32) and
+        activations, bit for bit against its plain version over row slices
+        of at most K3_PLAIN_LANES lanes.  (K1 at the Table II shapes is held
+        in phase train, at the shapes its runs launch it with.)"""
+        torch = self.torch
+        from repro_torch.kernels.posit_codec import posit_quantize, quantize_plain
+        from repro_torch.numerics import P16
+
+        g = self.gen(17)
+        n_before = len(failures)
+        shapes = K3_QUANT_WEIGHT_SHAPES + K3_QUANT_ACT_SHAPES
+        for shape in shapes:
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(shape, generator=g, device=self.dev)
+                if shape in K3_QUANT_WEIGHT_SHAPES:
+                    x = x * shape[0] ** -0.5
+                x = x.to(dtype)
+                got = posit_quantize(x, P16)
+                rows = max(1, K3_PLAIN_LANES // shape[1])
+                for r0 in range(0, shape[0], rows):
+                    same(f"posit_quantize {shape} {str(dtype)[6:]} rows {r0}:{r0 + rows}",
+                         got[r0:r0 + rows], quantize_plain(x[r0:r0 + rows], P16))
+                del x, got
+                torch.cuda.synchronize()
+        ok = len(failures) == n_before
+        log(f"K3 quantize at the training shapes {shapes}, bf16 and f32: "
+            f"{'bit-identical' if ok else 'MISMATCH'}")
+        return {"ok": ok, "shapes": shapes}
 
     def check_encode_paths(self, same, failures, sweep) -> dict:
         """K3's encode against its plain version, bit for bit, on both
@@ -2482,6 +2579,481 @@ class Smoke:
 
     # -- phase 8 -------------------------------------------------------------
 
+    def train_cfg(self):
+        """yi-6b at full width, as configs/yi_6b.py gives it (bf16
+        parameters, remat, posit_quant:16:1), cut to TRAIN_LAYERS layers
+        (or fewer with --layers)."""
+        from repro_torch.configs import get_config
+
+        cfg = get_config("yi-6b")
+        return dataclasses.replace(cfg, n_layers=min(self.args.layers, TRAIN_LAYERS))
+
+    def phase_train(self):
+        """Training and the paper's Table II on the card: AdamW steps on
+        full-width yi-6b under posit_quant (K3's quantize on every
+        projection), the trained weights served under plam_sim (encoded
+        every forward, then prequantized) and calibrated, the training
+        CLI's fault drill, and the five Table II models trained in f32 and
+        evaluated under f32, posit16 and plam16 (K3 and K1)."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.core.policy import describe
+
+        self.yi_model = None  # the earlier phases' model
+        gc.collect()
+        torch.cuda.empty_cache()
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        log(f"train: TF32 matmul allowed: {tf32}; float32 matmul precision "
+            f"{torch.get_float32_matmul_precision()!r}")
+        failures = [] if not tf32 else ["TF32 is on: f32 matmuls would not be f32"]
+        cfg = self.train_cfg()
+        log(f"train: yi-6b d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv} hd {cfg.hd} "
+            f"d_ff {cfg.d_ff} vocab {cfg.vocab} layers {cfg.n_layers} of 32 (AdamW's f32 m and "
+            f"v over all 32 layers' 6.06 B parameters are 48.5 GB and bf16 parameters and "
+            f"gradients 24.2 GB more: no safe room on 80 GB for activations and the codec's "
+            f"f32 outputs) param/act {cfg.param_dtype}/{cfg.act_dtype} remat {cfg.remat} "
+            f"numerics {describe(cfg.numerics)!r}")
+        res = {"tf32": tf32}
+        model, res["yi"] = self.train_yi(cfg, failures)
+        res["serve"] = self.serve_trained(cfg, model, failures)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["cli"] = self.train_cli(failures)
+        res["table2"] = self.table2(failures)
+        self.results["train"] = res
+        if failures:
+            raise AssertionError("; ".join(failures[:8]))
+
+    def train_yi(self, cfg, failures):
+        """TRAIN_STEPS AdamW steps through make_train_step on lm_batch: the
+        losses, each step's seconds and K3 launches (against the hand
+        count: 14 quantizes a layer and 2 for the lm head forward, the same
+        again in the remat recompute of the backward), the gradients
+        (through AdamW's first m: (1 - beta1) * clip * g), and no plain
+        codec call."""
+        torch = self.torch
+        import gc
+
+        import numpy as np
+
+        from repro_torch.data.synthetic import DataConfig, lm_batch
+        from repro_torch.kernels import _lib, posit_codec
+        from repro_torch.models import transformer as tf
+        from repro_torch.models.registry import build
+        from repro_torch.optim.optimizers import OptConfig, init_state
+        from repro_torch.train.loop import TrainConfig, make_train_step
+
+        layers = cfg.n_layers
+        torch.cuda.reset_peak_memory_stats()
+        model = tf.set_trainable(tf.lm_init(cfg, seed=0, device=self.dev))
+        n_params = sum(p.numel() for p in model.parameters())
+        # the parameters that multiply: every projection and the unembed
+        # (the embedding is a gather, the norms' scales element-wise)
+        n_mm = sum(p.numel() for n, p in model.named_parameters()
+                   if p.dim() == 2 and n != "embed")
+        api = build(cfg)
+        tcfg = TrainConfig(opt=OptConfig(name="adamw", lr=TRAIN_LR))
+        state = init_state(tcfg.opt, model)
+        step = make_train_step(api.train_loss, tcfg)
+        dcfg = DataConfig(seed=0, vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+        tokens = TRAIN_SEQ * TRAIN_BATCH
+        log(f"  {n_params / 1e9:.3f} G parameters ({n_mm / 1e9:.3f} G in matmuls), AdamW lr "
+            f"{TRAIN_LR}, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}; after init and state "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        plain_calls = [0]
+        real_plain = posit_codec.quantize_plain
+
+        def counted_plain(*a, **kw):
+            plain_calls[0] += 1
+            return real_plain(*a, **kw)
+
+        fwd_k3 = 14 * layers + 2
+        want_k3 = fwd_k3 * (2 if cfg.remat else 1)
+        losses, secs, k3 = [], [], []
+        posit_codec.quantize_plain = counted_plain
+        try:
+            for i in range(TRAIN_STEPS):
+                batch = lm_batch(dcfg, i)
+                torch.cuda.synchronize()
+                _lib.reset_launches()  # this step's run starts here
+                t0 = time.perf_counter()
+                _, _, metrics = step(model, state, batch)
+                loss = float(metrics["loss"])
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(loss)
+                k3.append(_lib.launches["posit_codec"])
+                if i == 0:
+                    bad = [n for n, m in state["m"].items()
+                           if not bool(torch.isfinite(m).all()) or not bool(m.any())]
+                    if bad:
+                        failures.append(f"train: gradients non-finite or all zero: {bad[:4]}")
+                log(f"  step {i}: loss {loss:.4f}, {secs[-1]:.3f} s, K3 launches {k3[-1]}")
+            with torch.no_grad():
+                _lib.reset_launches()
+                api.train_loss(model, lm_batch(dcfg, 0))
+                fwd_measured = _lib.launches["posit_codec"]
+            profile = self.profile_train_step(step, model, state, lm_batch(dcfg, TRAIN_STEPS))
+        finally:
+            posit_codec.quantize_plain = real_plain
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        p50 = float(np.quantile(secs, 0.5))
+        flops = 6 * n_mm * tokens + (2 * n_mm * tokens if cfg.remat else 0)
+        share = flops / p50 / F32_FLOPS
+        self.path_launches["posit_codec"] = self.path_launches.get("posit_codec", 0) + sum(k3)
+        log(f"  losses {[round(x, 4) for x in losses]}; step p50 {p50:.3f} s, "
+            f"{tokens / p50:.1f} tokens/s; model FLOPs a step {flops / 1e12:.2f} T "
+            f"(6 N tokens + the remat recompute's 2 N tokens, N = {n_mm / 1e9:.3f} G) = "
+            f"{share:.3f} of the {F32_FLOPS / 1e12:.0f} TFLOP/s f32 peak; peak {peak:.2f} GiB")
+        log(f"  K3 posit_quantize a step {k3} (hand count {want_k3}: forward 14L+2 = {fwd_k3}, "
+            f"measured {fwd_measured} in a no-grad forward, and the remat recompute "
+            f"{want_k3 - fwd_k3}); quantize_plain calls on the card {plain_calls[0]}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            failures.append(f"train: losses {losses}")
+        if any(n != want_k3 for n in k3) or fwd_measured != fwd_k3:
+            failures.append(f"train: K3 launches {k3}, forward {fwd_measured}; expected "
+                            f"{want_k3} and {fwd_k3}")
+        if plain_calls[0]:
+            failures.append(f"train: {plain_calls[0]} plain codec calls on the card")
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return model, {"layers": layers, "params": n_params, "matmul_params": n_mm,
+                       "losses": losses, "step_s": secs, "step_p50_s": p50,
+                       "tokens_per_s": tokens / p50, "model_flops": flops,
+                       "f32_peak_share": share, "peak_gib": peak, "k3_per_step": k3,
+                       "k3_forward": fwd_measured, "k3_hand_count": want_k3,
+                       "quantize_plain_calls": plain_calls[0], "step_profile": profile}
+
+    def profile_train_step(self, step, model, state, batch):
+        """One more training step (after the counted ones) under
+        torch.profiler: wall, device busy and idle share, and device time
+        by kind: f32 GEMMs (cuBLAS), K3's quantize, the rest by name."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
+            log("  train step profile: this torch cannot trace the card (not measured)")
+            return None
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(model, state, batch)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # the card's own events only: a host-side record (an aten op, the
+        # autograd Function around K3) carries the device time of the
+        # kernels it launched, which are listed on their own as well
+        by_name = {}
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0)
+            if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[evt.key] = by_name.get(evt.key, 0.0) + us
+        by_name.pop("Command Buffer Full", None)  # a launch-queue marker, no kernel
+        busy = sum(by_name.values())
+        if busy == 0:
+            log("  train step profile: no device time recorded (not measured)")
+            return None
+        gemm = sum(us for n, us in by_name.items() if "gemm" in n.lower())
+        k3 = sum(us for n, us in by_name.items() if "quantize_kernel" in n)
+        rest = sorted(((n, us) for n, us in by_name.items()
+                       if "gemm" not in n.lower() and "quantize_kernel" not in n),
+                      key=lambda kv: -kv[1])
+        log(f"  train step profile (a step after the counted ones): wall {wall_us / 1e3:.1f} "
+            f"ms, device busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}; f32 "
+            f"GEMMs {gemm / 1e3:.1f} ms ({gemm / busy:.1%}), K3 quantize {k3 / 1e3:.2f} ms "
+            f"({k3 / busy:.1%}), the rest {(busy - gemm - k3) / 1e3:.1f} ms; its top:")
+        for name, us in rest[:6]:
+            log(f"    {us / 1e3:8.2f} ms  {name[:100]}")
+        return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
+                "gemm_ms": gemm / 1e3, "k3_ms": k3 / 1e3,
+                "rest_top": [[n, us / 1e3] for n, us in rest[:6]]}
+
+    def serve_trained(self, cfg, model, failures):
+        """The trained weights served under default=plam_sim:16:1 on the
+        serve phase's requests: kept bf16 (each forward encodes them: 7L+1
+        K3 and 7L+1 K1), then calibrated, then prequantized in place (7L+1
+        K1, no K3); L K2 a decode step; equal greedy tokens."""
+        from repro_torch.kernels.posit_codec import bf16_table
+        from repro_torch.models import transformer as tf
+        from repro_torch.numerics import P16
+        from repro_torch.serving import ServeOptions
+
+        layers = cfg.n_layers
+        tf.set_trainable(model, False)
+        scfg = cfg.with_numerics("default=plam_sim:16:1")
+        _, prompts = self.moe_prompts(cfg.vocab)
+        # K3's bf16 table is built once per (spec, card), counted apart: built
+        # here (when phase kernels has not), so that no forward counts it
+        bf16_table(P16, self.dev)
+        base = ServeOptions(max_new_tokens=16, block_size=16, max_slots=4, num_blocks=64,
+                            max_seq_len=128, prequantize=False)
+        plain = self.serve_run("trained yi-6b, bf16 weights", scfg, model, base, prompts)
+        for kind, m, got, _ in plain["calls"]:
+            want = {k: 0 for k in got}
+            want.update(plam_matmul=7 * layers + 1, posit_codec=7 * layers + 1,
+                        paged_decode_attention=layers if kind == "decode" else 0)
+            if got != want:
+                failures.append(f"trained, bf16: {kind} forward at M={m}: {got}, want {want}")
+                break
+        cal = self.calibrate_trained(cfg, model, failures)
+        quant = self.serve_run("trained yi-6b, prequantized", scfg, model,
+                               dataclasses.replace(base, prequantize=True), prompts)
+        failures.extend(f"trained, prequantized: {f}" for f in self.forward_gates(quant, layers))
+        equal = quant["outputs"] == plain["outputs"]
+        if not equal:
+            failures.append("trained: greedy tokens differ between bf16 and prequantized weights")
+        if not all(len(o) == 16 and all(0 <= t < cfg.vocab for t in o) for o in quant["outputs"]):
+            failures.append("trained: a request did not return 16 valid tokens")
+        log(f"  trained weights served: tokens {'equal' if equal else 'DIFFER'} "
+            f"({quant['outputs'][0][:8]}...)")
+        for run in (plain, quant):
+            self.path_launches["plam_matmul"] = (self.path_launches.get("plam_matmul", 0)
+                                                 + run["launches"]["plam_matmul"])
+        return {"tokens_equal": equal, "calibrate": cal,
+                **{name: {k: v for k, v in run.items() if k != "calls"}
+                   for name, run in (("bf16", plain), ("prequantized", quant))}}
+
+    def calibrate_trained(self, cfg, model, failures):
+        """calibrate() on the trained model and the next batch, budget
+        CALIBRATE_BUDGET: each trial evaluates train_loss under its policy
+        (plam_sim sites through K3's encode and K1).  K1 is then held to its
+        plain version at every shape the trials launched it with."""
+        from repro_torch.data.synthetic import DataConfig, lm_batch
+        from repro_torch.kernels import _lib
+        from repro_torch.numerics.calibrate import calibrate
+
+        dcfg = DataConfig(seed=0, vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+        _lib.reset_launches()
+        with self.recording_k1() as seen:
+            t0 = time.perf_counter()
+            res = calibrate(cfg, model, lm_batch(dcfg, TRAIN_STEPS), budget=CALIBRATE_BUDGET)
+            self.torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = dict(_lib.launches)
+        log(f"  calibrate (budget {CALIBRATE_BUDGET}) in {secs:.2f} s: base f32 loss "
+            f"{res.base_loss:.4f}, policy {res.policy_str!r}; K1 {launches['plam_matmul']}, "
+            f"K3 {launches['posit_codec']} launches")
+        for d in res.decisions:
+            log(f"    {d['site']}: {d['assigned']} (trials "
+                f"{[(t['cfg'], round(t['loss'], 4)) for t in d['trials']]})")
+        k1 = self.check_recorded_k1("calibrate", seen, failures)
+        return {"base_loss": res.base_loss, "policy": res.policy_str, "seconds": secs,
+                "decisions": res.decisions, "launches": launches, "k1_checked": k1}
+
+    def train_cli(self, failures):
+        """python -m repro_torch.launch.train's fault drill on the card (a
+        failure at step 5, checkpoints every 2): restarts=1, final_step=8,
+        the numerics policy in the manifest; and the same run in-process
+        with every step's loss logged, its resumed losses against an
+        uninterrupted run's within TRAIN_RESUME_RTOL (the embedding's
+        backward adds with atomics, so not bit for bit)."""
+        import shutil
+        import tempfile
+
+        from repro_torch.configs import get_config
+        from repro_torch.core.modes import NumericsConfig
+        from repro_torch.core.policy import parse_policy
+        from repro_torch.data.synthetic import DataConfig, lm_batch
+        from repro_torch.models import transformer as tf
+        from repro_torch.models.registry import build
+        from repro_torch.optim.optimizers import OptConfig
+        from repro_torch.train import checkpoint as ckpt
+        from repro_torch.train.loop import FailureInjector, TrainConfig, run
+
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"), prefix="train_cli_")
+        try:
+            d = os.path.join(tmp, "cli")
+            env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+                                  "--ckpt-dir", d], cwd=ROOT, env=env, capture_output=True,
+                                 text=True, timeout=TRAIN_CLI_TIMEOUT_S)
+            cli_s = time.perf_counter() - t0
+            lines = out.stdout.strip().splitlines()
+            log(f"  CLI {' '.join(TRAIN_CLI)} in {cli_s:.1f} s (rc {out.returncode}): {lines}")
+            if out.returncode != 0:
+                failures.append(f"train CLI: rc {out.returncode}: {out.stderr[-400:]}")
+            elif lines[-1:] != ["restarts=1 final_step=8"]:
+                failures.append(f"train CLI: last lines {lines[-2:]}")
+            step = ckpt.latest_step(d)
+            manifest = {}
+            if step is not None:
+                with open(os.path.join(d, f"step_{step:08d}", "manifest.json")) as f:
+                    manifest = json.load(f)
+            policy = ckpt.manifest_policy(manifest) if manifest else None
+            if step != 8 or policy != parse_policy(NumericsConfig(mode="posit_quant")):
+                failures.append(f"train CLI: last checkpoint {step}, policy {policy}")
+
+            cfg = dataclasses.replace(get_config("yi-6b").reduced(), param_dtype="float32",
+                                      act_dtype="float32").with_numerics(
+                NumericsConfig(mode="posit_quant"))
+            api = build(cfg)
+            dcfg = DataConfig(seed=0, vocab=cfg.vocab, seq_len=128, global_batch=8)
+
+            def drill(name, failure):
+                tcfg = TrainConfig(opt=OptConfig(name="adamw", lr=1e-3), log_every=1,
+                                   ckpt_dir=os.path.join(tmp, name), ckpt_every=2,
+                                   ckpt_extra=ckpt.policy_extra(cfg.numerics))
+                return run(loss_fn=api.train_loss,
+                           init_params_fn=lambda: tf.set_trainable(api.init(0, self.dev)),
+                           batch_fn=lambda s: lm_batch(dcfg, s), tcfg=tcfg, num_steps=8,
+                           failure=failure)[2]
+
+            failed, whole = drill("failed", FailureInjector([5])), drill("whole", None)
+            ref = dict(whole["history"])
+            resumed = failed["history"][5:]  # steps 4-7 after the restore
+            worst = max(abs(loss - ref[s]) / abs(ref[s]) for s, loss in resumed)
+            log(f"  in-process drill: restarts {failed['restarts']}, resumed losses "
+                f"{[(s, round(x, 5)) for s, x in resumed]} against "
+                f"{[(s, round(ref[s], 5)) for s, _ in resumed]}: worst relative {worst:.2e} "
+                f"(tol {TRAIN_RESUME_RTOL})")
+            if failed["restarts"] != 1 or [s for s, _ in resumed] != [4, 5, 6, 7] \
+                    or worst > TRAIN_RESUME_RTOL:
+                failures.append(f"train drill: {failed}, uninterrupted {whole}")
+            return {"cli_s": cli_s, "stdout": lines, "last_step": step,
+                    "policy_in_manifest": policy is not None, "resumed": resumed,
+                    "uninterrupted": whole["history"], "worst_rel": worst}
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def table2(self, failures):
+        """The five Table II setups at their own sizes (and the two MLP rows
+        again at the reference's --quick size, beside its numbers), trained
+        in f32 with the port's train_classifier and evaluated under f32,
+        posit16 and plam16, top-1 and top-5; K3 and K1 launched in every
+        plam16 evaluation.  The plam16 - f32 top-1 delta is printed beside
+        the reference's 2-point bar, not gated (data order and init differ
+        from the reference's by design).  K1 is then held to its plain
+        version at every shape the evaluations launched it with."""
+        torch = self.torch
+        import numpy as np
+
+        from repro_torch.core.modes import NumericsConfig
+        from repro_torch.data.synthetic import classification_dataset, image_dataset
+        from repro_torch.kernels import _lib
+        from repro_torch.paper import models as pm
+
+        modes = {"float32": NumericsConfig(mode="f32"),
+                 "posit16": NumericsConfig(mode="posit_quant", n=16, es=1),
+                 "plam16": NumericsConfig(mode="plam_sim", n=16, es=1)}
+        rows = []
+        with self.recording_k1() as seen:
+            for name, kind, arch, targs in TABLE2_SETUPS:
+                sizes = [("full", targs)]
+                if name in TABLE2_REFERENCE_QUICK:
+                    sizes.append(("quick", dict(targs, **TABLE2_QUICK)))
+                for size, t in sizes:
+                    n = t["n"]
+                    if kind == "mlp":
+                        x, y = classification_dataset(0, n + 1000, arch[0], arch[-1])
+                        init, apply_fn = (lambda g, a=arch: pm.mlp_init(g, a)), pm.mlp_apply
+                    else:
+                        x, y = image_dataset(0, n + 1000, arch["hw"], arch["ch"], arch["classes"])
+                        fn = pm.lenet5_init if kind == "lenet5" else pm.cifarnet_init
+                        init = (lambda g, f=fn, a=arch: f(g, a["ch"], a["classes"], a["hw"]))
+                        apply_fn = pm.lenet5_apply if kind == "lenet5" else pm.cifarnet_apply
+                    t0 = time.perf_counter()
+                    params = pm.train_classifier(init, apply_fn, x[:n], y[:n], epochs=t["epochs"],
+                                                 lr=t["lr"], seed=0, device=self.dev)
+                    torch.cuda.synchronize()
+                    row = {"dataset": name, "size": size, "n": n, "epochs": t["epochs"],
+                           "train_s": time.perf_counter() - t0}
+                    for mode, ncfg in modes.items():
+                        _lib.reset_launches()  # this evaluation's run starts here
+                        accs = pm.accuracy(apply_fn, params, x[n:], y[n:], ncfg, topk=(1, 5))
+                        row[f"{mode}_top1"], row[f"{mode}_top5"] = accs[1], accs[5]
+                        row[f"{mode}_launches"] = {k: v for k, v in _lib.launches.items() if v}
+                    k1, k3 = (row["plam16_launches"].get(k, 0)
+                              for k in ("plam_matmul", "posit_codec"))
+                    self.path_launches["plam_matmul"] = (self.path_launches.get("plam_matmul", 0)
+                                                         + k1)
+                    if not k1 or not k3 or not row["posit16_launches"].get("posit_codec"):
+                        failures.append(f"table2 {name}: launches {row}")
+                    accs = [row[f"{m}_top{k}"] for m in modes for k in (1, 5)]
+                    if not all(np.isfinite(accs)) or not all(0 <= a <= 1 for a in accs):
+                        failures.append(f"table2 {name}: accuracies {accs}")
+                    delta = row["plam16_top1"] - row["float32_top1"]
+                    ref = TABLE2_REFERENCE_QUICK.get(name) if size == "quick" else None
+                    ref_s = (f"; the reference --quick: top-1 {ref[:3]}, top-5 {ref[3:]}"
+                             if ref else "")
+                    log(f"  table2 {name} ({size}: n {n}, {t['epochs']} epochs, trained in "
+                        f"{row['train_s']:.1f} s): top-1 f32 {row['float32_top1']:.4f} posit16 "
+                        f"{row['posit16_top1']:.4f} plam16 {row['plam16_top1']:.4f}; top-5 "
+                        f"{row['float32_top5']:.4f} {row['posit16_top5']:.4f} "
+                        f"{row['plam16_top5']:.4f}; plam16 - f32 top-1 {delta:+.4f} (the "
+                        f"reference's bar {TABLE2_BAR}, not gated); plam16 launches "
+                        f"{row['plam16_launches']}{ref_s}")
+                    rows.append(row)
+        return {"rows": rows, "k1_checked": self.check_recorded_k1("table2", seen, failures)}
+
+    @contextlib.contextmanager
+    def recording_k1(self):
+        """The first K1 launch over float activations
+        (``ops.plam_matmul_float``, which ``plam_dense`` calls) at each
+        (A shape and dtype, B shape and dtype, spec) while the block runs:
+        copies of its operands and its output, and the count of launches
+        at that key."""
+        from repro_torch.kernels import ops
+
+        real, seen = ops.plam_matmul_float, {}
+
+        def recorded(x, b, spec, **kw):
+            out = real(x, b, spec, **kw)
+            key = (tuple(x.shape), str(x.dtype)[6:], tuple(b.shape), str(b.dtype)[6:],
+                   (spec.n, spec.es))
+            if key not in seen and x.is_cuda:
+                seen[key] = [x.detach().clone(), b.clone(), spec, out.detach().clone(), 0]
+            if key in seen:
+                seen[key][4] += 1
+            return out
+
+        ops.plam_matmul_float = recorded
+        try:
+            yield seen
+        finally:
+            ops.plam_matmul_float = real
+
+    def check_recorded_k1(self, what, seen, failures) -> dict:
+        """Each launch that recording_k1 kept, its output against K1's plain
+        version on the same operands, bit for bit (the plain version over
+        row slices of at most K1_PLAIN_LANES lanes of A and of the output).
+        No kernel is launched here."""
+        torch = self.torch
+        from repro_torch.kernels.plam_matmul import plam_matmul_float
+
+        n_before, t0, cases = len(failures), time.perf_counter(), []
+        for key in sorted(seen, key=lambda k: (k[0][0], k[0][-1], k[2][-1])):
+            x, b, spec, got, calls = seen[key]
+            (m, k), n = x.shape, b.shape[-1]
+            rows = max(1, K1_PLAIN_LANES // max(k, n))
+            bad = 0
+            for r0 in range(0, m, rows):
+                want = plam_matmul_float(x[r0:r0 + rows], b, spec, use_kernel=False)
+                bad += int((got[r0:r0 + rows].view(torch.int32)
+                            != want.view(torch.int32)).sum())
+                del want
+            if bad:
+                failures.append(f"{what}: K1 M={m} K={k} N={n} A={key[1]} B={key[3]}: "
+                                f"{bad} lanes differ from the plain version")
+            cases.append({"m": m, "k": k, "n": n, "a": key[1], "b": key[3], "launches": calls,
+                          "lanes_differ": bad})
+        seen.clear()  # the kept operands and outputs
+        torch.cuda.synchronize()
+        ok = len(failures) == n_before
+        secs = time.perf_counter() - t0
+        log(f"  {what}: K1 at the {len(cases)} (M, K, N, A, B) it was launched with, each "
+            f"launch's output against the plain version on its operands: "
+            f"{'bit-identical' if ok else failures[n_before:]} in {secs:.1f} s: "
+            f"{[(c['m'], c['k'], c['n'], c['a'], c['b'], c['launches']) for c in cases]}")
+        return {"ok": ok, "cases": cases, "seconds": secs}
+
+    # -- phase 9 -------------------------------------------------------------
+
     def phase_e2e(self):
         torch = self.torch
         from repro_torch.core.prequant import quantize_params
@@ -2649,7 +3221,7 @@ class Smoke:
         self.results["e2e"]["mitchell"] = {"max_abs_diff": worst_abs, "allclose_ratio": worst}
         return failures
 
-    # -- phase 9 -------------------------------------------------------------
+    # -- phase 10 ------------------------------------------------------------
 
     def phase_times(self):
         torch = self.torch
@@ -2798,6 +3370,7 @@ class Smoke:
         self.time_fused_on_serve_activations()
         k3_main = self.time_encode(add, int_rate)
         self.time_decode_quantize(add)
+        self.time_train_quantize(add)
         self.time_table_fill()
         # K2 at the serving shape (4 sequences of yi-6b heads, bf16 pool) and
         # at a long paged context; the library yardstick is SDPA over the
@@ -3090,6 +3663,33 @@ class Smoke:
                 del x, dst
         torch.cuda.empty_cache()
 
+    def time_train_quantize(self, add):
+        """K3's quantize at the training path's shapes (K3_QUANT_TIMES: the
+        two largest weights, bf16 -> f32, and an activation), window and
+        spun, beside the bytes bound and the plain version, which runs over
+        row slices of at most K3_PLAIN_LANES lanes (its int64 temporaries)."""
+        torch = self.torch
+        from repro_torch.kernels.posit_codec import posit_quantize, quantize_plain
+        from repro_torch.numerics import P16
+
+        g = self.gen(23)
+        for shape, kind in K3_QUANT_TIMES:
+            x = torch.randn(shape, generator=g, device=self.dev)
+            if kind == "bf16":
+                x = x.to(torch.bfloat16)
+            rows = max(1, K3_PLAIN_LANES // shape[1])
+
+            def plain():
+                for r0 in range(0, shape[0], rows):
+                    quantize_plain(x[r0:r0 + rows], P16)
+
+            ms = self.timed(lambda: posit_quantize(x, P16), reps=20)
+            plain_ms = self.events_ms(plain, reps=1, warmup=1)
+            add("posit_codec", f"quantize {list(shape)} {kind}->float32 (training)", ms,
+                plain_ms, x.numel() * (x.element_size() + 4), 0, 1.0)
+            del x
+            torch.cuda.empty_cache()
+
     def time_table_fill(self):
         """The table fill's share of K3's table path, and the one variation
         its design allows (K3_FILL_VARIANT_LANES lanes a block): this
@@ -3272,8 +3872,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="yi-6b depth for the serve phase, and at most the MoE models' "
-                         "depth in the moe phase (widths are never cut; serve_paths and "
-                         "observe always run all 32 layers)")
+                         "depth in the moe phase and the trained model's in the train "
+                         f"phase ({TRAIN_LAYERS} by default; widths are never cut; "
+                         "serve_paths and observe always run all 32 layers)")
     ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args()
     try:

@@ -1,4 +1,5 @@
-"""Parameters from the reference package's layout into the port's model.
+"""Parameters and optimizer state between the reference package's layout
+and the port's.
 
 ``params_from_jax`` takes the reference's parameter pytree as numpy
 arrays (nested dicts; per-layer leaves stacked on a leading [L] axis)
@@ -8,11 +9,20 @@ axis split across blocks.  A MoE block's leaves (``layers/moe/router``
 the shared experts' ``layers/moe/shared/*``) come across the same way.  Leaves may be float32, bfloat16 passed as a
 ``uint16`` view, or int16/int32 posit patterns of prequantized weights;
 each keeps its dtype.  With the same parameters both packages compute
-the same function.  This module imports numpy and torch only.
+the same function.
+
+``params_to_jax`` is its inverse: the port's model (or a paper model's
+dict of tensors) as the reference's tree of numpy arrays, per-layer
+leaves stacked on [L] and bf16 as a ``uint16`` view.  The optimizer
+state goes the same way (``opt_state_to_jax`` / ``opt_state_from_jax``):
+its per-parameter trees take the parameters' layout.  ``named_tree``
+builds the same tree with torch leaves, which the checkpoint writes, and
+``load_named`` copies a reference tree back into tensors in place.  This
+module imports numpy and torch only.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Callable, Dict, Mapping
 
 import numpy as np
 import torch
@@ -55,3 +65,90 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, device=None) -> DenseLM:
         value = _to_torch(np.asarray(leaf)).to(device)
         setattr(owner, attr, nn.Parameter(value, requires_grad=False))
     return model
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _set_leaf(tree: dict, path: str, value) -> None:
+    node = tree
+    *parents, last = path.split("/")
+    for part in parents:
+        node = node.setdefault(part, {})
+    node[last] = value
+
+
+def named_tree(named: Mapping[str, torch.Tensor],
+               leaf: Callable = lambda t: t.detach().cpu()) -> Dict:
+    """The reference's nested tree of the tensors in ``named`` (port
+    parameter names: ``blocks.{i}.X`` stacked on a leading [L] axis at
+    ``layers/X``, other names at their path), each leaf through ``leaf``."""
+    stacked: Dict[str, list] = {}
+    tree: Dict = {}
+    for name, t in named.items():
+        path = param_path(name)
+        if name.startswith("blocks."):
+            stacked.setdefault(path, []).append((int(name.split(".")[1]), t))
+        else:
+            _set_leaf(tree, path, leaf(t))
+    for path, items in stacked.items():
+        items.sort(key=lambda it: it[0])
+        _set_leaf(tree, path, leaf(torch.stack([t.detach() for _, t in items])))
+    return tree
+
+
+def _named(params) -> Dict[str, torch.Tensor]:
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def params_to_jax(params) -> Dict:
+    """The reference's parameter tree (numpy; bf16 as ``uint16``) of the
+    port's model or of a dict of tensors: the inverse of
+    :func:`params_from_jax`."""
+    return named_tree(_named(params), _to_numpy)
+
+
+def opt_state_to_jax(state) -> Dict:
+    """The reference's optimizer state tree (numpy) of the port's state:
+    ``{"m", "step", "v"}`` or ``{"mu", "step"}``, each per-parameter tree
+    in the parameters' layout."""
+    out = {k: named_tree(v, _to_numpy) for k, v in state.items() if k != "step"}
+    out["step"] = np.asarray(int(state["step"]), np.int32)
+    return out
+
+
+@torch.no_grad()
+def load_named(tree: Mapping, named: Mapping[str, torch.Tensor]) -> None:
+    """Copy the reference tree's leaves into the tensors of ``named`` in
+    place (each keeps its device and dtype; shapes must agree)."""
+    for name, t in named.items():
+        leaf = np.asarray(_leaf(tree, param_path(name)))
+        if name.startswith("blocks."):
+            leaf = leaf[int(name.split(".")[1])]
+        value = _to_torch(leaf)
+        if tuple(value.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: shape {tuple(value.shape)} in the tree, "
+                             f"{tuple(t.shape)} here")
+        t.copy_(value.to(t.dtype))
+
+
+def opt_state_from_jax(tree: Mapping, params) -> Dict:
+    """The port's optimizer state from the reference's state tree, on the
+    devices of ``params``."""
+    named = _named(params)
+    state = {}
+    for key in tree:
+        if key == "step":
+            state["step"] = torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32)
+            continue
+        part = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for n, p in named.items()}
+        load_named(tree[key], part)
+        state[key] = part
+    return state

@@ -1,8 +1,9 @@
 """Numerics modes: how every matmul multiplies (port of ``repro/core/modes.py``).
 
 * ``f32`` / ``bf16``   — exact matmul (baselines).
-* ``posit_quant``      — operands projected onto the Posit<n,es> grid
-  (straight-through gradients), exact multiply; f32 or bf16 carrier.
+* ``posit_quant``      — operands projected onto the Posit<n,es> grid by
+  the codec kernel's quantize (straight-through gradients), exact f32
+  multiply; f32 or bf16 carrier.
 * ``plam_sim``         — every scalar product is the paper's
   logarithm-approximate multiplication, antilogged to linear f32 and
   accumulated.  The weight goes through the codec kernel to the
@@ -33,7 +34,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.numerics import PositSpec, decode, mitchell_mul_f32, quantize, unpack16
+from repro_torch.numerics import PositSpec, decode, mitchell_mul_f32, unpack16
 
 MODES = ("f32", "bf16", "posit_quant", "plam_sim", "mitchell_f32")
 
@@ -65,20 +66,33 @@ POSIT16_QUANT = NumericsConfig(mode="posit_quant", n=16, es=1)
 PLAM16 = NumericsConfig(mode="plam_sim", n=16, es=1)
 
 
-class _QuantizeBF16(torch.autograd.Function):
-    """Posit-grid projection with a bf16 straight-through boundary."""
+class _PositQuantize(torch.autograd.Function):
+    """Posit-grid projection through K3's ``posit_quantize`` (its plain
+    version for a CPU tensor) with a straight-through gradient: the
+    reference's STE ``quantize``.  The result is cast to the carrier
+    dtype, and the cotangent is cast through the carrier dtype back to the
+    input's dtype, as the reference's casts around its STE boundary
+    transpose (a bf16 carrier keeps cotangents bf16)."""
 
     @staticmethod
-    def forward(ctx, x, spec):
-        return quantize(x.to(torch.float32), spec).to(torch.bfloat16)
+    def forward(ctx, x, spec, carrier, use_kernel):
+        from repro_torch.kernels.posit_codec import posit_quantize
+
+        ctx.in_dtype, ctx.carrier = x.dtype, carrier
+        # f32 and bf16 go into the kernel as they are (bf16 -> f32 is exact)
+        q = posit_quantize(_codec_float(x).contiguous(), spec, use_kernel=use_kernel)
+        return q.to(carrier)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad.to(torch.bfloat16), None
+        return grad.to(ctx.carrier).to(ctx.in_dtype), None, None, None
 
 
-def _quantize_bf16(x: torch.Tensor, spec: PositSpec) -> torch.Tensor:
-    return _QuantizeBF16.apply(x, spec)
+def posit_quantize_ste(x: torch.Tensor, spec: PositSpec, carrier=torch.float32,
+                       use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """x projected onto the Posit<n,es> grid, in the ``carrier`` dtype,
+    with a straight-through gradient (K3 on a CUDA tensor)."""
+    return _PositQuantize.apply(x, spec, carrier, use_kernel)
 
 
 def _plam_matmul(x, w, spec: PositSpec, use_kernel: Optional[bool]):
@@ -170,14 +184,16 @@ def nmatmul(x, w, ncfg: NumericsConfig, out_dtype=None,
         # bf16 operands, f32 products and sums (preferred_element_type=f32)
         out = torch.matmul(x.to(bf16).to(f32), w.to(bf16).to(f32))
     elif ncfg.mode == "posit_quant":
-        spec = ncfg.spec
-        if ncfg.carrier == "bf16":
-            xq = _quantize_bf16(x, spec) if ncfg.quantize_acts else x.to(bf16)
-            wq = w.to(bf16) if ncfg.prequantized_weights else _quantize_bf16(w, spec)
-        else:
-            xq = quantize(x.to(f32), spec) if ncfg.quantize_acts else x.to(f32)
-            wq = w.to(f32) if ncfg.prequantized_weights else quantize(w.to(f32), spec)
-        out = torch.matmul(xq, wq)
+        # bf16 carrier: bf16 operands, cotangents and product, the product
+        # summed in f32 and rounded once (the reference's bf16 dot; torch's
+        # bf16 matmul on the CPU does not always round once); f32: the posit
+        # grid exactly
+        spec, carrier = ncfg.spec, bf16 if ncfg.carrier == "bf16" else f32
+        xq = (posit_quantize_ste(x, spec, carrier, use_kernel) if ncfg.quantize_acts
+              else x.to(carrier))
+        wq = (w.to(carrier) if ncfg.prequantized_weights
+              else posit_quantize_ste(w, spec, carrier, use_kernel))
+        out = torch.matmul(xq.to(f32), wq.to(f32)).to(carrier)
     elif ncfg.mode == "plam_sim":
         out = _plam_matmul(_codec_float(x), _codec_float(w), ncfg.spec, use_kernel)
     elif ncfg.mode == "mitchell_f32":
@@ -186,3 +202,11 @@ def nmatmul(x, w, ncfg: NumericsConfig, out_dtype=None,
         raise ValueError(ncfg.mode)
     return out.to(out_dtype)
 
+
+def nquant_weight(w: torch.Tensor, ncfg: NumericsConfig,
+                  use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Posit-quantize a weight for storage/serving, when the mode asks
+    (K3's quantize on a CUDA tensor), in the weight's own dtype."""
+    if ncfg.mode in ("posit_quant", "plam_sim"):
+        return posit_quantize_ste(w, ncfg.spec, torch.float32, use_kernel).to(w.dtype)
+    return w

@@ -19,12 +19,35 @@ class RMSNorm(nn.Module):
         return rmsnorm(self, x)
 
 
+class _RMSNorm(torch.autograd.Function):
+    """RMS norm with the reference's own backward (``_rmsnorm_bwd``): f32
+    math, dx cast to the activation dtype and dscale to the scale dtype,
+    so that the cotangents between layers stay in the activation dtype."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        xf = x.to(torch.float32)
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, scale = ctx.saved_tensors
+        xf = x.to(torch.float32)
+        g = ct.to(torch.float32)
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        inv = torch.rsqrt(var + ctx.eps)
+        sg = g * scale.to(torch.float32)
+        dx = inv * sg - xf * (inv ** 3) * torch.mean(sg * xf, dim=-1, keepdim=True)
+        dscale = torch.sum(g * xf * inv, dim=tuple(range(x.dim() - 1)))
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
 def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMS norm in f32, cast back to the activation dtype."""
-    xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * p.scale.to(torch.float32)
-    return out.to(x.dtype)
+    return _RMSNorm.apply(x, p.scale, eps)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

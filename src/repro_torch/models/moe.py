@@ -21,8 +21,9 @@ expert buffer with kept rows only (no float atomics, so the write is
 deterministic on the card).  Top-k ties go to the lower expert index,
 as ``jax.lax.top_k`` breaks them.
 
-``aux_load_balance_loss`` is training-only and comes with training
-(``ROADMAP.md``, queue 1, item 10).
+``aux_load_balance_loss`` is the reference's Switch-style auxiliary loss;
+like the reference's ``train_loss``, the port's does not add it, and MoE
+training waits for ``ROADMAP.md``, queue 1, item 10a.
 """
 from __future__ import annotations
 
@@ -160,3 +161,14 @@ def moe_apply(p: MoE, x: torch.Tensor, ncfg: SiteNumerics, *, n_experts: int, to
         combined = combined + mlp_apply(p.shared, xf, ncfg, act, role="moe.shared",
                                         use_kernel=use_kernel)
     return combined.reshape(b, s, d)
+
+
+def aux_load_balance_loss(logits: torch.Tensor, eid: torch.Tensor, n_experts: int):
+    """Switch-style load-balance auxiliary loss (mean prob x mean load):
+    logits [T, E], eid [T, k] the chosen experts (the first choice
+    counts)."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    load = torch.mean(nn.functional.one_hot(eid[..., 0].to(torch.long), n_experts)
+                      .to(torch.float32), dim=0)
+    imp = torch.mean(probs, dim=0)
+    return n_experts * torch.sum(imp * load)

@@ -16,6 +16,7 @@ from . import transformer as _tf
 class ModelAPI:
     cfg: ModelConfig
     init: Callable  # (seed=0, device=None) -> model
+    train_loss: Callable  # (model, batch, use_kernel=None) -> scalar f32 loss
     paged_pool_init: Callable  # (num_blocks, block_size, dtype, device) -> pools
     paged_prefill: Callable  # (model, tokens, kp, vp, block_ids, true_len, use_kernel)
     # (model, tokens, kp, vp, block_ids, cache_len, last_idx, use_kernel)
@@ -30,6 +31,9 @@ def build(cfg: ModelConfig) -> ModelAPI:
 
     def init(seed: int = 0, device=None):
         return _tf.lm_init(cfg, seed=seed, device=device)
+
+    def train_loss(model, batch, use_kernel=None):
+        return _tf.train_loss(cfg, model, batch, use_kernel)
 
     def paged_pool_init(num_blocks, block_size, dtype, device):
         return _tf.paged_kv_pool_init(cfg, num_blocks, block_size, dtype, device)
@@ -54,7 +58,8 @@ def build(cfg: ModelConfig) -> ModelAPI:
         return _tf.paged_score_tokens(cfg, model, tokens, k_pool, v_pool, block_tables,
                                       lengths, use_kernel)
 
-    return ModelAPI(cfg=cfg, init=init, paged_pool_init=paged_pool_init,
+    return ModelAPI(cfg=cfg, init=init, train_loss=train_loss,
+                    paged_pool_init=paged_pool_init,
                     paged_prefill=paged_prefill, paged_prefill_chunk=paged_prefill_chunk,
                     paged_decode_step=paged_decode_step,
                     paged_score_tokens=paged_score_tokens)

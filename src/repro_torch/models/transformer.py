@@ -12,6 +12,13 @@ Numerics: every matmul resolves a *site* (``attn.qkv``, ``mlp.down``,
 ``lm_head``, ...) against ``cfg.numerics``; layer-range policy rules
 bind each block to its segment's numerics.  ``use_kernel`` selects the
 CUDA kernels or their plain versions (``repro_torch.kernels.ops``).
+
+Training (``train_loss``): the model's parameters are built frozen, for
+serving; :func:`set_trainable` makes its float leaves trainable.  With
+``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` (its
+activations recomputed in the backward pass, as the reference's
+``jax.checkpoint`` with ``nothing_saveable``), and the loss forms each
+512-position chunk's logits under a checkpoint of its own.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dense import dense, dense_init
@@ -129,10 +137,17 @@ def lm_backbone(cfg: ModelConfig, model: DenseLM, embeds, positions, kv_caches=N
     x = embeds
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    remat = cfg.remat and kv_caches is None and torch.is_grad_enabled()
     for i, nsite in iter_layers(cfg.numerics, cfg.n_layers):
         kv_slice = None if kv_caches is None else (kv_caches[0][i], kv_caches[1][i])
-        x, _ = _layer_fwd(cfg, nsite, model.blocks[i], x, positions, kv_slice,
-                          cache_len, use_kernel)
+        if remat:
+            def layer(x, nsite=nsite, blk=model.blocks[i]):
+                return _layer_fwd(cfg, nsite, blk, x, positions, None, None, use_kernel)[0]
+
+            x = checkpoint(layer, x, use_reentrant=False)
+        else:
+            x, _ = _layer_fwd(cfg, nsite, model.blocks[i], x, positions, kv_slice,
+                              cache_len, use_kernel)
     return rmsnorm(model.ln_f, x), kv_caches
 
 
@@ -142,6 +157,72 @@ def lm_logits(cfg: ModelConfig, model: DenseLM, hidden, use_kernel: Optional[boo
     if not w.is_floating_point():  # prequantized lm_head patterns
         return dense(hidden, w, head_cfg, use_kernel=use_kernel)
     return dense(hidden, w.to(hidden.dtype), head_cfg, use_kernel=use_kernel)
+
+
+def lm_loss_chunked(cfg: ModelConfig, model: DenseLM, hidden, labels, chunk: int = 512,
+                    use_kernel: Optional[bool] = None):
+    """Cross-entropy without forming [B, S, V] at once.
+
+    Sequence chunks of ``chunk`` positions; each chunk's logits are
+    formed, reduced and dropped, and formed again in the backward pass
+    (``torch.utils.checkpoint``), so peak logits memory is B * chunk * V.
+    Label -1 marks a masked position.  The mean is over unmasked
+    positions.
+    """
+    s = hidden.shape[1]
+    chunk = min(chunk, s)
+    valid = (labels >= 0).to(torch.float32)
+    labels = labels.clamp(min=0).to(torch.long)
+
+    def chunk_loss(h, lab, v):
+        logits = lm_logits(cfg, model, h, use_kernel).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+        return torch.sum((lse - gold) * v)
+
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        # the reference pads the last chunk; padded positions add 0
+        part = (hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], valid[:, c0:c0 + chunk])
+        if torch.is_grad_enabled():
+            tot = tot + checkpoint(chunk_loss, *part, use_reentrant=False)
+        else:
+            tot = tot + chunk_loss(*part)
+    return tot / torch.clamp(valid.sum(), min=1.0)
+
+
+#: where MoE training waits in the port's queue
+MOE_TRAINING = "ROADMAP.md, queue 1, item 10a: MoE training"
+
+
+def train_loss(cfg: ModelConfig, model: DenseLM, batch,
+               use_kernel: Optional[bool] = None):
+    """batch: {tokens [B, S], labels [B, S]} integer tensors (moved to the
+    model's device).  Returns the mean next-token cross-entropy, a scalar
+    f32 tensor."""
+    if cfg.n_experts:
+        raise NotImplementedError(f"training a MoE model is not ported yet ({MOE_TRAINING})")
+    if "embeds_prefix" in batch:
+        raise NotImplementedError(
+            "a VLM batch (embeds_prefix) is not ported yet (ROADMAP.md, queue 1, item 11: "
+            "the other families)")
+    dev = model.embed.device
+    tokens = batch["tokens"].to(dev)
+    labels = batch["labels"].to(dev)
+    b, s = tokens.shape
+    x = embed_tokens(cfg, model, tokens)
+    positions = default_positions(cfg, b, s, device=dev)
+    hidden, _ = lm_backbone(cfg, model, x, positions, use_kernel=use_kernel)
+    return lm_loss_chunked(cfg, model, hidden, labels, use_kernel=use_kernel)
+
+
+def set_trainable(model: nn.Module, trainable: bool = True) -> nn.Module:
+    """Make every float parameter of ``model`` trainable (or frozen
+    again, for serving), in place.  Pattern (prequantized) weights stay
+    frozen."""
+    for p in model.parameters():
+        p.requires_grad_(trainable and p.is_floating_point())
+    return model
 
 
 def embed_tokens(cfg: ModelConfig, model: DenseLM, tokens):
