@@ -5,10 +5,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--layers N]
                           [--phases device,kernels,conformance,serve,serve_paths,observe,moe,
-                                    train,e2e,times]
+                                    static,train,e2e,times]
 
-It imports ``repro_torch`` (never JAX) and runs ten phases, each on its
-own lines:
+It imports ``repro_torch`` (never JAX) and runs eleven phases, each on
+its own lines:
 
 1. device      — the card's name and power limit (nvidia-smi), the torch
    device, and the kernels' build from ``src/repro_torch/kernels/csrc``.
@@ -88,7 +88,31 @@ own lines:
    and a profile of two decode steps (K1, K2, and the dispatch glue
    around them); then granite-moe-1b-a400m (24 layers, 32 experts top-8)
    prequantized: 7L+1 K1 a forward.  ``--layers`` cuts both depths.
-8. train       — training and the paper's Table II: full-width yi-6b
+8. static      — the static engine and the state-space families:
+   mamba2-780m (48 Mamba2 layers, d_model 1536) and zamba2-1.2b (38
+   layers at d_model 2048 and one shared attention block at 4096,
+   applied 6 times), each at its config's full width and depth under
+   ``default=plam_sim:16:1`` from the port's seeded init, on the static
+   ``Engine``: 4 prompts of 64 tokens and then 2 of 320 (three SSD
+   chunks, the last padded with dt = 0), 16 new tokens, with int16
+   prequantized weights and then with bf16 weights encoded by K3 on
+   every forward (equal tokens, or a top-2 margin below 0.1 where one
+   differs); mamba2 also under its config's own ``posit_quant:16:1``.
+   Gates: every forward's launches (2L + 1 K1 for mamba2, 2L + 8 L/6 + 1
+   for zamba2; as many K3 without prequantized weights, none with; no K2
+   or K5), no plain K1 or codec call on the card, finite logits, decode
+   after a prefill of t tokens within 0.1 of the last logits of a prefill
+   of t + 1, and K1 bit for bit against its plain version on the first
+   launch's own operands at every shape the phase launched.  Printed:
+   decode tok/s, step p50/p95, prefill seconds, peak memory, a profile
+   of two decode steps (idle share, top device ops) and K1's times at the
+   new shapes beside its bound.  Then yi-6b at full width cut to 4
+   layers on the static engine against the continuous engine (the
+   serve-paths margin rule), a 2-layer draft model of its widths drafting
+   4 tokens for it (committed tokens against spec_k=0's by the same
+   rule; acceptance reported), and ``python -m repro_torch.launch.serve``
+   without ``--continuous`` on mamba2-780m.
+9. train       — training and the paper's Table II: full-width yi-6b
    (bf16, remat, ``posit_quant:16:1``) cut to 8 layers takes 6 AdamW
    steps through ``train.loop.make_train_step`` (losses finite and
    falling; every gradient finite and not all zero; per step K3's
@@ -106,13 +130,13 @@ own lines:
    bit to its plain version at every (A, B) shape and dtype that the
    Table II evaluations and ``calibrate``'s trials launched it with, on
    the operands and output of the first such launch.
-9. e2e         — a 2-layer full-width model runs one prefill and 4
+10. e2e        — a 2-layer full-width model runs one prefill and 4
    decode steps on the kernels and on the plain versions; last logits
    must agree within a stated tolerance.  The same for a 2-layer
    deepseek-moe-16b over 2 decode steps, with the router's top-k margin
    logged wherever the two runs route a token differently; and
    ``mitchell_f32`` (plain torch) on the card against the CPU.
-10. times      — CUDA-event times of each kernel, its plain version and
+11. times      — CUDA-event times of each kernel, its plain version and
    (for attention) ``scaled_dot_product_attention``, beside each
    kernel's bound (and, for K1, the floor of its design, with the strip
    width of its prefill path).  Each
@@ -155,7 +179,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ["device", "kernels", "conformance", "serve", "serve_paths", "observe", "moe",
-          "train", "e2e", "times"]
+          "static", "train", "e2e", "times"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 CUDA-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -339,6 +363,29 @@ K1_GRANITE_UNEMBED_MS = (4, 64)
 # times: the grouped kernel at deepseek's expert projections and the M of
 # a decode step and a prefill
 K1_GROUPED_TIME_MS = (1, 7)
+# The static engine and the state-space families (phase static): mamba2-780m
+# and zamba2-1.2b at their configs' full width and depth; STATIC_BATCH
+# seeded prompts of STATIC_PROMPT tokens and STATIC_NEW new tokens, then
+# STATIC_LONG_BATCH of STATIC_LONG_PROMPT (three SSD chunks of 128, the
+# last padded with dt = 0); yi-6b on the static engine at full width cut
+# to STATIC_YI_LAYERS layers (or fewer with --layers), against the
+# continuous engine, and a STATIC_DRAFT_LAYERS-layer draft of its widths
+# on its own seeded weights drafting STATIC_SPEC_K tokens for it; the
+# serving CLI without --continuous
+STATIC_ARCHS = ("mamba2-780m", "zamba2-1.2b")
+STATIC_BATCH, STATIC_PROMPT, STATIC_NEW = 4, 64, 16  # STATIC_NEW: serve_run's 16
+STATIC_LONG_BATCH, STATIC_LONG_PROMPT = 2, 320
+STATIC_YI_LAYERS = 4
+STATIC_DRAFT_LAYERS = 2
+STATIC_SPEC_K = 4
+STATIC_CLI = ["--arch", "mamba2-780m", "--prequantized", "--batch", "4", "--prompt-len",
+              "64", "--new-tokens", "8"]
+STATIC_CLI_TIMEOUT_S = 300
+# K1 at the state-space families' projections (K, N), timed at a decode
+# step's M and a prefill's (STATIC_BATCH x STATIC_PROMPT rows)
+STATIC_K1_SHAPES = {"mamba2-780m": [(1536, 6448), (3072, 1536), (1536, 50280)],
+                    "zamba2-1.2b": [(2048, 8384), (4096, 2048), (4096, 4096), (4096, 8192),
+                                    (8192, 4096), (2048, 32000)]}
 # mitchell_f32 (phase e2e): nmatmul at yi-6b's projections at M = 4 on the
 # card against the CPU over the first MITCHELL_CPU_N columns (columns are
 # independent; the CPU would take minutes over the unembed's 64,000).  The
@@ -573,6 +620,19 @@ class Smoke:
             lib_kv = (kc.repeat_interleave(h // kv, 1), vc.repeat_interleave(h // kv, 1))
             lib_kw = {}
         return lambda: F.scaled_dot_product_attention(qs, *lib_kv, attn_mask=mask, **lib_kw)
+
+    @staticmethod
+    def device_us_by_name(prof, keep=lambda evt: True):
+        """Self device µs summed by event name over a torch.profiler
+        capture, for the events ``keep`` accepts."""
+        by_name = {}
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0)
+            if us > 0 and keep(evt):
+                by_name[evt.key] = by_name.get(evt.key, 0.0) + us
+        return by_name
 
     def int32_ops_per_s(self) -> float:
         return SMS * INT32_LANES_PER_SM * self.clock_mhz * 1e6
@@ -1719,13 +1779,7 @@ class Smoke:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         eng.run()
-        by_name = {}
-        for evt in prof.key_averages():
-            us = getattr(evt, "self_device_time_total", None)
-            if us is None:
-                us = getattr(evt, "self_cuda_time_total", 0)
-            if us > 0:
-                by_name[evt.key] = by_name.get(evt.key, 0.0) + us
+        by_name = self.device_us_by_name(prof)
         busy = sum(by_name.values())
         if busy == 0:
             log("decode profile: the profiler recorded no device time (not measured)")
@@ -2579,6 +2633,500 @@ class Smoke:
 
     # -- phase 8 -------------------------------------------------------------
 
+    def static_prompts(self, vocab, batch, length, seed):
+        """``batch`` seeded prompts of ``length`` tokens, int32 [batch, length]."""
+        torch = self.torch
+        g = torch.Generator().manual_seed(seed)
+        return torch.randint(0, vocab, (batch, length), generator=g, dtype=torch.int32)
+
+    @staticmethod
+    def static_k1(cfg):
+        """K1 launches a forward of an ssm or hybrid model: in_proj and
+        out_proj a layer, the shared block's 8 projections (q, k, v, o,
+        up, gate, down, hybrid.proj) at each of its n_layers // every
+        invocations, and the unembedding."""
+        inv = cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
+        return 2 * cfg.n_layers + 8 * inv + 1
+
+    @contextlib.contextmanager
+    def counting_plain(self):
+        """Calls of K1's and K3's plain versions on CUDA tensors while the
+        block runs (there should be none: every wrapper launches its
+        kernel on a CUDA tensor)."""
+        from repro_torch.kernels import plam_matmul as k1_mod
+        from repro_torch.kernels import posit_codec
+
+        calls, saved = {}, []
+        for mod, name in ((k1_mod, "plam_matmul_seqref"), (posit_codec, "encode_plain"),
+                          (posit_codec, "decode_plain"), (posit_codec, "quantize_plain")):
+            real = getattr(mod, name)
+            saved.append((mod, name, real))
+            calls[name] = 0
+
+            def counted(x, *a, _real=real, _name=name, **kw):
+                calls[_name] += int(x.is_cuda)
+                return _real(x, *a, **kw)
+
+            setattr(mod, name, counted)
+        try:
+            yield calls
+        finally:
+            for mod, name, real in saved:
+                setattr(mod, name, real)
+
+    def static_run(self, name, eng, prompts, new_tokens):
+        """``eng.generate`` (the static engine, ``time_steps``) over
+        ``prompts`` on the card, the launch counts set to 0 just before the
+        run and read just after.  Each forward's kind, M and launches are
+        recorded by wrapping the engine's model API, with each row's top-2
+        logit margin (the margin behind the token that step picks) and
+        whether every logit is finite."""
+        torch = self.torch
+        import numpy as np
+
+        from repro_torch.kernels import _lib
+        from repro_torch.serving import ServeConfig
+
+        calls, finite, margins = [], [], []
+        api = eng.api
+
+        def counted(kind, fn):
+            def call(model, batch, use_kernel=None):
+                before = dict(_lib.launches)
+                logits, caches = fn(model, batch, use_kernel=use_kernel)
+                m = batch["tokens" if kind == "prefill" else "token"].numel()
+                calls.append((kind, m, {k: _lib.launches[k] - before[k] for k in before}))
+                last = logits[:, -1].float()
+                finite.append(torch.isfinite(logits).all())
+                top = torch.topk(last, 2, dim=-1).values
+                margins.append(top[:, 0] - top[:, 1])
+                return logits, caches
+            return call
+
+        eng.api = dataclasses.replace(api, prefill=counted("prefill", api.prefill),
+                                      decode_step=counted("decode", api.decode_step))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()  # this path's run starts here
+        t0 = time.perf_counter()
+        try:
+            out = eng.generate({"tokens": prompts.to(self.dev)},
+                               ServeConfig(max_new_tokens=new_tokens, time_steps=True))
+            torch.cuda.synchronize()
+        finally:
+            eng.api = api
+        wall = time.perf_counter() - t0
+        counts = dict(_lib.launches)
+        lat = list(eng.stats.step_latency_s)
+        decode = lat[1:]
+        b = prompts.shape[0]
+        run = {"outputs": out.cpu().tolist(), "wall_s": wall, "prefill_s": lat[0],
+               "decode_steps": len(decode), "decode_tok_per_s": b * len(decode) / sum(decode),
+               "step_p50_s": float(np.quantile(decode, 0.5)),
+               "step_p95_s": float(np.quantile(decode, 0.95)),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts,
+               "calls": calls, "finite": bool(torch.stack(finite).all()),
+               "margins": torch.stack(margins).cpu().tolist(),
+               "stats": {f: getattr(eng.stats, f) for f in
+                         ("steps", "prefills", "prefill_tokens", "decode_steps",
+                          "active_slot_steps", "generated_tokens")}}
+        log(f"  {name}: {b} x {prompts.shape[1]} tokens, {new_tokens} new, {wall:.2f} s wall: "
+            f"prefill {lat[0]:.3f} s, decode {run['decode_tok_per_s']:.2f} tok/s (step p50 "
+            f"{run['step_p50_s'] * 1e3:.2f} ms, p95 {run['step_p95_s'] * 1e3:.2f} ms), peak "
+            f"{run['peak_gib']:.2f} GiB; launches {({k: v for k, v in counts.items() if v})}")
+        return run
+
+    def static_gates(self, run, k1, k3):
+        """Launches per forward: ``k1`` K1 and ``k3`` K3 (weight encodes or
+        quantizes), no K2, K5, table build or anything else; the K1
+        launches of the counted forwards are all of the run's; every logit
+        finite."""
+        bad = []
+        for kind, m, got in run["calls"]:
+            want = {k: 0 for k in got}
+            want.update(plam_matmul=k1, posit_codec=k3)
+            if got != want:
+                bad.append(f"{kind} forward at M={m}: launches "
+                           f"{ {k: v for k, v in got.items() if v} }, expected K1 {k1}, K3 {k3}")
+        total = sum(c[2]["plam_matmul"] for c in run["calls"])
+        if total != run["launches"]["plam_matmul"]:
+            bad.append(f"K1 launched {run['launches']['plam_matmul']} times in the run, "
+                       f"{total} in its counted forwards")
+        if not run["finite"]:
+            bad.append("a logit is not finite")
+        return bad[:4]
+
+    @staticmethod
+    def static_diffs(got, want):
+        """Each row whose tokens differ from ``want``'s: the first differing
+        position and ``want``'s own top-2 margin at the step that picked
+        it (both runs saw the same context up to there)."""
+        diffs = []
+        for i, (g, w) in enumerate(zip(got["outputs"], want["outputs"])):
+            if g != w:
+                pos = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+                diffs.append({"row": i, "position": pos, "got": g[pos], "want": w[pos],
+                              "plain_top2_margin": want["margins"][pos][i]})
+        return diffs
+
+    def static_extension(self, cfg, model, prompts):
+        """The reference's test_ssm_decode_matches_prefill_extension at full
+        width on the kernels: decode of token t after a prefill of t
+        tokens against the last logits of a prefill of t + 1 tokens.  The
+        hybrid prefills into caches of t + 1 positions (the engine's
+        caches of t would clamp the decode's K/V onto the last prompt
+        token's slot, as the reference's do).  Returns the largest and
+        the mean absolute logit difference, and, for scale, the largest
+        between the prefill of t + 1 tokens in SSD chunks of (t + 1) / 4
+        and in one chunk: the same function in another f32 order."""
+        torch = self.torch
+        from repro_torch.models import build
+        from repro_torch.models import hybrid
+
+        api = build(cfg)
+        prompts = prompts.to(self.dev)
+        b, t = prompts.shape[0], prompts.shape[1] - 1
+        want, _ = api.prefill(model, {"tokens": prompts})
+        if cfg.family == "hybrid":
+            caches = hybrid.cache_init(cfg, b, t + 1, torch.bfloat16, self.dev)
+            _, caches = hybrid.prefill(cfg, model, prompts[:, :t], caches)
+        else:
+            _, caches = api.prefill(model, {"tokens": prompts[:, :t]})
+        got, _ = api.decode_step(model, {"token": prompts[:, t:], "caches": caches,
+                                         "cache_len": t})
+        diff = (got[:, 0].float() - want[:, 0].float()).abs()
+        chunked, _ = build(dataclasses.replace(cfg, ssm_chunk=(t + 1) // 4)).prefill(
+            model, {"tokens": prompts})
+        return (float(diff.max()), float(diff.mean()),
+                float((chunked[:, 0].float() - want[:, 0].float()).abs().max()))
+
+    def static_profile(self, eng, prompts):
+        """Two decode steps of the static engine under torch.profiler, after
+        a prefill and one decode step outside it: wall, device busy time,
+        idle share (1 - busy / wall), K1's and K3's device time and the
+        top device ops."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.serving import ServeConfig
+
+        api, model, scfg = eng.api, eng.model, ServeConfig()
+        prompts = prompts.to(self.dev)
+        logits, caches = api.prefill(model, {"tokens": prompts})
+        caches = eng._grow_caches(caches, 4)
+        state = {"tok": eng._pick(logits[:, -1, :], scfg, 0), "caches": caches}
+
+        def step(i):
+            batch = {"token": state["tok"][:, None], "cache_len": prompts.shape[1] + i,
+                     **eng._cache_kw(state["caches"])}
+            logits, state["caches"] = api.decode_step(model, batch)
+            state["tok"] = eng._pick(logits[:, -1, :], scfg, i + 1)
+
+        step(0)
+        torch.cuda.synchronize()
+        if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
+            log("  decode profile: this torch cannot trace the card (not measured)")
+            return None
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(1)
+            step(2)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by_name = self.device_us_by_name(prof, lambda evt: not evt.key.startswith("aten::"))
+        busy = sum(by_name.values())
+        if busy == 0:
+            log("  decode profile: the profiler recorded no device time (not measured)")
+            return None
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        k1_us = sum(us for name, us in by_name.items() if "plam_matmul" in name)
+        k3_us = sum(us for name, us in by_name.items() if "encode_" in name and "kernel" in name)
+        log(f"  decode profile, 2 steps x {prompts.shape[0]} rows: wall {wall_us / 1e3:.2f} ms, "
+            f"device busy {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}; K1 "
+            f"{k1_us / 1e3:.3f} ms, K3 {k3_us / 1e3:.3f} ms, the rest {(busy - k1_us - k3_us) / 1e3:.3f}"
+            f" ms over {len(by_name)} kernel names; the top ones:")
+        for name, us in top:
+            log(f"    {us / busy:6.1%}  {us / 1e3:8.3f} ms  {name[:90]}")
+        return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
+                "k1_ms": k1_us / 1e3, "k3_ms": k3_us / 1e3, "kernel_names": len(by_name),
+                "top": [[name, us / 1e3] for name, us in top]}
+
+    def static_k1_times(self, arch):
+        """K1 over bf16 activations and int16 weights at ``arch``'s new
+        (K, N), at a decode step's M and a prefill's, window and spun,
+        beside its plain version's time (one call) and its bound (bytes:
+        A, B and C once each; operations: one integer add a product at
+        the int32 rate)."""
+        torch = self.torch
+        from repro_torch.kernels.ops import plam_dense
+        from repro_torch.kernels.posit_codec import posit_encode
+        from repro_torch.numerics import P16
+
+        g, rows, int_rate = self.gen(31), [], self.int32_ops_per_s()
+        for k, n in STATIC_K1_SHAPES[arch]:
+            b = posit_encode(torch.randn((k, n), generator=g, device=self.dev) * k ** -0.5,
+                             P16, out_dtype=torch.int16)
+            for m in (STATIC_BATCH, STATIC_BATCH * STATIC_PROMPT):
+                x = torch.randn((m, k), generator=g, device=self.dev).to(torch.bfloat16)
+                ms, dev_ms = self.timed(lambda: plam_dense(x, b, P16), reps=10)
+                plain = self.events_ms(lambda: plam_dense(x, b, P16, use_kernel=False),
+                                       reps=1, warmup=0)
+                t_bytes = (m * k * 2 + k * n * 2 + m * n * 4) / HBM_BYTES_PER_S * 1e3
+                t_ops = m * k * n / int_rate * 1e3
+                bound = max(t_bytes, t_ops)
+                by = "bytes" if t_bytes >= t_ops else "operations"
+                rows.append({"m": m, "k": k, "n": n, "ms": ms, "device_ms": dev_ms,
+                             "plain_ms": plain, "bound_ms": bound, "bound_by": by})
+                log(f"  time K1 M={m} K={k} N={n} (bf16 A, int16 B): {ms:.4f} ms, device "
+                    f"{dev_ms:.4f} ms (plain {plain:.1f} ms); bound {bound:.4f} ms by {by} "
+                    f"({dev_ms / bound:.2f}x)")
+                del x
+            del b
+        return rows
+
+    def static_model(self, arch, failures):
+        """One state-space arch at its config's full width and depth under
+        default=plam_sim:16:1: int16 prequantized weights, then bf16 weights
+        encoded on every forward, each on STATIC_BATCH x STATIC_PROMPT
+        prompts and then STATIC_LONG_BATCH x STATIC_LONG_PROMPT; the
+        decode-after-prefill check; two profiled decode steps; K1 at its
+        new shapes.  mamba2 also under its config's own posit_quant."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.configs import get_config
+        from repro_torch.core.prequant import quantize_params
+        from repro_torch.kernels import _lib
+        from repro_torch.models import build
+        from repro_torch.serving import Engine, ServeConfig
+
+        cfg = get_config(arch)
+        native = cfg.numerics
+        cfg = cfg.with_numerics("default=plam_sim:16:1")
+        k1 = self.static_k1(cfg)
+        res = {"layers": cfg.n_layers, "k1_per_forward": k1}
+        log(f"static: {arch} family {cfg.family} d_model {cfg.d_model} d_inner "
+            f"{cfg.ssm_expand * cfg.d_model} ssm heads "
+            f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} x {cfg.ssm_head_dim} state "
+            f"{cfg.ssm_state} chunk {cfg.ssm_chunk} vocab {cfg.vocab} layers {cfg.n_layers}"
+            + (f", shared attention every {cfg.shared_attn_every} ({cfg.n_heads}/{cfg.n_kv} heads "
+               f"of {2 * cfg.d_model // cfg.n_heads}, d_ff {cfg.d_ff})"
+               if cfg.family == "hybrid" else "")
+            + f"; policy default=plam_sim:16:1, {k1} K1 a forward")
+        short = self.static_prompts(cfg.vocab, STATIC_BATCH, STATIC_PROMPT, 13)
+        long = self.static_prompts(cfg.vocab, STATIC_LONG_BATCH, STATIC_LONG_PROMPT, 17)
+        api = build(cfg)
+
+        # 1. int16 prequantized weights
+        t0 = time.perf_counter()
+        model = api.init(seed=0, device=self.dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        _, meta = quantize_params(cfg, model)
+        torch.cuda.synchronize()
+        encodes = _lib.launches["posit_codec"]
+        int16_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+        log(f"  seeded init {init_s:.1f} s: {n_params / 1e9:.3f} G parameters; quantize_params "
+            f"{time.perf_counter() - t0:.2f} s: {encodes} encodes, {len(meta)} sites, "
+            f"{int16_gb:.2f} GB of weights")
+        self.path_launches["posit_codec"] = self.path_launches.get("posit_codec", 0) + encodes
+        # each weight once: the shared block's 8 once, however often it runs
+        want_encodes = 2 * cfg.n_layers + 1 + (8 if cfg.family == "hybrid" else 0)
+        if encodes != want_encodes:
+            failures.append(f"{arch}: {encodes} weight encodes at build, expected "
+                            f"{want_encodes}")
+        eng = Engine(cfg, params=model, device=self.dev)
+        # the model's first forwards (cuBLAS handles, the allocator), outside the counted runs
+        eng.generate({"tokens": short[:, :8].to(self.dev)}, ServeConfig(max_new_tokens=2))
+        pq = {"short": self.static_run(f"{arch} prequantized", eng, short, STATIC_NEW),
+              "long": self.static_run(f"{arch} prequantized", eng, long, STATIC_NEW)}
+        for kind, run in pq.items():
+            failures.extend(f"{arch} prequantized {kind}: {f}"
+                            for f in self.static_gates(run, k1, 0))
+            self.path_launches["plam_matmul"] = (self.path_launches.get("plam_matmul", 0)
+                                                 + run["launches"]["plam_matmul"])
+        ext, mean_ext, chunked = self.static_extension(cfg, model, short)
+        log(f"  decode of token {STATIC_PROMPT - 1} after a prefill of {STATIC_PROMPT - 1} "
+            f"against a prefill of {STATIC_PROMPT}: max |logit difference| {ext:.4f} (mean "
+            f"{mean_ext:.5f}; tolerance {E2E_LOGIT_TOL}); for scale, the same prefill with "
+            f"SSD chunks of {STATIC_PROMPT // 4} against one chunk, max {chunked:.4f} (not "
+            f"gated)")
+        if not ext <= E2E_LOGIT_TOL:
+            failures.append(f"{arch}: decode after prefill {ext:.4f} from the prefill extension")
+        profile = self.static_profile(eng, short)
+        del eng, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. bf16 weights, encoded by K3 before each K1 launch
+        model = api.init(seed=0, device=self.dev)
+        eng = Engine(cfg, params=model, device=self.dev)
+        bf = {"short": self.static_run(f"{arch} bf16 weights", eng, short, STATIC_NEW),
+              "long": self.static_run(f"{arch} bf16 weights", eng, long, STATIC_NEW)}
+        for kind, run in bf.items():
+            failures.extend(f"{arch} bf16 {kind}: {f}" for f in self.static_gates(run, k1, k1))
+            self.path_launches["posit_codec"] = (self.path_launches.get("posit_codec", 0)
+                                                 + run["launches"]["posit_codec"])
+            diffs = self.static_diffs(run, pq[kind])
+            if diffs:
+                log(f"  {arch} {kind}: bf16-weight tokens differ from the prequantized run's: "
+                    f"{diffs}")
+            if any(d["plain_top2_margin"] >= E2E_LOGIT_TOL for d in diffs):
+                failures.append(f"{arch} {kind}: tokens differ at a top-2 margin >= "
+                                f"{E2E_LOGIT_TOL}: {diffs}")
+            res[f"bf16_{kind}_diffs"] = diffs
+        profile_bf16 = self.static_profile(eng, short)
+        del eng
+
+        # 3. mamba2 under its config's own numerics (posit_quant: K3's
+        # quantize on both operands of every projection, an f32 matmul)
+        if cfg.family == "ssm":
+            qcfg = cfg.with_numerics(native)
+            eng = Engine(qcfg, params=model, device=self.dev)
+            run = self.static_run(f"{arch} {qcfg.numerics.mode}:16:1", eng, short, STATIC_NEW)
+            failures.extend(f"{arch} posit_quant: {f}" for f in self.static_gates(run, 0, 2 * k1))
+            self.path_launches["posit_codec"] = (self.path_launches.get("posit_codec", 0)
+                                                 + run["launches"]["posit_codec"])
+            res["posit_quant"] = {k: v for k, v in run.items() if k != "calls"}
+            del eng
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        res.update({
+            "params": n_params, "init_s": init_s, "encodes_at_build": encodes,
+            "int16_weight_gb": int16_gb, "decode_extension_max_err": ext,
+            "decode_extension_mean_err": mean_ext, "chunk_order_max_diff": chunked,
+            "decode_profile": profile, "decode_profile_bf16": profile_bf16,
+            **{f"prequantized_{k}": {x: y for x, y in v.items() if x != "calls"}
+               for k, v in pq.items()},
+            **{f"bf16_{k}": {x: y for x, y in v.items() if x != "calls"} for k, v in bf.items()}})
+        return res
+
+    def static_yi(self, failures):
+        """yi-6b at full width cut to STATIC_YI_LAYERS layers, prequantized,
+        on the static engine against the continuous engine on the same
+        prompts; then a DraftModelDrafter (a STATIC_DRAFT_LAYERS-layer draft
+        of its widths, its own seeded weights, kept bf16) drafting
+        STATIC_SPEC_K tokens for it on the continuous engine.  Each run's
+        tokens equal the continuous plain run's, or differ only where the
+        plain context's top-2 margin is below E2E_LOGIT_TOL."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.core.prequant import quantize_params
+        from repro_torch.models import transformer as tf
+        from repro_torch.serving import DraftModelDrafter, Engine, ServeOptions
+
+        layers = min(self.args.layers, STATIC_YI_LAYERS)
+        cfg = self.yi_cfg(layers)
+        model = tf.lm_init(cfg, seed=0, device=self.dev)
+        quantize_params(cfg, model)
+        prompts = self.static_prompts(cfg.vocab, STATIC_BATCH, STATIC_PROMPT, 19)
+        eng = Engine(cfg, params=model, device=self.dev)
+        static = self.static_run(f"yi-6b ({layers} layers) static", eng, prompts, STATIC_NEW)
+        del eng
+        failures.extend(f"yi-6b static: {f}" for f in self.static_gates(static, 7 * layers + 1, 0))
+        self.path_launches["plam_matmul"] = (self.path_launches.get("plam_matmul", 0)
+                                             + static["launches"]["plam_matmul"])
+        opts = ServeOptions(max_new_tokens=STATIC_NEW, block_size=16, max_slots=4, num_blocks=64,
+                            max_seq_len=128)
+        rows = prompts.tolist()
+        plain = self.serve_run(f"yi-6b ({layers} layers) continuous", cfg, model, opts, rows)
+        res = {"layers": layers, "static": {k: v for k, v in static.items() if k != "calls"},
+               "continuous_outputs": plain["outputs"]}
+        diffs = self.token_diffs(cfg, model, rows, static["outputs"], plain["outputs"])
+        res["static_diffs"] = diffs
+        log(f"  yi-6b static tokens {'equal to' if not diffs else 'differ from'} the "
+            f"continuous engine's" + (f": {diffs}" if diffs else ""))
+        if any(d["plain_top2_margin"] >= E2E_LOGIT_TOL for d in diffs):
+            failures.append(f"yi-6b static: tokens differ at a top-2 margin >= "
+                            f"{E2E_LOGIT_TOL}: {diffs}")
+        draft_cfg = dataclasses.replace(cfg, n_layers=STATIC_DRAFT_LAYERS)
+        drafter = DraftModelDrafter(draft_cfg, cfg, init_seed=1, device=self.dev)
+        spec = self.serve_run(
+            f"yi-6b spec_k={STATIC_SPEC_K}, a {STATIC_DRAFT_LAYERS}-layer draft model", cfg,
+            model, dataclasses.replace(opts, spec_k=STATIC_SPEC_K, spec_draft=drafter), rows)
+        diffs = self.token_diffs(cfg, model, rows, spec["outputs"], plain["outputs"])
+        log(f"  draft model: {drafter.proposals} proposals, {drafter.proposed_tokens} tokens "
+            f"proposed; acceptance {spec['acceptance_rate']:.3f}, "
+            f"{spec['tokens_per_verify_step']:.2f} tokens a verify step over "
+            f"{spec['spec_steps']} verify steps; committed tokens "
+            f"{'equal to' if not diffs else 'differ from'} the spec_k=0 run's"
+            + (f": {diffs}" if diffs else ""))
+        if any(d["plain_top2_margin"] >= E2E_LOGIT_TOL for d in diffs):
+            failures.append(f"draft model: tokens differ at a top-2 margin >= {E2E_LOGIT_TOL}: "
+                            f"{diffs}")
+        if drafter.proposals == 0:
+            failures.append("draft model: no proposal")
+        res["draft"] = {"proposals": drafter.proposals,
+                        "proposed_tokens": drafter.proposed_tokens,
+                        "acceptance_rate": spec["acceptance_rate"],
+                        "tokens_per_verify_step": spec["tokens_per_verify_step"],
+                        "spec_steps": spec["spec_steps"], "wall_s": spec["wall_s"],
+                        "diffs": diffs}
+        del model, drafter
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    def static_cli(self, failures):
+        """``python -m repro_torch.launch.serve`` without --continuous (the
+        static engine) on full-width mamba2-780m, prequantized."""
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"] + STATIC_CLI,
+                              cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=STATIC_CLI_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        summary = lines[0] if lines else ""
+        rows = [ln for ln in lines if ln.startswith("batch[")]
+        log(f"  static serve CLI ({secs:.1f} s, exit {proc.returncode}): "
+            f"{summary or proc.stderr.strip().splitlines()[-3:]}")
+        if (proc.returncode != 0 or len(rows) != 4
+                or not summary.startswith("arch=mamba2-780m numerics='default=plam_sim:16:1'")):
+            failures.append(f"static CLI: exit {proc.returncode}, {len(rows)} batch rows")
+        return {"argv": STATIC_CLI, "rc": proc.returncode, "seconds": secs, "stdout": lines[:8]}
+
+    def phase_static(self):
+        """The static engine and the state-space families at full width and
+        depth: mamba2-780m and zamba2-1.2b (static_model), yi-6b on the
+        static engine and a draft model drafting for it (static_yi), and
+        the serving CLI without --continuous.  Every K1 launch of the two
+        state-space models is held, after their runs, to the plain version
+        on the first launch's own operands at each shape; no plain K1 or
+        codec call runs on the card."""
+        torch = self.torch
+        import gc
+
+        self.yi_model = None  # the earlier phases' model
+        gc.collect()
+        torch.cuda.empty_cache()
+        failures, res = [], {}
+        t0 = time.perf_counter()
+        for arch in STATIC_ARCHS:
+            with self.recording_k1() as seen, self.counting_plain() as plain:
+                res[arch] = self.static_model(arch, failures)
+            if any(plain.values()):
+                failures.append(f"{arch}: plain calls on the card {plain}")
+            log(f"  {arch}: plain K1 / codec calls on the card {plain}")
+            res[arch]["k1_checked"] = self.check_recorded_k1(arch, seen, failures)
+            res[arch]["k1_times"] = self.static_k1_times(arch)
+        with self.counting_plain() as plain:
+            res["yi-6b"] = self.static_yi(failures)
+        if any(plain.values()):
+            failures.append(f"yi-6b / draft: plain calls on the card {plain}")
+        res["cli"] = self.static_cli(failures)
+        res["seconds"] = time.perf_counter() - t0
+        self.results["static"] = res
+        if failures:
+            raise AssertionError("; ".join(failures[:8]))
+
+    # -- phase 9 -------------------------------------------------------------
+
     def train_cfg(self):
         """yi-6b at full width, as configs/yi_6b.py gives it (bf16
         parameters, remat, posit_quant:16:1), cut to TRAIN_LAYERS layers
@@ -2745,13 +3293,8 @@ class Smoke:
         # the card's own events only: a host-side record (an aten op, the
         # autograd Function around K3) carries the device time of the
         # kernels it launched, which are listed on their own as well
-        by_name = {}
-        for evt in prof.key_averages():
-            us = getattr(evt, "self_device_time_total", None)
-            if us is None:
-                us = getattr(evt, "self_cuda_time_total", 0)
-            if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[evt.key] = by_name.get(evt.key, 0.0) + us
+        by_name = self.device_us_by_name(
+            prof, lambda evt: evt.device_type == torch.autograd.DeviceType.CUDA)
         by_name.pop("Command Buffer Full", None)  # a launch-queue marker, no kernel
         busy = sum(by_name.values())
         if busy == 0:
@@ -3052,7 +3595,7 @@ class Smoke:
             f"{[(c['m'], c['k'], c['n'], c['a'], c['b'], c['launches']) for c in cases]}")
         return {"ok": ok, "cases": cases, "seconds": secs}
 
-    # -- phase 9 -------------------------------------------------------------
+    # -- phase 10 ------------------------------------------------------------
 
     def phase_e2e(self):
         torch = self.torch
@@ -3221,7 +3764,7 @@ class Smoke:
         self.results["e2e"]["mitchell"] = {"max_abs_diff": worst_abs, "allclose_ratio": worst}
         return failures
 
-    # -- phase 10 ------------------------------------------------------------
+    # -- phase 11 ------------------------------------------------------------
 
     def phase_times(self):
         torch = self.torch
@@ -3872,9 +4415,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="yi-6b depth for the serve phase, and at most the MoE models' "
-                         "depth in the moe phase and the trained model's in the train "
-                         f"phase ({TRAIN_LAYERS} by default; widths are never cut; "
-                         "serve_paths and observe always run all 32 layers)")
+                         "depth in the moe phase, yi-6b's in the static phase "
+                         f"({STATIC_YI_LAYERS} by default) and the trained model's in the "
+                         f"train phase ({TRAIN_LAYERS} by default; widths are never cut; "
+                         "serve_paths and observe always run all 32 layers, and the static "
+                         "phase's state-space models all of theirs)")
     ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args()
     try:

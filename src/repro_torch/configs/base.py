@@ -2,7 +2,7 @@
 
 Field for field the same as the reference's ``ModelConfig``, so one
 configuration describes the same model in both packages.  The port
-serves ``family="dense"`` and ``family="moe"`` so far.
+serves the ``dense``, ``moe``, ``ssm`` and ``hybrid`` families so far.
 """
 from __future__ import annotations
 

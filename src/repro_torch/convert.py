@@ -3,8 +3,10 @@ and the port's.
 
 ``params_from_jax`` takes the reference's parameter pytree as numpy
 arrays (nested dicts; per-layer leaves stacked on a leading [L] axis)
-and returns the port's ``DenseLM`` holding the same values, the stacked
-axis split across blocks.  A MoE block's leaves (``layers/moe/router``
+and returns the port's model for ``cfg.family`` (``DenseLM``,
+``MambaLM`` or ``HybridLM``) holding the same values, the stacked axis
+split across blocks; leaves outside the layer stack (the hybrid's shared
+block, ``shared/attn/wq`` ...) come across unsplit.  A MoE block's leaves (``layers/moe/router``
 [L, d, E], the expert stacks ``layers/moe/w{g,u,d}`` [L, E, K, N] and
 the shared experts' ``layers/moe/shared/*``) come across the same way.  Leaves may be float32, bfloat16 passed as a
 ``uint16`` view, or int16/int32 posit patterns of prequantized weights;
@@ -31,7 +33,12 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.prequant import param_path
 from repro_torch.device import resolve_device
+from repro_torch.models.hybrid import HybridLM
+from repro_torch.models.mamba_lm import MambaLM
 from repro_torch.models.transformer import DenseLM
+
+#: the port's model class of each family
+MODEL_CLASSES = {"dense": DenseLM, "moe": DenseLM, "ssm": MambaLM, "hybrid": HybridLM}
 
 
 def _leaf(tree: Mapping, path: str):
@@ -51,11 +58,13 @@ def _to_torch(leaf: np.ndarray) -> torch.Tensor:
 
 
 @torch.no_grad()
-def params_from_jax(tree: Mapping, cfg: ModelConfig, device=None) -> DenseLM:
+def params_from_jax(tree: Mapping, cfg: ModelConfig, device=None) -> nn.Module:
     """Build the port's model for ``cfg`` from a reference parameter
     pytree of numpy arrays, on ``device`` (CUDA by default)."""
     device = resolve_device(device)
-    model = DenseLM(cfg, generator=torch.Generator(), device=torch.device("meta"))
+    # encdec and vlm raise in DenseLM, naming their queue item
+    cls = MODEL_CLASSES.get(cfg.family, DenseLM)
+    model = cls(cfg, generator=torch.Generator(), device=torch.device("meta"))
     for name, _ in list(model.named_parameters()):
         leaf = _leaf(tree, param_path(name))
         if name.startswith("blocks."):

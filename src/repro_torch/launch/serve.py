@@ -17,11 +17,15 @@ policy-selected weights to posit patterns once at engine build (int16
 storage; PLAM sites serve through ``kernels.ops.plam_dense``).
 
 ``--continuous`` serves on the paged-KV continuous-batching engine,
-staggering request arrivals one step apart; it is the only engine ported
-so far, so a run without it raises ``NotImplementedError``, as do
-``--tp N`` (N > 1) and ``--force-host-devices`` (``ROADMAP.md``, queue
-1, items 11 and 12).  ``--prefill-chunk M`` turns on chunked prefill (M
-a multiple of the block size, 8).
+staggering request arrivals one step apart.  Without it the static
+engine generates for one batch of ``--batch`` prompts (the only engine
+of the ssm and hybrid families, e.g. ``--arch mamba2-780m``); chunked
+prefill, speculative decoding, preemption, deadlines and priorities then
+exit asking for ``--continuous``, and the encdec and vlm families exit
+pointing at ``examples/``, as in the reference.  ``--tp N`` (N > 1) and
+``--force-host-devices`` raise ``NotImplementedError`` (``ROADMAP.md``,
+queue 1, item 12).  ``--prefill-chunk M`` turns on chunked prefill (M a
+multiple of the block size, 8).
 
 Engine options beyond those flags are spelled ``--opt KEY=VAL``
 (repeatable), with KEY any ``repro_torch.serving.ServeOptions`` field,
@@ -208,7 +212,7 @@ def main(argv=None) -> None:
             "--force-host-devices (a multi-device platform for tensor parallelism) "
             + LATER.format(TENSOR_PARALLELISM))
     opts = options_from_args(args)
-    opts.check_supported()  # tp > 1 and the static engine raise here
+    opts.check_supported()  # tp > 1 raises here
     device = resolve_device(args.device)
 
     if args.arch not in ARCHS:
@@ -223,8 +227,13 @@ def main(argv=None) -> None:
         policy = parse_policy(f"default={args.numerics or 'plam_sim'}")
     cfg = cfg.with_numerics(policy)
     numerics_label = describe(cfg.numerics)
+    if cfg.family in ("encdec", "vlm"):
+        raise SystemExit("use examples/ for multimodal serving demos")
 
     rng = np.random.default_rng(args.seed)
+    if opts.engine != "continuous":
+        _serve_static(args, cfg, opts, numerics_label, rng, device)
+        return
     eng = build_engine(cfg, opts, init_seed=args.seed, device=device)
     handles = [eng.submit(rng.integers(0, cfg.vocab, args.prompt_len).tolist(),
                           arrival_step=i, **opts.submit_kwargs())
@@ -260,17 +269,44 @@ def main(argv=None) -> None:
     _write_artifacts(args, eng)
 
 
+def _serve_static(args, cfg, opts, numerics_label, rng, device) -> None:
+    """One batch of ``--batch`` seeded prompts on the static engine."""
+    import torch
+
+    from repro_torch.serving import ContinuousBatchingEngine, build_engine
+
+    if (opts.tp > 1 or opts.prefill_chunk or opts.spec_k
+            or opts.preemption != "off" or opts.deadline_s is not None
+            or opts.priority):
+        raise SystemExit("tp / prefill_chunk / spec_k / preemption / "
+                         "deadline_s / priority require --continuous")
+    eng = build_engine(cfg, opts, init_seed=args.seed, device=device)
+    if isinstance(eng, ContinuousBatchingEngine):
+        raise SystemExit(f"--opt engine={opts.engine} picks the continuous engine for "
+                         f"{cfg.family!r}; pass --continuous")
+    prompts = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype("int32"))}
+    out = eng.generate(prompts, opts.static())
+    print(f"arch={cfg.name} numerics={numerics_label!r} "
+          f"step_p50={eng.stats.latency_p50() * 1e3:.1f}ms "
+          f"step_p95={eng.stats.latency_p95() * 1e3:.1f}ms")
+    for i, row in enumerate(out.cpu().tolist()):
+        print(f"batch[{i}]: {row}")
+    _write_artifacts(args, eng)
+
+
 def _write_artifacts(args, eng) -> None:
     """Honor --trace-out / --metrics-out after a run."""
+    trace = getattr(eng, "trace", None)
     if args.trace_out:
-        if eng.trace is None:
-            print(f"trace-out skipped: engine has no trace (trace=False): "
-                  f"{args.trace_out}")
+        if trace is None:
+            print(f"trace-out skipped: engine has no trace "
+                  f"(static engine or trace=False): {args.trace_out}")
         elif args.trace_out.endswith(".json"):
-            eng.trace.to_chrome_trace(args.trace_out)
+            trace.to_chrome_trace(args.trace_out)
             print(f"wrote Chrome trace: {args.trace_out}")
         else:
-            eng.trace.to_jsonl(args.trace_out)
+            trace.to_jsonl(args.trace_out)
             print(f"wrote trace events: {args.trace_out}")
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:

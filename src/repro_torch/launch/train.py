@@ -13,8 +13,8 @@ artifact); the policy goes into every checkpoint manifest, so serving
 restores the exact numerics.  The single-mode flags (--numerics,
 --posit-n, --posit-es, --carrier) stay as sugar for a uniform policy.
 Checkpoints use the reference's layout, so either package resumes the
-other's.  A MoE arch raises ``NotImplementedError`` (``ROADMAP.md``,
-queue 1, item 10a).
+other's.  A MoE, ssm or hybrid arch raises ``NotImplementedError``
+(``ROADMAP.md``, queue 1, item 10a).
 """
 import argparse
 import dataclasses
@@ -62,7 +62,7 @@ def main(argv=None) -> None:
     from repro_torch.data.synthetic import DataConfig, lm_batch
     from repro_torch.device import resolve_device
     from repro_torch.models.registry import build
-    from repro_torch.models.transformer import MOE_TRAINING, DenseLM, set_trainable
+    from repro_torch.models.transformer import LATER_TRAINING, DenseLM, set_trainable
     from repro_torch.optim.optimizers import OptConfig
     from repro_torch.train.checkpoint import policy_extra
     from repro_torch.train.loop import FailureInjector, TrainConfig, run
@@ -79,8 +79,9 @@ def main(argv=None) -> None:
             mode=args.numerics, n=args.posit_n, es=args.posit_es, carrier=args.carrier))
     if cfg.family in ("encdec", "vlm"):
         raise SystemExit("use examples/ for multimodal training demos; LM families here")
-    if cfg.n_experts:
-        raise NotImplementedError(f"training a MoE model is not ported yet ({MOE_TRAINING})")
+    if cfg.n_experts or cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"training a {cfg.family} model is not ported yet ({LATER_TRAINING})")
     api = build(cfg)
 
     def init():

@@ -89,9 +89,12 @@ def attn_apply(
     ``cache_len`` is an int (one offset shared by the batch) or an
     integer tensor [B] (multi-token paged scoring: every slot writes its
     span at its own offset and attends causally over its own prefix,
-    under a [B, 1, Sq, Sk] mask).  As the reference's
-    ``dynamic_update_slice`` does, an offset past ``Sk - S`` is clamped
-    so that the span stays inside the cache."""
+    under a [B, 1, Sq, Sk] mask).  In both cases, as the reference's
+    ``dynamic_update_slice`` does, a write offset past ``Sk - S`` is
+    clamped so that the span stays inside the cache; the mask keeps the
+    unclamped query positions (so a decode step past the end of a
+    prompt-sized cache overwrites its last slot and attends to every
+    key, as the reference's hybrid decode does)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, ncfg, n_heads, n_kv, head_dim, use_kernel)
     q = apply_rope(q, positions, rope_theta)
@@ -112,10 +115,13 @@ def attn_apply(
         out = attn_core(q, ck, cv, m, softcap)
         new_kv = (ck, cv)
     elif kv_cache is not None:
-        # write the span at cache_len, attend causally over the cache prefix
+        # write the span at cache_len (clamped as dynamic_update_slice
+        # clamps it), attend causally over the cache prefix at the
+        # unclamped query positions
         ck, cv = kv_cache
-        ck[:, cache_len:cache_len + s] = k.to(ck.dtype)
-        cv[:, cache_len:cache_len + s] = v.to(cv.dtype)
+        at = max(0, min(int(cache_len), ck.shape[1] - s))
+        ck[:, at:at + s] = k.to(ck.dtype)
+        cv[:, at:at + s] = v.to(cv.dtype)
         m = causal_mask(s, ck.shape[1], cache_len, device=x.device)
         out = attn_core(q, ck, cv, m, softcap)
         new_kv = (ck, cv)

@@ -1,0 +1,159 @@
+"""Zamba2-style hybrid: a Mamba2 backbone and one shared attention block.
+
+Port of ``repro/models/hybrid.py``.  The shared transformer block (one
+set of weights) runs after every ``shared_attn_every`` Mamba2 layers;
+its input is concat(hidden, the original embeddings), 2 * d_model wide,
+and its output is projected back to d_model (site ``hybrid.proj``).
+Its sites resolve layer-free, as the reference's
+``bind(cfg.numerics, None, cfg.n_layers)``.  Each invocation has its
+own slot of the shared KV cache.
+
+Caches: {"ssm": the Mamba2 caches of ``mamba_lm``, "shared_k" /
+"shared_v": [n_inv, B, S, kv, 2 * d_model / n_heads]}.  The static
+engine does not grow them past the prompt (neither does the
+reference's), so a decode step writes its K/V onto the cache's last
+slot and attends to every key there, as the reference's
+``dynamic_update_slice`` and causal mask do.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.dense import dense, dense_init
+from repro_torch.core.policy import bind, site
+
+from .attention import Attention, attn_apply
+from .common import RMSNorm, iter_layers, rmsnorm
+from .mamba_lm import MambaBlock, embed_init, run_layer, store_states
+from .mamba_lm import cache_init as ssm_cache_init
+from .mlp import MLP, mlp_apply
+from .transformer import default_positions, embed_tokens, lm_logits, torch_dtype
+
+
+class SharedBlock(nn.Module):
+    """``ln1``, ``attn`` (heads of 2 * d_model / n_heads), ``ln2``,
+    ``mlp`` over 2 * d_model, and ``out_proj`` [2 * d_model, d_model]."""
+
+    def __init__(self, cfg: ModelConfig, *, generator, device, dtype):
+        super().__init__()
+        d2 = 2 * cfg.d_model
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.ln1 = RMSNorm(d2, device=device, dtype=dtype)
+        self.attn = Attention(d2, cfg.n_heads, cfg.n_kv, d2 // cfg.n_heads, **kw)
+        self.ln2 = RMSNorm(d2, device=device, dtype=dtype)
+        self.mlp = MLP(d2, cfg.d_ff, cfg.glu, **kw)
+        self.out_proj = nn.Parameter(dense_init(d2, cfg.d_model, **kw), requires_grad=False)
+
+
+class HybridLM(nn.Module):
+    """``embed``, ``blocks[i].{ln, mamba}``, ``shared``, ``ln_f``,
+    ``unembed``, in the reference's layout."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        dtype = torch_dtype(cfg.param_dtype)
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.embed = nn.Parameter(embed_init(cfg.vocab, cfg.d_model, **kw),
+                                  requires_grad=False)
+        self.blocks = nn.ModuleList(MambaBlock(cfg, **kw) for _ in range(cfg.n_layers))
+        self.shared = SharedBlock(cfg, **kw)
+        self.ln_f = RMSNorm(cfg.d_model, device=device, dtype=dtype)
+        self.unembed = nn.Parameter(dense_init(cfg.d_model, cfg.vocab, **kw),
+                                    requires_grad=False)
+        for p in self.parameters():
+            p.requires_grad_(False)
+
+
+def hybrid_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> HybridLM:
+    """The port's own seeded init on ``device`` (CUDA by default)."""
+    from repro_torch.device import resolve_device
+
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return HybridLM(cfg, generator=gen, device=device)
+
+
+def n_shared_invocations(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.shared_attn_every
+
+
+def _shared_block(cfg: ModelConfig, sp: SharedBlock, x, x0, positions, kv_slice,
+                  cache_len, use_kernel):
+    """concat(hidden, embeds) -> shared attention and MLP -> projected back
+    to d_model and added to the hidden state."""
+    d2 = 2 * cfg.d_model
+    nsite = bind(cfg.numerics, None, cfg.n_layers)
+    cat = torch.cat([x, x0], dim=-1)
+    h, new_kv = attn_apply(
+        sp.attn, rmsnorm(sp.ln1, cat), nsite,
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=d2 // cfg.n_heads,
+        positions=positions, rope_theta=cfg.rope_theta,
+        kv_cache=kv_slice, cache_len=cache_len, use_kernel=use_kernel,
+    )
+    cat = cat + h
+    cat = cat + mlp_apply(sp.mlp, rmsnorm(sp.ln2, cat), nsite, cfg.act, use_kernel=use_kernel)
+    return x + dense(cat, sp.out_proj, site(nsite, "hybrid.proj"), use_kernel=use_kernel), new_kv
+
+
+def hybrid_backbone(cfg: ModelConfig, model: HybridLM, embeds, positions, caches=None,
+                    cache_len: Optional[int] = None, use_kernel: Optional[bool] = None):
+    """Run the Mamba2 layers with the shared block after every
+    ``shared_attn_every`` of them.  caches: None, or the dict of
+    :func:`cache_init` (its shared K/V written in place at ``cache_len``).
+    Returns (hidden after ln_f, new caches or None)."""
+    x, x0 = embeds, embeds
+    every = cfg.shared_attn_every
+    states = []
+    for i, nsite in iter_layers(cfg.numerics, cfg.n_layers):
+        x, nc = run_layer(cfg, nsite, model.blocks[i], x, None if caches is None
+                          else caches["ssm"], i, use_kernel)
+        states.append(nc)
+        if (i + 1) % every == 0:
+            inv = (i + 1) // every - 1
+            kv_slice = None if caches is None else (caches["shared_k"][inv],
+                                                   caches["shared_v"][inv])
+            x, _ = _shared_block(cfg, model.shared, x, x0, positions, kv_slice, cache_len,
+                                 use_kernel)
+    hidden = rmsnorm(model.ln_f, x)
+    if caches is None:
+        return hidden, None
+    caches = dict(caches, ssm=store_states(caches["ssm"], states, embeds.shape[1]))
+    return hidden, caches
+
+
+def cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None):
+    hd2 = 2 * cfg.d_model // cfg.n_heads
+    kv_shape = (n_shared_invocations(cfg), batch, max_len, cfg.n_kv, hd2)
+    return {"ssm": ssm_cache_init(cfg, batch, max_len, dtype, device),
+            "shared_k": torch.zeros(kv_shape, dtype=dtype, device=device),
+            "shared_v": torch.zeros(kv_shape, dtype=dtype, device=device)}
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, model: HybridLM, tokens, caches,
+            use_kernel: Optional[bool] = None):
+    """tokens [B, S] over caches of S positions -> (logits [B, 1, V] at the
+    last token, caches)."""
+    b, s = tokens.shape
+    positions = default_positions(cfg, b, s, device=tokens.device)
+    hidden, caches = hybrid_backbone(cfg, model, embed_tokens(cfg, model, tokens), positions,
+                                     caches, 0, use_kernel)
+    return lm_logits(cfg, model, hidden[:, -1:, :], use_kernel), caches
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, model: HybridLM, token, caches, cache_len: int,
+                use_kernel: Optional[bool] = None):
+    """token [B, 1] at position ``cache_len`` -> (logits [B, 1, V], caches)."""
+    b = token.shape[0]
+    positions = default_positions(cfg, b, 1, offset=cache_len, device=token.device)
+    hidden, caches = hybrid_backbone(cfg, model, embed_tokens(cfg, model, token), positions,
+                                     caches, cache_len, use_kernel)
+    return lm_logits(cfg, model, hidden, use_kernel), caches

@@ -58,7 +58,8 @@ class Block(nn.Module):
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.glu, **kw)
 
 
-#: the families this module builds; the others are still to be ported
+#: the families this module builds (ssm and hybrid have modules of their
+#: own); encdec and vlm are still to be ported
 FAMILIES = ("dense", "moe")
 LATER_FAMILY = "is not ported yet (ROADMAP.md, queue 1, item 11: the other families)"
 
@@ -191,8 +192,10 @@ def lm_loss_chunked(cfg: ModelConfig, model: DenseLM, hidden, labels, chunk: int
     return tot / torch.clamp(valid.sum(), min=1.0)
 
 
-#: where MoE training waits in the port's queue
-MOE_TRAINING = "ROADMAP.md, queue 1, item 10a: MoE training"
+#: where the training of the MoE, ssm and hybrid families waits in the
+#: port's queue
+LATER_TRAINING = ("ROADMAP.md, queue 1, item 10a: training of the MoE, ssm and hybrid "
+                  "families")
 
 
 def train_loss(cfg: ModelConfig, model: DenseLM, batch,
@@ -201,7 +204,7 @@ def train_loss(cfg: ModelConfig, model: DenseLM, batch,
     model's device).  Returns the mean next-token cross-entropy, a scalar
     f32 tensor."""
     if cfg.n_experts:
-        raise NotImplementedError(f"training a MoE model is not ported yet ({MOE_TRAINING})")
+        raise NotImplementedError(f"training a MoE model is not ported yet ({LATER_TRAINING})")
     if "embeds_prefix" in batch:
         raise NotImplementedError(
             "a VLM batch (embeds_prefix) is not ported yet (ROADMAP.md, queue 1, item 11: "
@@ -239,6 +242,35 @@ def kv_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, model: DenseLM, tokens, kv_caches,
+            use_kernel: Optional[bool] = None):
+    """Full-sequence prefill of the static engine: writes the contiguous
+    KV caches (k, v [L, B, S, kv, hd]) in place from position 0 and
+    returns (logits [B, 1, V] at the last token, kv_caches)."""
+    b, s = tokens.shape
+    x = embed_tokens(cfg, model, tokens)
+    positions = default_positions(cfg, b, s, device=tokens.device)
+    hidden, kv_caches = lm_backbone(cfg, model, x, positions, kv_caches=kv_caches,
+                                    cache_len=0, use_kernel=use_kernel)
+    return lm_logits(cfg, model, hidden[:, -1:, :], use_kernel), kv_caches
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, model: DenseLM, token, kv_caches, cache_len: int,
+                use_kernel: Optional[bool] = None):
+    """One-token decode of the whole batch at one shared offset.  token:
+    [B, 1]; cache_len: the position the token is written at (clamped to
+    the cache's last slot past its end, as the reference's).  Returns
+    (logits [B, 1, V], kv_caches)."""
+    b = token.shape[0]
+    x = embed_tokens(cfg, model, token)
+    positions = default_positions(cfg, b, 1, offset=cache_len, device=token.device)
+    hidden, kv_caches = lm_backbone(cfg, model, x, positions, kv_caches=kv_caches,
+                                    cache_len=cache_len, use_kernel=use_kernel)
+    return lm_logits(cfg, model, hidden, use_kernel), kv_caches
 
 
 def paged_kv_pool_init(cfg: ModelConfig, num_blocks: int, block_size: int,

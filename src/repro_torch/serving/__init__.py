@@ -1,7 +1,13 @@
-"""Serving layer: the continuous-batching paged engine, its API and its
-observability (trace, metrics registry, profiler spans)."""
+"""Serving layer: the continuous-batching paged engine, the static engine,
+their API and observability (trace, metrics registry, profiler spans)."""
 from .api import PAGED_FAMILIES, ServeOptions, SubmitHandle, build_engine  # noqa: F401
-from .engine import ContinuousBatchingEngine, PagedServeConfig, ServeStats  # noqa: F401
+from .engine import (  # noqa: F401
+    ContinuousBatchingEngine,
+    Engine,
+    PagedServeConfig,
+    ServeConfig,
+    ServeStats,
+)
 from .kv_cache import (  # noqa: F401
     SCRATCH_BLOCK,
     BlockAllocator,
@@ -18,10 +24,12 @@ from .observability import (  # noqa: F401
     derive_breakdown,
 )
 from .scheduler import Request, RequestState, Scheduler  # noqa: F401
-from .spec import Drafter, NgramDrafter, make_drafter  # noqa: F401
+from .spec import Drafter, DraftModelDrafter, NgramDrafter, make_drafter  # noqa: F401
 
 __all__ = [
     "ContinuousBatchingEngine",
+    "Engine",
+    "ServeConfig",
     "ServeOptions",
     "SubmitHandle",
     "build_engine",

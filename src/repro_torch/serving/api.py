@@ -2,11 +2,12 @@
 
 Port of ``repro/serving/api.py``.  :class:`ServeOptions` keeps the
 reference's field names and defaults.  Chunked prefill, speculative
-decoding, recompute preemption, the prefix cache, tracing (on by
-default) and profiler spans are served.  Options of features not ported
-yet (tensor parallelism, the static engine, and a draft model as
-``spec_draft``) raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item; they are never silently ignored.
+decoding (n-gram or draft-model drafts), recompute preemption, the
+prefix cache, tracing (on by default), profiler spans and the static
+engine are served.  Tensor parallelism, not ported yet, raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item; it is never
+silently ignored.  :func:`build_engine` picks the continuous engine for
+the paged families and the static engine for the others (ssm, hybrid).
 
 Typical use::
 
@@ -28,7 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
 
-from .engine import ContinuousBatchingEngine, PagedServeConfig
+from .engine import ContinuousBatchingEngine, Engine, PagedServeConfig, ServeConfig
 from .scheduler import Request, RequestState
 
 #: families served by the continuous-batching engine under engine="auto"
@@ -38,7 +39,6 @@ PAGED_FAMILIES = ("dense", "moe")
 #: slices by ROADMAP.md queue 1 item
 LATER = "is not ported yet (ROADMAP.md, queue 1, item {})"
 TENSOR_PARALLELISM = "12: tensor parallelism"
-STATIC_ENGINE = "11: the static engine"
 
 
 @dataclasses.dataclass
@@ -79,13 +79,8 @@ class ServeOptions:
 
     def check_supported(self) -> None:
         """Raise for every option of a later slice that is set."""
-        later = [
-            (self.tp != 1, "tp", TENSOR_PARALLELISM),
-            (self.engine == "static", "engine='static'", STATIC_ENGINE),
-        ]
-        for is_set, name, item in later:
-            if is_set:
-                raise NotImplementedError(f"ServeOptions.{name} " + LATER.format(item))
+        if self.tp != 1:
+            raise NotImplementedError("ServeOptions.tp " + LATER.format(TENSOR_PARALLELISM))
 
     def paged(self) -> PagedServeConfig:
         """Project onto the continuous engine's internal config."""
@@ -108,6 +103,15 @@ class ServeOptions:
             clock=self.clock,
             trace=self.trace,
             profile=self.profile,
+        )
+
+    def static(self) -> ServeConfig:
+        """Project onto the static engine's internal config."""
+        return ServeConfig(
+            max_new_tokens=self.max_new_tokens,
+            temperature=self.temperature,
+            seed=self.seed,
+            time_steps=self.time_steps,
         )
 
     def submit_kwargs(self) -> dict:
@@ -181,20 +185,27 @@ def build_engine(
     params: Optional[torch.nn.Module] = None,
     init_seed: int = 0,
     device: DeviceLike = None,
-) -> ContinuousBatchingEngine:
+):
     """Build the engine for ``cfg`` under ``opts`` on ``device`` (CUDA
-    unless the caller passes another).  ``params`` is a model (e.g. from
-    ``repro_torch.convert.params_from_jax``); without one the port's own
-    seeded init (``init_seed``) runs on the device."""
+    unless the caller passes another): ``engine="continuous"`` the
+    continuous-batching engine (paged families only), ``"static"`` the
+    static batcher, ``"auto"`` (default) the continuous engine for
+    :data:`PAGED_FAMILIES` and the static one otherwise.  ``params`` is a
+    model (e.g. from ``repro_torch.convert.params_from_jax``); without
+    one the port's own seeded init (``init_seed``) runs on the device.
+    The static engine takes ``prequantize`` and ``use_kernel`` from
+    ``opts`` and its per-call options from :meth:`ServeOptions.static`;
+    the continuous engine's capacity options do not apply to it."""
     opts = opts or ServeOptions()
+    opts.check_supported()
     kind = opts.engine
     if kind == "auto":
         kind = "continuous" if cfg.family in PAGED_FAMILIES else "static"
+    if kind == "continuous":
+        return ContinuousBatchingEngine(
+            cfg, params=params, init_seed=init_seed, pcfg=opts.paged(), device=device)
     if kind == "static":
-        raise NotImplementedError(
-            f"the static engine (family {cfg.family!r}) " + LATER.format(STATIC_ENGINE))
-    if kind != "continuous":
-        raise ValueError(
-            f"unknown engine kind {opts.engine!r}; use 'auto', 'continuous' or 'static'")
-    return ContinuousBatchingEngine(
-        cfg, params=params, init_seed=init_seed, pcfg=opts.paged(), device=device)
+        return Engine(cfg, params=params, init_seed=init_seed, prequantize=opts.prequantize,
+                      device=device, use_kernel=opts.use_kernel)
+    raise ValueError(
+        f"unknown engine kind {opts.engine!r}; use 'auto', 'continuous' or 'static'")

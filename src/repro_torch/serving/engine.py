@@ -16,8 +16,11 @@ engine is observable as the reference's is: a typed per-request trace
 with live sources (``self.metrics``), ``stream()``, and, with
 ``profile=True``, a ``torch.profiler.record_function`` span around
 each phase's launches (``serving/observability.py``).  Tensor
-parallelism and the static engine are later slices (``ROADMAP.md``,
-queue 1).
+parallelism is a later slice (``ROADMAP.md``, queue 1, item 12).
+
+:class:`Engine` is the reference's static batcher: one prefill of a
+fixed batch, then lockstep decode over contiguous caches; the only
+engine of the ssm and hybrid families.
 
 Unlike the reference, whose arrays are immutable, the port updates its
 device state in place: prefill, chunk, verify and decode write K/V into
@@ -136,6 +139,145 @@ class ServeStats:
 
 
 @dataclasses.dataclass
+class ServeConfig:
+    """Options of one :meth:`Engine.generate` call (the reference's)."""
+
+    max_new_tokens: int = 16
+    temperature: float = 0.0  # 0 => greedy
+    seed: int = 0
+    # synchronize the card after every step so that ServeStats records
+    # each step's true wall latency; off by default, as it costs a host
+    # round trip a token
+    time_steps: bool = False
+
+
+class Engine:
+    """The static batcher (port of the reference's ``Engine``): one fixed
+    batch in, one prefill of the whole batch, then lockstep decode steps
+    over contiguous caches until every row has ``max_new_tokens``.
+
+    It serves every family the port builds, and is the only engine of
+    the ssm and hybrid families, whose caches are not paged.  ``params``
+    is a model (e.g. from ``repro_torch.convert.params_from_jax``);
+    without one the port's own seeded init (``init_seed``) runs on
+    ``device`` (CUDA unless the caller passes another).  ``prequantize``
+    encodes the policy-selected weights once
+    (``core.prequant.quantize_params``).  ``use_kernel`` as in
+    :class:`PagedServeConfig`.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Optional[torch.nn.Module] = None,
+                 init_seed: int = 0, prequantize: bool = False, device: DeviceLike = None,
+                 use_kernel: Optional[bool] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.use_kernel = use_kernel
+        self.api: ModelAPI = build(cfg)
+        if params is None:
+            self.model = self.api.init(seed=init_seed, device=self.device)
+        else:
+            self.model = params.to(self.device)
+        self.prequant_meta = {}
+        if prequantize:
+            from repro_torch.core.prequant import quantize_params
+
+            self.model, self.prequant_meta = quantize_params(cfg, self.model,
+                                                             use_kernel=use_kernel)
+        self.stats = ServeStats()
+        # the continuous engine's registry surface, with the sources the
+        # static batcher has (no pool, scheduler or drafter to sample)
+        self.metrics = MetricsRegistry()
+        for mname, field in (
+            ("serve_steps_total", "steps"),
+            ("serve_prefills_total", "prefills"),
+            ("serve_prefill_tokens_total", "prefill_tokens"),
+            ("serve_decode_steps_total", "decode_steps"),
+            ("serve_generated_tokens_total", "generated_tokens"),
+        ):
+            self.metrics.counter(mname).set_source(
+                lambda field=field: getattr(self.stats, field))
+        self.metrics.histogram("serve_step_latency_seconds").set_source(
+            lambda: self.stats.step_latency_s)
+        self.stats._registry = self.metrics
+
+    def generate(self, prompt_batch: dict, scfg: ServeConfig = ServeConfig()) -> torch.Tensor:
+        """prompt_batch: ``{"tokens": [B, S]}`` integer tokens (a tensor or
+        an array).  Returns the generated tokens, int32 [B,
+        max_new_tokens] on the engine's device.
+
+        ``self.stats`` is reset per call and filled as the reference
+        fills it: step 0 is the whole prefill and the first sampled
+        token, every later step one lockstep decode over the batch.  Step
+        latencies are recorded only under ``scfg.time_steps``."""
+        self.stats = ServeStats()
+        self.stats._registry = self.metrics
+        tokens = torch.as_tensor(prompt_batch["tokens"]).to(self.device, torch.int32)
+        batch = dict(prompt_batch, tokens=tokens)
+        t0 = time.perf_counter()
+        logits, caches = self.api.prefill(self.model, batch, use_kernel=self.use_kernel)
+        b, pos0 = tokens.shape
+        caches = self._grow_caches(caches, scfg.max_new_tokens)
+        out = []
+        tok = self._pick(logits[:, -1, :], scfg, 0)
+        if scfg.time_steps:
+            self._sync()
+            self.stats.record_step(time.perf_counter() - t0)
+        out.append(tok)
+        self.stats.steps += 1
+        self.stats.prefills += 1
+        self.stats.prefill_tokens += b * pos0
+        self.stats.generated_tokens += b
+        for i in range(scfg.max_new_tokens - 1):
+            t0 = time.perf_counter()
+            step = {"token": tok[:, None], "cache_len": pos0 + i, **self._cache_kw(caches)}
+            logits, caches = self.api.decode_step(self.model, step, use_kernel=self.use_kernel)
+            tok = self._pick(logits[:, -1, :], scfg, i + 1)
+            if scfg.time_steps:
+                self._sync()
+                self.stats.record_step(time.perf_counter() - t0)
+            out.append(tok)
+            self.stats.steps += 1
+            self.stats.decode_steps += 1
+            self.stats.active_slot_steps += b
+            self.stats.generated_tokens += b
+        return torch.stack(out, dim=1)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _grow_caches(self, caches, max_new_tokens: int):
+        """Prefill sizes the caches to the prompt; decode writes at
+        positions prompt_len .. prompt_len + max_new - 2, which a
+        prompt-sized cache would clamp onto its last slot.  The reference
+        pads the sequence axis for the dense, MoE, vlm and encdec
+        families, and so for the dense and MoE families here.  The
+        hybrid's shared KV cache is not grown (nor is it in the
+        reference), so its decode writes clamp onto the last slot."""
+        if self.cfg.family not in ("dense", "moe") or max_new_tokens <= 1:
+            return caches
+        pad = (0, 0, 0, 0, 0, max_new_tokens - 1)  # the sequence axis of [L, B, S, kv, hd]
+        return tuple(torch.nn.functional.pad(c, pad) for c in caches)
+
+    def _cache_kw(self, caches):
+        if self.cfg.family in ("dense", "moe"):
+            return {"kv_caches": caches}
+        return {"caches": caches}  # ssm, hybrid
+
+    def _pick(self, logits, scfg: ServeConfig, step: int):
+        """Greedy: the first maximum.  Sampled: from a ``torch.Generator``
+        seeded from (seed, step), other draws than the reference's
+        ``jax.random.categorical`` by design."""
+        if scfg.temperature <= 0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        seed = np.random.SeedSequence([scfg.seed, step])
+        gen = torch.Generator(device=logits.device).manual_seed(
+            int(seed.generate_state(1)[0]))
+        probs = torch.softmax(logits.to(torch.float32) / scfg.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+
+
+@dataclasses.dataclass
 class PagedServeConfig:
     """Static capacity of a continuous-batching engine instance.
 
@@ -158,8 +300,9 @@ class PagedServeConfig:
         verifies all k + 1 positions in one batched call (greedy only:
         acceptance is exact argmax agreement, so the committed stream is
         the one spec_k = 0 gives).
-    spec_draft: "ngram" / "ngram:N", or a drafter instance
-        (``serving/spec.py``); "model:<arch>" is not ported yet.
+    spec_draft: "ngram" / "ngram:N", "model:<arch>" (a reduced f32 draft
+        model on the static engine), or a drafter instance
+        (``serving/spec.py``).
     preemption: "off" reserves whole-lifetime blocks at admission;
         "recompute" allocates the prefill context, grows on demand and,
         under pool pressure, preempts the least deserving request, which
@@ -227,22 +370,25 @@ class ContinuousBatchingEngine:
     ):
         self.cfg = cfg
         self.pcfg = pcfg
+        self.api: ModelAPI = build(cfg)
+        if self.api.paged_decode_step is None:
+            raise ValueError(f"family {cfg.family!r} has no paged KV layout; use Engine")
         if cfg.attn_logit_softcap is not None:
             raise ValueError("paged decode does not support logit softcap")
         if pcfg.prefill_chunk and pcfg.prefill_chunk % pcfg.block_size:
             raise ValueError(
                 f"prefill_chunk={pcfg.prefill_chunk} must be a multiple of "
                 f"block_size={pcfg.block_size}")
+        self.device = resolve_device(device)
         self.drafter = None
         if pcfg.spec_k:
             if pcfg.temperature > 0:
                 raise ValueError(
                     "speculative decoding requires greedy sampling "
                     "(temperature=0): acceptance is exact argmax agreement")
-            self.drafter = (make_drafter(pcfg.spec_draft, cfg)
+            self.drafter = (make_drafter(pcfg.spec_draft, cfg, init_seed=pcfg.seed,
+                                         device=self.device, use_kernel=pcfg.use_kernel)
                             if isinstance(pcfg.spec_draft, str) else pcfg.spec_draft)
-        self.device = resolve_device(device)
-        self.api: ModelAPI = build(cfg)
         if params is None:
             self.model = self.api.init(seed=init_seed, device=self.device)
         else:

@@ -10,15 +10,19 @@ committed stream is the one plain one-token decode gives: a drafter
 changes how fast tokens come out, never which.
 
 :class:`NgramDrafter` is the built-in drafter (self-speculative lookup
-in the request's own context).  The reference's ``DraftModelDrafter``
-drafts through the static ``Engine``, which is not ported yet, so
-``make_drafter("model:<arch>")`` raises ``NotImplementedError``.
+in the request's own context).  :class:`DraftModelDrafter` drafts with
+a small model sharing the target's vocabulary, run greedily through the
+static :class:`~repro_torch.serving.engine.Engine`.
 """
 from __future__ import annotations
 
-from typing import List, Protocol, runtime_checkable
+import dataclasses
+from typing import List, Optional, Protocol, runtime_checkable
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike
 
 from .scheduler import Request
 
@@ -83,20 +87,73 @@ class NgramDrafter:
         return [fallback] * k
 
 
-def make_drafter(spec: str, target_cfg: ModelConfig) -> Drafter:
+class DraftModelDrafter:
+    """Draft with a small model sharing the target's vocabulary.
+
+    Each proposal greedily decodes k tokens through the static
+    :class:`~repro_torch.serving.engine.Engine`, conditioned on a
+    power-of-two suffix window of the committed context (at most
+    ``window`` tokens), as the reference's drafter does (there the window
+    bounds XLA compiles; here it keeps the draft's inputs the same).  The
+    draft model's weights are its own: ``params`` (e.g. carried across
+    with ``repro_torch.convert.params_from_jax``), or else the port's
+    seeded init (``init_seed``) on ``device``.  Only the token space is
+    shared, so the vocabularies must be equal.
+    """
+
+    def __init__(self, draft_cfg: ModelConfig, target_cfg: ModelConfig,
+                 params: Optional[torch.nn.Module] = None, init_seed: int = 0,
+                 window: int = 32, device: DeviceLike = None,
+                 use_kernel: Optional[bool] = None):
+        if draft_cfg.vocab != target_cfg.vocab:
+            raise ValueError(
+                f"draft model vocab {draft_cfg.vocab} != target vocab {target_cfg.vocab}; "
+                "speculative decoding requires a shared tokenizer")
+        if window < 1:
+            raise ValueError(f"window must be at least 1, got {window}")
+        from .engine import Engine, ServeConfig  # local: the engine imports this module
+
+        self.window = window
+        self._engine = Engine(draft_cfg, params=params, init_seed=init_seed, device=device,
+                              use_kernel=use_kernel)
+        self._scfg_cls = ServeConfig
+        # read live by the engine's metrics registry
+        self.proposals = 0
+        self.proposed_tokens = 0
+
+    def propose(self, req: Request, k: int) -> List[int]:
+        self.proposals += 1
+        self.proposed_tokens += k
+        ctx = req.prompt + req.output
+        w = 1
+        while w * 2 <= min(len(ctx), self.window):
+            w *= 2
+        tokens = torch.tensor([ctx[len(ctx) - w:]], dtype=torch.int32)
+        out = self._engine.generate({"tokens": tokens}, self._scfg_cls(max_new_tokens=k))
+        return _pad_drafts(out[0].tolist(), k, ctx[-1])
+
+
+def make_drafter(spec: str, target_cfg: ModelConfig, init_seed: int = 0,
+                 device: DeviceLike = None, use_kernel: Optional[bool] = None) -> Drafter:
     """Resolve a ``spec_draft`` string to a drafter.
 
     ``"ngram"`` / ``"ngram:N"``: self-speculative lookup (max width N,
-    default 3).  ``"model:<arch>"`` needs the static engine and raises
-    ``NotImplementedError`` until it is ported; ``target_cfg`` is the
-    model whose vocabulary a draft model would have to share.
+    default 3).  ``"model:<arch>"``: the architecture ``arch`` (reduced,
+    f32, from the seeded init ``init_seed`` on ``device``) as a draft
+    model; it must share ``target_cfg``'s vocabulary.
     """
     if spec == "ngram" or spec.startswith("ngram:"):
         max_n = int(spec.split(":", 1)[1]) if ":" in spec else 3
         return NgramDrafter(max_n=max_n)
     if spec.startswith("model:"):
-        raise NotImplementedError(
-            f"spec_draft={spec!r}: a draft model runs on the static engine, which is "
-            "not ported yet (ROADMAP.md, queue 1, item 11: the static engine)")
+        from repro_torch.configs import ARCHS, get_config
+
+        arch = spec.split(":", 1)[1]
+        if arch not in ARCHS:
+            raise ValueError(f"unknown draft arch {arch!r}; pick from {sorted(ARCHS)}")
+        draft_cfg = dataclasses.replace(get_config(arch).reduced(), param_dtype="float32",
+                                        act_dtype="float32")
+        return DraftModelDrafter(draft_cfg, target_cfg, init_seed=init_seed, device=device,
+                                 use_kernel=use_kernel)
     raise ValueError(
         f"unknown drafter spec {spec!r}; use 'ngram', 'ngram:N' or 'model:<arch>'")

@@ -24,6 +24,7 @@ from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.serving import RequestState, ServeOptions, build_engine  # noqa: E402
+from test_torch_ssm import one_thread  # noqa: E402,F401
 
 BS, NB, SLOTS, MAX_LEN = 8, 32, 2, 32
 
@@ -162,14 +163,34 @@ def test_engine_rejects_oversized_request(port_engine):
         port_engine.submit(list(range(30)), max_new_tokens=8)
 
 
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("field,value", [
     ("tp", 2), ("engine", "static"),
     ("spec_draft", "model:yi-6b"),
 ])
 def test_later_slice_options_raise(field, value):
+    """The options that once named a later slice: tensor parallelism still
+    raises naming its ROADMAP item; the static engine and a draft model,
+    served since their slice was ported, build and serve (the static
+    engine's tokens against the JAX engine's are held in
+    tests/test_torch_static_engine.py)."""
+    from repro_torch.serving import DraftModelDrafter, Engine
+
     _, tc = _cfgs("f32")
     opts = {field: value}
     if field == "spec_draft":
         opts["spec_k"] = 2  # the drafter is made only when speculative decoding is on
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_engine(tc, ServeOptions(**opts), device="cpu")
+    if field == "tp":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 12"):
+            build_engine(tc, ServeOptions(**opts), device="cpu")
+        return
+    eng = build_engine(tc, ServeOptions(**opts), device="cpu")
+    if field == "engine":
+        assert isinstance(eng, Engine)
+        out = eng.generate({"tokens": torch.tensor([list(range(3, 13))])},
+                           ServeOptions(max_new_tokens=4).static())
+        assert out.shape == (1, 4) and eng.stats.decode_steps == 3
+    else:
+        assert isinstance(eng.drafter, DraftModelDrafter)
+        assert len(eng.submit(list(range(3, 13)), max_new_tokens=4).result()) == 4
+        assert eng.drafter.proposals > 0

@@ -100,9 +100,10 @@ def test_moe_engine_counts_macs_by_mode():
 
 
 def test_unported_family_still_raises():
-    """The MoE family is served; the next family (ssm) raises naming its
-    ROADMAP item."""
-    cfg = dataclasses.replace(t_get_config("yi-6b").reduced(), family="ssm")
+    """The MoE family is served (and the ssm and hybrid families, on the
+    static engine); the next family (encdec) raises naming its ROADMAP
+    item."""
+    cfg = dataclasses.replace(t_get_config("yi-6b").reduced(), family="encdec")
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 11"):
         build_engine(cfg, ServeOptions(), device="cpu")
 

@@ -8,9 +8,10 @@ tests/test_api.py, with one DeprecationWarning; ``main`` on the CPU
 prints the reference's summary and request lines with the JAX CLI's
 greedy tokens when both serve the same weights (the JAX init at the
 run's seed, converted), and writes a trace and a Prometheus file that
-both packages' checkers accept.  Options of later slices raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item; without a card
-and without ``--device cpu`` the CLI raises.
+both packages' checkers accept.  Tensor parallelism raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item, a run without
+``--continuous`` serves on the static engine, and without a card and
+without ``--device cpu`` the CLI raises.
 """
 import dataclasses
 import json
@@ -142,11 +143,23 @@ def test_main_without_trace_skips_the_trace_file(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "yi-6b", "--reduced"], "item 11"),
+    (["--arch", "yi-6b", "--reduced"], None),
     (REDUCED + ["--tp", "2"], "item 12"),
     (REDUCED + ["--force-host-devices", "8"], "item 12"),
 ], ids=["static", "tp2", "force-host-devices"])
-def test_later_slices_raise(argv, item):
+def test_later_slices_raise(argv, item, capsys):
+    """Tensor parallelism still raises naming its ROADMAP item.  The static
+    engine (a run without --continuous), a later slice until it was
+    ported, now serves: the reference's summary line and one batch row a
+    prompt (its tokens against the JAX CLI's are held in
+    tests/test_torch_static_engine.py)."""
+    if item is None:
+        t_serve.main(argv + ["--device", "cpu", "--numerics-policy", "default=f32",
+                             "--batch", "2", "--prompt-len", "6", "--new-tokens", "3"])
+        out = capsys.readouterr().out.splitlines()
+        assert out[0].startswith("arch=yi-6b numerics='default=f32' step_p50=")
+        assert [ln.split(":")[0] for ln in out[1:]] == ["batch[0]", "batch[1]"]
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1, {item}"):
         t_serve.main(argv + ["--device", "cpu"])
 

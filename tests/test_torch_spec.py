@@ -7,7 +7,8 @@ engine's greedy tokens and counters for k in {1, 2, 4}, chunked and
 unchunked, and the tokens of plain decode; also when a stop token or
 ``max_new_tokens`` cuts a burst.  Port-only: the n-gram drafter against
 the reference's, the reference's validation errors, the draft model
-that is not ported yet, and rolled-back blocks reading zero once freed.
+(``spec_draft="model:<arch>"``), and rolled-back blocks reading zero once
+freed.
 """
 import dataclasses
 
@@ -22,6 +23,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.serving import NgramDrafter, Request, ServeOptions, build_engine  # noqa: E402
 from repro_torch.serving import make_drafter  # noqa: E402
 from test_torch_chunked import models, serve_both  # noqa: E402
+from test_torch_ssm import one_thread  # noqa: E402,F401
 
 POOL = dict(block_size=4, num_blocks=96, max_slots=3, max_seq_len=48)
 
@@ -119,7 +121,20 @@ def test_spec_requires_greedy_sampling():
         build_engine(tc, ServeOptions(spec_k=2, temperature=1.0), device="cpu")
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_draft_model_is_not_ported_yet():
-    tc = dataclasses.replace(get_config("yi-6b").reduced(), n_layers=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_engine(tc, ServeOptions(spec_k=2, spec_draft="model:yi-6b"), device="cpu")
+    """``spec_draft="model:<arch>"``, a later slice until the static engine
+    was ported, now drafts with the reduced f32 arch on the static engine:
+    the committed tokens are plain decode's (the drafter against the
+    reference's is held in tests/test_torch_static_engine.py)."""
+    from repro_torch.serving import DraftModelDrafter
+
+    tc, tm = models("f32")[2:]
+    want = _plain(_mixed)
+    opts = dict(POOL, spec_k=2, spec_draft="model:yi-6b")
+    eng = build_engine(tc, ServeOptions(**opts), params=tm, device="cpu")
+    assert isinstance(eng.drafter, DraftModelDrafter)
+    assert _mixed(eng) == want
+    assert eng.drafter.proposals > 0 and eng.stats.drafted_tokens > 0
+    with pytest.raises(ValueError, match="unknown draft arch"):
+        make_drafter("model:no-such-arch", tc)
