@@ -5,9 +5,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--layers N]
                           [--phases device,kernels,conformance,serve,serve_paths,observe,moe,
-                                    static,train,e2e,times]
+                                    static,archs,train,e2e,times]
 
-It imports ``repro_torch`` (never JAX) and runs eleven phases, each on
+It imports ``repro_torch`` (never JAX) and runs twelve phases, each on
 its own lines:
 
 1. device      — the card's name and power limit (nvidia-smi), the torch
@@ -112,7 +112,34 @@ its own lines:
    4 tokens for it (committed tokens against spec_k=0's by the same
    rule; acceptance reported), and ``python -m repro_torch.launch.serve``
    without ``--continuous`` on mamba2-780m.
-9. train       — training and the paper's Table II: full-width yi-6b
+9. archs       — the other five architectures under
+   ``default=plam_sim:16:1`` from the port's seeded init, prequantized:
+   gemma-7b (head_dim 256, tied and scaled embeddings) and minitron-8b
+   (relu2, no gate) at full width and depth on the continuous engine (4
+   requests of 48 seeded tokens, 16 new) and then on the static engine
+   (the same prompts: equal tokens, or the serve-paths margin rule), gemma
+   also with bf16 weights encoded every forward (equal tokens);
+   command-r-plus-104b (96/8 heads) at full width cut to 16 of 64 layers
+   on the continuous engine; seamless-m4t-medium (encdec, full depth) on
+   the static engine with 4 x 256 seeded frames and a 16-token target
+   prefix, prequantized and under its config's own posit_quant:16:1; and
+   qwen2-vl-72b (M-RoPE, 1,024 seeded patch embeddings ahead of 32 tokens
+   a row, 2 rows) at full width cut to 24 of 80 layers on the static
+   engine.  Gates: every forward's launches by ``launch_counts`` (K1 a
+   projection, K3 for a tied head's ``embed.T`` every forward, L K2 a
+   decode step on the continuous engine), the weight encodes at build,
+   no plain K1 or codec call on the card, K1 bit for bit against its
+   plain version at every (M, K, N) launched (the first launch's rows
+   0-63 and its last 64-row block; a B made in the forward over its first
+   and last 512 columns), K2 within K5's gates on its first four-slot
+   decode step's operands (head_dim 256, and 12 q heads a kv head), the
+   first decode step of the static models within 0.1 of a prefill of one
+   more token, and each of the five at 2 layers on the kernels within
+   0.1 of the plain versions.  Printed: decode tok/s, step p50/p95,
+   prefill seconds, peak memory, two profiled decode steps, K1's device
+   time at each new (K, N) beside its bound, K2's beside its bound and
+   SDPA's.
+10. train      — training and the paper's Table II: full-width yi-6b
    (bf16, remat, ``posit_quant:16:1``) cut to 8 layers takes 6 AdamW
    steps through ``train.loop.make_train_step`` (losses finite and
    falling; every gradient finite and not all zero; per step K3's
@@ -130,13 +157,13 @@ its own lines:
    bit to its plain version at every (A, B) shape and dtype that the
    Table II evaluations and ``calibrate``'s trials launched it with, on
    the operands and output of the first such launch.
-10. e2e        — a 2-layer full-width model runs one prefill and 4
+11. e2e        — a 2-layer full-width model runs one prefill and 4
    decode steps on the kernels and on the plain versions; last logits
    must agree within a stated tolerance.  The same for a 2-layer
    deepseek-moe-16b over 2 decode steps, with the router's top-k margin
    logged wherever the two runs route a token differently; and
    ``mitchell_f32`` (plain torch) on the card against the CPU.
-11. times      — CUDA-event times of each kernel, its plain version and
+12. times      — CUDA-event times of each kernel, its plain version and
    (for attention) ``scaled_dot_product_attention``, beside each
    kernel's bound (and, for K1, the floor of its design, with the strip
    width of its prefill path).  Each
@@ -179,7 +206,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ["device", "kernels", "conformance", "serve", "serve_paths", "observe", "moe",
-          "static", "train", "e2e", "times"]
+          "static", "archs", "train", "e2e", "times"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 CUDA-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -386,6 +413,31 @@ STATIC_CLI_TIMEOUT_S = 300
 STATIC_K1_SHAPES = {"mamba2-780m": [(1536, 6448), (3072, 1536), (1536, 50280)],
                     "zamba2-1.2b": [(2048, 8384), (4096, 2048), (4096, 4096), (4096, 8192),
                                     (8192, 4096), (2048, 32000)]}
+# The other five architectures (phase archs), under default=plam_sim:16:1:
+# gemma-7b and minitron-8b at full depth on both engines, command-r-plus-
+# 104b on the continuous engine and qwen2-vl-72b on the static engine cut
+# to ARCHS_LAYERS layers (widths never cut; the memory that sets each cut is
+# in PERF.md), seamless-m4t-medium at full depth on the static engine.
+# ARCHS_BATCH prompts of ARCHS_PROMPT seeded tokens (one length, so that the
+# static engine takes the same prompts), ARCHS_NEW new tokens, blocks of 16
+# and 4 slots; seamless: ARCHS_FRAMES seeded frames a row and an
+# ARCHS_TGT-token target prefix; qwen2-vl: VLM_ROWS rows of the registry's
+# 1,024 seeded patch embeddings and VLM_TOKENS tokens.  K1 is held bit for
+# bit at each (M, K, N) the runs launch, on the first launch's operands,
+# over its first K1_ROWS rows and its last 64-row block (rows are
+# independent); where B is made in the forward (a tied head's embed.T, bf16
+# weights) over its first and last K1_COLS columns (so are columns).  Each
+# of the five also runs at ARCHS_E2E_LAYERS layers on the kernels and on
+# the plain versions (phase e2e's rule).
+ARCHS_DENSE = ("gemma-7b", "minitron-8b", "command-r-plus-104b")
+ARCHS_STATIC = ("seamless-m4t-medium", "qwen2-vl-72b")
+ARCHS_LAYERS = {"command-r-plus-104b": 16, "qwen2-vl-72b": 24}
+ARCHS_BOTH_ENGINES = ("gemma-7b", "minitron-8b")
+ARCHS_BATCH, ARCHS_PROMPT, ARCHS_NEW = 4, 48, 16  # ARCHS_NEW: serve_run's 16
+ARCHS_FRAMES, ARCHS_TGT = 256, 16
+VLM_ROWS, VLM_TOKENS = 2, 32
+ARCHS_E2E_LAYERS = 2
+K1_ROWS, K1_COLS = 64, 512
 # mitchell_f32 (phase e2e): nmatmul at yi-6b's projections at M = 4 on the
 # card against the CPU over the first MITCHELL_CPU_N columns (columns are
 # independent; the CPU would take minutes over the unembed's 64,000).  The
@@ -474,6 +526,50 @@ CANARY_CASES = 120
 K4_SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "posit_mul.cu")
 K4_OPS = {"plam_mul_elementwise": "kPlamMulAluOpsPerLane",
           "exact_mul_elementwise": "kExactMulAluOpsPerLane"}
+
+
+def launch_counts(cfg, prequantized: bool = True) -> dict:
+    """The kernel launches of ``cfg``'s model under default=plam_sim:16:1,
+    where every projection is a plam_sim site: ``build``, the weight
+    encodes (K3) of ``quantize_params``; ``k1`` and ``k3``, the K1 and K3
+    launches of one forward (of an encdec, one decoder forward); and
+    ``enc_k1`` and ``enc_k3``, those of one encdec encoder pass.
+
+    A transformer layer runs 4 attention projections and its FFN: 3 with a
+    gated MLP, 2 without (minitron's relu2, seamless's gelu), twice that
+    for a MoE layer with shared experts (the routed experts' stack and the
+    shared ones', each one launch); then the head.  A Mamba2 layer runs
+    in_proj and out_proj, the hybrid's shared block 8 projections at each
+    of its L / every invocations (its 8 weights encoded once).  An encdec
+    encoder pass is the frontend and 4 + MLP a layer, a decoder forward 4
+    self- and 4 cross-attention projections and the MLP a layer, then the
+    head.  A tied head is never prequantized, so each forward encodes
+    ``embed.T`` (one K3) before its K1; bf16 weights kept as they are
+    encode every weight before its K1."""
+    mlp = 3 if cfg.glu else 2
+    enc, tied = 0, False
+    if cfg.family in ("ssm", "hybrid"):
+        shared = cfg.family == "hybrid"
+        inv = cfg.n_layers // cfg.shared_attn_every if shared else 0
+        k1 = 2 * cfg.n_layers + 8 * inv + 1
+        build = 2 * cfg.n_layers + 1 + 8 * shared
+    elif cfg.family == "encdec":
+        enc = 1 + cfg.enc_layers * (4 + mlp)
+        k1 = cfg.dec_layers * (8 + mlp) + 1
+        build = enc + k1
+    else:  # dense, moe, vlm
+        ffn = mlp * (2 if cfg.n_shared_experts else 1) if cfg.n_experts else mlp
+        k1 = cfg.n_layers * (4 + ffn) + 1
+        tied = cfg.tie_embeddings
+        build = k1 - tied
+    return {"build": build, "k1": k1, "k3": int(tied) if prequantized else k1,
+            "enc_k1": enc, "enc_k3": 0 if prequantized else enc}
+
+
+def run_summary(run) -> dict:
+    """A run's record for the JSON file: without its per-forward calls and
+    its kept logits."""
+    return {k: v for k, v in run.items() if k not in ("calls", "first_decode")}
 
 
 def log(msg: str = "") -> None:
@@ -1601,8 +1697,10 @@ class Smoke:
         log(f"engine build {build_s:.1f} s: {build_encodes} weight encodes (K3; "
             f"{build_tables} table builds), {n_int16 / 1e9:.3f} G int16 weights, "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-        if build_encodes != 7 * layers + 1:
-            raise AssertionError(f"expected {7 * layers + 1} weight encodes, got {build_encodes}")
+        per_forward = launch_counts(cfg)
+        if build_encodes != per_forward["build"]:
+            raise AssertionError(f"expected {per_forward['build']} weight encodes, got "
+                                 f"{build_encodes}")
         self.path_launches["posit_codec"] = self.path_launches.get("posit_codec", 0) + build_encodes
 
         g = torch.Generator().manual_seed(7)
@@ -1629,8 +1727,8 @@ class Smoke:
             f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         log(f"launches: {counts} (forwards {forwards}, decode steps {st.decode_steps})")
         # one K1 launch a projection, the activations encoded inside it
-        expect = {"plam_matmul": (7 * layers + 1) * forwards,
-                  "posit_codec": 0,
+        expect = {"plam_matmul": per_forward["k1"] * forwards,
+                  "posit_codec": per_forward["k3"] * forwards,
                   "paged_decode_attention": layers * st.decode_steps}
         bad = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
         outs = [done[h.rid] for h in handles]
@@ -1647,7 +1745,7 @@ class Smoke:
             f"{np.quantile(run_steps, 0.5) * 1e3:.1f} ms, p95 "
             f"{np.quantile(run_steps, 0.95) * 1e3:.1f} ms, first {run_steps[0] * 1e3:.1f} ms")
         profile, step_launches = self.profile_decode(eng, prompts)
-        step_expect = {"plam_matmul": 7 * layers + 1, "posit_codec": 0,
+        step_expect = {"plam_matmul": per_forward["k1"], "posit_codec": per_forward["k3"],
                        "paged_decode_attention": layers}
         for k, v in step_expect.items():
             if step_launches[k] != v:
@@ -1706,7 +1804,7 @@ class Smoke:
         st = eng.stats
         forwards = st.prefills + st.decode_steps
         decode_tokens = st.generated_tokens - st.prefills
-        per_forward = 7 * layers + 1
+        per_forward = launch_counts(cfg, prequantized=False)["k1"]
         expect = {"plam_matmul": per_forward * forwards, "posit_codec": per_forward * forwards,
                   "paged_decode_attention": layers * st.decode_steps, "posit_codec_table": 0}
         bad = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
@@ -1780,7 +1878,10 @@ class Smoke:
             wall_us = (time.perf_counter() - t0) * 1e6
         eng.run()
         by_name = self.device_us_by_name(prof)
-        busy = sum(by_name.values())
+        # an aten:: op's device time is that of the kernels it launched,
+        # which have entries of their own: the busy time sums the kernels
+        kernels = {name: us for name, us in by_name.items() if not name.startswith("aten::")}
+        busy = sum(kernels.values())
         if busy == 0:
             log("decode profile: the profiler recorded no device time (not measured)")
             return None, step_launches
@@ -1796,7 +1897,6 @@ class Smoke:
             f"{k2_us / 1e3:.3f} ms")
         # K1's and K3's kernels, and the device's copy kernels (casts
         # among them), by kernel name
-        kernels = {name: us for name, us in by_name.items() if not name.startswith("aten::")}
         k1_us = sum(us for name, us in kernels.items() if "plam_matmul" in name)
         k3_us = sum(us for name, us in kernels.items() if "encode_" in name and "kernel" in name)
         copy_us = sum(us for name, us in kernels.items() if "copy" in name)
@@ -2002,15 +2102,18 @@ class Smoke:
         del eng, handles
         return run
 
-    def forward_gates(self, run, layers):
-        """Launches per forward: 7L+1 K1 on every forward, L K2 on a
-        one-token decode step and none on a prefill, chunk or verify
-        forward, and nothing else (no K3: the weights are int16 patterns
-        and K1 encodes the activations)."""
+    def forward_gates(self, run, layers, counts=None):
+        """Launches per forward: the model's K1 (``launch_counts``; 7L+1 for
+        yi-6b) on every forward, L K2 on a one-token decode step and none on
+        a prefill, chunk or verify forward, its K3 (none with int16 weights
+        and an untied head: K1 encodes the activations; one a forward for a
+        tied head) and nothing else."""
+        counts = counts or {"k1": 7 * layers + 1, "k3": 0}
         bad = []
         for kind, m, got, _ in run["calls"]:
             want = {k: 0 for k in got}
-            want["plam_matmul"] = 7 * layers + 1
+            want["plam_matmul"] = counts["k1"]
+            want["posit_codec"] = counts["k3"]
             want["paged_decode_attention"] = layers if kind == "decode" else 0
             if got != want:
                 bad.append(f"{kind} forward at M={m}: launches {got}, expected {want}")
@@ -2639,15 +2742,6 @@ class Smoke:
         g = torch.Generator().manual_seed(seed)
         return torch.randint(0, vocab, (batch, length), generator=g, dtype=torch.int32)
 
-    @staticmethod
-    def static_k1(cfg):
-        """K1 launches a forward of an ssm or hybrid model: in_proj and
-        out_proj a layer, the shared block's 8 projections (q, k, v, o,
-        up, gate, down, hybrid.proj) at each of its n_layers // every
-        invocations, and the unembedding."""
-        inv = cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
-        return 2 * cfg.n_layers + 8 * inv + 1
-
     @contextlib.contextmanager
     def counting_plain(self):
         """Calls of K1's and K3's plain versions on CUDA tensors while the
@@ -2674,20 +2768,22 @@ class Smoke:
             for mod, name, real in saved:
                 setattr(mod, name, real)
 
-    def static_run(self, name, eng, prompts, new_tokens):
+    def static_run(self, name, eng, prompts, new_tokens, extra=None):
         """``eng.generate`` (the static engine, ``time_steps``) over
-        ``prompts`` on the card, the launch counts set to 0 just before the
-        run and read just after.  Each forward's kind, M and launches are
-        recorded by wrapping the engine's model API, with each row's top-2
-        logit margin (the margin behind the token that step picks) and
-        whether every logit is finite."""
+        ``prompts`` (and ``extra``, the vlm's ``embeds_prefix`` or the
+        encdec's ``frames``) on the card, the launch counts set to 0 just
+        before the run and read just after.  Each forward's kind, M and
+        launches are recorded by wrapping the engine's model API, with each
+        row's top-2 logit margin (the margin behind the token that step
+        picks), whether every logit is finite, and the first decode step's
+        last logits (``first_decode``)."""
         torch = self.torch
         import numpy as np
 
         from repro_torch.kernels import _lib
         from repro_torch.serving import ServeConfig
 
-        calls, finite, margins = [], [], []
+        calls, finite, margins, first = [], [], [], []
         api = eng.api
 
         def counted(kind, fn):
@@ -2697,6 +2793,8 @@ class Smoke:
                 m = batch["tokens" if kind == "prefill" else "token"].numel()
                 calls.append((kind, m, {k: _lib.launches[k] - before[k] for k in before}))
                 last = logits[:, -1].float()
+                if kind == "decode" and not first:
+                    first.append(last.clone())
                 finite.append(torch.isfinite(logits).all())
                 top = torch.topk(last, 2, dim=-1).values
                 margins.append(top[:, 0] - top[:, 1])
@@ -2710,7 +2808,7 @@ class Smoke:
         _lib.reset_launches()  # this path's run starts here
         t0 = time.perf_counter()
         try:
-            out = eng.generate({"tokens": prompts.to(self.dev)},
+            out = eng.generate({"tokens": prompts.to(self.dev), **(extra or {})},
                                ServeConfig(max_new_tokens=new_tokens, time_steps=True))
             torch.cuda.synchronize()
         finally:
@@ -2726,6 +2824,7 @@ class Smoke:
                "step_p95_s": float(np.quantile(decode, 0.95)),
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts,
                "calls": calls, "finite": bool(torch.stack(finite).all()),
+               "first_decode": first[0] if first else None,
                "margins": torch.stack(margins).cpu().tolist(),
                "stats": {f: getattr(eng.stats, f) for f in
                          ("steps", "prefills", "prefill_tokens", "decode_steps",
@@ -2736,22 +2835,26 @@ class Smoke:
             f"{run['peak_gib']:.2f} GiB; launches {({k: v for k, v in counts.items() if v})}")
         return run
 
-    def static_gates(self, run, k1, k3):
+    def static_gates(self, run, k1, k3, prefill=None, outside=(0, 0)):
         """Launches per forward: ``k1`` K1 and ``k3`` K3 (weight encodes or
-        quantizes), no K2, K5, table build or anything else; the K1
-        launches of the counted forwards are all of the run's; every logit
-        finite."""
+        quantizes) on a decode step, ``prefill`` = (K1, K3) on a prefill
+        (by default the same), no K2, K5, table build or anything else; the
+        K1 and K3 launches of the counted forwards and ``outside`` them
+        (the encdec's second encoder pass, which the engine runs beside
+        its first decode step) are all of the run's; every logit finite."""
         bad = []
         for kind, m, got in run["calls"]:
             want = {k: 0 for k in got}
-            want.update(plam_matmul=k1, posit_codec=k3)
+            w1, w3 = prefill if (prefill and kind == "prefill") else (k1, k3)
+            want.update(plam_matmul=w1, posit_codec=w3)
             if got != want:
                 bad.append(f"{kind} forward at M={m}: launches "
-                           f"{ {k: v for k, v in got.items() if v} }, expected K1 {k1}, K3 {k3}")
-        total = sum(c[2]["plam_matmul"] for c in run["calls"])
-        if total != run["launches"]["plam_matmul"]:
-            bad.append(f"K1 launched {run['launches']['plam_matmul']} times in the run, "
-                       f"{total} in its counted forwards")
+                           f"{ {k: v for k, v in got.items() if v} }, expected K1 {w1}, K3 {w3}")
+        for key, extra in zip(("plam_matmul", "posit_codec"), outside):
+            total = sum(c[2][key] for c in run["calls"]) + extra
+            if total != run["launches"][key]:
+                bad.append(f"{key} launched {run['launches'][key]} times in the run, "
+                           f"{total} in its counted forwards and beside them")
         if not run["finite"]:
             bad.append("a logit is not finite")
         return bad[:4]
@@ -2800,9 +2903,10 @@ class Smoke:
         return (float(diff.max()), float(diff.mean()),
                 float((chunked[:, 0].float() - want[:, 0].float()).abs().max()))
 
-    def static_profile(self, eng, prompts):
+    def static_profile(self, eng, prompts, extra=None, prefilled=None):
         """Two decode steps of the static engine under torch.profiler, after
-        a prefill and one decode step outside it: wall, device busy time,
+        a prefill (or the caller's ``prefilled`` (logits, caches) of
+        ``prompts``) and one decode step outside it: wall, device busy time,
         idle share (1 - busy / wall), K1's and K3's device time and the
         top device ops."""
         torch = self.torch
@@ -2811,14 +2915,17 @@ class Smoke:
         from repro_torch.serving import ServeConfig
 
         api, model, scfg = eng.api, eng.model, ServeConfig()
-        prompts = prompts.to(self.dev)
-        logits, caches = api.prefill(model, {"tokens": prompts})
+        batch0 = {"tokens": prompts.to(self.dev), **(extra or {})}
+        pos0 = prompts.shape[1] + (batch0["embeds_prefix"].shape[1]
+                                   if "embeds_prefix" in batch0 else 0)
+        logits, caches = prefilled or api.prefill(model, batch0)
         caches = eng._grow_caches(caches, 4)
+        eng._enc_cache = None
         state = {"tok": eng._pick(logits[:, -1, :], scfg, 0), "caches": caches}
 
         def step(i):
-            batch = {"token": state["tok"][:, None], "cache_len": prompts.shape[1] + i,
-                     **eng._cache_kw(state["caches"])}
+            batch = {"token": state["tok"][:, None], "cache_len": pos0 + i,
+                     **eng._cache_kw(state["caches"], batch0)}
             logits, state["caches"] = api.decode_step(model, batch)
             state["tok"] = eng._pick(logits[:, -1, :], scfg, i + 1)
 
@@ -2903,7 +3010,7 @@ class Smoke:
         cfg = get_config(arch)
         native = cfg.numerics
         cfg = cfg.with_numerics("default=plam_sim:16:1")
-        k1 = self.static_k1(cfg)
+        k1 = launch_counts(cfg)["k1"]
         res = {"layers": cfg.n_layers, "k1_per_forward": k1}
         log(f"static: {arch} family {cfg.family} d_model {cfg.d_model} d_inner "
             f"{cfg.ssm_expand * cfg.d_model} ssm heads "
@@ -2934,7 +3041,7 @@ class Smoke:
             f"{int16_gb:.2f} GB of weights")
         self.path_launches["posit_codec"] = self.path_launches.get("posit_codec", 0) + encodes
         # each weight once: the shared block's 8 once, however often it runs
-        want_encodes = 2 * cfg.n_layers + 1 + (8 if cfg.family == "hybrid" else 0)
+        want_encodes = launch_counts(cfg)["build"]
         if encodes != want_encodes:
             failures.append(f"{arch}: {encodes} weight encodes at build, expected "
                             f"{want_encodes}")
@@ -2990,7 +3097,7 @@ class Smoke:
             failures.extend(f"{arch} posit_quant: {f}" for f in self.static_gates(run, 0, 2 * k1))
             self.path_launches["posit_codec"] = (self.path_launches.get("posit_codec", 0)
                                                  + run["launches"]["posit_codec"])
-            res["posit_quant"] = {k: v for k, v in run.items() if k != "calls"}
+            res["posit_quant"] = run_summary(run)
             del eng
         del model
         gc.collect()
@@ -3000,9 +3107,8 @@ class Smoke:
             "int16_weight_gb": int16_gb, "decode_extension_max_err": ext,
             "decode_extension_mean_err": mean_ext, "chunk_order_max_diff": chunked,
             "decode_profile": profile, "decode_profile_bf16": profile_bf16,
-            **{f"prequantized_{k}": {x: y for x, y in v.items() if x != "calls"}
-               for k, v in pq.items()},
-            **{f"bf16_{k}": {x: y for x, y in v.items() if x != "calls"} for k, v in bf.items()}})
+            **{f"prequantized_{k}": run_summary(v) for k, v in pq.items()},
+            **{f"bf16_{k}": run_summary(v) for k, v in bf.items()}})
         return res
 
     def static_yi(self, failures):
@@ -3028,14 +3134,15 @@ class Smoke:
         eng = Engine(cfg, params=model, device=self.dev)
         static = self.static_run(f"yi-6b ({layers} layers) static", eng, prompts, STATIC_NEW)
         del eng
-        failures.extend(f"yi-6b static: {f}" for f in self.static_gates(static, 7 * layers + 1, 0))
+        failures.extend(f"yi-6b static: {f}"
+                        for f in self.static_gates(static, launch_counts(cfg)["k1"], 0))
         self.path_launches["plam_matmul"] = (self.path_launches.get("plam_matmul", 0)
                                              + static["launches"]["plam_matmul"])
         opts = ServeOptions(max_new_tokens=STATIC_NEW, block_size=16, max_slots=4, num_blocks=64,
                             max_seq_len=128)
         rows = prompts.tolist()
         plain = self.serve_run(f"yi-6b ({layers} layers) continuous", cfg, model, opts, rows)
-        res = {"layers": layers, "static": {k: v for k, v in static.items() if k != "calls"},
+        res = {"layers": layers, "static": run_summary(static),
                "continuous_outputs": plain["outputs"]}
         diffs = self.token_diffs(cfg, model, rows, static["outputs"], plain["outputs"])
         res["static_diffs"] = diffs
@@ -3122,6 +3229,559 @@ class Smoke:
         res["cli"] = self.static_cli(failures)
         res["seconds"] = time.perf_counter() - t0
         self.results["static"] = res
+        if failures:
+            raise AssertionError("; ".join(failures[:8]))
+
+    # -- phase archs -----------------------------------------------------------
+
+    def archs_cfg(self, arch):
+        """``arch`` under default=plam_sim:16:1, cut to ARCHS_LAYERS (or
+        --layers, if fewer) where the card cannot hold it whole."""
+        from repro_torch.configs import get_config
+
+        cfg = get_config(arch).with_numerics("default=plam_sim:16:1")
+        if arch in ARCHS_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=min(ARCHS_LAYERS[arch], self.args.layers))
+        return cfg
+
+    def archs_inputs(self, cfg, seed):
+        """The static prompt batch of ``cfg``'s family: int32 tokens [B, S]
+        and, on the card, the seeded stub-frontend inputs (bf16)."""
+        import numpy as np
+
+        from repro_torch.models.registry import vlm_patches
+
+        rng = np.random.default_rng(seed)
+        if cfg.family == "encdec":
+            tokens = rng.integers(0, cfg.vocab, (ARCHS_BATCH, ARCHS_TGT))
+            frames = rng.standard_normal((ARCHS_BATCH, ARCHS_FRAMES, cfg.frontend_dim))
+            extra = {"frames": frames}
+        elif cfg.family == "vlm":
+            tokens = rng.integers(0, cfg.vocab, (VLM_ROWS, VLM_TOKENS))
+            extra = {"embeds_prefix": rng.standard_normal((VLM_ROWS, vlm_patches(cfg),
+                                                           cfg.d_model))}
+        else:
+            tokens = rng.integers(0, cfg.vocab, (ARCHS_BATCH, ARCHS_PROMPT))
+            extra = {}
+        extra = {k: self.torch.from_numpy(v.astype(np.float32)).to(self.dev, self.torch.bfloat16)
+                 for k, v in extra.items()}
+        return self.torch.from_numpy(tokens.astype(np.int32)), extra
+
+    @contextlib.contextmanager
+    def recording_k1_rows(self, params):
+        """The first K1 launch over float activations at each (A shape and
+        dtype, B shape and dtype, spec) while the block runs, kept for
+        check_recorded_rows: A's first K1_ROWS rows and its last 64-row
+        block, and the same rows of the output; B whole where it is one of
+        ``params`` (the model's weights, held by the model), else (made in
+        the forward) its first and last K1_COLS columns, with the same
+        columns of the output."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+
+        real, seen = ops.plam_matmul_float, {}
+        held = {p.data_ptr() for p in params}
+
+        def recorded(x, b, spec, **kw):
+            out = real(x, b, spec, **kw)
+            key = (tuple(x.shape), str(x.dtype)[6:], tuple(b.shape), str(b.dtype)[6:],
+                   (spec.n, spec.es))
+            if key not in seen and x.is_cuda and x.dim() == 2:
+                m, n = x.shape[0], b.shape[-1]
+                tail = max(K1_ROWS, (m - 1) // 64 * 64)
+                rows = torch.cat([torch.arange(min(m, K1_ROWS)), torch.arange(tail, max(tail, m))])
+                rows = rows.to(self.dev)
+                if b.data_ptr() in held or n <= 2 * K1_COLS:
+                    cols, bk = None, b
+                else:
+                    cols = torch.cat([torch.arange(K1_COLS),
+                                      torch.arange(n - K1_COLS, n)]).to(self.dev)
+                    bk = b[:, cols].clone()
+                got = out[rows] if cols is None else out[rows][:, cols]
+                seen[key] = [x[rows].clone(), bk, spec, got.clone(), 0, m, cols is not None]
+            if key in seen:
+                seen[key][4] += 1
+            return out
+
+        ops.plam_matmul_float = recorded
+        try:
+            yield seen
+        finally:
+            ops.plam_matmul_float = real
+
+    def check_recorded_rows(self, what, seen, failures) -> dict:
+        """Each launch that recording_k1_rows kept against K1's plain version
+        on the same rows (and columns) of its operands, bit for bit.  No
+        kernel is launched here."""
+        torch = self.torch
+        from repro_torch.kernels.plam_matmul import plam_matmul_float
+
+        n_before, t0, cases = len(failures), time.perf_counter(), []
+        for key in sorted(seen, key=lambda k: (k[2][-1], k[0][0])):
+            x, b, spec, got, calls, m, windowed = seen[key]
+            k, n = x.shape[1], key[2][-1]
+            want = plam_matmul_float(x, b, spec, use_kernel=False)
+            bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            if bad:
+                failures.append(f"{what}: K1 M={m} K={k} N={n} A={key[1]} B={key[3]}: "
+                                f"{bad} lanes differ from the plain version")
+            cases.append({"m": m, "k": k, "n": n, "a": key[1], "b": key[3], "launches": calls,
+                          "rows_checked": x.shape[0], "cols_checked": b.shape[-1],
+                          "lanes_differ": bad})
+            del want
+        seen.clear()
+        torch.cuda.synchronize()
+        ok = len(failures) == n_before
+        secs = time.perf_counter() - t0
+        log(f"  {what}: K1 at the {len(cases)} (M, K, N, A, B) it was launched with, each "
+            f"first launch's output against the plain version on its operands (rows, cols "
+            f"checked): {'bit-identical' if ok else failures[n_before:]} in {secs:.1f} s: "
+            + str([(c["m"], c["k"], c["n"], c["b"], c["launches"], c["rows_checked"],
+                    c["cols_checked"]) for c in cases]))
+        return {"ok": ok, "cases": cases, "seconds": secs}
+
+    @contextlib.contextmanager
+    def recording_k2(self):
+        """The first K2 call at each (B, H, kv, hd, dtype) while the block
+        runs: copies of its operands and output."""
+        import importlib
+
+        # the module (the package's name of the same spelling is its K5 wrapper)
+        k2_mod = importlib.import_module("repro_torch.kernels.decode_attention")
+        real, seen = k2_mod.paged_decode_attention, {}
+
+        def recorded(q, k_pool, v_pool, block_tables, lengths, **kw):
+            out = real(q, k_pool, v_pool, block_tables, lengths, **kw)
+            key = (*q.shape, k_pool.shape[2], str(q.dtype)[6:])
+            if key not in seen and q.is_cuda:
+                seen[key] = [t.clone() for t in (q, k_pool, v_pool, block_tables, lengths, out)]
+            return out
+
+        k2_mod.paged_decode_attention = recorded
+        try:
+            yield seen
+        finally:
+            k2_mod.paged_decode_attention = real
+
+    def check_k2(self, what, seen, failures) -> list:
+        """Each recorded K2 call against its plain version's f32 result on
+        the same operands (K5's gates, as phase kernels' canaries), then
+        timed on them beside its bytes bound and scaled_dot_product_attention
+        over the same keys laid out contiguous."""
+        torch = self.torch
+        from repro_torch.kernels.decode_attention import (
+            paged_decode_attention_kernel,
+            paged_decode_attention_ref,
+        )
+
+        rows = []
+        for key, (q, kp, vp, tables, lens, got) in seen.items():
+            b, h, hd = q.shape
+            kv = kp.shape[2]
+            ref32 = paged_decode_attention_ref(q.float(), kp.float(), vp.float(), tables, lens)
+            if got.dtype == torch.float32:
+                gate, tol = float((got - ref32).abs().max()), K5_TOL_F32
+            else:
+                gate = float(((got.float() - ref32).abs() - K5_BF16_REL * ref32.abs()).max())
+                tol = K5_BF16_ORDER
+            err = float((got.float() - ref32).abs().max())
+            if not gate <= tol:
+                failures.append(f"{what}: K2 B={b} H={h} kv={kv} hd={hd}: gate {gate:.3e} > {tol}")
+            ms, dev_ms = self.timed(
+                lambda: paged_decode_attention_kernel(q, kp, vp, tables, lens), reps=20)
+            live = int(lens.sum())
+            bs = kp.shape[1]
+            idx = torch.cat([tables[i, :-(-int(n) // bs)].long() for i, n in enumerate(lens)])
+            s_max = max(1, int(lens.max()))
+            kc = torch.zeros((b, kv, s_max, hd), dtype=kp.dtype, device=self.dev)
+            vc = torch.zeros_like(kc)
+            pos = 0
+            for i, n in enumerate(lens.tolist()):
+                nb = -(-n // bs)
+                blocks = idx[pos:pos + nb]
+                kc[i, :, :n] = kp[blocks].reshape(-1, kv, hd)[:n].transpose(0, 1)
+                vc[i, :, :n] = vp[blocks].reshape(-1, kv, hd)[:n].transpose(0, 1)
+                pos += nb
+            lib_ms = self.events_ms(self.sdpa(q, kc, vc, lens), reps=20, spin=True)
+            bytes_ = 2 * q.numel() * q.element_size() + 2 * live * kv * hd * kp.element_size()
+            bound = bytes_ / HBM_BYTES_PER_S * 1e3
+            rows.append({"b": b, "h": h, "kv": kv, "group": h // kv, "hd": hd,
+                         "lengths": lens.tolist(), "max_abs_err": err, "k5_gate": gate,
+                         "ms": ms, "device_ms": dev_ms, "bound_ms": bound, "library_ms": lib_ms})
+            log(f"  {what}: K2 B={b} H={h} kv={kv} (group {h // kv}) hd={hd} lens "
+                f"{lens.tolist()}: max_abs_err {err:.3e} against the plain version (K5 gate "
+                f"{gate:.3e}, tol {tol}); {ms:.4f} ms, device {dev_ms:.4f} ms against a bytes "
+                f"bound of {bound:.4f} ms ({dev_ms / bound:.1f}x), SDPA {lib_ms:.4f} ms device")
+        seen.clear()
+        return rows
+
+    def archs_k1_times(self, cfg, ms_list):
+        """K1 over bf16 activations and int16 weights at each (K, N) of
+        ``cfg``'s projections, at each M of ``ms_list``, spun (the card's
+        time), beside its bound (bytes: A, B and C once each; operations:
+        one integer add a product at the int32 rate)."""
+        torch = self.torch
+        from repro_torch.kernels.ops import plam_dense
+        from repro_torch.kernels.posit_codec import posit_encode
+        from repro_torch.numerics import P16
+
+        d, q, kvw = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv * cfg.hd
+        shapes = [(d, q), (d, kvw), (q, d), (d, cfg.d_ff), (cfg.d_ff, d), (d, cfg.vocab)]
+        if cfg.frontend_dim and cfg.family == "encdec":
+            shapes.insert(0, (cfg.frontend_dim, d))
+        g, rows, int_rate = self.gen(37), [], self.int32_ops_per_s()
+        for k, n in dict.fromkeys(shapes):
+            b = posit_encode(torch.randn((k, n), generator=g, device=self.dev) * k ** -0.5,
+                             P16, out_dtype=torch.int16)
+            for m in ms_list:
+                x = torch.randn((m, k), generator=g, device=self.dev).to(torch.bfloat16)
+                dev_ms = self.events_ms(lambda: plam_dense(x, b, P16), reps=3, spin=True)
+                t_bytes = (m * k * 2 + k * n * 2 + m * n * 4) / HBM_BYTES_PER_S * 1e3
+                t_ops = m * k * n / int_rate * 1e3
+                bound = max(t_bytes, t_ops)
+                by = "bytes" if t_bytes >= t_ops else "operations"
+                rows.append({"m": m, "k": k, "n": n, "device_ms": dev_ms, "bound_ms": bound,
+                             "bound_by": by})
+                del x
+            del b
+        log(f"  K1 times (M, K, N: device ms / bound ms by): " + "; ".join(
+            f"{r['m']},{r['k']},{r['n']}: {r['device_ms']:.4f}/{r['bound_ms']:.4f} "
+            f"{r['bound_by'][0]} ({r['device_ms'] / r['bound_ms']:.1f}x)" for r in rows))
+        return rows
+
+    def archs_e2e(self, arch, failures):
+        """``arch`` at ARCHS_E2E_LAYERS layers (both stacks for the encdec),
+        prequantized, on the static engine: a prefill and a decode step on
+        the kernels and on the plain versions; the decode step's logits
+        within E2E_LOGIT_TOL (phase e2e's rule).  The inputs are short, and
+        there is one decode step: the plain K1 walks k in order on the card,
+        ~6 launches a k, for every (K, N) of the forward."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.kernels import ref as k1_ref
+        from repro_torch.serving import Engine, ServeConfig
+
+        cfg = self.archs_cfg(arch)
+        cut = ARCHS_E2E_LAYERS
+        cfg = dataclasses.replace(cfg, n_layers=cut, enc_layers=min(cfg.enc_layers, cut),
+                                  dec_layers=min(cfg.dec_layers, cut))
+        tokens, extra = self.archs_inputs(cfg, 23)
+        tokens = tokens[:1, :16]
+        extra = {k: v[:1, :32] for k, v in extra.items()}  # 32 frames or patches
+        eng = Engine(cfg, prequantize=True, init_seed=1, device=self.dev)
+        outs = {}
+        # the plain K1 walks k once a column slice: wider slices (2 GB int64
+        # temporaries), now that the card holds only the 2-layer model
+        plain_lanes, k1_ref.PLAIN_LANES = k1_ref.PLAIN_LANES, 1 << 28
+        try:
+            for use_kernel in (None, False):
+                last = []
+                decode = eng.api.decode_step
+
+                def kept(model, batch, use_kernel=None, _decode=decode, _last=last):
+                    logits, caches = _decode(model, batch, use_kernel=use_kernel)
+                    _last[:] = [logits[:, -1].float()]
+                    return logits, caches
+
+                eng.use_kernel = use_kernel
+                eng.api = dataclasses.replace(eng.api, decode_step=kept)
+                toks = eng.generate({"tokens": tokens.to(self.dev), **extra},
+                                    ServeConfig(max_new_tokens=2))
+                eng.api = dataclasses.replace(eng.api, decode_step=decode)
+                outs[use_kernel] = (last[0], toks[0].tolist())
+        finally:
+            k1_ref.PLAIN_LANES = plain_lanes
+        got, want = outs[None][0], outs[False][0]
+        err = float((got - want).abs().max())
+        finite = bool(torch.isfinite(got).all())
+        log(f"  {arch} at {cut} layers: last-logit max_abs_err {err:.3e} kernels against plain "
+            f"(tol {E2E_LOGIT_TOL}, |logits| max {float(want.abs().max()):.2f}); tokens "
+            f"{outs[None][1]} against {outs[False][1]}")
+        if not (finite and err <= E2E_LOGIT_TOL):
+            failures.append(f"{arch} e2e at {cut} layers: err {err}, finite {finite}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"layers": cut, "max_abs_err": err, "tokens": outs[None][1],
+                "plain_tokens": outs[False][1]}
+
+    def archs_dense(self, arch, failures):
+        """One dense arch under default=plam_sim:16:1 from the port's seeded
+        init, prequantized in place: the continuous engine's run (4
+        requests one step apart), then (gemma, minitron) the static engine
+        on the same prompts, the continuous engine with bf16 weights
+        encoded every forward (gemma), two profiled decode steps, and K2
+        held and timed on the first decode step's own operands."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.core.prequant import quantize_params
+        from repro_torch.kernels import _lib
+        from repro_torch.models import transformer as tf
+        from repro_torch.serving import Engine, ServeOptions, build_engine
+
+        cfg = self.archs_cfg(arch)
+        counts = launch_counts(cfg)
+        log(f"archs: {arch} d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv} hd {cfg.hd} "
+            f"d_ff {cfg.d_ff} ({cfg.act}{', gated' if cfg.glu else ''}) vocab {cfg.vocab} "
+            f"layers {cfg.n_layers}{' (cut)' if arch in ARCHS_LAYERS else ''}"
+            f"{', tied head' if cfg.tie_embeddings else ''}; {counts['k1']} K1 and "
+            f"{counts['k3']} K3 a forward")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = tf.lm_init(cfg, seed=0, device=self.dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        _lib.reset_launches()
+        quantize_params(cfg, model)
+        torch.cuda.synchronize()
+        encodes = _lib.launches["posit_codec"]
+        gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+        log(f"  seeded init {init_s:.1f} s: {n_params / 1e9:.3f} G parameters; "
+            f"{encodes} weight encodes, {gb:.2f} GB of weights, build peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if encodes != counts["build"]:
+            failures.append(f"{arch}: {encodes} weight encodes at build, expected "
+                            f"{counts['build']}")
+        self.path_launches["posit_codec"] = self.path_launches.get("posit_codec", 0) + encodes
+        prompts, _ = self.archs_inputs(cfg, 29)
+        rows = prompts.tolist()
+        opts = ServeOptions(max_new_tokens=ARCHS_NEW, block_size=16, max_slots=4, num_blocks=64,
+                            max_seq_len=128)
+        res = {"layers": cfg.n_layers, "params": n_params, "init_s": init_s,
+               "weight_gb": gb, "encodes_at_build": encodes, "counts": counts}
+        params = list(model.parameters())
+        with self.recording_k1_rows(params) as seen, self.counting_plain() as plain:
+            torch.cuda.reset_peak_memory_stats()
+            cont = self.serve_run(f"  {arch} continuous", cfg, model, opts, rows)
+            cont["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            per_request = cont["prefill_s"] / cont["prefills"]
+            log(f"  {arch} continuous: step p50 {cont['step_p50_s'] * 1e3:.2f} ms, p95 "
+                f"{cont['step_p95_s'] * 1e3:.2f} ms, prefill {per_request:.3f} s a request, "
+                f"peak {cont['peak_gib']:.2f} GiB")
+            failures.extend(f"{arch} continuous: {f}"
+                            for f in self.forward_gates(cont, cfg.n_layers, counts))
+            for name in ("plam_matmul", "paged_decode_attention", "posit_codec"):
+                self.path_launches[name] = (self.path_launches.get(name, 0)
+                                            + cont["launches"][name])
+            res["continuous"] = run_summary(cont)
+            if arch in ARCHS_BOTH_ENGINES:
+                eng = Engine(cfg, params=model, device=self.dev)
+                static = self.static_run(f"{arch} static", eng, prompts, ARCHS_NEW)
+                del eng
+                failures.extend(f"{arch} static: {f}"
+                                for f in self.static_gates(static, counts["k1"], counts["k3"]))
+                self.path_launches["plam_matmul"] = (self.path_launches.get("plam_matmul", 0)
+                                                     + static["launches"]["plam_matmul"])
+                diffs = self.token_diffs(cfg, model, rows, static["outputs"], cont["outputs"])
+                log(f"  {arch} static tokens {'equal to' if not diffs else 'differ from'} the "
+                    f"continuous engine's" + (f": {diffs}" if diffs else ""))
+                if any(d["plain_top2_margin"] >= E2E_LOGIT_TOL for d in diffs):
+                    failures.append(f"{arch} static: tokens differ at a top-2 margin >= "
+                                    f"{E2E_LOGIT_TOL}: {diffs}")
+                res["static"] = run_summary(static)
+                res["static_diffs"] = diffs
+        if any(plain.values()):
+            failures.append(f"{arch}: plain calls on the card {plain}")
+        log(f"  {arch}: plain K1 / codec calls on the card {plain}")
+        res["k1_checked"] = self.check_recorded_rows(arch, seen, failures)
+        # two profiled decode steps; K2 kept on the first decode step with
+        # all four slots busy (the profile's first step), then held and timed
+        eng = build_engine(cfg, opts, params=model)
+        with self.recording_k2() as k2_seen:
+            res["decode_profile"], _ = self.profile_decode(eng, rows)
+        res["k2"] = self.check_k2(arch, k2_seen, failures)
+        del eng, params
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch == "gemma-7b":  # bf16 weights, encoded by K3 before each K1 launch
+            model = tf.lm_init(cfg, seed=0, device=self.dev)
+            bf_counts = launch_counts(cfg, prequantized=False)
+            with self.counting_plain() as plain:
+                bf = self.serve_run(f"  {arch} bf16 weights", cfg, model, opts, rows)
+            failures.extend(f"{arch} bf16: {f}"
+                            for f in self.forward_gates(bf, cfg.n_layers, bf_counts))
+            if any(plain.values()):
+                failures.append(f"{arch} bf16: plain calls on the card {plain}")
+            self.path_launches["posit_codec"] = (self.path_launches.get("posit_codec", 0)
+                                                 + bf["launches"]["posit_codec"])
+            same = bf["outputs"] == cont["outputs"]
+            log(f"  {arch} bf16-weight tokens {'equal to' if same else 'DIFFER from'} the "
+                f"prequantized run's")
+            if not same:
+                failures.append(f"{arch}: bf16-weight tokens differ from the prequantized run's")
+            res["bf16"] = run_summary(bf)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        res["k1_times"] = self.archs_k1_times(
+            cfg, (4, ARCHS_BATCH * ARCHS_PROMPT if arch in ARCHS_BOTH_ENGINES else ARCHS_PROMPT))
+        res["e2e"] = self.archs_e2e(arch, failures)
+        return res
+
+    def archs_static(self, arch, failures):
+        """seamless-m4t-medium or qwen2-vl-72b on the static engine under
+        default=plam_sim:16:1 from the port's seeded init, prequantized:
+        its prompt batch with the stub frontend's seeded inputs, every
+        forward's launches, the first decode step against a prefill of one
+        more token, two profiled decode steps; seamless also under its
+        config's own posit_quant:16:1 on its bf16 weights."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.core.prequant import quantize_params
+        from repro_torch.kernels import _lib
+        from repro_torch.models import build
+        from repro_torch.serving import Engine
+
+        cfg = self.archs_cfg(arch)
+        counts = launch_counts(cfg)
+        enc = cfg.family == "encdec"
+        log(f"archs: {arch} family {cfg.family} d_model {cfg.d_model} heads "
+            f"{cfg.n_heads}/{cfg.n_kv} hd {cfg.hd} d_ff {cfg.d_ff} vocab {cfg.vocab} layers "
+            + (f"{cfg.enc_layers} + {cfg.dec_layers}, frontend {cfg.frontend_dim}" if enc else
+               f"{cfg.n_layers} (cut), M-RoPE sections {cfg.mrope_sections}")
+            + f"; {counts['enc_k1'] + counts['k1']} K1 a prefill, {counts['k1']} a decode step")
+        api = build(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = api.init(seed=0, device=self.dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        bf_model = None
+        _lib.reset_launches()
+        quantize_params(cfg, model)
+        torch.cuda.synchronize()
+        encodes = _lib.launches["posit_codec"]
+        gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+        log(f"  seeded init {init_s:.1f} s: {n_params / 1e9:.3f} G parameters; {encodes} "
+            f"weight encodes, {gb:.2f} GB of weights")
+        if encodes != counts["build"]:
+            failures.append(f"{arch}: {encodes} weight encodes at build, expected "
+                            f"{counts['build']}")
+        self.path_launches["posit_codec"] = self.path_launches.get("posit_codec", 0) + encodes
+        tokens, extra = self.archs_inputs(cfg, 31)
+        res = {"layers": cfg.n_layers, "params": n_params, "init_s": init_s, "weight_gb": gb,
+               "encodes_at_build": encodes, "counts": counts}
+        params = list(model.parameters())
+        with self.recording_k1_rows(params) as seen, self.counting_plain() as plain:
+            eng = Engine(cfg, params=model, device=self.dev)
+            run = self.static_run(f"{arch} prequantized", eng, tokens, ARCHS_NEW, extra)
+            prefill = (counts["enc_k1"] + counts["k1"], 0)
+            failures.extend(f"{arch}: {f}" for f in self.static_gates(
+                run, counts["k1"], 0, prefill=prefill, outside=(counts["enc_k1"], 0)))
+            self.path_launches["plam_matmul"] = (self.path_launches.get("plam_matmul", 0)
+                                                 + run["launches"]["plam_matmul"])
+            # the first decode step against a prefill of the prompt and its
+            # first token (whose caches the profile then decodes from)
+            ext_tokens = torch.cat([tokens.to(self.dev),
+                                    torch.tensor(run["outputs"], device=self.dev)[:, :1]],
+                                   dim=1).to(torch.int32)
+            prefilled = api.prefill(model, {"tokens": ext_tokens, **extra})
+            ext = float((run["first_decode"] - prefilled[0][:, -1].float()).abs().max())
+            res.update(prequantized=run_summary(run), decode_extension_bf16_max_err=ext)
+        if any(plain.values()):
+            failures.append(f"{arch}: plain calls on the card {plain}")
+        log(f"  {arch}: plain K1 / codec calls on the card {plain}")
+        ext32, off = self.archs_extension_f32(cfg, model, ext_tokens, extra)
+        log(f"  {arch}: the first decode step against a prefill of one more token, max |logit "
+            f"difference|: {ext:.4f} with bf16 activations (served; not gated), {ext32:.4f} "
+            f"with f32 activations (tolerance {E2E_LOGIT_TOL})"
+            + (f"; a decode one patch prefix off: {off:.4f}" if off is not None else ""))
+        if not ext32 <= E2E_LOGIT_TOL:
+            failures.append(f"{arch}: decode after prefill {ext32:.4f} from the prefill "
+                            f"extension (f32 activations)")
+        res.update(decode_extension_max_err=ext32, decode_off_by_patches_max_err=off)
+        res["k1_checked"] = self.check_recorded_rows(arch, seen, failures)
+        res["decode_profile"] = self.static_profile(eng, ext_tokens, extra, prefilled)
+        del eng, params, model, prefilled
+        gc.collect()
+        torch.cuda.empty_cache()
+        if enc:  # the config's own numerics on bf16 weights: K3 quantizes both operands
+            from repro_torch.configs import get_config
+
+            qcfg = cfg.with_numerics(get_config(arch).numerics)
+            bf_model = build(qcfg).init(seed=0, device=self.dev)
+            eng = Engine(qcfg, params=bf_model, device=self.dev)
+            with self.counting_plain() as plain:
+                run = self.static_run(f"{arch} {qcfg.numerics.mode}:16:1", eng, tokens,
+                                      ARCHS_NEW, extra)
+            q = {k: 2 * v for k, v in counts.items()}
+            failures.extend(f"{arch} posit_quant: {f}" for f in self.static_gates(
+                run, 0, q["k1"], prefill=(0, q["enc_k1"] + q["k1"]), outside=(0, q["enc_k1"])))
+            if any(plain.values()):
+                failures.append(f"{arch} posit_quant: plain calls on the card {plain}")
+            self.path_launches["posit_codec"] = (self.path_launches.get("posit_codec", 0)
+                                                 + run["launches"]["posit_codec"])
+            res["posit_quant"] = run_summary(run)
+            del eng, bf_model
+            gc.collect()
+            torch.cuda.empty_cache()
+        ms = (4, ARCHS_BATCH * ARCHS_TGT, ARCHS_BATCH * ARCHS_FRAMES) if enc else \
+            (VLM_ROWS, VLM_ROWS * (tokens.shape[1] + extra["embeds_prefix"].shape[1]))
+        res["k1_times"] = self.archs_k1_times(cfg, ms)
+        res["e2e"] = self.archs_e2e(arch, failures)
+        return res
+
+    def archs_extension_f32(self, cfg, model, ext_tokens, extra):
+        """Decode after prefill on ``model`` with f32 activations: a prefill
+        of all but the last token of ``ext_tokens`` (after the stub
+        frontend's inputs), the decode step of that token at its position
+        (patches + tokens for the vlm), against the last logits of a
+        prefill of all of ``ext_tokens``: in f32 the comparison sees the
+        cache and the positions, where in bf16 it also sees the rounding of
+        every activation (PERF.md).  For scale, the vlm's decode step also
+        runs one patch prefix off (at the tokens' position alone), the
+        error the check is for.  Returns the largest |difference| of each
+        (None for the second without patches)."""
+        from repro_torch.models import build
+        from repro_torch.serving import Engine
+
+        fcfg = dataclasses.replace(cfg, act_dtype="float32")
+        api, eng = build(fcfg), Engine(fcfg, params=model, device=self.dev)
+        extra = {k: v.float() for k, v in extra.items()}
+        t = ext_tokens.shape[1] - 1
+        batch = {"tokens": ext_tokens[:, :t], **extra}
+        _, caches = api.prefill(model, batch)
+        pos0 = t + (extra["embeds_prefix"].shape[1] if "embeds_prefix" in extra else 0)
+        step = {"token": ext_tokens[:, t:], "cache_len": pos0,
+                **eng._cache_kw(eng._grow_caches(caches, 2), batch)}
+        got, _ = api.decode_step(model, step)
+        want, _ = api.prefill(model, {"tokens": ext_tokens, **extra})
+        off = None
+        if "embeds_prefix" in extra:  # the prefill's caches again (a decode writes a copy)
+            step = {"token": ext_tokens[:, t:], "cache_len": t,
+                    "kv_caches": eng._grow_caches(caches, 2)}
+            wrong, _ = api.decode_step(model, step)
+            off = float((wrong[:, -1].float() - want[:, -1].float()).abs().max())
+        return float((got[:, -1].float() - want[:, -1].float()).abs().max()), off
+
+    def phase_archs(self):
+        """The five architectures the earlier phases do not serve, at full
+        width under default=plam_sim:16:1 through K1: gemma-7b and
+        minitron-8b at full depth on both engines, command-r-plus-104b on
+        the continuous engine cut in depth, seamless-m4t-medium at full
+        depth and qwen2-vl-72b cut in depth on the static engine
+        (archs_dense, archs_static); each also at 2 layers, kernels
+        against plain versions."""
+        torch = self.torch
+        import gc
+
+        self.yi_model = None  # the earlier phases' model
+        gc.collect()
+        torch.cuda.empty_cache()
+        failures, res = [], {}
+        t0 = time.perf_counter()
+        for arch in ARCHS_DENSE:
+            res[arch] = self.archs_dense(arch, failures)
+        for arch in ARCHS_STATIC:
+            res[arch] = self.archs_static(arch, failures)
+        res["seconds"] = time.perf_counter() - t0
+        self.results["archs"] = res
         if failures:
             raise AssertionError("; ".join(failures[:8]))
 
@@ -4419,7 +5079,8 @@ def main() -> int:
                          f"({STATIC_YI_LAYERS} by default) and the trained model's in the "
                          f"train phase ({TRAIN_LAYERS} by default; widths are never cut; "
                          "serve_paths and observe always run all 32 layers, and the static "
-                         "phase's state-space models all of theirs)")
+                         "phase's state-space models all of theirs; the archs phase's cut "
+                         "models run at most this many)")
     ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args()
     try:

@@ -2,7 +2,8 @@
 
 Field for field the same as the reference's ``ModelConfig``, so one
 configuration describes the same model in both packages.  The port
-serves the ``dense``, ``moe``, ``ssm`` and ``hybrid`` families so far.
+serves all six families: ``dense``, ``moe``, ``ssm``, ``hybrid``,
+``encdec`` and ``vlm``.
 """
 from __future__ import annotations
 

@@ -4,13 +4,17 @@ and the port's.
 ``params_from_jax`` takes the reference's parameter pytree as numpy
 arrays (nested dicts; per-layer leaves stacked on a leading [L] axis)
 and returns the port's model for ``cfg.family`` (``DenseLM``,
-``MambaLM`` or ``HybridLM``) holding the same values, the stacked axis
-split across blocks; leaves outside the layer stack (the hybrid's shared
-block, ``shared/attn/wq`` ...) come across unsplit.  A MoE block's leaves (``layers/moe/router``
-[L, d, E], the expert stacks ``layers/moe/w{g,u,d}`` [L, E, K, N] and
-the shared experts' ``layers/moe/shared/*``) come across the same way.  Leaves may be float32, bfloat16 passed as a
-``uint16`` view, or int16/int32 posit patterns of prequantized weights;
-each keeps its dtype.  With the same parameters both packages compute
+``MambaLM``, ``HybridLM`` or ``EncDecLM``) holding the same values, the
+stacked axis split across blocks (the encdec's ``enc_layers`` and
+``dec_layers`` stacks, with the decoder's ``xattn`` and ``ln_x``, across
+its two layer lists); leaves outside the layer stacks (the hybrid's
+shared block, ``shared/attn/wq``, the encdec's ``frontend_proj``,
+``ln_enc`` and ``ln_dec`` ...) come across unsplit.  A MoE block's
+leaves (``layers/moe/router`` [L, d, E], the expert stacks
+``layers/moe/w{g,u,d}`` [L, E, K, N] and the shared experts'
+``layers/moe/shared/*``) come across the same way.  Leaves may be
+float32, bfloat16 passed as a ``uint16`` view, or int16/int32 posit
+patterns of prequantized weights; each keeps its dtype.  With the same parameters both packages compute
 the same function.
 
 ``params_to_jax`` is its inverse: the port's model (or a paper model's
@@ -31,14 +35,16 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.prequant import param_path
+from repro_torch.core.prequant import layer_index, param_path
 from repro_torch.device import resolve_device
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.mamba_lm import MambaLM
 from repro_torch.models.transformer import DenseLM
 
 #: the port's model class of each family
-MODEL_CLASSES = {"dense": DenseLM, "moe": DenseLM, "ssm": MambaLM, "hybrid": HybridLM}
+MODEL_CLASSES = {"dense": DenseLM, "moe": DenseLM, "vlm": DenseLM, "ssm": MambaLM,
+                 "hybrid": HybridLM, "encdec": EncDecLM}
 
 
 def _leaf(tree: Mapping, path: str):
@@ -62,13 +68,12 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, device=None) -> nn.Module:
     """Build the port's model for ``cfg`` from a reference parameter
     pytree of numpy arrays, on ``device`` (CUDA by default)."""
     device = resolve_device(device)
-    # encdec and vlm raise in DenseLM, naming their queue item
-    cls = MODEL_CLASSES.get(cfg.family, DenseLM)
-    model = cls(cfg, generator=torch.Generator(), device=torch.device("meta"))
+    model = MODEL_CLASSES[cfg.family](cfg, generator=torch.Generator(),
+                                      device=torch.device("meta"))
     for name, _ in list(model.named_parameters()):
         leaf = _leaf(tree, param_path(name))
-        if name.startswith("blocks."):
-            leaf = np.asarray(leaf)[int(name.split(".")[1])]
+        if layer_index(name) is not None:
+            leaf = np.asarray(leaf)[layer_index(name)]
         mod_name, _, attr = name.rpartition(".")
         owner = model.get_submodule(mod_name) if mod_name else model
         value = _to_torch(np.asarray(leaf)).to(device)
@@ -95,13 +100,15 @@ def named_tree(named: Mapping[str, torch.Tensor],
                leaf: Callable = lambda t: t.detach().cpu()) -> Dict:
     """The reference's nested tree of the tensors in ``named`` (port
     parameter names: ``blocks.{i}.X`` stacked on a leading [L] axis at
-    ``layers/X``, other names at their path), each leaf through ``leaf``."""
+    ``layers/X``, ``enc_layers.{i}.X`` at ``enc_layers/X`` and
+    ``dec_layers.{i}.X`` at ``dec_layers/X``, other names at their path),
+    each leaf through ``leaf``."""
     stacked: Dict[str, list] = {}
     tree: Dict = {}
     for name, t in named.items():
         path = param_path(name)
-        if name.startswith("blocks."):
-            stacked.setdefault(path, []).append((int(name.split(".")[1]), t))
+        if layer_index(name) is not None:
+            stacked.setdefault(path, []).append((layer_index(name), t))
         else:
             _set_leaf(tree, path, leaf(t))
     for path, items in stacked.items():
@@ -138,8 +145,8 @@ def load_named(tree: Mapping, named: Mapping[str, torch.Tensor]) -> None:
     place (each keeps its device and dtype; shapes must agree)."""
     for name, t in named.items():
         leaf = np.asarray(_leaf(tree, param_path(name)))
-        if name.startswith("blocks."):
-            leaf = leaf[int(name.split(".")[1])]
+        if layer_index(name) is not None:
+            leaf = leaf[layer_index(name)]
         value = _to_torch(leaf)
         if tuple(value.shape) != tuple(t.shape):
             raise ValueError(f"{name}: shape {tuple(value.shape)} in the tree, "

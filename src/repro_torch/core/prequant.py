@@ -61,13 +61,24 @@ def param_role(path: str) -> Optional[str]:
     return None
 
 
+#: the port's layer lists -> the reference's stacked [L] pytree keys
+_STACKS = {"blocks": "layers", "enc_layers": "enc_layers", "dec_layers": "dec_layers"}
+
+
+def layer_index(name: str) -> Optional[int]:
+    """The layer of a parameter in a layer list (``blocks.3.attn.wq`` ->
+    3, ``dec_layers.1.xattn.wk`` -> 1), None outside the stacks."""
+    parts = name.split(".")
+    return int(parts[1]) if parts[0] in _STACKS else None
+
+
 def param_path(name: str) -> str:
     """torch parameter name -> the reference's pytree path
-    (``blocks.3.attn.wq`` -> ``layers/attn/wq``, ``ln_f.scale`` ->
-    ``ln_f/scale``)."""
+    (``blocks.3.attn.wq`` -> ``layers/attn/wq``, ``enc_layers.0.mlp.wu``
+    -> ``enc_layers/mlp/wu``, ``ln_f.scale`` -> ``ln_f/scale``)."""
     parts = name.split(".")
-    if parts[0] == "blocks":
-        parts = ["layers", *parts[2:]]
+    if parts[0] in _STACKS:
+        parts = [_STACKS[parts[0]], *parts[2:]]
     return "/".join(parts)
 
 

@@ -52,6 +52,16 @@ _tables: Dict[Tuple[int, int, Optional[int]], torch.Tensor] = {}
 
 
 def encode_plain(x: torch.Tensor, spec: PositSpec, out_dtype=torch.int32):
+    """The plain encode, over at most PLAIN_LANES lanes at a time (its
+    int64 temporaries), so that it runs on a full-width weight too."""
+    from .ref import PLAIN_LANES
+
+    if x.numel() > PLAIN_LANES:
+        flat = x.reshape(-1)
+        out = torch.empty(flat.shape, dtype=out_dtype, device=x.device)
+        for i in range(0, flat.numel(), PLAIN_LANES):
+            out[i:i + PLAIN_LANES] = encode_plain(flat[i:i + PLAIN_LANES], spec, out_dtype)
+        return out.reshape(x.shape)
     bits = encode(x, spec)
     return pack16(bits) if out_dtype == torch.int16 else bits
 

@@ -19,12 +19,14 @@ storage; PLAM sites serve through ``kernels.ops.plam_dense``).
 ``--continuous`` serves on the paged-KV continuous-batching engine,
 staggering request arrivals one step apart.  Without it the static
 engine generates for one batch of ``--batch`` prompts (the only engine
-of the ssm and hybrid families, e.g. ``--arch mamba2-780m``); chunked
+of the ssm and hybrid families, e.g. ``--arch mamba2-780m``; the dense
+archs ``yi-6b``, ``gemma-7b``, ``minitron-8b`` and ``command-r-plus-104b``
+serve on either engine); chunked
 prefill, speculative decoding, preemption, deadlines and priorities then
 exit asking for ``--continuous``, and the encdec and vlm families exit
 pointing at ``examples/``, as in the reference.  ``--tp N`` (N > 1) and
 ``--force-host-devices`` raise ``NotImplementedError`` (``ROADMAP.md``,
-queue 1, item 12).  ``--prefill-chunk M`` turns on chunked prefill (M a
+queue 1, item 6).  ``--prefill-chunk M`` turns on chunked prefill (M a
 multiple of the block size, 8).
 
 Engine options beyond those flags are spelled ``--opt KEY=VAL``

@@ -14,7 +14,8 @@ restores the exact numerics.  The single-mode flags (--numerics,
 --posit-n, --posit-es, --carrier) stay as sugar for a uniform policy.
 Checkpoints use the reference's layout, so either package resumes the
 other's.  A MoE, ssm or hybrid arch raises ``NotImplementedError``
-(``ROADMAP.md``, queue 1, item 10a).
+(``ROADMAP.md``, queue 1, item 3); an encdec or vlm arch exits pointing
+at ``examples/``, as in the reference.
 """
 import argparse
 import dataclasses

@@ -1,8 +1,9 @@
 """Grouped-query attention with KV cache, numerics-aware projections.
 
 Port of ``repro/models/attention.py``.  The q/k/v projections resolve
-the ``attn.qkv`` site and the output projection ``attn.out``; PLAM
-applies to these linear layers.  The attention core keeps the
+the ``attn.qkv`` site and the output projection ``attn.out``, and the
+enc-dec cross-attention's ``attn.cross.qkv`` and ``attn.cross.out``;
+PLAM applies to these linear layers.  The attention core keeps the
 reference's operation order (einsum, then scale, then f32 softmax,
 weights cast to the value dtype); it does not use a fused attention
 kernel.
@@ -78,13 +79,20 @@ def attn_apply(
     head_dim: int,
     positions,
     rope_theta: float = 10_000.0,
+    mrope_sections=None,
     kv_cache=None,
     cache_len=None,
+    mask="causal",
     softcap=None,
     use_kernel: Optional[bool] = None,
 ):
     """Returns (out [B,S,d], kv): the cache (if one was passed) with the
     span written at ``cache_len`` in place, or the fresh (k, v).
+
+    ``positions`` are [B, S], or [3, B, S] under ``mrope_sections``
+    (M-RoPE).  Without a cache, ``mask`` is ``"causal"``, ``"full"``
+    (the bidirectional encoder) or a boolean [S, S] tensor; with one,
+    attention is causal over the cache prefix, as in the reference.
 
     ``cache_len`` is an int (one offset shared by the batch) or an
     integer tensor [B] (multi-token paged scoring: every slot writes its
@@ -97,8 +105,8 @@ def attn_apply(
     key, as the reference's hybrid decode does)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, ncfg, n_heads, n_kv, head_dim, use_kernel)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    q = apply_rope(q, positions, rope_theta, mrope_sections)
+    k = apply_rope(k, positions, rope_theta, mrope_sections)
 
     if kv_cache is not None and torch.is_tensor(cache_len):
         # every slot at its own offset
@@ -126,7 +134,12 @@ def attn_apply(
         out = attn_core(q, ck, cv, m, softcap)
         new_kv = (ck, cv)
     else:
-        out = attn_core(q, k, v, causal_mask(s, s, device=x.device), softcap)
+        if isinstance(mask, str):
+            m = (causal_mask(s, s, device=x.device) if mask == "causal"
+                 else torch.ones((s, s), dtype=torch.bool, device=x.device))
+        else:
+            m = mask
+        out = attn_core(q, k, v, m, softcap)
         new_kv = (k, v)
 
     out = dense(out.reshape(b, s, n_heads * head_dim), p.wo, site(ncfg, "attn.out"),
@@ -200,3 +213,26 @@ def attn_apply_paged(
     out = dense(out.reshape(b, 1, n_heads * head_dim), p.wo, site(ncfg, "attn.out"),
                 use_kernel=use_kernel)
     return out, (k_pages, v_pages)
+
+
+def cross_attn_apply(p: Attention, x, enc_kv, ncfg: SiteNumerics, *, n_heads: int,
+                     n_kv: int, head_dim: int, use_kernel: Optional[bool] = None):
+    """Decoder cross-attention over the encoder's (k, v) [B, S_src, kv, hd]:
+    no rope, every query attends to every encoder position."""
+    b, s, _ = x.shape
+    q = _split_heads(dense(x, p.wq, site(ncfg, "attn.cross.qkv"), use_kernel=use_kernel),
+                     n_heads, head_dim)
+    k, v = enc_kv
+    m = torch.ones((s, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = attn_core(q, k, v, m)
+    return dense(out.reshape(b, s, n_heads * head_dim), p.wo, site(ncfg, "attn.cross.out"),
+                 use_kernel=use_kernel)
+
+
+def encode_cross_kv(p: Attention, enc_out, ncfg: SiteNumerics, *, n_kv: int, head_dim: int,
+                    use_kernel: Optional[bool] = None):
+    """The cross-attention's (k, v) of the encoder output [B, S_src, d]."""
+    qkv_cfg = site(ncfg, "attn.cross.qkv")
+    k = _split_heads(dense(enc_out, p.wk, qkv_cfg, use_kernel=use_kernel), n_kv, head_dim)
+    v = _split_heads(dense(enc_out, p.wv, qkv_cfg, use_kernel=use_kernel), n_kv, head_dim)
+    return k, v

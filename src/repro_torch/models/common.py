@@ -55,11 +55,24 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return theta ** (-torch.arange(0, half, dtype=torch.float32, device=device) / half)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding.  x: [B, S, H, hd]; positions: [B, S] integers."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               sections=None) -> torch.Tensor:
+    """Rotary embedding.  x: [B, S, H, hd]; positions: [B, S] integers, or
+    [3, B, S] for M-RoPE with ``sections`` = 3 half-dim section sizes
+    (temporal, height, width), as in Qwen2-VL: section i of the half-dim
+    frequencies turns by position row i."""
     half = x.shape[-1] // 2
     inv = rope_freqs(x.shape[-1], theta, device=x.device)  # [half]
-    ang = positions.to(torch.float32)[..., None] * inv  # [B, S, half]
+    if sections is None:
+        ang = positions.to(torch.float32)[..., None] * inv  # [B, S, half]
+    else:
+        if sum(sections) != half:
+            raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
+        parts, start = [], 0
+        for i, sec in enumerate(sections):
+            parts.append(positions[i].to(torch.float32)[..., None] * inv[start:start + sec])
+            start += sec
+        ang = torch.cat(parts, dim=-1)  # [B, S, half]
     cos = torch.cos(ang)[:, :, None, :]  # [B, S, 1, half]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -67,16 +80,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def multi_token_positions(lengths: torch.Tensor, width: int) -> torch.Tensor:
+def multi_token_positions(lengths: torch.Tensor, width: int, mrope: bool = False) -> torch.Tensor:
     """Positions of a ``width``-token span starting at each sequence's
-    cache length: [B] -> [B, W] (token j at ``lengths[b] + j``)."""
+    cache length: [B] -> [B, W] (token j at ``lengths[b] + j``), or [3, B,
+    W] with the one row broadcast for text-only M-RoPE."""
     span = torch.arange(width, dtype=torch.int32, device=lengths.device)
-    return lengths.to(torch.int32)[:, None] + span
+    pos = lengths.to(torch.int32)[:, None] + span
+    return pos.expand(3, *pos.shape) if mrope else pos
 
 
-def decode_positions(lengths: torch.Tensor) -> torch.Tensor:
+def decode_positions(lengths: torch.Tensor, mrope: bool = False) -> torch.Tensor:
     """Single-token special case of :func:`multi_token_positions`."""
-    return multi_token_positions(lengths, 1)
+    return multi_token_positions(lengths, 1, mrope)
 
 
 def causal_mask(s_q: int, s_k: int, q_offset: int = 0, device=None) -> torch.Tensor:

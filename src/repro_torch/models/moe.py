@@ -23,7 +23,7 @@ as ``jax.lax.top_k`` breaks them.
 
 ``aux_load_balance_loss`` is the reference's Switch-style auxiliary loss;
 like the reference's ``train_loss``, the port's does not add it, and MoE
-training waits for ``ROADMAP.md``, queue 1, item 10a.
+training waits for ``ROADMAP.md``, queue 1, item 3.
 """
 from __future__ import annotations
 

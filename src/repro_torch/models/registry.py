@@ -2,20 +2,24 @@
 ``repro/models/registry.py``).
 
 The dense and MoE families share the transformer's static and paged
-entry points; the ssm (``mamba_lm.py``) and hybrid (``hybrid.py``)
-families have a static path only, and their paged fields are None, as in
-the reference.  encdec and vlm are still to be ported (``ROADMAP.md``,
-queue 1, item 11), and training the MoE, ssm and hybrid families waits
-for item 10a.
+entry points; the vlm family (the transformer with M-RoPE and a prefix
+of patch embeddings), the ssm (``mamba_lm.py``), hybrid (``hybrid.py``)
+and encdec (``encdec.py``) families have a static path only, and their
+paged fields are None, as in the reference.  Training every family but
+the dense one waits for ``ROADMAP.md``, queue 1, item 3.
 
 ``prefill(model, batch)`` takes the family's prefill inputs (``{"tokens":
-[B, S]}``), makes the caches the reference's does (bf16: KV caches of
-the prompt's length, the SSM state) on the tokens' device, and returns
-(logits [B, 1, V], caches); ``decode_step(model, batch)`` takes
-``{"token": [B, 1], "cache_len": int}`` and the caches under the
-family's key (``kv_caches`` or ``caches``).  ``prefill_inputs(batch,
-seq_len)`` describes the prefill batch as meta tensors, the analogue of
-the reference's ``ShapeDtypeStruct``s.
+[B, S]}``; the vlm's adds ``"embeds_prefix"`` [B, P, d], the encdec's
+``"frames"`` [B, S_src, frontend_dim]), makes the caches the
+reference's does (bf16: KV caches of the prompt's length, P + S for the
+vlm, the SSM state) on the tokens' device, and returns (logits [B, 1,
+V], caches); ``decode_step(model, batch)`` takes ``{"token": [B, 1],
+"cache_len": int}``, the caches under the family's key (``kv_caches`` or
+``caches``) and, for encdec, the encoder output ``"enc_out"``.
+``prefill_inputs(batch, seq_len)`` describes the prefill batch as meta
+tensors, the analogue of the reference's ``ShapeDtypeStruct``s; the stub
+frontends' inputs are the caller's (seeded numpy arrays in the tests and
+the chip smoke).
 """
 from __future__ import annotations
 
@@ -26,11 +30,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
+from . import encdec as _encdec
 from . import hybrid as _hybrid
 from . import mamba_lm as _mamba
 from . import transformer as _tf
 
 CACHE_DTYPE = torch.bfloat16
+VLM_PATCHES = 1024  # stub vision frontend: a 32 x 32 patch grid (16 when reduced)
+ENCDEC_TGT_LEN = 4096  # the encdec's longest target prefix (64 when reduced)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +59,22 @@ class ModelAPI:
     paged_score_tokens: Optional[Callable] = None
 
 
+def _meta(shape, dtype=torch.int32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def _prefill_inputs(batch: int, seq_len: int):
-    return {"tokens": torch.empty((batch, seq_len), dtype=torch.int32, device="meta")}
+    return {"tokens": _meta((batch, seq_len))}
+
+
+def vlm_patches(cfg: ModelConfig) -> int:
+    """Patch embeddings ahead of a vlm prompt's tokens."""
+    return VLM_PATCHES if cfg.d_model > 512 else 16
+
+
+def encdec_tgt_len(cfg: ModelConfig, seq_len: int) -> int:
+    """The encdec's target prefix for ``seq_len`` source frames."""
+    return min(seq_len, ENCDEC_TGT_LEN if cfg.d_model > 512 else 64)
 
 
 def _later_training(cfg: ModelConfig):
@@ -92,10 +113,39 @@ def build(cfg: ModelConfig) -> ModelAPI:
         def decode_step(model, batch, use_kernel=None):
             return _hybrid.decode_step(cfg, model, batch["token"], batch["caches"],
                                        batch["cache_len"], use_kernel)
+    elif fam == "encdec":
+        return _build_encdec(cfg)
     else:
-        raise NotImplementedError(f"family {fam!r} " + _tf.LATER_FAMILY)
+        raise ValueError(f"unknown family {fam!r}")
     return ModelAPI(cfg=cfg, init=init, train_loss=_later_training(cfg), prefill=prefill,
                     decode_step=decode_step, prefill_inputs=_prefill_inputs)
+
+
+def _build_encdec(cfg: ModelConfig) -> ModelAPI:
+    def init(seed: int = 0, device=None):
+        return _encdec.encdec_init(cfg, seed=seed, device=device)
+
+    def train_loss(model, batch, use_kernel=None):
+        return _encdec.train_loss(cfg, model, batch, use_kernel)
+
+    def prefill(model, batch, use_kernel=None):
+        tokens = batch["tokens"]
+        caches = _encdec.kv_cache_init(cfg, tokens.shape[0], tokens.shape[1], CACHE_DTYPE,
+                                       tokens.device)
+        frames = torch.as_tensor(batch["frames"]).to(tokens.device)
+        return _encdec.prefill(cfg, model, frames, tokens, caches, use_kernel)
+
+    def decode_step(model, batch, use_kernel=None):
+        return _encdec.decode_step(cfg, model, batch["token"], batch["enc_out"],
+                                   batch["kv_caches"], batch["cache_len"], use_kernel)
+
+    def prefill_inputs(batch: int, seq_len: int):
+        act = _tf.torch_dtype(cfg.act_dtype)
+        return {"frames": _meta((batch, seq_len, cfg.frontend_dim), act),
+                "tokens": _meta((batch, encdec_tgt_len(cfg, seq_len)))}
+
+    return ModelAPI(cfg=cfg, init=init, train_loss=train_loss, prefill=prefill,
+                    decode_step=decode_step, prefill_inputs=prefill_inputs)
 
 
 def _build_transformer(cfg: ModelConfig) -> ModelAPI:
@@ -108,12 +158,24 @@ def _build_transformer(cfg: ModelConfig) -> ModelAPI:
     def prefill(model, batch, use_kernel=None):
         tokens = batch["tokens"]
         b, s = tokens.shape
+        if cfg.family == "vlm":
+            return _vlm_prefill(cfg, model, tokens, batch["embeds_prefix"], use_kernel)
         caches = _tf.kv_cache_init(cfg, b, s, CACHE_DTYPE, tokens.device)
         return _tf.prefill(cfg, model, tokens, caches, use_kernel)
 
     def decode_step(model, batch, use_kernel=None):
         return _tf.decode_step(cfg, model, batch["token"], batch["kv_caches"],
                                batch["cache_len"], use_kernel)
+
+    if cfg.family == "vlm":
+        def prefill_inputs(batch: int, seq_len: int):
+            p = vlm_patches(cfg)
+            return {"tokens": _meta((batch, seq_len - p)),
+                    "embeds_prefix": _meta((batch, p, cfg.d_model),
+                                           _tf.torch_dtype(cfg.act_dtype))}
+
+        return ModelAPI(cfg=cfg, init=init, train_loss=train_loss, prefill=prefill,
+                        decode_step=decode_step, prefill_inputs=prefill_inputs)
 
     def paged_pool_init(num_blocks, block_size, dtype, device):
         return _tf.paged_kv_pool_init(cfg, num_blocks, block_size, dtype, device)
@@ -144,3 +206,20 @@ def _build_transformer(cfg: ModelConfig) -> ModelAPI:
                     paged_prefill=paged_prefill, paged_prefill_chunk=paged_prefill_chunk,
                     paged_decode_step=paged_decode_step,
                     paged_score_tokens=paged_score_tokens)
+
+
+@torch.no_grad()
+def _vlm_prefill(cfg: ModelConfig, model, tokens, embeds_prefix, use_kernel):
+    """The vlm's prefill: the patch embeddings [B, P, d] occupy the first
+    P positions of the cache window, the tokens' embeddings the next S.
+    Returns (logits [B, 1, V] at the last token, kv_caches of P + S)."""
+    b = tokens.shape[0]
+    x = _tf.embed_tokens(cfg, model, tokens)
+    prefix = torch.as_tensor(embeds_prefix).to(x.device, x.dtype)
+    x = torch.cat([prefix, x], dim=1)
+    s_tot = x.shape[1]
+    caches = _tf.kv_cache_init(cfg, b, s_tot, CACHE_DTYPE, tokens.device)
+    positions = _tf.default_positions(cfg, b, s_tot, device=tokens.device)
+    hidden, caches = _tf.lm_backbone(cfg, model, x, positions, kv_caches=caches,
+                                     cache_len=0, use_kernel=use_kernel)
+    return _tf.lm_logits(cfg, model, hidden[:, -1:, :], use_kernel), caches

@@ -1,10 +1,13 @@
-"""Decoder-only transformer LM, dense and MoE families (port of the dense
-and MoE subset of ``repro/models/transformer.py``).
+"""Decoder-only transformer LM, dense, MoE and vlm families (port of
+``repro/models/transformer.py``).
 
 The model is an ``nn.Module``: token embedding, an ``nn.ModuleList`` of
 blocks (the reference stacks layers on a leading [L] axis and scans
 them) and the final norm and unembedding.  A block's FFN is an MLP, or
-with ``cfg.n_experts`` a MoE layer (``models/moe.py``).  The functions
+with ``cfg.n_experts`` a MoE layer (``models/moe.py``).  The vlm family
+(the qwen2-vl backbone) is this model with M-RoPE (``cfg.mrope_sections``:
+positions [3, B, S], all three rows equal for text) and a prefix of patch
+embeddings ahead of the tokens (``models/registry.py``).  The functions
 below mirror the reference's public entry points and take the model
 where the reference takes its parameter pytree.
 
@@ -58,23 +61,22 @@ class Block(nn.Module):
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.glu, **kw)
 
 
-#: the families this module builds (ssm and hybrid have modules of their
-#: own); encdec and vlm are still to be ported
-FAMILIES = ("dense", "moe")
-LATER_FAMILY = "is not ported yet (ROADMAP.md, queue 1, item 11: the other families)"
+#: the families this module builds (ssm, hybrid and encdec have modules
+#: of their own)
+FAMILIES = ("dense", "moe", "vlm")
 
 
 class DenseLM(nn.Module):
     """Parameters in the reference's layout: ``embed`` [V, d], per-block
     weights [d_in, d_out] (a MoE block's experts stacked [E, d_in,
     d_out]), ``ln_f``, and ``unembed`` [d, V] unless the embeddings are
-    tied.  Built for the dense and the MoE family."""
+    tied.  Built for the dense, MoE and vlm families."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device: torch.device):
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(f"family {cfg.family!r} " + LATER_FAMILY)
+            raise ValueError(f"family {cfg.family!r} is not a decoder-only transformer")
         dtype = torch_dtype(cfg.param_dtype)
         self.embed = nn.Parameter(
             (torch.randn((cfg.vocab, cfg.d_model), generator=generator, device=device)
@@ -119,7 +121,7 @@ def _layer_fwd(cfg: ModelConfig, nsite, blk: Block, x, positions, kv_slice, cach
     h, new_kv = attn_apply(
         blk.attn, rmsnorm(blk.ln1, x), nsite,
         n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
-        positions=positions, rope_theta=cfg.rope_theta,
+        positions=positions, rope_theta=cfg.rope_theta, mrope_sections=cfg.mrope_sections,
         kv_cache=kv_slice, cache_len=cache_len,
         softcap=cfg.attn_logit_softcap, use_kernel=use_kernel,
     )
@@ -192,10 +194,10 @@ def lm_loss_chunked(cfg: ModelConfig, model: DenseLM, hidden, labels, chunk: int
     return tot / torch.clamp(valid.sum(), min=1.0)
 
 
-#: where the training of the MoE, ssm and hybrid families waits in the
+#: where the training of every family but the dense one waits in the
 #: port's queue
-LATER_TRAINING = ("ROADMAP.md, queue 1, item 10a: training of the MoE, ssm and hybrid "
-                  "families")
+LATER_TRAINING = ("ROADMAP.md, queue 1, item 3: training of the MoE, ssm, hybrid, encdec "
+                  "and vlm families")
 
 
 def train_loss(cfg: ModelConfig, model: DenseLM, batch,
@@ -203,12 +205,10 @@ def train_loss(cfg: ModelConfig, model: DenseLM, batch,
     """batch: {tokens [B, S], labels [B, S]} integer tensors (moved to the
     model's device).  Returns the mean next-token cross-entropy, a scalar
     f32 tensor."""
-    if cfg.n_experts:
-        raise NotImplementedError(f"training a MoE model is not ported yet ({LATER_TRAINING})")
-    if "embeds_prefix" in batch:
-        raise NotImplementedError(
-            "a VLM batch (embeds_prefix) is not ported yet (ROADMAP.md, queue 1, item 11: "
-            "the other families)")
+    if cfg.n_experts or cfg.family == "vlm" or "embeds_prefix" in batch:
+        what = "a VLM batch (embeds_prefix)" if "embeds_prefix" in batch else \
+            f"a {cfg.family} model"
+        raise NotImplementedError(f"training {what} is not ported yet ({LATER_TRAINING})")
     dev = model.embed.device
     tokens = batch["tokens"].to(dev)
     labels = batch["labels"].to(dev)
@@ -233,8 +233,12 @@ def embed_tokens(cfg: ModelConfig, model: DenseLM, tokens):
 
 
 def default_positions(cfg: ModelConfig, b: int, s: int, offset: int = 0, device=None):
+    """[B, S] positions from ``offset``; [3, B, S] with the one row
+    broadcast under M-RoPE (text-only positions: all three sections
+    equal)."""
     pos = torch.arange(s, dtype=torch.int32, device=device)[None, :] + offset
-    return pos.expand(b, s)
+    pos = pos.expand(b, s)
+    return pos.expand(3, b, s) if cfg.mrope_sections else pos
 
 
 def kv_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,

@@ -11,7 +11,7 @@ storage dtype.  No f32 copy of all gradients is held at once.
 
 The reference's ``state_shardings`` (ZeRO-1 sharding of the state over
 the data axis) comes with tensor and data parallelism (``ROADMAP.md``,
-queue 1, item 12).
+queue 1, item 6).
 """
 from __future__ import annotations
 

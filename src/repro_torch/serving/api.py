@@ -7,7 +7,8 @@ prefix cache, tracing (on by default), profiler spans and the static
 engine are served.  Tensor parallelism, not ported yet, raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item; it is never
 silently ignored.  :func:`build_engine` picks the continuous engine for
-the paged families and the static engine for the others (ssm, hybrid).
+the paged families and the static engine for the others (ssm, hybrid,
+encdec, vlm), as the reference does.
 
 Typical use::
 
@@ -38,7 +39,7 @@ PAGED_FAMILIES = ("dense", "moe")
 #: the message of an option whose slice is not ported yet, and those
 #: slices by ROADMAP.md queue 1 item
 LATER = "is not ported yet (ROADMAP.md, queue 1, item {})"
-TENSOR_PARALLELISM = "12: tensor parallelism"
+TENSOR_PARALLELISM = "6: tensor parallelism"
 
 
 @dataclasses.dataclass

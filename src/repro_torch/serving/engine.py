@@ -16,11 +16,11 @@ engine is observable as the reference's is: a typed per-request trace
 with live sources (``self.metrics``), ``stream()``, and, with
 ``profile=True``, a ``torch.profiler.record_function`` span around
 each phase's launches (``serving/observability.py``).  Tensor
-parallelism is a later slice (``ROADMAP.md``, queue 1, item 12).
+parallelism is a later slice (``ROADMAP.md``, queue 1, item 6).
 
 :class:`Engine` is the reference's static batcher: one prefill of a
 fixed batch, then lockstep decode over contiguous caches; the only
-engine of the ssm and hybrid families.
+engine of the ssm, hybrid, encdec and vlm families.
 
 Unlike the reference, whose arrays are immutable, the port updates its
 device state in place: prefill, chunk, verify and decode write K/V into
@@ -156,8 +156,9 @@ class Engine:
     batch in, one prefill of the whole batch, then lockstep decode steps
     over contiguous caches until every row has ``max_new_tokens``.
 
-    It serves every family the port builds, and is the only engine of
-    the ssm and hybrid families, whose caches are not paged.  ``params``
+    It serves every family, and is the only engine of the ssm, hybrid,
+    encdec and vlm families, which have no paged layout (as in the
+    reference).  ``params``
     is a model (e.g. from ``repro_torch.convert.params_from_jax``);
     without one the port's own seeded init (``init_seed``) runs on
     ``device`` (CUDA unless the caller passes another).  ``prequantize``
@@ -183,6 +184,7 @@ class Engine:
 
             self.model, self.prequant_meta = quantize_params(cfg, self.model,
                                                              use_kernel=use_kernel)
+        self._enc_cache = None  # encdec: the encoder output, fixed per generate()
         self.stats = ServeStats()
         # the continuous engine's registry surface, with the sources the
         # static batcher has (no pool, scheduler or drafter to sample)
@@ -201,21 +203,30 @@ class Engine:
         self.stats._registry = self.metrics
 
     def generate(self, prompt_batch: dict, scfg: ServeConfig = ServeConfig()) -> torch.Tensor:
-        """prompt_batch: ``{"tokens": [B, S]}`` integer tokens (a tensor or
-        an array).  Returns the generated tokens, int32 [B,
-        max_new_tokens] on the engine's device.
+        """prompt_batch: the family's prefill inputs (tensors or arrays):
+        ``{"tokens": [B, S]}`` integer tokens, with the vlm's
+        ``"embeds_prefix"`` [B, P, d] patch embeddings or the encdec's
+        ``"frames"`` [B, S_src, frontend_dim].  Returns the generated
+        tokens, int32 [B, max_new_tokens] on the engine's device.
 
         ``self.stats`` is reset per call and filled as the reference
         fills it: step 0 is the whole prefill and the first sampled
-        token, every later step one lockstep decode over the batch.  Step
-        latencies are recorded only under ``scfg.time_steps``."""
+        token, every later step one lockstep decode over the batch.  A
+        vlm row's prompt is its P patches and S tokens, so decode starts
+        at position P + S and ``prefill_tokens`` counts P + S a row.
+        Step latencies are recorded only under ``scfg.time_steps``."""
         self.stats = ServeStats()
         self.stats._registry = self.metrics
+        self._enc_cache = None  # encoded again per generate (the frames differ)
         tokens = torch.as_tensor(prompt_batch["tokens"]).to(self.device, torch.int32)
-        batch = dict(prompt_batch, tokens=tokens)
+        batch = {k: torch.as_tensor(v).to(self.device) for k, v in prompt_batch.items()}
+        batch["tokens"] = tokens
         t0 = time.perf_counter()
         logits, caches = self.api.prefill(self.model, batch, use_kernel=self.use_kernel)
         b, pos0 = tokens.shape
+        if "embeds_prefix" in batch:
+            # the patch embeddings occupy the cache's first positions
+            pos0 += batch["embeds_prefix"].shape[1]
         caches = self._grow_caches(caches, scfg.max_new_tokens)
         out = []
         tok = self._pick(logits[:, -1, :], scfg, 0)
@@ -229,7 +240,8 @@ class Engine:
         self.stats.generated_tokens += b
         for i in range(scfg.max_new_tokens - 1):
             t0 = time.perf_counter()
-            step = {"token": tok[:, None], "cache_len": pos0 + i, **self._cache_kw(caches)}
+            step = {"token": tok[:, None], "cache_len": pos0 + i,
+                    **self._cache_kw(caches, batch)}
             logits, caches = self.api.decode_step(self.model, step, use_kernel=self.use_kernel)
             tok = self._pick(logits[:, -1, :], scfg, i + 1)
             if scfg.time_steps:
@@ -249,19 +261,31 @@ class Engine:
     def _grow_caches(self, caches, max_new_tokens: int):
         """Prefill sizes the caches to the prompt; decode writes at
         positions prompt_len .. prompt_len + max_new - 2, which a
-        prompt-sized cache would clamp onto its last slot.  The reference
-        pads the sequence axis for the dense, MoE, vlm and encdec
-        families, and so for the dense and MoE families here.  The
-        hybrid's shared KV cache is not grown (nor is it in the
-        reference), so its decode writes clamp onto the last slot."""
-        if self.cfg.family not in ("dense", "moe") or max_new_tokens <= 1:
+        prompt-sized cache would clamp onto its last slot.  As the
+        reference, pad the sequence axis for the dense, MoE, vlm and
+        encdec families.  The hybrid's shared KV cache is not grown (nor
+        is it in the reference), so its decode writes clamp onto the last
+        slot."""
+        if (self.cfg.family not in ("dense", "moe", "vlm", "encdec")
+                or max_new_tokens <= 1):
             return caches
         pad = (0, 0, 0, 0, 0, max_new_tokens - 1)  # the sequence axis of [L, B, S, kv, hd]
         return tuple(torch.nn.functional.pad(c, pad) for c in caches)
 
-    def _cache_kw(self, caches):
-        if self.cfg.family in ("dense", "moe"):
+    def _cache_kw(self, caches, prompt_batch):
+        fam = self.cfg.family
+        if fam in ("dense", "moe", "vlm"):
             return {"kv_caches": caches}
+        if fam == "encdec":
+            # the prefill does not return the encoder output: encode the
+            # prompt's frames once more, as the reference does, and keep
+            # it for every decode step of this generate
+            if self._enc_cache is None:
+                from repro_torch.models import encdec
+
+                self._enc_cache = encdec.encode(self.cfg, self.model, prompt_batch["frames"],
+                                                self.use_kernel)
+            return {"kv_caches": caches, "enc_out": self._enc_cache}
         return {"caches": caches}  # ssm, hybrid
 
     def _pick(self, logits, scfg: ServeConfig, step: int):

@@ -181,7 +181,7 @@ def test_later_slice_options_raise(field, value):
     if field == "spec_draft":
         opts["spec_k"] = 2  # the drafter is made only when speculative decoding is on
     if field == "tp":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 12"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 6"):
             build_engine(tc, ServeOptions(**opts), device="cpu")
         return
     eng = build_engine(tc, ServeOptions(**opts), device="cpu")

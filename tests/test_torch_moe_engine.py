@@ -100,10 +100,14 @@ def test_moe_engine_counts_macs_by_mode():
 
 
 def test_unported_family_still_raises():
-    """The MoE family is served (and the ssm and hybrid families, on the
-    static engine); the next family (encdec) raises naming its ROADMAP
-    item."""
-    cfg = dataclasses.replace(t_get_config("yi-6b").reduced(), family="encdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 11"):
-        build_engine(cfg, ServeOptions(), device="cpu")
+    """The MoE family is served, and every other family too: encdec (the
+    last one ported) builds on the static engine under engine="auto", and
+    the continuous engine refuses it as the reference does (no paged KV
+    layout)."""
+    from repro_torch.serving import Engine
+
+    cfg = t_get_config("seamless-m4t-medium").reduced()
+    assert isinstance(build_engine(cfg, ServeOptions(), device="cpu"), Engine)
+    with pytest.raises(ValueError, match="no paged KV layout"):
+        build_engine(cfg, ServeOptions(engine="continuous"), device="cpu")
 

@@ -144,8 +144,8 @@ def test_main_without_trace_skips_the_trace_file(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["--arch", "yi-6b", "--reduced"], None),
-    (REDUCED + ["--tp", "2"], "item 12"),
-    (REDUCED + ["--force-host-devices", "8"], "item 12"),
+    (REDUCED + ["--tp", "2"], "item 6"),
+    (REDUCED + ["--force-host-devices", "8"], "item 6"),
 ], ids=["static", "tp2", "force-host-devices"])
 def test_later_slices_raise(argv, item, capsys):
     """Tensor parallelism still raises naming its ROADMAP item.  The static

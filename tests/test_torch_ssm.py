@@ -239,7 +239,7 @@ def test_ssm_and_hybrid_training_raise_naming_item_10a():
         api = t_build(tc)
         batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
                  "labels": torch.zeros((1, 8), dtype=torch.int32)}
-        with pytest.raises(NotImplementedError, match="item 10a"):
+        with pytest.raises(NotImplementedError, match="item 3"):
             api.train_loss(api.init(device="cpu"), batch)
         assert api.paged_decode_step is None and api.paged_prefill is None
         assert tuple(api.prefill_inputs(3, 10)["tokens"].shape) == (3, 10)

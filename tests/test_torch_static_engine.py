@@ -11,7 +11,9 @@ families, under ``f32`` and under ``plam_sim:16:1`` with prequantized
 weights and without (one reference run a family and mode: prequantizing
 is value-identical, and the reference's prequantized run is the one
 compared).  ``build_engine("auto")`` picks the static engine for ssm and
-hybrid; encdec and vlm still raise naming their ROADMAP item.  The CLI's
+hybrid, and for encdec and vlm, which now serve on it (their tokens
+against the JAX engine's are held in ``tests/test_torch_encdec.py`` and
+``tests/test_torch_vlm.py``).  The CLI's
 static tokens equal the JAX CLI's, and a draft model carried across
 drafts for the continuous engine with the reference's committed tokens
 and counters.
@@ -137,12 +139,27 @@ def test_build_engine_auto_picks_static(family):
 
 @pytest.mark.parametrize("family", ["encdec", "vlm"])
 def test_later_families_still_raise(family):
-    """encdec and vlm wait for queue 1, item 11, on both engines."""
-    _, tc = _cfgs("yi-6b", "f32")
-    cfg = dataclasses.replace(tc, family=family)
+    """encdec and vlm, once a later slice, now build and serve on the
+    static engine (``engine="static"`` and ``"auto"``); the continuous
+    engine refuses them as the reference does (no paged KV layout), and
+    their training still raises, naming queue 1's training item."""
+    arch = {"encdec": "seamless-m4t-medium", "vlm": "qwen2-vl-72b"}[family]
+    _, tc = _cfgs(arch, "f32")
+    rng = np.random.default_rng(1)
+    batch = {"tokens": PROMPTS[:1]}
+    if family == "encdec":
+        batch["frames"] = rng.standard_normal((1, 8, tc.frontend_dim)).astype(np.float32)
+    else:
+        batch["embeds_prefix"] = rng.standard_normal((1, 16, tc.d_model)).astype(np.float32)
     for engine in ("static", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 11"):
-            build_engine(cfg, ServeOptions(engine=engine), device="cpu")
+        eng = build_engine(tc, ServeOptions(engine=engine), device="cpu")
+        assert isinstance(eng, Engine)
+        out = eng.generate(batch, ServeOptions(max_new_tokens=3).static())
+        assert out.shape == (1, 3)
+    with pytest.raises(ValueError, match="no paged KV layout"):
+        build_engine(tc, ServeOptions(engine="continuous"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 3"):
+        eng.api.train_loss(eng.model, dict(batch, labels=batch["tokens"]))
 
 
 def test_static_sampling_is_seeded():

@@ -172,8 +172,8 @@ def test_later_slices_raise():
     api = t_build(moe)
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
              "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 10a"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         api.train_loss(api.init(device="cpu"), batch)
     dense = t_build(t_get_config("yi-6b").reduced())
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         dense.train_loss(dense.init(device="cpu"), {**batch, "embeds_prefix": None})
