@@ -5,9 +5,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--layers N]
                           [--phases device,kernels,conformance,serve,serve_paths,observe,moe,
-                                    static,archs,train,e2e,times]
+                                    static,archs,train,train_families,e2e,times]
 
-It imports ``repro_torch`` (never JAX) and runs twelve phases, each on
+It imports ``repro_torch`` (never JAX) and runs thirteen phases, each on
 its own lines:
 
 1. device      — the card's name and power limit (nvidia-smi), the torch
@@ -157,13 +157,48 @@ its own lines:
    bit to its plain version at every (A, B) shape and dtype that the
    Table II evaluations and ``calibrate``'s trials launched it with, on
    the operands and output of the first such launch.
-11. e2e        — a 2-layer full-width model runs one prefill and 4
+11. train_families — the other families' training at full width, each
+   under its config's own ``posit_quant:16:1`` with TF32 off: mamba2-780m
+   and zamba2-1.2b (full depth), granite-moe-1b-a400m (full depth),
+   deepseek-moe-16b cut to 4 of 28 layers (remat on, as its config) and
+   qwen2-vl-72b cut to 2 of 80 (2 rows of 1,024 patch embeddings and 128
+   tokens), seamless-m4t-medium (12 + 12 layers, 128 frames and 128
+   target tokens); each takes 6 AdamW steps at lr 1e-3 through
+   ``make_train_step`` on seeded ``train_inputs`` batches.  The SSD scan
+   masks ``exp(dec)`` after forming it, as the reference does: at lr
+   1e-3 the state-space models' masked exponent passes 88.7 (inf in f32)
+   within two steps and the backward gives NaN (reported, with the step
+   that overflowed), so they train again at 5e-5.  Gates: losses finite
+   and falling; every float leaf's first moment finite and not all zero
+   after step 0; K3's quantize launched a step as the hand count
+   (``family_quantize_count``: both operands of every projection, the
+   loss's head once a chunk and again in its checkpoint's recompute,
+   every layer again under remat), confirmed by a no-grad forward; no
+   plain K1 or codec call on the card; K3's quantize bit for bit against
+   its plain version on the first launch's own operands at every (shape,
+   dtype) the steps launched (the 3-D expert stacks and qwen2-vl's
+   1.25 G-lane unembed among them).  Printed: step p50, tokens/s, the
+   share of the f32 peak, peak memory, the SSD scan's largest masked
+   exponent each step, batch 0's loss after the steps, a profiled step
+   of mamba2 and deepseek.  Then the trained mamba2-780m (static engine)
+   and 4-layer deepseek-moe-16b (continuous engine), encoded to int16 in
+   place, serve 4 seeded requests under ``default=plam_sim:16:1`` on the
+   kernels (K1, and K2 for deepseek) and on the plain versions: equal
+   greedy tokens, or where the runs part a plain top-2 margin below 0.1
+   (for deepseek, or a routing near-tie: a router top-k margin below
+   ``MOE_ROUTE_TOL``); each family at 2 layers (the hybrid at 6) takes one
+   batch's loss and gradients on the kernels and on the plain versions,
+   equal bit for bit under deterministic algorithms; yi-6b at full width
+   cut to 2 layers (f32) takes one batch of 2 x 1,024 with
+   ``flash_block=128`` and without, within the CPU tests' f32
+   tolerances, each with its peak memory.
+12. e2e        — a 2-layer full-width model runs one prefill and 4
    decode steps on the kernels and on the plain versions; last logits
    must agree within a stated tolerance.  The same for a 2-layer
    deepseek-moe-16b over 2 decode steps, with the router's top-k margin
    logged wherever the two runs route a token differently; and
    ``mitchell_f32`` (plain torch) on the card against the CPU.
-12. times      — CUDA-event times of each kernel, its plain version and
+13. times      — CUDA-event times of each kernel, its plain version and
    (for attention) ``scaled_dot_product_attention``, beside each
    kernel's bound (and, for K1, the floor of its design, with the strip
    width of its prefill path).  Each
@@ -177,7 +212,8 @@ its own lines:
    activation shapes on both paths (``K3_TIMES``), beside a copy of the
    same bytes; its decode and quantize at 2^24 and 4,096 lanes beside
    their bytes bound and a copy of the same bytes, and its quantize at
-   the training path's largest weights.  K1 is also timed at
+   the training paths' largest weights (the expert stacks and qwen2-vl's
+   unembed among them).  K1 is also timed at
    the chunk width and the verify rows (M = 32, 20), and over a stack of
    deepseek's 64 experts at M = 1 and 7, beside its bytes bound and, in
    turns, the 64 launches of the 2-D kernel it replaces.  K2 is timed at
@@ -206,7 +242,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ["device", "kernels", "conformance", "serve", "serve_paths", "observe", "moe",
-          "static", "archs", "train", "e2e", "times"]
+          "static", "archs", "train", "train_families", "e2e", "times"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 CUDA-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -315,10 +351,8 @@ K3_PATH_SPECS = [(16, 1), (16, 2), (10, 1), (8, 0)]
 # the weight shapes the serve path encodes at which K3 is held against
 # its plain version (wk/wv: 64 blocks; wg/wu: the grid capped at 2 x SMs;
 # the unembed: the longest loop; a copy of the test file's WEIGHT_SHAPES,
-# held equal there), and the lanes a plain call takes at a time (it holds
-# int64 temporaries of every lane)
+# held equal there)
 K3_WEIGHT_SHAPES = [(4096, 512), (4096, 11008), (4096, 64000)]
-K3_PLAIN_LANES = 1 << 25
 # the K3_TIMES shapes whose host time per call is read: the table path
 # (wk/wv) and the computed path (a decode activation)
 K3_HOST_SHAPES = [(4096, 512), (4, 4096)]
@@ -454,14 +488,16 @@ MITCHELL_ATOL = 1e-6
 K1_PLAIN_LANES = 1 << 26
 # K3's quantize at the training path's shapes (yi-6b, batch 8 x seq 128 =
 # 1024 tokens): every weight of a block and the unembed, bf16 and f32, and
-# the two activation widths; the plain version runs over row slices of at
-# most K3_PLAIN_LANES lanes (its int64 temporaries)
+# the two activation widths
 K3_QUANT_WEIGHT_SHAPES = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096),
                           (4096, 64000)]
 K3_QUANT_ACT_SHAPES = [(1024, 4096), (1024, 11008)]
 # phase times: K3 quantize at the training path's two largest weights and
-# an activation
-K3_QUANT_TIMES = [((4096, 11008), "bf16"), ((4096, 64000), "bf16"), ((1024, 4096), "f32")]
+# an activation, then at phase train_families' new weights (deepseek's and
+# granite's expert stacks, qwen2-vl-72b's unembed, mamba2-780m's in_proj)
+K3_QUANT_TIMES = [((4096, 11008), "bf16"), ((4096, 64000), "bf16"), ((1024, 4096), "f32"),
+                  ((64, 2048, 1408), "bf16"), ((32, 1024, 512), "bf16"),
+                  ((8192, 152064), "bf16"), ((1536, 6448), "bf16")]
 # phase train: full-width yi-6b cut to TRAIN_LAYERS layers (AdamW's f32 m and
 # v over all 32 layers' 6.06 B parameters are 48.5 GB and bf16 parameters
 # and gradients 24.2 GB more, which leaves no safe room on 80 GB for the
@@ -470,6 +506,56 @@ K3_QUANT_TIMES = [((4096, 11008), "bf16"), ((4096, 64000), "bf16"), ((1024, 4096
 TRAIN_LAYERS = 8
 TRAIN_STEPS = 6
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 128, 8, 1e-3
+# phase train_families: every other family trained at full width under its
+# config's own posit_quant:16:1, at phase train's settings (TRAIN_STEPS
+# AdamW steps, batch 8 x seq 128, TF32 off).  Reckoned at 12 bytes a
+# parameter (bf16 weights and gradients, f32 m and v), two are cut in
+# depth, never in width: deepseek-moe-16b to 4 of 28 layers (0.59 G a
+# layer and 0.42 G of embedding and unembedding: 2.77 G, 33 GB) and
+# qwen2-vl-72b to 2 of 80 (0.878 G a layer and 2.49 G of untied
+# embeddings: 4.25 G, 51 GB, and ~15 GB of AdamW's f32 temporaries over its
+# 1.25 G-element unembed)
+FAMILY_ARCHS = ("mamba2-780m", "zamba2-1.2b", "granite-moe-1b-a400m", "deepseek-moe-16b",
+                "seamless-m4t-medium", "qwen2-vl-72b")
+FAMILY_LAYERS = {"deepseek-moe-16b": 4, "qwen2-vl-72b": 2}
+FAMILY_VLM_ROWS = 2  # rows of 1,024 patch embeddings and TRAIN_SEQ tokens
+FAMILY_PROFILED = ("mamba2-780m", "deepseek-moe-16b")
+# the SSD scan forms exp(dec) over a whole chunk and masks its upper
+# triangle after it, as the reference does: past F32_EXP_MAX the masked
+# exp is inf and the backward's 0 x inf NaN.  At TRAIN_LR the state-space
+# models' dt grows past it within two steps (AdamW moves every in_proj
+# weight by ~lr a step); they are trained again at FAMILY_SSM_LR
+F32_EXP_MAX = 88.72
+FAMILY_SSM_LR = 5e-5
+# a trained MoE model served on the kernels and on the plain versions:
+# K2's plain version rounds its softmax weights to bf16 and the kernel
+# does not, and a decode step's capacity of 1 row an expert turns a
+# near-tie in the router's top-k into another output.  A third run, the
+# kernels with K2 alone on its plain version, must not part from the plain
+# run at all (so K2's rounding is the one cause); the kernels' run may part
+# from it where the router's k-th and next probabilities lie within
+# MOE_ROUTE_TOL, or at a token pick under the serve-paths margin rule.  The
+# largest difference of a router probability between the two runs before
+# they part is printed beside it (3.69e-3 on an H100 for the trained
+# deepseek-moe-16b): K2's rounding can swap two experts up to twice that
+# apart, so MOE_ROUTE_TOL lies well inside what it can do
+MOE_ROUTE_TOL = 1e-3
+# the trained models served under default=plam_sim:16:1, prequantized, on
+# the kernels and on the plain versions (whose K1 decodes every weight on
+# every forward, ~3 s a deepseek forward and ~6.5 s a mamba2 one: few new
+# tokens, and short prompts on the static engine)
+FAMILY_SERVED = ("mamba2-780m", "deepseek-moe-16b")
+FAMILY_SERVE_PROMPT, FAMILY_SERVE_NEW = 16, 4
+# each family at 2 layers (the hybrid at its first shared block's 6) on
+# the kernels and on the plain versions: one row of FAMILY_PLAIN_SEQ
+# positions (the vlm's half patches)
+FAMILY_PLAIN_LAYERS = 2
+FAMILY_PLAIN_SEQ = 128
+# yi-6b at full width cut to BLOCKWISE_LAYERS, f32 parameters, activations
+# and numerics: one batch with flash_block=BLOCKWISE_BLOCK, one without,
+# within the CPU tests' f32 tolerances (tests/test_torch_blockwise_attention.py)
+BLOCKWISE_LAYERS, BLOCKWISE_BATCH, BLOCKWISE_SEQ, BLOCKWISE_BLOCK = 2, 2, 1024, 128
+BLOCKWISE_LOSS_RTOL, BLOCKWISE_GRAD_TOL = 1e-5, 1e-4
 # the CLI's fault drill, and its resumed losses against an uninterrupted run
 TRAIN_CLI = ["--arch", "yi-6b", "--reduced", "--steps", "8", "--ckpt-every", "2",
              "--simulate-failure", "5"]
@@ -881,9 +967,9 @@ class Smoke:
 
     def check_quantize_shapes(self, same, failures) -> dict:
         """K3's quantize at the training path's weights (bf16 and f32) and
-        activations, bit for bit against its plain version over row slices
-        of at most K3_PLAIN_LANES lanes.  (K1 at the Table II shapes is held
-        in phase train, at the shapes its runs launch it with.)"""
+        activations, bit for bit against its plain version.  (K1 at the
+        Table II shapes is held in phase train, at the shapes its runs
+        launch it with.)"""
         torch = self.torch
         from repro_torch.kernels.posit_codec import posit_quantize, quantize_plain
         from repro_torch.numerics import P16
@@ -897,12 +983,9 @@ class Smoke:
                 if shape in K3_QUANT_WEIGHT_SHAPES:
                     x = x * shape[0] ** -0.5
                 x = x.to(dtype)
-                got = posit_quantize(x, P16)
-                rows = max(1, K3_PLAIN_LANES // shape[1])
-                for r0 in range(0, shape[0], rows):
-                    same(f"posit_quantize {shape} {str(dtype)[6:]} rows {r0}:{r0 + rows}",
-                         got[r0:r0 + rows], quantize_plain(x[r0:r0 + rows], P16))
-                del x, got
+                same(f"posit_quantize {shape} {str(dtype)[6:]}", posit_quantize(x, P16),
+                     quantize_plain(x, P16))
+                del x
                 torch.cuda.synchronize()
         ok = len(failures) == n_before
         log(f"K3 quantize at the training shapes {shapes}, bf16 and f32: "
@@ -923,8 +1006,7 @@ class Smoke:
         Posit<16,2> (given at run time); and seeded bf16 weights at
         K3_WEIGHT_SHAPES (64 blocks of 4 strides at wk/wv; beyond, the
         grid capped at 2 x SMs, ~21 and ~121 strides on 132 SMs) at
-        Posit<16,1>, the plain version computed K3_PLAIN_LANES at a
-        time."""
+        Posit<16,1>."""
         torch = self.torch
         import numpy as np
 
@@ -989,14 +1071,10 @@ class Smoke:
         g = self.gen(17)
         for shape in K3_WEIGHT_SHAPES:
             w = self.k3_input(g, shape, "bf16")
-            rows = max(1, K3_PLAIN_LANES // shape[1])
             for od in (torch.int16, torch.int32):
-                want = torch.cat([encode_plain(w[r:r + rows], P16, od)
-                                  for r in range(0, shape[0], rows)])
                 same(f"encode weight {list(shape)} bf16 -> {str(od)[6:]}",
-                     posit_encode(w, P16, out_dtype=od), want)
+                     posit_encode(w, P16, out_dtype=od), encode_plain(w, P16, od))
                 calls += 1
-                del want
             del w
             torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2037,9 +2115,10 @@ class Smoke:
         if failures:
             raise AssertionError("; ".join(failures))
 
-    def serve_run(self, name, cfg, model, opts, prompts, priorities=None):
-        """Serve ``prompts`` (one step apart, the serve phase's 16 new tokens;
-        ``priorities``, one a request, else 0) on an engine over ``model``,
+    def serve_run(self, name, cfg, model, opts, prompts, priorities=None, new_tokens=16):
+        """Serve ``prompts`` (one step apart, ``new_tokens`` new tokens each,
+        the serve phase's 16 by default; ``priorities``, one a request, else
+        0) on an engine over ``model``,
         the launch counts set to 0 just before the run and read just
         after.  Each forward's kind, M and launches are recorded by
         wrapping the engine's model API."""
@@ -2071,7 +2150,7 @@ class Smoke:
             paged_score_tokens=counted("verify", api.paged_score_tokens))
         _lib.reset_launches()  # this path's run starts here
         t0 = time.perf_counter()
-        handles = [eng.submit(p, max_new_tokens=16, arrival_step=i, priority=pr)
+        handles = [eng.submit(p, max_new_tokens=new_tokens, arrival_step=i, priority=pr)
                    for i, (p, pr) in enumerate(zip(prompts, priorities or [0] * len(prompts)))]
         done = eng.run()
         torch.cuda.synchronize()
@@ -3799,8 +3878,9 @@ class Smoke:
     def phase_train(self):
         """Training and the paper's Table II on the card: AdamW steps on
         full-width yi-6b under posit_quant (K3's quantize on every
-        projection), the trained weights served under plam_sim (encoded
-        every forward, then prequantized) and calibrated, the training
+        projection; family_steps, as phase train_families), the trained
+        weights served under plam_sim (encoded every forward, then
+        prequantized) and calibrated, the training
         CLI's fault drill, and the five Table II models trained in f32 and
         evaluated under f32, posit16 and plam16 (K3 and K1)."""
         torch = self.torch
@@ -3823,7 +3903,11 @@ class Smoke:
             f"f32 outputs) param/act {cfg.param_dtype}/{cfg.act_dtype} remat {cfg.remat} "
             f"numerics {describe(cfg.numerics)!r}")
         res = {"tf32": tf32}
-        model, res["yi"] = self.train_yi(cfg, failures)
+        model, res["yi"] = self.family_steps("yi-6b", cfg, TRAIN_LR, failures,
+                                             phase="train", profiled=True)
+        res["yi"].pop("cfg")
+        gc.collect()  # AdamW's state
+        torch.cuda.empty_cache()
         res["serve"] = self.serve_trained(cfg, model, failures)
         del model
         gc.collect()
@@ -3833,107 +3917,6 @@ class Smoke:
         self.results["train"] = res
         if failures:
             raise AssertionError("; ".join(failures[:8]))
-
-    def train_yi(self, cfg, failures):
-        """TRAIN_STEPS AdamW steps through make_train_step on lm_batch: the
-        losses, each step's seconds and K3 launches (against the hand
-        count: 14 quantizes a layer and 2 for the lm head forward, the same
-        again in the remat recompute of the backward), the gradients
-        (through AdamW's first m: (1 - beta1) * clip * g), and no plain
-        codec call."""
-        torch = self.torch
-        import gc
-
-        import numpy as np
-
-        from repro_torch.data.synthetic import DataConfig, lm_batch
-        from repro_torch.kernels import _lib, posit_codec
-        from repro_torch.models import transformer as tf
-        from repro_torch.models.registry import build
-        from repro_torch.optim.optimizers import OptConfig, init_state
-        from repro_torch.train.loop import TrainConfig, make_train_step
-
-        layers = cfg.n_layers
-        torch.cuda.reset_peak_memory_stats()
-        model = tf.set_trainable(tf.lm_init(cfg, seed=0, device=self.dev))
-        n_params = sum(p.numel() for p in model.parameters())
-        # the parameters that multiply: every projection and the unembed
-        # (the embedding is a gather, the norms' scales element-wise)
-        n_mm = sum(p.numel() for n, p in model.named_parameters()
-                   if p.dim() == 2 and n != "embed")
-        api = build(cfg)
-        tcfg = TrainConfig(opt=OptConfig(name="adamw", lr=TRAIN_LR))
-        state = init_state(tcfg.opt, model)
-        step = make_train_step(api.train_loss, tcfg)
-        dcfg = DataConfig(seed=0, vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
-        tokens = TRAIN_SEQ * TRAIN_BATCH
-        log(f"  {n_params / 1e9:.3f} G parameters ({n_mm / 1e9:.3f} G in matmuls), AdamW lr "
-            f"{TRAIN_LR}, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}; after init and state "
-            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-        plain_calls = [0]
-        real_plain = posit_codec.quantize_plain
-
-        def counted_plain(*a, **kw):
-            plain_calls[0] += 1
-            return real_plain(*a, **kw)
-
-        fwd_k3 = 14 * layers + 2
-        want_k3 = fwd_k3 * (2 if cfg.remat else 1)
-        losses, secs, k3 = [], [], []
-        posit_codec.quantize_plain = counted_plain
-        try:
-            for i in range(TRAIN_STEPS):
-                batch = lm_batch(dcfg, i)
-                torch.cuda.synchronize()
-                _lib.reset_launches()  # this step's run starts here
-                t0 = time.perf_counter()
-                _, _, metrics = step(model, state, batch)
-                loss = float(metrics["loss"])
-                torch.cuda.synchronize()
-                secs.append(time.perf_counter() - t0)
-                losses.append(loss)
-                k3.append(_lib.launches["posit_codec"])
-                if i == 0:
-                    bad = [n for n, m in state["m"].items()
-                           if not bool(torch.isfinite(m).all()) or not bool(m.any())]
-                    if bad:
-                        failures.append(f"train: gradients non-finite or all zero: {bad[:4]}")
-                log(f"  step {i}: loss {loss:.4f}, {secs[-1]:.3f} s, K3 launches {k3[-1]}")
-            with torch.no_grad():
-                _lib.reset_launches()
-                api.train_loss(model, lm_batch(dcfg, 0))
-                fwd_measured = _lib.launches["posit_codec"]
-            profile = self.profile_train_step(step, model, state, lm_batch(dcfg, TRAIN_STEPS))
-        finally:
-            posit_codec.quantize_plain = real_plain
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        p50 = float(np.quantile(secs, 0.5))
-        flops = 6 * n_mm * tokens + (2 * n_mm * tokens if cfg.remat else 0)
-        share = flops / p50 / F32_FLOPS
-        self.path_launches["posit_codec"] = self.path_launches.get("posit_codec", 0) + sum(k3)
-        log(f"  losses {[round(x, 4) for x in losses]}; step p50 {p50:.3f} s, "
-            f"{tokens / p50:.1f} tokens/s; model FLOPs a step {flops / 1e12:.2f} T "
-            f"(6 N tokens + the remat recompute's 2 N tokens, N = {n_mm / 1e9:.3f} G) = "
-            f"{share:.3f} of the {F32_FLOPS / 1e12:.0f} TFLOP/s f32 peak; peak {peak:.2f} GiB")
-        log(f"  K3 posit_quantize a step {k3} (hand count {want_k3}: forward 14L+2 = {fwd_k3}, "
-            f"measured {fwd_measured} in a no-grad forward, and the remat recompute "
-            f"{want_k3 - fwd_k3}); quantize_plain calls on the card {plain_calls[0]}")
-        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-            failures.append(f"train: losses {losses}")
-        if any(n != want_k3 for n in k3) or fwd_measured != fwd_k3:
-            failures.append(f"train: K3 launches {k3}, forward {fwd_measured}; expected "
-                            f"{want_k3} and {fwd_k3}")
-        if plain_calls[0]:
-            failures.append(f"train: {plain_calls[0]} plain codec calls on the card")
-        del state, step
-        gc.collect()
-        torch.cuda.empty_cache()
-        return model, {"layers": layers, "params": n_params, "matmul_params": n_mm,
-                       "losses": losses, "step_s": secs, "step_p50_s": p50,
-                       "tokens_per_s": tokens / p50, "model_flops": flops,
-                       "f32_peak_share": share, "peak_gib": peak, "k3_per_step": k3,
-                       "k3_forward": fwd_measured, "k3_hand_count": want_k3,
-                       "quantize_plain_calls": plain_calls[0], "step_profile": profile}
 
     def profile_train_step(self, step, model, state, batch):
         """One more training step (after the counted ones) under
@@ -4193,6 +4176,658 @@ class Smoke:
                         f"{row['plam16_launches']}{ref_s}")
                     rows.append(row)
         return {"rows": rows, "k1_checked": self.check_recorded_k1("table2", seen, failures)}
+
+    # -- phase train_families ------------------------------------------------
+
+    def family_cfg(self, arch):
+        """``arch`` as its config gives it (its own posit_quant:16:1, its
+        dtypes and remat), cut to FAMILY_LAYERS (or --layers, if fewer)
+        where the card cannot hold its training whole."""
+        from repro_torch.configs import get_config
+
+        cfg = get_config(arch)
+        if arch in FAMILY_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=min(FAMILY_LAYERS[arch], self.args.layers))
+        return cfg
+
+    def family_batch(self, api, cfg, rows, seq, step):
+        """A seeded batch of ``api.train_inputs(rows, seq)`` on the card:
+        tokens and labels from lm_batch at ``step``, the stub frontends'
+        frames or patch embeddings N(0, 1) from a generator seeded by
+        ``step``, in the activation dtype."""
+        from repro_torch.data.synthetic import DataConfig, lm_batch
+
+        spec = api.train_inputs(rows, seq)
+        b, s = spec["tokens"].shape
+        batch = {k: v.to(self.dev) for k, v in
+                 lm_batch(DataConfig(seed=0, vocab=cfg.vocab, seq_len=s, global_batch=b),
+                          step).items()}
+        g = self.gen(1000 + step)
+        for name, t in spec.items():
+            if name not in batch:
+                batch[name] = self.torch.randn(t.shape, generator=g, device=self.dev).to(t.dtype)
+        return batch
+
+    @staticmethod
+    def family_quantize_count(cfg, positions):
+        """K3 quantizes of a training step, by hand: both operands of every
+        projection of a forward (``launch_counts``' K1 a plam_sim forward,
+        and the encdec's encoder pass), the head's once a 512-position
+        chunk of the loss; the backward recomputes each chunk (its
+        checkpoint) and, under remat, every layer.  Returns (forward,
+        step)."""
+        lc = launch_counts(cfg)
+        layers = 2 * (lc["k1"] - 1 + lc["enc_k1"])
+        head = 2 * -(-positions // 512)
+        remat = cfg.remat and cfg.family in ("dense", "moe", "vlm")
+        return layers + head, layers + 2 * head + (layers if remat else 0)
+
+    @staticmethod
+    def family_flops(cfg, model, rows, positions, src):
+        """Model FLOPs of a training step from the parameters that
+        multiply, each times the rows it meets: a 2-D projection or the
+        router the positions (the encdec's frontend, encoder and
+        cross-attention K/V the source frames), an expert stack its
+        capacity; 2 N T a forward, twice that the backward, and 2 N T
+        again for what the backward recomputes (each loss chunk's head,
+        under remat every layer).  The embedding (a gather), the norms,
+        the conv and the scan's leaves do not count; the hybrid's shared
+        block counts once an invocation.  Returns (FLOPs, the parameters
+        counted, their rows-weighted sum N T)."""
+        t = rows * positions
+        cap = max(1, int(t * cfg.top_k / cfg.n_experts * cfg.capacity_factor)) \
+            if cfg.n_experts else 0
+        # the hybrid's shared block runs once an invocation
+        inv = cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 1
+        head, body, n_mm = 0, 0, 0
+        for name, p in model.named_parameters():
+            if name == "embed" or p.dim() < 2 or name.endswith("conv_w"):
+                continue
+            n_mm += p.numel()
+            if name == "unembed":
+                head += p.numel() * t
+            elif p.dim() == 3:
+                body += p.numel() * cap
+            elif cfg.family == "encdec" and (name.startswith("enc_layers") or
+                                             name == "frontend_proj" or
+                                             ".xattn.wk" in name or ".xattn.wv" in name):
+                body += p.numel() * rows * src
+            elif name.startswith("shared."):
+                body += p.numel() * t * inv
+            else:
+                body += p.numel() * t
+        remat = cfg.remat and cfg.family in ("dense", "moe", "vlm")
+        fwd = 2 * (head + body)
+        return 3 * fwd + 2 * head + (2 * body if remat else 0), n_mm, head + body
+
+    @contextlib.contextmanager
+    def recording_quantize(self):
+        """K3's quantize while the block runs, by (shape, dtype): its
+        launches and, checked at the first launch of each there and then,
+        the lanes of its output that differ from the plain version on the
+        same operands (over slices of PLAIN_LANES lanes, which bound the
+        compared copy at qwen2-vl-72b's unembed; no counting_plain entered
+        inside the block sees these plain calls)."""
+        torch = self.torch
+        from repro_torch.kernels import posit_codec
+        from repro_torch.kernels.ref import PLAIN_LANES
+        from repro_torch.numerics import P16
+
+        real, plain, seen = posit_codec.posit_quantize, posit_codec.quantize_plain, {}
+
+        def recorded(x, spec=P16, *, use_kernel=None):
+            out = real(x, spec, use_kernel=use_kernel)
+            if x.is_cuda:
+                key = (tuple(x.shape), str(x.dtype)[6:])
+                if key not in seen:
+                    xf, of = x.reshape(-1), out.reshape(-1)
+                    bad = 0
+                    for i in range(0, xf.numel(), PLAIN_LANES):
+                        want = plain(xf[i:i + PLAIN_LANES], spec)
+                        bad += int((of[i:i + PLAIN_LANES].view(torch.int32)
+                                    != want.view(torch.int32)).sum())
+                    seen[key] = {"shape": list(key[0]), "dtype": key[1], "launches": 0,
+                                 "lanes_differ": bad}
+                seen[key]["launches"] += 1
+            return out
+
+        posit_codec.posit_quantize = recorded
+        try:
+            yield seen
+        finally:
+            posit_codec.posit_quantize = real
+
+    @contextlib.contextmanager
+    def recording_ssd_exponent(self):
+        """The largest exponent that the SSD scan's masked (upper) triangle
+        of ``exp(dec)`` reaches while the block runs (``ssm._ssd_chunked``:
+        within a chunk, the decay summed from its second position to its
+        last), kept on the card; ``take()`` reads it and starts over (None
+        where no scan ran).  Above 88.7 its f32 exp is inf, and the
+        backward's 0 x inf a NaN."""
+        torch = self.torch
+        from repro_torch.models import ssm as ssm_mod
+
+        real, box = ssm_mod._ssd_chunked, {"max": None}
+
+        def recorded(xh, bs, cs, dt, a_log, chunk):
+            with torch.no_grad():
+                s = dt.shape[1]
+                q = min(chunk, s)
+                la = torch.nn.functional.pad(torch.exp(a_log)[None, None, :] * dt,
+                                             (0, 0, 0, (-s) % q))
+                top = la.reshape(la.shape[0], -1, q, la.shape[-1])[:, :, 1:].sum(dim=2).amax()
+                box["max"] = top if box["max"] is None else torch.maximum(box["max"], top)
+            return real(xh, bs, cs, dt, a_log, chunk)
+
+        def take():
+            top, box["max"] = box["max"], None
+            return None if top is None else float(top)
+
+        ssm_mod._ssd_chunked = recorded
+        try:
+            yield take
+        finally:
+            ssm_mod._ssd_chunked = real
+
+    def phase_train_families(self):
+        """Training of the MoE, ssm, hybrid, encdec and vlm families on the
+        card, each model at full width under its config's own
+        posit_quant:16:1 (K3's quantize on both operands of every
+        projection): TRAIN_STEPS AdamW steps, then the trained mamba2-780m
+        and deepseek-moe-16b served prequantized through K1 (and K2), each
+        family at 2 layers on the kernels against the plain versions, and
+        yi-6b's blockwise attention against its plain core (phase times
+        times K3's quantize at the new shapes)."""
+        torch = self.torch
+        import gc
+
+        self.yi_model = None  # the earlier phases' model
+        gc.collect()
+        torch.cuda.empty_cache()
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        log(f"train_families: TF32 matmul allowed: {tf32}; float32 matmul precision "
+            f"{torch.get_float32_matmul_precision()!r} (the whole step, backward included)")
+        failures = [] if not tf32 else ["TF32 is on: f32 matmuls would not be f32"]
+        res = {"tf32": tf32, "models": {}}
+        for arch in FAMILY_ARCHS:
+            model, res["models"][arch] = self.train_family(arch, failures)
+            if arch in FAMILY_SERVED:
+                res["models"][arch]["served"] = self.serve_trained_family(
+                    arch, res["models"][arch]["cfg"], model, failures)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        res["plain"] = {arch: self.family_against_plain(arch, failures) for arch in FAMILY_ARCHS}
+        res["blockwise"] = self.blockwise_step(failures)
+        for r in res["models"].values():
+            r.pop("cfg")
+        self.results["train_families"] = res
+        if failures:
+            raise AssertionError("; ".join(failures[:8]))
+
+    def train_family(self, arch, failures):
+        """``arch`` trained at full width (family_steps).  The ssm and
+        hybrid first run at TRAIN_LR: where the SSD scan's masked exponent
+        passes F32_EXP_MAX, the reference's form gives NaN gradients
+        (mirrored, ``tests/test_torch_train_families.py``), so a
+        non-finite loss there must follow such a step, and the trained
+        model is a second run at FAMILY_SSM_LR, which must stay finite.
+        Returns (the trained model, its record)."""
+        import gc
+
+        cfg = self.family_cfg(arch)
+        profiled = arch in FAMILY_PROFILED
+        if cfg.family not in ("ssm", "hybrid"):
+            return self.family_steps(arch, cfg, TRAIN_LR, failures, profiled=profiled)
+        model, first = self.family_steps(arch, cfg, TRAIN_LR, failures, overflow_ok=True)
+        del model
+        gc.collect()
+        self.torch.cuda.empty_cache()
+        model, rec = self.family_steps(arch, cfg, FAMILY_SSM_LR, failures, profiled=profiled)
+        rec["at_train_lr"] = first
+        return model, rec
+
+    def family_steps(self, arch, cfg, lr, failures, overflow_ok=False, phase="train_families",
+                     profiled=False):
+        """TRAIN_STEPS AdamW steps (learning rate ``lr``) of ``cfg``'s model
+        from its seeded init through make_train_step on seeded
+        ``train_inputs`` batches: losses (finite, falling), each step's
+        seconds and K3 launches against the hand count (confirmed by a
+        no-grad forward, which also reads batch 0's loss after the steps),
+        every float leaf's first moment after step 0
+        (finite, not all zero), no plain codec or K1 call on the card, K3's
+        quantize bit for bit at every (shape, dtype) launched, the SSD
+        scan's largest masked exponent, step p50, tokens/s, the f32-peak
+        share and peak memory; with ``profiled``, one more step under
+        the profiler (profile_train_step).  With
+        ``overflow_ok``, non-finite losses pass where an earlier step met
+        a masked exponent above F32_EXP_MAX (and are reported).  Returns
+        (the trained model, its record)."""
+        torch = self.torch
+        import numpy as np
+
+        from repro_torch.configs import get_config
+        from repro_torch.core.policy import describe
+        from repro_torch.kernels import _lib
+        from repro_torch.models import build
+        from repro_torch.models.registry import vlm_patches
+        from repro_torch.models.transformer import set_trainable
+        from repro_torch.optim.optimizers import OptConfig, init_state
+        from repro_torch.train.loop import TrainConfig, make_train_step
+
+        full = get_config(arch)
+        vlm = cfg.family == "vlm"
+        rows, seq = (FAMILY_VLM_ROWS, vlm_patches(cfg) + TRAIN_SEQ) if vlm else \
+            (TRAIN_BATCH, TRAIN_SEQ)
+        api = build(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = set_trainable(api.init(seed=0, device=self.dev))
+        n_params = sum(p.numel() for p in model.parameters())
+        tcfg = TrainConfig(opt=OptConfig(name="adamw", lr=lr))
+        state = init_state(tcfg.opt, model)
+        step = make_train_step(api.train_loss, tcfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        batch0 = self.family_batch(api, cfg, rows, seq, 0)
+        n_tok = batch0["tokens"].numel()
+        positions = batch0["tokens"].shape[1] + (vlm_patches(cfg) if vlm else 0)
+        src = batch0["frames"].shape[1] if "frames" in batch0 else 0
+        flops, n_mm, _ = self.family_flops(cfg, model, rows, positions, src)
+        fwd_k3, want_k3 = self.family_quantize_count(cfg, positions)
+        depth = (f"{cfg.enc_layers} + {cfg.dec_layers} layers" if cfg.family == "encdec" else
+                 f"{cfg.n_layers} of {full.n_layers} layers")
+        cut = (f"; cut in depth: {n_params / 1e9:.3f} G parameters x 12 bytes (bf16 weights "
+               f"and gradients, f32 AdamW m and v) = {12 * n_params / 1e9:.1f} GB, where all "
+               f"{full.n_layers} layers would not fit 80 GB" if cfg.n_layers < full.n_layers
+               else "")
+        shapes = {k: list(v.shape) for k, v in batch0.items()}
+        log(f"{phase}: {arch} ({cfg.family}) d_model {cfg.d_model}, {depth}, vocab "
+            f"{cfg.vocab}, param/act {cfg.param_dtype}/{cfg.act_dtype}, remat {cfg.remat}, "
+            f"numerics {describe(cfg.numerics)!r}, AdamW lr {lr}; {n_params / 1e9:.3f} G "
+            f"parameters ({n_mm / 1e9:.3f} G multiply){cut}; batch {shapes}; init and state "
+            f"{init_s:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        losses, secs, k3, exps = [], [], [], []
+        with self.recording_quantize() as seen, self.counting_plain() as plain_calls, \
+                self.recording_ssd_exponent() as take_exp:
+            for i in range(TRAIN_STEPS):
+                batch = batch0 if i == 0 else self.family_batch(api, cfg, rows, seq, i)
+                torch.cuda.synchronize()
+                if i == 1:  # step 0 held the plain checks of K3's first launches
+                    peak0 = torch.cuda.max_memory_allocated() / 2**30
+                    torch.cuda.reset_peak_memory_stats()
+                _lib.reset_launches()  # this step's run starts here
+                t0 = time.perf_counter()
+                _, _, metrics = step(model, state, batch)
+                loss = float(metrics["loss"])
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(loss)
+                k3.append(_lib.launches["posit_codec"])
+                exps.append(take_exp())
+                if i == 0:
+                    bad = [n for n, m in state["m"].items()
+                           if not bool(torch.isfinite(m).all()) or not bool(m.any())]
+                    if bad:
+                        failures.append(f"{arch}: gradients non-finite or all zero: {bad[:4]}")
+                    n_leaves = len(state["m"])
+                log(f"  step {i}: loss {loss:.4f}, {secs[-1]:.3f} s, K3 launches {k3[-1]}"
+                    + (f", largest masked SSD exponent {exps[-1]:.2f}" if exps[-1] is not None
+                       else ""))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            with torch.no_grad():
+                _lib.reset_launches()
+                held = float(api.train_loss(model, batch0))
+                fwd_measured = _lib.launches["posit_codec"]
+            profile = (self.profile_train_step(step, model, state,
+                                               self.family_batch(api, cfg, rows, seq,
+                                                                 TRAIN_STEPS))
+                       if profiled else None)
+        p50 = float(np.quantile(secs, 0.5))
+        share = flops / p50 / F32_FLOPS
+        differ = [s for s in seen.values() if s["lanes_differ"]]
+        self.path_launches["posit_codec"] = self.path_launches.get("posit_codec", 0) + sum(k3)
+        log(f"  {arch}: losses {[round(x, 4) for x in losses]}, batch 0's {held:.4f} after "
+            f"them; step p50 {p50:.3f} s, "
+            f"{n_tok / p50:.1f} tokens/s ({rows * positions / p50:.1f} positions/s); model "
+            f"FLOPs a step {flops / 1e12:.2f} T = {share:.3f} of the {F32_FLOPS / 1e12:.0f} "
+            f"TFLOP/s f32 peak; peak {peak:.2f} GiB over steps 1-{TRAIN_STEPS - 1} ({peak0:.2f} "
+            f"GiB in step 0, with its plain checks); {n_leaves} float leaves")
+        log(f"  K3 posit_quantize a step {k3} (hand count {want_k3}: forward {fwd_k3}, measured "
+            f"{fwd_measured} in a no-grad forward); plain calls on the card {plain_calls}; "
+            f"K3 quantize at {len(seen)} (shape, dtype), each first launch against the plain "
+            f"version: {'bit-identical' if not differ else differ}: "
+            f"{[(s['shape'], s['dtype'], s['launches']) for s in seen.values()]}")
+        finite = [bool(np.isfinite(x)) for x in losses]
+        # the step whose update met an overflowing scan (its exponent is
+        # read in the forward of the step after it too)
+        over = next((i for i, e in enumerate(exps) if e is not None and not e <= F32_EXP_MAX),
+                    None)
+        mirrored = (overflow_ok and not all(finite) and over is not None
+                    and all(finite[:over + 1]) and over < finite.index(False))
+        if mirrored:
+            log(f"  {arch} at lr {lr}: the masked SSD exponent {exps[over]:.2f} in step {over} "
+                f"passes {F32_EXP_MAX} (exp is inf in f32), and the losses are NaN from step "
+                f"{finite.index(False)}: the reference's overflow, mirrored (not gated)")
+        elif not all(finite) or not losses[-1] < losses[0]:
+            failures.append(f"{arch} at lr {lr}: losses {losses}, masked SSD exponents {exps}")
+        if any(n != want_k3 for n in k3) or fwd_measured != fwd_k3:
+            failures.append(f"{arch}: K3 launches {k3}, forward {fwd_measured}; expected "
+                            f"{want_k3} and {fwd_k3}")
+        if any(plain_calls.values()):
+            failures.append(f"{arch}: plain calls on the card {plain_calls}")
+        if differ or not seen:
+            failures.append(f"{arch}: K3 quantize differs from its plain version: {differ}")
+        del state, step
+        return model, {
+            "cfg": cfg, "layers": cfg.n_layers, "full_layers": full.n_layers, "lr": lr,
+            "params": n_params, "matmul_params": n_mm, "batch": shapes, "losses": losses,
+            "batch0_loss_after": held, "overflow_mirrored": mirrored,
+            "step_s": secs, "step_p50_s": p50, "tokens_per_s": n_tok / p50,
+            "positions_per_s": rows * positions / p50, "model_flops": flops,
+            "f32_peak_share": share, "peak_gib": peak, "peak_step0_gib": peak0,
+            "k3_per_step": k3, "k3_forward": fwd_measured, "k3_hand_count": want_k3,
+            "k3_forward_hand_count": fwd_k3, "plain_calls": dict(plain_calls),
+            "k3_shapes": list(seen.values()), "ssd_max_masked_exponent": exps,
+            "step_profile": profile}
+
+    def serve_trained_family(self, arch, cfg, model, failures):
+        """The trained ``arch`` under default=plam_sim:16:1, encoded to int16
+        in place, serving 4 seeded requests of FAMILY_SERVE_NEW new tokens
+        on the kernels and on the plain versions: mamba2 on the static
+        engine (FAMILY_SERVE_PROMPT tokens), deepseek on the continuous
+        engine (the serve phase's prompts).  Greedy tokens equal, or where
+        one differs a plain top-2 margin below E2E_LOGIT_TOL (the
+        serve-paths rule); for deepseek, the first point where the runs
+        part (first_departure) is a token pick under that rule or a
+        routing call at a router top-k margin below MOE_ROUTE_TOL (the
+        router probabilities' largest difference up to there printed), and
+        the kernels with K2 alone plain (plain_k2) do not part from the
+        plain run.  The kernels' forwards are held to
+        their launch counts, the plain runs to none."""
+        from repro_torch.core.prequant import quantize_params
+        from repro_torch.kernels import _lib
+        from repro_torch.kernels import ref as k1_ref
+        from repro_torch.models.transformer import set_trainable
+        from repro_torch.serving import Engine, ServeOptions
+
+        set_trainable(model, False)
+        scfg = cfg.with_numerics("default=plam_sim:16:1")
+        counts = launch_counts(scfg)
+        _lib.reset_launches()
+        quantize_params(scfg, model)
+        encodes = _lib.launches["posit_codec"]
+        self.path_launches["posit_codec"] = self.path_launches.get("posit_codec", 0) + encodes
+        if encodes != counts["build"]:
+            failures.append(f"trained {arch}: {encodes} weight encodes, expected "
+                            f"{counts['build']}")
+        # the plain K1 walks k once a column slice: wider slices, as in
+        # phase archs' 2-layer checks (the card holds the one model)
+        plain_lanes, k1_ref.PLAIN_LANES = k1_ref.PLAIN_LANES, 1 << 28
+        try:
+            if cfg.family == "moe":
+                _, prompts = self.moe_prompts(cfg.vocab)
+                opts = ServeOptions(max_new_tokens=FAMILY_SERVE_NEW, block_size=16,
+                                    max_slots=4, num_blocks=64, max_seq_len=128)
+                runs, events = {}, {}
+                for uk in (None, False):
+                    with self.recording_serve_events() as events[uk]:
+                        runs[uk] = self.serve_run(
+                            f"trained {arch} prequantized, "
+                            f"{'kernels' if uk is None else 'plain'} (routing and picks "
+                            f"recorded: not a speed reading)", scfg, model,
+                            dataclasses.replace(opts, use_kernel=uk), prompts,
+                            new_tokens=FAMILY_SERVE_NEW)
+                bad = self.moe_gates(runs[None], scfg, False)
+                self.count_moe_path(runs[None]["launches"])
+                diffs, perturbation = self.first_departure(events[None], events[False],
+                                                           cfg.top_k)
+                with self.plain_k2(), self.recording_serve_events() as k2_events:
+                    k2_run = self.serve_run(
+                        f"trained {arch} prequantized, kernels with K2 alone plain (the "
+                        f"cause's witness: not a speed reading)", scfg, model, opts, prompts,
+                        new_tokens=FAMILY_SERVE_NEW)
+                witness, _ = self.first_departure(k2_events, events[False], cfg.top_k)
+                k2_launches = k2_run["launches"].get("paged_decode_attention", 0)
+                if witness or k2_launches:
+                    bad.append(f"with K2 alone plain ({k2_launches}"
+                               f" K2 launches) the runs part from the plain run: {witness}")
+                log(f"  trained {arch}: router probabilities' largest |difference| between "
+                    f"the kernels' and the plain run up to where they part {perturbation:.3e}; "
+                    f"the kernels with K2 alone plain against the plain run: "
+                    f"{'no departure' if not witness else witness}")
+                extra = {"router_prob_perturbation": perturbation, "k2_plain_departure": witness,
+                         "k2_plain_outputs": k2_run["outputs"]}
+            else:
+                prompts = self.static_prompts(cfg.vocab, 4, FAMILY_SERVE_PROMPT, 29)
+                eng = Engine(scfg, params=model, device=self.dev)
+                runs = {}
+                for uk in (None, False):
+                    eng.use_kernel = uk
+                    runs[uk] = self.static_run(f"trained {arch} prequantized, "
+                                               f"{'kernels' if uk is None else 'plain'}", eng,
+                                               prompts, FAMILY_SERVE_NEW)
+                bad = self.static_gates(runs[None], counts["k1"], 0)
+                self.path_launches["plam_matmul"] = (self.path_launches.get("plam_matmul", 0)
+                                                     + runs[None]["launches"]["plam_matmul"])
+                diffs = self.static_diffs(runs[None], runs[False])
+                extra = {}
+                del eng
+        finally:
+            k1_ref.PLAIN_LANES = plain_lanes
+        launched = {k: v for k, v in runs[False]["launches"].items() if v}
+        if launched:
+            bad.append(f"the plain run launched {launched}")
+        failures.extend(f"trained {arch}: {f}" for f in bad)
+        if any(d.get("plain_top2_margin", 0.0) >= E2E_LOGIT_TOL or
+               d.get("router_topk_margin", 0.0) >= MOE_ROUTE_TOL for d in diffs):
+            failures.append(f"trained {arch}: the runs part at a margin above the rule's "
+                            f"(top-2 {E2E_LOGIT_TOL}, router top-k {MOE_ROUTE_TOL}): {diffs}")
+        log(f"  trained {arch} served: tokens {'equal' if not diffs else diffs} "
+            f"({runs[None]['outputs'][0][:8]}...), {encodes} weight encodes")
+        return {"encodes": encodes, "diffs": diffs, **extra,
+                **{("kernels" if uk is None else "plain"):
+                   {k: v for k, v in r.items() if k not in ("calls", "first_decode")}
+                   for uk, r in runs.items()}}
+
+    @contextlib.contextmanager
+    def recording_serve_events(self):
+        """The continuous engine's routing calls (``moe.route``: the chosen
+        experts and the router logits) and token picks (``_pick_one``: the
+        request, the token's index, the token and the logits' top-2
+        margin), in the order they happen, while the block runs."""
+        import numpy as np
+
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.serving.engine import ContinuousBatchingEngine as cls
+
+        route, pick, events = moe_mod.route, cls._pick_one, []
+
+        def recorded_route(logits, top_k, cap):
+            out = route(logits, top_k, cap)
+            events.append(("route", out[1].cpu(), logits.detach().float().cpu()))
+            return out
+
+        def recorded_pick(eng, logits_row, req, token_idx):
+            tok = pick(eng, logits_row, req, token_idx)
+            top = np.sort(logits_row)[-2:]
+            events.append(("pick", req.rid, token_idx, tok, float(top[1] - top[0])))
+            return tok
+
+        moe_mod.route, cls._pick_one = recorded_route, recorded_pick
+        try:
+            yield events
+        finally:
+            moe_mod.route, cls._pick_one = route, pick
+
+    @contextlib.contextmanager
+    def plain_k2(self):
+        """K2 alone on its plain version while the block runs (every other
+        kernel as the caller asks)."""
+        import importlib
+
+        # the package's decode_attention is K5's wrapper, not this module
+        k2 = importlib.import_module("repro_torch.kernels.decode_attention")
+        real = k2.paged_decode_attention
+
+        def plain(q, k_pool, v_pool, block_tables, lengths, *, use_kernel=None):
+            return k2.paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths)
+
+        k2.paged_decode_attention = plain
+        try:
+            yield
+        finally:
+            k2.paged_decode_attention = real
+
+    @staticmethod
+    def first_departure(got, want, top_k):
+        """Where two recorded serving runs (recording_serve_events) first
+        part, if they do: a routing call whose chosen experts differ (each
+        differing token with the router's top-k margin in ``want``, the
+        k-th probability less the next) or a token pick that differs (with
+        ``want``'s top-2 logit margin there).  Both runs make the same
+        calls in the same order up to there; what follows descends from
+        it.  Returns (the departure, [] where they never part; the largest
+        |difference| of a router probability over the routing calls up to
+        it)."""
+        import torch
+
+        perturbation = 0.0
+        for g, w in zip(got, want):
+            if g[0] != w[0]:
+                return [{"event": "structure", "got": g[0], "want": w[0],
+                         "router_topk_margin": float("inf")}], perturbation
+            if g[0] == "route":
+                pw = torch.softmax(w[2], dim=-1)
+                perturbation = max(perturbation,
+                                   float((torch.softmax(g[2], dim=-1) - pw).abs().max()))
+                if not torch.equal(g[1], w[1]):
+                    rows = (g[1].view(-1, top_k) != w[1].view(-1, top_k)).any(dim=1)
+                    probs = pw.sort(dim=-1, descending=True).values
+                    return [{"event": "route", "token": int(r),
+                             "router_topk_margin": float(probs[r, top_k - 1] - probs[r, top_k])}
+                            for r in rows.nonzero()[:, 0].tolist()], perturbation
+            if g[0] == "pick" and g[1:4] != w[1:4]:
+                return [{"event": "pick", "request": w[1], "position": w[2], "got": g[3],
+                         "want": w[3], "plain_top2_margin": w[4]}], perturbation
+        return [], perturbation
+
+    def family_against_plain(self, arch, failures):
+        """``arch`` at FAMILY_PLAIN_LAYERS layers (zamba2 at its first shared
+        block's 6; both encdec stacks), from a seeded init: the loss and
+        every float leaf's gradient of one training batch (1 x
+        FAMILY_PLAIN_SEQ positions) on the kernels and on the plain
+        versions, under deterministic algorithms (the embedding's and the
+        MoE gathers' backward otherwise add with atomics).  K3 is
+        bit-identical, so loss and gradients must be equal bit for bit."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.models import build
+        from repro_torch.models.registry import vlm_patches
+        from repro_torch.models.transformer import set_trainable
+
+        cfg = self.family_cfg(arch)
+        cut = cfg.shared_attn_every if cfg.family == "hybrid" else FAMILY_PLAIN_LAYERS
+        cfg = dataclasses.replace(cfg, n_layers=cut, enc_layers=min(cfg.enc_layers, cut),
+                                  dec_layers=min(cfg.dec_layers, cut))
+        api = build(cfg)
+        model = set_trainable(api.init(seed=1, device=self.dev))
+        named = {n: p for n, p in model.named_parameters() if p.is_floating_point()}
+        seq = FAMILY_PLAIN_SEQ // 2 + vlm_patches(cfg) if cfg.family == "vlm" else \
+            FAMILY_PLAIN_SEQ
+        batch = self.family_batch(api, cfg, 1, seq, 7)
+        if cfg.family == "vlm":  # half the positions patches
+            batch["embeds_prefix"] = batch["embeds_prefix"][:, :FAMILY_PLAIN_SEQ // 2]
+        out = {}
+        det = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for uk in (None, False):
+                loss = api.train_loss(model, batch, use_kernel=uk)
+                grads = torch.autograd.grad(loss, list(named.values()))
+                out[uk] = (loss.detach(), grads)
+                del loss
+        finally:
+            torch.use_deterministic_algorithms(det)
+        (lk, gk), (lp, gp) = out[None], out[False]
+        differ = {}
+        for n, a, b in zip(named, gk, gp):
+            if not torch.equal(a, b):
+                differ[n] = float((a.float() - b.float()).abs().max())
+        loss_equal = bool(torch.equal(lk, lp))
+        finite = bool(torch.isfinite(lk)) and all(bool(torch.isfinite(g).all()) for g in gk)
+        log(f"  {arch} at {cut} layers, one batch of {seq} positions: loss {float(lk):.6f} on "
+            f"the kernels, {float(lp):.6f} plain ({'equal' if loss_equal else 'DIFFER'}); "
+            f"{len(named) - len(differ)} of {len(named)} gradient leaves bit-identical"
+            + (f", the rest's max |difference| {differ}" if differ else ""))
+        if not (loss_equal and finite) or differ:
+            failures.append(f"{arch} at {cut} layers: kernels against plain: loss "
+                            f"{float(lk)} / {float(lp)}, differing leaves {list(differ)[:4]}")
+        del model, out, gk, gp
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"layers": cut, "positions": seq, "loss": float(lk), "loss_equal": loss_equal,
+                "leaves": len(named), "leaves_differ": differ}
+
+    def blockwise_step(self, failures):
+        """yi-6b at full width cut to BLOCKWISE_LAYERS, f32 parameters,
+        activations and numerics (so that the CPU tests' f32 tolerances
+        apply), remat as its config: the loss and gradients of one
+        BLOCKWISE_BATCH x BLOCKWISE_SEQ batch with flash_block =
+        BLOCKWISE_BLOCK and without it, each with its peak memory above
+        the model's."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.configs import get_config
+        from repro_torch.data.synthetic import DataConfig, lm_batch
+        from repro_torch.models import build
+        from repro_torch.models.transformer import set_trainable
+
+        base = dataclasses.replace(get_config("yi-6b"), n_layers=BLOCKWISE_LAYERS,
+                                   param_dtype="float32", act_dtype="float32")
+        base = base.with_numerics("default=f32")
+        model = set_trainable(build(base).init(seed=0, device=self.dev))
+        named = dict(model.named_parameters())
+        batch = lm_batch(DataConfig(seed=0, vocab=base.vocab, seq_len=BLOCKWISE_SEQ,
+                                    global_batch=BLOCKWISE_BATCH), 0)
+        out = {}
+        for fb in (BLOCKWISE_BLOCK, 0):
+            api = build(dataclasses.replace(base, flash_block=fb))
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = api.train_loss(model, batch)
+            grads = torch.autograd.grad(loss, list(named.values()))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+            out[fb] = (float(loss.detach()), grads, peak, secs)
+            del loss
+        (lf, gf, pf, sf), (l0, g0, p0, s0) = out[BLOCKWISE_BLOCK], out[0]
+        errs = {n: float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+                for n, a, b in zip(named, gf, g0)}
+        worst = max(errs, key=errs.get)
+        loss_err = abs(lf - l0) / abs(l0)
+        scores = BLOCKWISE_BATCH * base.n_heads * BLOCKWISE_SEQ ** 2 * 4 / 2**30
+        log(f"  blockwise attention, yi-6b at {BLOCKWISE_LAYERS} layers (f32), "
+            f"{BLOCKWISE_BATCH} x {BLOCKWISE_SEQ}: loss {lf:.6f} with flash_block="
+            f"{BLOCKWISE_BLOCK}, {l0:.6f} without (relative {loss_err:.2e}, tol "
+            f"{BLOCKWISE_LOSS_RTOL}); worst gradient leaf {worst} {errs[worst]:.2e} (tol "
+            f"{BLOCKWISE_GRAD_TOL}); peak above the model {pf:.2f} GiB against {p0:.2f} GiB "
+            f"(one layer's [S, S] f32 scores {scores:.2f} GiB); {sf:.2f} s against {s0:.2f} s")
+        if not loss_err <= BLOCKWISE_LOSS_RTOL or errs[worst] > BLOCKWISE_GRAD_TOL:
+            failures.append(f"blockwise: loss {lf} / {l0}, {worst} {errs[worst]}")
+        del model, named, out, gf, g0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"loss_flash": lf, "loss_plain": l0, "loss_rel_err": loss_err,
+                "worst_grad_leaf": worst, "worst_grad_rel_l2": errs[worst],
+                "peak_above_model_gib_flash": pf, "peak_above_model_gib_plain": p0,
+                "seconds_flash": sf, "seconds_plain": s0}
 
     @contextlib.contextmanager
     def recording_k1(self):
@@ -4867,10 +5502,11 @@ class Smoke:
         torch.cuda.empty_cache()
 
     def time_train_quantize(self, add):
-        """K3's quantize at the training path's shapes (K3_QUANT_TIMES: the
-        two largest weights, bf16 -> f32, and an activation), window and
-        spun, beside the bytes bound and the plain version, which runs over
-        row slices of at most K3_PLAIN_LANES lanes (its int64 temporaries)."""
+        """K3's quantize at the training paths' shapes (K3_QUANT_TIMES: yi-6b's
+        two largest weights, bf16 -> f32, and an activation; the other
+        families' new weights), window and spun, beside the bytes bound and
+        the plain version (which takes at most PLAIN_LANES lanes at a
+        time, its int64 temporaries)."""
         torch = self.torch
         from repro_torch.kernels.posit_codec import posit_quantize, quantize_plain
         from repro_torch.numerics import P16
@@ -4880,14 +5516,8 @@ class Smoke:
             x = torch.randn(shape, generator=g, device=self.dev)
             if kind == "bf16":
                 x = x.to(torch.bfloat16)
-            rows = max(1, K3_PLAIN_LANES // shape[1])
-
-            def plain():
-                for r0 in range(0, shape[0], rows):
-                    quantize_plain(x[r0:r0 + rows], P16)
-
             ms = self.timed(lambda: posit_quantize(x, P16), reps=20)
-            plain_ms = self.events_ms(plain, reps=1, warmup=1)
+            plain_ms = self.events_ms(lambda: quantize_plain(x, P16), reps=1, warmup=1)
             add("posit_codec", f"quantize {list(shape)} {kind}->float32 (training)", ms,
                 plain_ms, x.numel() * (x.element_size() + 4), 0, 1.0)
             del x
@@ -5077,7 +5707,8 @@ def main() -> int:
                     help="yi-6b depth for the serve phase, and at most the MoE models' "
                          "depth in the moe phase, yi-6b's in the static phase "
                          f"({STATIC_YI_LAYERS} by default) and the trained model's in the "
-                         f"train phase ({TRAIN_LAYERS} by default; widths are never cut; "
+                         f"train phase ({TRAIN_LAYERS} by default) and the cut models' in the "
+                         f"train_families phase (widths are never cut; "
                          "serve_paths and observe always run all 32 layers, and the static "
                          "phase's state-space models all of theirs; the archs phase's cut "
                          "models run at most this many)")

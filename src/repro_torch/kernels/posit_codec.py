@@ -51,19 +51,29 @@ TABLE_ENTRIES = 1 << 15
 _tables: Dict[Tuple[int, int, Optional[int]], torch.Tensor] = {}
 
 
-def encode_plain(x: torch.Tensor, spec: PositSpec, out_dtype=torch.int32):
-    """The plain encode, over at most PLAIN_LANES lanes at a time (its
-    int64 temporaries), so that it runs on a full-width weight too."""
+def _by_slices(fn, x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """``fn`` over at most PLAIN_LANES lanes of ``x`` at a time, into one
+    ``out_dtype`` tensor of ``x``'s shape: the plain codec's int64
+    temporaries over a full-width weight (1.25 G lanes for qwen2-vl-72b's
+    unembed) would need tens of GB at once."""
     from .ref import PLAIN_LANES
 
-    if x.numel() > PLAIN_LANES:
-        flat = x.reshape(-1)
-        out = torch.empty(flat.shape, dtype=out_dtype, device=x.device)
-        for i in range(0, flat.numel(), PLAIN_LANES):
-            out[i:i + PLAIN_LANES] = encode_plain(flat[i:i + PLAIN_LANES], spec, out_dtype)
-        return out.reshape(x.shape)
-    bits = encode(x, spec)
-    return pack16(bits) if out_dtype == torch.int16 else bits
+    if x.numel() <= PLAIN_LANES:
+        return fn(x)
+    flat = x.reshape(-1)
+    out = torch.empty(flat.shape, dtype=out_dtype, device=x.device)
+    for i in range(0, flat.numel(), PLAIN_LANES):
+        out[i:i + PLAIN_LANES] = fn(flat[i:i + PLAIN_LANES])
+    return out.reshape(x.shape)
+
+
+def encode_plain(x: torch.Tensor, spec: PositSpec, out_dtype=torch.int32):
+    """The plain encode, by slices (:func:`_by_slices`)."""
+    def fn(part):
+        bits = encode(part, spec)
+        return pack16(bits) if out_dtype == torch.int16 else bits
+
+    return _by_slices(fn, x, out_dtype)
 
 
 def decode_plain(bits: torch.Tensor, spec: PositSpec):
@@ -71,7 +81,8 @@ def decode_plain(bits: torch.Tensor, spec: PositSpec):
 
 
 def quantize_plain(x: torch.Tensor, spec: PositSpec):
-    return decode(encode(x, spec), spec)
+    """The plain quantize (decode . encode), by slices (:func:`_by_slices`)."""
+    return _by_slices(lambda part: decode(encode(part, spec), spec), x, torch.float32)
 
 
 def encode_path(x_dtype: torch.dtype, numel: int, spec: PositSpec) -> str:

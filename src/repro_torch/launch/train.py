@@ -13,9 +13,9 @@ artifact); the policy goes into every checkpoint manifest, so serving
 restores the exact numerics.  The single-mode flags (--numerics,
 --posit-n, --posit-es, --carrier) stay as sugar for a uniform policy.
 Checkpoints use the reference's layout, so either package resumes the
-other's.  A MoE, ssm or hybrid arch raises ``NotImplementedError``
-(``ROADMAP.md``, queue 1, item 3); an encdec or vlm arch exits pointing
-at ``examples/``, as in the reference.
+other's.  It trains the dense, MoE, ssm and hybrid archs; an encdec or
+vlm arch prints its parameter count and exits pointing at ``examples/``,
+as the reference's CLI does (their ``train_loss`` is the registry's).
 """
 import argparse
 import dataclasses
@@ -58,12 +58,13 @@ def main(argv=None) -> None:
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.convert import MODEL_CLASSES
     from repro_torch.core.modes import NumericsConfig
     from repro_torch.core.policy import describe, load_policy_arg
     from repro_torch.data.synthetic import DataConfig, lm_batch
     from repro_torch.device import resolve_device
     from repro_torch.models.registry import build
-    from repro_torch.models.transformer import LATER_TRAINING, DenseLM, set_trainable
+    from repro_torch.models.transformer import set_trainable
     from repro_torch.optim.optimizers import OptConfig
     from repro_torch.train.checkpoint import policy_extra
     from repro_torch.train.loop import FailureInjector, TrainConfig, run
@@ -78,20 +79,18 @@ def main(argv=None) -> None:
     else:
         cfg = cfg.with_numerics(NumericsConfig(
             mode=args.numerics, n=args.posit_n, es=args.posit_es, carrier=args.carrier))
-    if cfg.family in ("encdec", "vlm"):
-        raise SystemExit("use examples/ for multimodal training demos; LM families here")
-    if cfg.n_experts or cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"training a {cfg.family} model is not ported yet ({LATER_TRAINING})")
     api = build(cfg)
 
     def init():
         return set_trainable(api.init(seed=0, device=device))
 
-    shapes = DenseLM(cfg, generator=torch.Generator(), device=torch.device("meta"))
+    shapes = MODEL_CLASSES[cfg.family](cfg, generator=torch.Generator(),
+                                       device=torch.device("meta"))
     n_params = sum(p.numel() for p in shapes.parameters())
     print(f"arch={cfg.name}{' (reduced)' if args.reduced else ''} "
           f"params={n_params / 1e6:.1f}M numerics={describe(cfg.numerics)!r}")
+    if cfg.family in ("encdec", "vlm"):
+        raise SystemExit("use examples/ for multimodal training demos; LM families here")
 
     dcfg = DataConfig(seed=0, vocab=cfg.vocab, seq_len=args.seq_len, global_batch=args.batch)
     tcfg = TrainConfig(

@@ -6,7 +6,9 @@ enc-dec cross-attention's ``attn.cross.qkv`` and ``attn.cross.out``;
 PLAM applies to these linear layers.  The attention core keeps the
 reference's operation order (einsum, then scale, then f32 softmax,
 weights cast to the value dtype); it does not use a fused attention
-kernel.
+kernel.  With ``flash_block`` a training or prefill forward without a
+cache runs :func:`attn_core_blockwise`, the reference's online softmax
+over KV blocks, in f32 torch as the reference computes it in jnp.
 """
 from __future__ import annotations
 
@@ -61,6 +63,100 @@ def attn_core(q, k, v, mask, softcap=None):
     return out.reshape(b, sq, h, hd)
 
 
+class _BlockwiseAttention(torch.autograd.Function):
+    """The online softmax over KV blocks, with a backward of its own that
+    walks the same blocks again from the saved log-sum-exp (the
+    FlashAttention-2 backward): neither pass holds more than one block of
+    [Sq, block] scores, where autograd through the loop would keep every
+    block's.  f32 throughout; the output is cast to q's dtype and each
+    gradient to its input's."""
+
+    @staticmethod
+    def _scores(qg, kc, blk, block, causal, softcap):
+        """One block's scores [B, kv, g, Sq, block] (and tanh of the
+        softcapped logits, for the backward)."""
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg, kc)
+        t = None
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = t * softcap
+        if causal:
+            sq = qg.shape[1]
+            k_idx = blk * block + torch.arange(block, device=qg.device)
+            msk = k_idx[None, :] <= torch.arange(sq, device=qg.device)[:, None]
+            s = torch.where(msk, s, torch.tensor(-1e30, dtype=s.dtype, device=s.device))
+        return s, t
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block, softcap):
+        b, sq, h, hd = q.shape
+        kv = k.shape[2]
+        group = h // kv
+        f32 = torch.float32
+        qg = q.reshape(b, sq, kv, group, hd).to(f32) * hd ** -0.5
+        nb = k.shape[1] // block
+        m = torch.full((b, kv, group, sq), -torch.inf, dtype=f32, device=q.device)
+        l = torch.zeros((b, kv, group, sq), dtype=f32, device=q.device)
+        acc = torch.zeros((b, kv, group, sq, hd), dtype=f32, device=q.device)
+        for j in range(nb):
+            kc = k[:, j * block:(j + 1) * block].to(f32)
+            vc = v[:, j * block:(j + 1) * block].to(f32)
+            s, _ = _BlockwiseAttention._scores(qg, kc, j, block, causal, softcap)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            scale = torch.exp(m - m_new)
+            l = l * scale + p.sum(dim=-1)
+            acc = acc * scale[..., None] + torch.einsum("bkgqs,bskh->bkgqh", p, vc)
+            m = m_new
+        out = acc / l[..., None]
+        ctx.save_for_backward(q, k, v, out, m + torch.log(l))
+        ctx.cfg = (causal, block, softcap)
+        # [B, kv, g, Sq, hd] -> [B, Sq, H, hd]
+        return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, block, softcap = ctx.cfg
+        b, sq, h, hd = q.shape
+        kv = k.shape[2]
+        group = h // kv
+        f32 = torch.float32
+        qg = q.reshape(b, sq, kv, group, hd).to(f32) * hd ** -0.5
+        d_out = dout.to(f32).reshape(b, sq, kv, group, hd).permute(0, 2, 3, 1, 4)
+        delta = torch.sum(d_out * out, dim=-1)  # [B, kv, g, Sq]
+        dqg = torch.zeros_like(out)
+        dk = torch.empty(k.shape, dtype=f32, device=k.device)
+        dv = torch.empty(v.shape, dtype=f32, device=v.device)
+        for j in range(k.shape[1] // block):
+            sl = slice(j * block, (j + 1) * block)
+            kc, vc = k[:, sl].to(f32), v[:, sl].to(f32)
+            s, t = _BlockwiseAttention._scores(qg, kc, j, block, causal, softcap)
+            p = torch.exp(s - lse[..., None])  # masked keys: exactly 0
+            dv[:, sl] = torch.einsum("bkgqs,bkgqh->bskh", p, d_out)
+            ds = p * (torch.einsum("bkgqh,bskh->bkgqs", d_out, vc) - delta[..., None])
+            if t is not None:
+                ds = ds * (1 - t * t)
+            dqg += torch.einsum("bkgqs,bskh->bkgqh", ds, kc)
+            dk[:, sl] = torch.einsum("bkgqs,bqkgh->bskh", ds, qg)
+        dq = (dqg * hd ** -0.5).permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
+def attn_core_blockwise(q, k, v, *, causal: bool, block: int, softcap=None):
+    """Flash-style blockwise attention (the training and prefill path):
+    q [B, Sq, H, hd] over k, v [B, Sk, kv, hd] in KV blocks of ``block``
+    keys with a running (max, sum, accumulator) online softmax, so that
+    one block of scores lives at a time, in the backward pass too.  The
+    reference's math (q scaled before its product; a causal mask by
+    absolute position; -1e30 for masked scores), equal to
+    :func:`attn_core` to f32 rounding."""
+    block = min(block, k.shape[1])
+    if k.shape[1] % block:
+        raise ValueError(f"{k.shape[1]} keys are not a multiple of the block {block}")
+    return _BlockwiseAttention.apply(q, k, v, causal, block, softcap)
+
+
 def _project_qkv(p: Attention, x, ncfg, n_heads, n_kv, head_dim, use_kernel):
     qkv_cfg = site(ncfg, "attn.qkv")
     q = _split_heads(dense(x, p.wq, qkv_cfg, use_kernel=use_kernel), n_heads, head_dim)
@@ -84,6 +180,7 @@ def attn_apply(
     cache_len=None,
     mask="causal",
     softcap=None,
+    flash_block: int = 0,
     use_kernel: Optional[bool] = None,
 ):
     """Returns (out [B,S,d], kv): the cache (if one was passed) with the
@@ -102,7 +199,10 @@ def attn_apply(
     clamped so that the span stays inside the cache; the mask keeps the
     unclamped query positions (so a decode step past the end of a
     prompt-sized cache overwrites its last slot and attends to every
-    key, as the reference's hybrid decode does)."""
+    key, as the reference's hybrid decode does).
+
+    Without a cache, a ``flash_block`` that divides S and a string
+    ``mask`` select :func:`attn_core_blockwise`, as in the reference."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, ncfg, n_heads, n_kv, head_dim, use_kernel)
     q = apply_rope(q, positions, rope_theta, mrope_sections)
@@ -133,6 +233,10 @@ def attn_apply(
         m = causal_mask(s, ck.shape[1], cache_len, device=x.device)
         out = attn_core(q, ck, cv, m, softcap)
         new_kv = (ck, cv)
+    elif flash_block and isinstance(mask, str) and s % flash_block == 0:
+        out = attn_core_blockwise(q, k, v, causal=(mask == "causal"), block=flash_block,
+                                  softcap=softcap)
+        new_kv = (k, v)
     else:
         if isinstance(mask, str):
             m = (causal_mask(s, s, device=x.device) if mask == "causal"

@@ -16,6 +16,7 @@ caller (the static engine) keeps the encoder output.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -29,7 +30,7 @@ from .attention import Attention, attn_apply, cross_attn_apply, encode_cross_kv
 from .common import RMSNorm, rmsnorm
 from .mamba_lm import embed_init
 from .mlp import MLP, mlp_apply
-from .transformer import LATER_TRAINING, embed_tokens, torch_dtype
+from .transformer import embed_tokens, lm_loss_chunked, torch_dtype
 
 
 class EncBlock(nn.Module):
@@ -88,10 +89,10 @@ def _positions(b: int, s: int, offset: int, device):
     return (torch.arange(s, dtype=torch.int32, device=device)[None, :] + offset).expand(b, s)
 
 
-@torch.no_grad()
 def encode(cfg: ModelConfig, model: EncDecLM, frames, use_kernel: Optional[bool] = None):
     """frames: [B, S_src, frontend_dim] precomputed frame embeddings.
-    Returns the encoder output [B, S_src, d] after its final norm."""
+    Returns the encoder output [B, S_src, d] after its final norm (under
+    autograd in training; ``prefill`` and the engine call it without)."""
     nsite = bind(cfg.numerics)
     x = dense(frames.to(torch_dtype(cfg.act_dtype)), model.frontend_proj,
               site_for(cfg.numerics, "frontend"), use_kernel=use_kernel)
@@ -129,7 +130,19 @@ def _decoder(cfg: ModelConfig, model: EncDecLM, y, positions, enc_out, kv_caches
 
 
 def train_loss(cfg: ModelConfig, model: EncDecLM, batch, use_kernel: Optional[bool] = None):
-    raise NotImplementedError(f"training an encdec model is not ported yet ({LATER_TRAINING})")
+    """batch: frames [B, S_src, frontend_dim], tokens and labels [B, S_tgt].
+    The encoder's output feeds every decoder block's cross-attention; the
+    loss is the chunked cross-entropy over the untied ``unembed``, as the
+    reference's dense-LM view of the config (``tie_embeddings=False``)."""
+    dev = model.embed.device
+    frames = torch.as_tensor(batch["frames"]).to(dev)
+    tokens = torch.as_tensor(batch["tokens"]).to(dev)
+    enc_out = encode(cfg, model, frames, use_kernel)
+    b, s = tokens.shape
+    hidden, _ = _decoder(cfg, model, embed_tokens(cfg, model, tokens),
+                         _positions(b, s, 0, dev), enc_out, use_kernel=use_kernel)
+    return lm_loss_chunked(dataclasses.replace(cfg, tie_embeddings=False), model, hidden,
+                           torch.as_tensor(batch["labels"]).to(dev), use_kernel=use_kernel)
 
 
 def kv_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,

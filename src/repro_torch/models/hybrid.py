@@ -31,7 +31,8 @@ from .common import RMSNorm, iter_layers, rmsnorm
 from .mamba_lm import MambaBlock, embed_init, run_layer, store_states
 from .mamba_lm import cache_init as ssm_cache_init
 from .mlp import MLP, mlp_apply
-from .transformer import default_positions, embed_tokens, lm_logits, torch_dtype
+from .transformer import (default_positions, embed_tokens, lm_logits, lm_loss_chunked,
+                          torch_dtype)
 
 
 class SharedBlock(nn.Module):
@@ -125,6 +126,19 @@ def hybrid_backbone(cfg: ModelConfig, model: HybridLM, embeds, positions, caches
         return hidden, None
     caches = dict(caches, ssm=store_states(caches["ssm"], states, embeds.shape[1]))
     return hidden, caches
+
+
+def train_loss(cfg: ModelConfig, model: HybridLM, batch, use_kernel: Optional[bool] = None):
+    """batch: {tokens [B, S], labels [B, S]}.  The shared block's weights
+    take the sum of their invocations' gradients, and the embeddings
+    those of the Mamba2 stack and of every invocation's concat."""
+    dev = model.embed.device
+    tokens = torch.as_tensor(batch["tokens"]).to(dev)
+    b, s = tokens.shape
+    hidden, _ = hybrid_backbone(cfg, model, embed_tokens(cfg, model, tokens),
+                                default_positions(cfg, b, s, device=dev), use_kernel=use_kernel)
+    return lm_loss_chunked(cfg, model, hidden, torch.as_tensor(batch["labels"]).to(dev),
+                           use_kernel=use_kernel)
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,

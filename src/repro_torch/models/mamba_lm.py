@@ -24,7 +24,7 @@ from repro_torch.core.dense import dense_init
 
 from .common import RMSNorm, iter_layers, rmsnorm
 from .ssm import Mamba2, mamba2_apply, mamba2_cache_init
-from .transformer import embed_tokens, lm_logits, torch_dtype
+from .transformer import embed_tokens, lm_logits, lm_loss_chunked, torch_dtype
 
 
 def ssm_kw(cfg: ModelConfig):
@@ -110,6 +110,16 @@ def backbone(cfg: ModelConfig, model: MambaLM, embeds, caches=None,
     if caches is None:
         return hidden, None
     return hidden, store_states(caches, states, embeds.shape[1])
+
+
+def train_loss(cfg: ModelConfig, model: MambaLM, batch, use_kernel: Optional[bool] = None):
+    """batch: {tokens [B, S], labels [B, S]}.  The mean next-token
+    cross-entropy through every block's chunked SSD scan."""
+    dev = model.embed.device
+    x = embed_tokens(cfg, model, torch.as_tensor(batch["tokens"]).to(dev))
+    hidden, _ = backbone(cfg, model, x, use_kernel=use_kernel)
+    return lm_loss_chunked(cfg, model, hidden, torch.as_tensor(batch["labels"]).to(dev),
+                           use_kernel=use_kernel)
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,

@@ -21,9 +21,15 @@ expert buffer with kept rows only (no float atomics, so the write is
 deterministic on the card).  Top-k ties go to the lower expert index,
 as ``jax.lax.top_k`` breaks them.
 
+Under autograd (``train_loss``) the router's gradient flows through the
+softmax and the top-k values of the stable sort, the experts' through
+their stacked ``nmatmul``, and the dispatch's through its gather: the
+backward of the buffer's ``index_copy_`` reads each row's gradient back
+from its slot, and the dropped rows read the scratch row, which nothing
+reads, so they get zero.  The routing is a function of the layer's
+input alone, so a remat recompute routes exactly as its forward did.
 ``aux_load_balance_loss`` is the reference's Switch-style auxiliary loss;
-like the reference's ``train_loss``, the port's does not add it, and MoE
-training waits for ``ROADMAP.md``, queue 1, item 3.
+like the reference's ``train_loss``, the port's does not add it.
 """
 from __future__ import annotations
 

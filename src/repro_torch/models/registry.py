@@ -5,8 +5,9 @@ The dense and MoE families share the transformer's static and paged
 entry points; the vlm family (the transformer with M-RoPE and a prefix
 of patch embeddings), the ssm (``mamba_lm.py``), hybrid (``hybrid.py``)
 and encdec (``encdec.py``) families have a static path only, and their
-paged fields are None, as in the reference.  Training every family but
-the dense one waits for ``ROADMAP.md``, queue 1, item 3.
+paged fields are None, as in the reference.  Every family trains:
+``train_loss(model, batch)`` takes the batch that ``train_inputs``
+describes and returns the mean next-token cross-entropy.
 
 ``prefill(model, batch)`` takes the family's prefill inputs (``{"tokens":
 [B, S]}``; the vlm's adds ``"embeds_prefix"`` [B, P, d], the encdec's
@@ -16,10 +17,12 @@ vlm, the SSM state) on the tokens' device, and returns (logits [B, 1,
 V], caches); ``decode_step(model, batch)`` takes ``{"token": [B, 1],
 "cache_len": int}``, the caches under the family's key (``kv_caches`` or
 ``caches``) and, for encdec, the encoder output ``"enc_out"``.
-``prefill_inputs(batch, seq_len)`` describes the prefill batch as meta
-tensors, the analogue of the reference's ``ShapeDtypeStruct``s; the stub
-frontends' inputs are the caller's (seeded numpy arrays in the tests and
-the chip smoke).
+``train_inputs(batch, seq_len)`` and ``prefill_inputs(batch, seq_len)``
+describe the training and prefill batches as meta tensors, the analogue
+of the reference's ``ShapeDtypeStruct``s (a vlm row's ``seq_len`` counts
+its patches, an encdec row's its source frames); the stub frontends'
+inputs are the caller's (seeded numpy arrays in the tests and the chip
+smoke).
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ class ModelAPI:
     train_loss: Callable  # (model, batch, use_kernel=None) -> scalar f32 loss
     prefill: Callable  # (model, batch, use_kernel=None) -> (logits, caches)
     decode_step: Callable  # (model, batch with caches, use_kernel=None) -> (logits, caches)
+    train_inputs: Callable  # (batch, seq_len) -> {name: meta tensor}
     prefill_inputs: Callable  # (batch, seq_len) -> {name: meta tensor}
     # the paged KV-cache path (continuous batching); None for the families
     # without a paged layout (the ssm/hybrid state caches)
@@ -67,6 +71,16 @@ def _prefill_inputs(batch: int, seq_len: int):
     return {"tokens": _meta((batch, seq_len))}
 
 
+def _labelled(inputs):
+    """A family's training batch: its prefill inputs, and labels shaped as
+    its tokens."""
+    return {**inputs, "labels": _meta(inputs["tokens"].shape)}
+
+
+def _train_inputs(batch: int, seq_len: int):
+    return _labelled(_prefill_inputs(batch, seq_len))
+
+
 def vlm_patches(cfg: ModelConfig) -> int:
     """Patch embeddings ahead of a vlm prompt's tokens."""
     return VLM_PATCHES if cfg.d_model > 512 else 16
@@ -77,20 +91,18 @@ def encdec_tgt_len(cfg: ModelConfig, seq_len: int) -> int:
     return min(seq_len, ENCDEC_TGT_LEN if cfg.d_model > 512 else 64)
 
 
-def _later_training(cfg: ModelConfig):
-    def train_loss(model, batch, use_kernel=None):
-        raise NotImplementedError(
-            f"training a {cfg.family} model is not ported yet ({_tf.LATER_TRAINING})")
-    return train_loss
-
-
 def build(cfg: ModelConfig) -> ModelAPI:
     fam = cfg.family
     if fam in _tf.FAMILIES:
         return _build_transformer(cfg)
+    if fam == "encdec":
+        return _build_encdec(cfg)
     if fam == "ssm":
         def init(seed: int = 0, device=None):
             return _mamba.mamba_lm_init(cfg, seed=seed, device=device)
+
+        def train_loss(model, batch, use_kernel=None):
+            return _mamba.train_loss(cfg, model, batch, use_kernel)
 
         def prefill(model, batch, use_kernel=None):
             tokens = batch["tokens"]
@@ -104,6 +116,9 @@ def build(cfg: ModelConfig) -> ModelAPI:
         def init(seed: int = 0, device=None):
             return _hybrid.hybrid_init(cfg, seed=seed, device=device)
 
+        def train_loss(model, batch, use_kernel=None):
+            return _hybrid.train_loss(cfg, model, batch, use_kernel)
+
         def prefill(model, batch, use_kernel=None):
             tokens = batch["tokens"]
             caches = _hybrid.cache_init(cfg, tokens.shape[0], tokens.shape[1], CACHE_DTYPE,
@@ -113,12 +128,11 @@ def build(cfg: ModelConfig) -> ModelAPI:
         def decode_step(model, batch, use_kernel=None):
             return _hybrid.decode_step(cfg, model, batch["token"], batch["caches"],
                                        batch["cache_len"], use_kernel)
-    elif fam == "encdec":
-        return _build_encdec(cfg)
     else:
         raise ValueError(f"unknown family {fam!r}")
-    return ModelAPI(cfg=cfg, init=init, train_loss=_later_training(cfg), prefill=prefill,
-                    decode_step=decode_step, prefill_inputs=_prefill_inputs)
+    return ModelAPI(cfg=cfg, init=init, train_loss=train_loss, prefill=prefill,
+                    decode_step=decode_step, train_inputs=_train_inputs,
+                    prefill_inputs=_prefill_inputs)
 
 
 def _build_encdec(cfg: ModelConfig) -> ModelAPI:
@@ -144,8 +158,12 @@ def _build_encdec(cfg: ModelConfig) -> ModelAPI:
         return {"frames": _meta((batch, seq_len, cfg.frontend_dim), act),
                 "tokens": _meta((batch, encdec_tgt_len(cfg, seq_len)))}
 
+    def train_inputs(batch: int, seq_len: int):
+        return _labelled(prefill_inputs(batch, seq_len))
+
     return ModelAPI(cfg=cfg, init=init, train_loss=train_loss, prefill=prefill,
-                    decode_step=decode_step, prefill_inputs=prefill_inputs)
+                    decode_step=decode_step, train_inputs=train_inputs,
+                    prefill_inputs=prefill_inputs)
 
 
 def _build_transformer(cfg: ModelConfig) -> ModelAPI:
@@ -174,8 +192,12 @@ def _build_transformer(cfg: ModelConfig) -> ModelAPI:
                     "embeds_prefix": _meta((batch, p, cfg.d_model),
                                            _tf.torch_dtype(cfg.act_dtype))}
 
+        def train_inputs(batch: int, seq_len: int):
+            return _labelled(prefill_inputs(batch, seq_len))
+
         return ModelAPI(cfg=cfg, init=init, train_loss=train_loss, prefill=prefill,
-                        decode_step=decode_step, prefill_inputs=prefill_inputs)
+                        decode_step=decode_step, train_inputs=train_inputs,
+                        prefill_inputs=prefill_inputs)
 
     def paged_pool_init(num_blocks, block_size, dtype, device):
         return _tf.paged_kv_pool_init(cfg, num_blocks, block_size, dtype, device)
@@ -201,8 +223,8 @@ def _build_transformer(cfg: ModelConfig) -> ModelAPI:
                                       lengths, use_kernel)
 
     return ModelAPI(cfg=cfg, init=init, train_loss=train_loss, prefill=prefill,
-                    decode_step=decode_step, prefill_inputs=_prefill_inputs,
-                    paged_pool_init=paged_pool_init,
+                    decode_step=decode_step, train_inputs=_train_inputs,
+                    prefill_inputs=_prefill_inputs, paged_pool_init=paged_pool_init,
                     paged_prefill=paged_prefill, paged_prefill_chunk=paged_prefill_chunk,
                     paged_decode_step=paged_decode_step,
                     paged_score_tokens=paged_score_tokens)

@@ -16,8 +16,9 @@ Numerics: every matmul resolves a *site* (``attn.qkv``, ``mlp.down``,
 bind each block to its segment's numerics.  ``use_kernel`` selects the
 CUDA kernels or their plain versions (``repro_torch.kernels.ops``).
 
-Training (``train_loss``): the model's parameters are built frozen, for
-serving; :func:`set_trainable` makes its float leaves trainable.  With
+Training (``train_loss``, every family of this module): the model's
+parameters are built frozen, for serving; :func:`set_trainable` makes
+its float leaves trainable (those of every family's model).  With
 ``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` (its
 activations recomputed in the backward pass, as the reference's
 ``jax.checkpoint`` with ``nothing_saveable``), and the loss forms each
@@ -123,7 +124,7 @@ def _layer_fwd(cfg: ModelConfig, nsite, blk: Block, x, positions, kv_slice, cach
         n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
         positions=positions, rope_theta=cfg.rope_theta, mrope_sections=cfg.mrope_sections,
         kv_cache=kv_slice, cache_len=cache_len,
-        softcap=cfg.attn_logit_softcap, use_kernel=use_kernel,
+        softcap=cfg.attn_logit_softcap, flash_block=cfg.flash_block, use_kernel=use_kernel,
     )
     x = x + h
     x = x + _ffn_fwd(cfg, nsite, blk, rmsnorm(blk.ln2, x), use_kernel)
@@ -194,26 +195,26 @@ def lm_loss_chunked(cfg: ModelConfig, model: DenseLM, hidden, labels, chunk: int
     return tot / torch.clamp(valid.sum(), min=1.0)
 
 
-#: where the training of every family but the dense one waits in the
-#: port's queue
-LATER_TRAINING = ("ROADMAP.md, queue 1, item 3: training of the MoE, ssm, hybrid, encdec "
-                  "and vlm families")
-
-
 def train_loss(cfg: ModelConfig, model: DenseLM, batch,
                use_kernel: Optional[bool] = None):
     """batch: {tokens [B, S], labels [B, S]} integer tensors (moved to the
-    model's device).  Returns the mean next-token cross-entropy, a scalar
-    f32 tensor."""
-    if cfg.n_experts or cfg.family == "vlm" or "embeds_prefix" in batch:
-        what = "a VLM batch (embeds_prefix)" if "embeds_prefix" in batch else \
-            f"a {cfg.family} model"
-        raise NotImplementedError(f"training {what} is not ported yet ({LATER_TRAINING})")
+    model's device), and for the vlm ``embeds_prefix`` [B, P, d]: the
+    patch embeddings go ahead of the tokens' and their positions carry no
+    target (label -1).  Returns the mean next-token cross-entropy, a
+    scalar f32 tensor.  A MoE block routes under autograd as it does in
+    a forward (the gate's gradient through the softmax and the top-k
+    values; the dispatch's through its gather); no auxiliary loss is
+    added, as in the reference."""
     dev = model.embed.device
-    tokens = batch["tokens"].to(dev)
-    labels = batch["labels"].to(dev)
+    tokens = torch.as_tensor(batch["tokens"]).to(dev)
+    labels = torch.as_tensor(batch["labels"]).to(dev)
     b, s = tokens.shape
     x = embed_tokens(cfg, model, tokens)
+    if "embeds_prefix" in batch:
+        prefix = torch.as_tensor(batch["embeds_prefix"]).to(dev, x.dtype)
+        x = torch.cat([prefix, x], dim=1)
+        labels = torch.nn.functional.pad(labels, (x.shape[1] - s, 0), value=-1)
+        s = x.shape[1]
     positions = default_positions(cfg, b, s, device=dev)
     hidden, _ = lm_backbone(cfg, model, x, positions, use_kernel=use_kernel)
     return lm_loss_chunked(cfg, model, hidden, labels, use_kernel=use_kernel)

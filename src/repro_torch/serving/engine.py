@@ -283,8 +283,9 @@ class Engine:
             if self._enc_cache is None:
                 from repro_torch.models import encdec
 
-                self._enc_cache = encdec.encode(self.cfg, self.model, prompt_batch["frames"],
-                                                self.use_kernel)
+                with torch.no_grad():
+                    self._enc_cache = encdec.encode(self.cfg, self.model,
+                                                    prompt_batch["frames"], self.use_kernel)
             return {"kv_caches": caches, "enc_out": self._enc_cache}
         return {"caches": caches}  # ssm, hybrid
 

@@ -217,6 +217,26 @@ def test_posit_codec_plain_matches_jax_kernels():
     assert torch.equal(ops.posit_encode(xb, P16), ops.posit_encode(xb.float(), P16))
 
 
+@pytest.mark.parametrize("what", ["encode int32", "encode int16", "quantize"])
+def test_plain_codec_by_slices_equals_one_call(monkeypatch, what):
+    """The plain encode and quantize take at most PLAIN_LANES lanes at a
+    time: over a ragged last slice they give the one call's bits."""
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((rng.standard_normal((9, 13)) * 10.0 ** rng.integers(-4, 4, (9, 13)))
+                         .astype(np.float32))
+    fn = {"encode int32": lambda t: pc.encode_plain(t, P16, torch.int32),
+          "encode int16": lambda t: pc.encode_plain(t, P16, torch.int16),
+          "quantize": lambda t: pc.quantize_plain(t, P16)}[what]
+    whole = fn(x)
+    monkeypatch.setattr(ref, "PLAIN_LANES", 10)
+    sliced = fn(x)
+    assert sliced.shape == whole.shape and sliced.dtype == whole.dtype
+    assert torch.equal(sliced.view(torch.int32) if what == "quantize" else sliced,
+                       whole.view(torch.int32) if what == "quantize" else whole)
+
+
 # the specs at which the encode's table path is checked (n <= 16)
 TABLE_SPECS = [(16, 1), (16, 2), (16, 0), (12, 1), (10, 1), (8, 1), (8, 0), (6, 0)]
 TABLE_IDS = [f"p{n}es{es}" for n, es in TABLE_SPECS]

@@ -33,6 +33,7 @@ from repro_torch.models import build as t_build  # noqa: E402
 from repro_torch.models import ssm as t_ssm  # noqa: E402
 
 from test_torch_chunked import _numpy_tree  # noqa: E402
+from test_torch_train_loss import assert_trains  # noqa: E402
 
 
 @pytest.fixture
@@ -234,12 +235,15 @@ def test_quantize_params_meta_matches_reference(arch):
 
 
 def test_ssm_and_hybrid_training_raise_naming_item_10a():
+    """The ssm and hybrid families train (one AdamW step each: a finite
+    loss, a gradient on every float leaf, ``A_log``, ``D``, ``dt_bias``,
+    the conv and the gated norm among them) and keep no paged layout
+    (the name predates their training)."""
     for arch in ("mamba2-780m", "zamba2-1.2b"):
         _, tc = _cfgs(arch)
         api = t_build(tc)
-        batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-                 "labels": torch.zeros((1, 8), dtype=torch.int32)}
-        with pytest.raises(NotImplementedError, match="item 3"):
-            api.train_loss(api.init(device="cpu"), batch)
+        tokens = torch.from_numpy(np.random.default_rng(4).integers(0, 512, (1, 8))
+                                  .astype(np.int32))
+        assert_trains(api, api.init(device="cpu"), {"tokens": tokens, "labels": tokens})
         assert api.paged_decode_step is None and api.paged_prefill is None
         assert tuple(api.prefill_inputs(3, 10)["tokens"].shape) == (3, 10)

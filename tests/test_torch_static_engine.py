@@ -53,6 +53,7 @@ from repro_torch.serving import (  # noqa: E402
 
 from test_torch_chunked import _numpy_tree  # noqa: E402
 from test_torch_ssm import one_thread  # noqa: E402,F401
+from test_torch_train_loss import assert_trains  # noqa: E402
 
 ARCHS = {"dense": "yi-6b", "moe": "deepseek-moe-16b", "ssm": "mamba2-780m",
          "hybrid": "zamba2-1.2b"}
@@ -142,7 +143,8 @@ def test_later_families_still_raise(family):
     """encdec and vlm, once a later slice, now build and serve on the
     static engine (``engine="static"`` and ``"auto"``); the continuous
     engine refuses them as the reference does (no paged KV layout), and
-    their training still raises, naming queue 1's training item."""
+    the served model trains (the name is older than that): one AdamW
+    step gives a finite loss and a gradient on every float leaf."""
     arch = {"encdec": "seamless-m4t-medium", "vlm": "qwen2-vl-72b"}[family]
     _, tc = _cfgs(arch, "f32")
     rng = np.random.default_rng(1)
@@ -158,8 +160,8 @@ def test_later_families_still_raise(family):
         assert out.shape == (1, 3)
     with pytest.raises(ValueError, match="no paged KV layout"):
         build_engine(tc, ServeOptions(engine="continuous"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 3"):
-        eng.api.train_loss(eng.model, dict(batch, labels=batch["tokens"]))
+    assert_trains(eng.api, eng.model, dict(batch, labels=batch["tokens"]))
+
 
 
 def test_static_sampling_is_seeded():

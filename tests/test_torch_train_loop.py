@@ -348,5 +348,6 @@ def test_training_entry_points_default_to_cuda():
         main(["--arch", "yi-6b", "--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pm.train_classifier(lambda g: {}, pm.mlp_apply, np.zeros((4, 3)), np.zeros(4))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        main(["--arch", "deepseek-moe-16b", "--reduced", "--steps", "1", "--device", "cpu"])
+    # a MoE arch, which trains now, defaults to the card as well
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--arch", "deepseek-moe-16b", "--reduced", "--steps", "1"])

@@ -167,13 +167,42 @@ def test_bf16_carrier_projection_equals_the_reference_op_by_op():
 
 
 def test_later_slices_raise():
+    """What raised until the families trained (a MoE model; a dense model
+    handed a patch prefix) now trains: one AdamW step each."""
     moe = dataclasses.replace(t_get_config("deepseek-moe-16b").reduced(),
                               param_dtype="float32", act_dtype="float32")
     api = t_build(moe)
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 3"):
-        api.train_loss(api.init(device="cpu"), batch)
-    dense = t_build(t_get_config("yi-6b").reduced())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        dense.train_loss(dense.init(device="cpu"), {**batch, "embeds_prefix": None})
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, 512, (1, 8)).astype(np.int32))
+    batch = {"tokens": tokens, "labels": tokens}
+    assert_trains(api, api.init(device="cpu"), batch)
+    dense = t_build(dataclasses.replace(t_get_config("yi-6b").reduced(), param_dtype="float32",
+                                        act_dtype="float32"))
+    prefix = torch.from_numpy(np.random.default_rng(5).standard_normal((1, 4, 128))
+                              .astype(np.float32))
+    assert_trains(dense, dense.init(device="cpu"), {**batch, "embeds_prefix": prefix})
+
+
+def _one_adamw_step(api, model, batch):
+    """One AdamW step of ``api.train_loss`` through ``make_train_step``:
+    the loss, and each float leaf's first moment (a multiple of its
+    clipped gradient)."""
+    from repro_torch.models.transformer import set_trainable
+    from repro_torch.optim.optimizers import OptConfig, init_state
+    from repro_torch.train.loop import TrainConfig, make_train_step
+
+    model = set_trainable(model)
+    tcfg = TrainConfig(opt=OptConfig())
+    state = init_state(tcfg.opt, model)
+    _, state, metrics = make_train_step(api.train_loss, tcfg)(model, state, batch)
+    return float(metrics["loss"]), state["m"]
+
+
+def assert_trains(api, model, batch):
+    """A finite loss, and a finite gradient that is not all zero on every
+    float leaf (the other test files import this)."""
+    loss, moments = _one_adamw_step(api, model, batch)
+    assert np.isfinite(loss)
+    assert moments and set(moments) == {n for n, p in model.named_parameters()
+                                        if p.is_floating_point()}
+    for name, m in moments.items():
+        assert bool(torch.isfinite(m).all()) and bool(m.any()), name
