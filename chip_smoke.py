@@ -13,10 +13,11 @@ its own lines:
 1. device      — the card's name and power limit (nvidia-smi), the torch
    device, and the kernels' build from ``src/repro_torch/kernels/csrc``.
 2. kernels     — each CUDA kernel against its plain PyTorch version on
-   the card at its paths' shapes: the posit codec (K3; its encode's bf16
-   table at eight specs, and all 65,536 bf16 patterns through its table
-   and computed paths, at odd offsets and at the table threshold's
-   edges), the PLAM matmul
+   the card at its paths' shapes: the posit codec (K3; its encode's and
+   its quantize's bf16 tables at eight specs, and all 65,536 bf16
+   patterns through the table and computed paths of both, at odd offsets
+   and at the table threshold's edges; its decode over all 65,536
+   patterns, int16 and int32, at four specs), the PLAM matmul
    (K1: yi-6b's shapes at M = 4 and 64, every decode-batch M at one of
    them, ragged shapes at its decode path's tile, stage, strip and branch
    edges, and its prefill path's edges with planted zero and NaR k-tiles
@@ -35,8 +36,8 @@ its own lines:
    granite-moe-1b-a400m's first 8 experts at every M an expert's buffer
    has on the serve path, to the 2-D kernel run expert by expert over
    all 64 and 32 experts, and at ragged stacks; the 2-D kernel also at
-   granite's unembed.  K3's quantize at the training path's weight and
-   activation shapes, bf16 and f32, bit for bit.  Then K5's public entry
+   granite's unembed.  K3's quantize at the training path's weight,
+   expert-stack and activation shapes, bf16 and f32, bit for bit.  Then K5's public entry
    point runs once per yi-6b layer at yi-6b's widths (K5 has no serving
    path).
 3. conformance — ``python -m repro_torch.conformance check`` and
@@ -97,7 +98,12 @@ its own lines:
    chunks, the last padded with dt = 0), 16 new tokens, with int16
    prequantized weights and then with bf16 weights encoded by K3 on
    every forward (equal tokens, or a top-2 margin below 0.1 where one
-   differs); mamba2 also under its config's own ``posit_quant:16:1``.
+   differs); mamba2 also under its config's own ``posit_quant:16:1``, on
+   bf16 weights and then prequantized (each forward K3's decode of every
+   int16 weight and its quantize of every activation, each (shape, dtype)
+   bit for bit against the plain version at its first launch, a decode
+   step's calls those of ``K3_STEP_CALLS``; the bf16-weight run's
+   tokens).
    Gates: every forward's launches (2L + 1 K1 for mamba2, 2L + 8 L/6 + 1
    for zamba2; as many K3 without prequantized weights, none with; no K2
    or K5), no plain K1 or codec call on the card, finite logits, decode
@@ -210,10 +216,16 @@ its own lines:
    time per call, and again on the activations one step of a seeded
    full-depth engine gives it.  K3's encode is timed at weight and
    activation shapes on both paths (``K3_TIMES``), beside a copy of the
-   same bytes; its decode and quantize at 2^24 and 4,096 lanes beside
-   their bytes bound and a copy of the same bytes, and its quantize at
-   the training paths' largest weights (the expert stacks and qwen2-vl's
-   unembed among them).  K1 is also timed at
+   same bytes; its decode and quantize at 2^24 and 4,096 lanes and its
+   quantize at the training paths' largest weights (the expert stacks
+   and qwen2-vl's unembed among them) beside their bytes bound, the
+   floor of their design, a copy of the same bytes and, in turns, their
+   first form (``K3_VARIANTS``: variants of posit_codec.cu built beside it);
+   its computed paths on both sides of one lane a thread
+   (``K3_BY_LANE_SWEEP``), the quantize on both sides of its table
+   threshold (``K3_TABLE_EDGE_SHAPES``), the K3 calls of a posit_quant
+   decode step of mamba2-780m (``K3_STEP_CALLS``) and the table paths'
+   fill and grid (``K3_FILL_SHAPES``).  K1 is also timed at
    the chunk width and the verify rows (M = 32, 20), and over a stack of
    deepseek's 64 experts at M = 1 and 7, beside its bytes bound and, in
    turns, the 64 launches of the 2-D kernel it replaces.  K2 is timed at
@@ -349,7 +361,7 @@ K3_SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "posit_c
 K3_TABLE_SPECS = [(16, 1), (16, 2), (16, 0), (12, 1), (10, 1), (8, 1), (8, 0), (6, 0)]
 K3_PATH_SPECS = [(16, 1), (16, 2), (10, 1), (8, 0)]
 # the weight shapes the serve path encodes at which K3 is held against
-# its plain version (wk/wv: 64 blocks; wg/wu: the grid capped at 2 x SMs;
+# its plain version (wk/wv: 64 blocks; wg/wu: the grid capped at the SMs;
 # the unembed: the longest loop; a copy of the test file's WEIGHT_SHAPES,
 # held equal there)
 K3_WEIGHT_SHAPES = [(4096, 512), (4096, 11008), (4096, 64000)]
@@ -362,11 +374,54 @@ K3_HOST_SHAPES = [(4096, 512), (4, 4096)]
 K3_OTHER_TIMES = [("decode", "int16"), ("decode", "int32"), ("quantize", "f32"),
                   ("quantize", "bf16")]
 K3_OTHER_LANES = (1 << 24, 4096)
-# the table path's fill probe (Smoke.time_table_fill): its shapes and
-# outputs, and the lanes a block of the one variation the design allows
+# the decode's check at full weight size: all 65,536 patterns tiled and
+# shuffled to more lanes than its grid takes in two chunks a thread
+# (2112 blocks x 256 threads x 2 x 8 lanes = 8.65 M)
+K3_DECODE_BIG_LANES = (1 << 24) + 13
+# variants of posit_codec.cu that phase times builds beside it (each a
+# list of (text, replacement) over its source): the decode's and quantize's
+# first form (the design before the current one: one lane a thread, the
+# spec at run time), the computed paths with one lane a thread and with 8-lane
+# chunks at every size, the table paths with two blocks an SM, and the
+# fill probe's two
+K3_VARIANTS = {
+    "first form": [("const bool by_lane = n < by_lane_max;", "const bool by_lane = true;"),
+                   ("if (posit_n == 16 && posit_es == 1)", "if (false)")],
+    "by lane": [("const bool by_lane = n < by_lane_max;", "const bool by_lane = true;")],
+    "by chunk": [("const bool by_lane = n < by_lane_max;", "const bool by_lane = false;")],
+    "two blocks an SM": [("want < sms ? want : sms", "want < 2 * sms ? want : 2 * sms")],
+    "no fill": [("for (int i = threadIdx.x; i < kTableBytes / 16; i += blockDim.x) "
+                 "smem[i] = src[i];", "(void)src;")],
+    "65536 lanes a block": [("constexpr int kTableLanesPerBlock = 32768;",
+                             "constexpr int kTableLanesPerBlock = 65536;")],
+}
+# the computed paths' lane counts timed on both sides of their thresholds
+# of one lane a thread (kDecodeByLaneMaxLanes 2^17, kByLaneMaxLanes 2^20):
+# the design against "by lane" and "by chunk", raw launches in turns,
+# decode int16, quantize bf16 and f32
+K3_BY_LANE_SWEEP = [4096, 65536, (1 << 17) - 1, 1 << 17, 1 << 18, 1 << 19, (1 << 20) - 1,
+                    1 << 20, 1 << 22]
+# the quantize's bf16 lane counts timed on both sides of TABLE_MIN_NUMEL,
+# table path against computed path in turns: 2^19, mamba2-780m's training
+# activation [1024, 1536] and yi-6b's [1024, 4096]
+K3_TABLE_EDGE_SHAPES = [(1 << 19,), (1024, 1536), (1024, 4096)]
+# K3's calls in one posit_quant decode step of mamba2-780m on prequantized
+# weights at phase static's batch of 4: (op, shape, input, calls a decode
+# step, calls a prefill), each int16 weight decoded and each bf16
+# activation quantized (2L + 1 each; a prefill quantizes its last
+# position's [4, 1, 1536] for the head); phase static holds its recorded
+# calls to this list, and phase times sums a decode step's, the design
+# against the first form
+K3_STEP_CALLS = [("decode", (1536, 6448), "int16", 48, 48),
+                 ("decode", (3072, 1536), "int16", 48, 48),
+                 ("decode", (1536, 50280), "int16", 1, 1),
+                 ("quantize", (4, 1, 1536), "bf16", 49, 1),
+                 ("quantize", (4, 1, 3072), "bf16", 48, 0)]
+# the table paths' probe (Smoke.time_table_fill): the encode's shapes and
+# outputs, and the quantize's shapes (mamba2-780m's in_proj, 2^24 lanes)
 K3_FILL_SHAPES = [((4096, 512), "int16"), ((4096, 11008), "int16"),
                   ((4096, 11008), "int32"), ((4096, 64000), "int16")]
-K3_FILL_VARIANT_LANES = 65536
+K3_FILL_QUANT_SHAPES = [(1536, 6448), (1 << 24,)]
 # K3's timed calls, (shape, input, output): a wg/wu weight (engine build,
 # and every forward without prequantized weights) to int16 and int32, wk/wv
 # (where the table fill's share shows), the unembed, the wg/wu weight over
@@ -492,6 +547,9 @@ K1_PLAIN_LANES = 1 << 26
 K3_QUANT_WEIGHT_SHAPES = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096),
                           (4096, 64000)]
 K3_QUANT_ACT_SHAPES = [(1024, 4096), (1024, 11008)]
+# ... and the 3-D expert stacks of phase train_families (deepseek-moe-16b's
+# [E, d_model, d_expert], granite-moe-1b-a400m's [E, d_expert, d_model])
+K3_QUANT_STACK_SHAPES = [(64, 2048, 1408), (32, 1024, 512)]
 # phase times: K3 quantize at the training path's two largest weights and
 # an activation, then at phase train_families' new weights (deepseek's and
 # granite's expert stacks, qwen2-vl-72b's unembed, mamba2-780m's in_proj)
@@ -857,7 +915,7 @@ class Smoke:
             posit_encode,
             posit_quantize,
         )
-        from repro_torch.numerics import P16
+        from repro_torch.numerics import P16, PositSpec
 
         def bits(t):
             return t.view(torch.int32) if t.dtype == torch.float32 else t
@@ -871,11 +929,53 @@ class Smoke:
                 failures.append(f"{what}: {n_bad} lanes differ")
             return ok
 
-        # K3 — decode over all 65,536 patterns, as int32 and as int16
+        # K3 — decode over all 65,536 patterns, as int32 and as int16, at
+        # every spec of K3_PATH_SPECS (Posit<16,1> compiled in), aligned
+        # and at an odd element offset
         pats = torch.arange(1 << 16, dtype=torch.int32, device=self.dev)
-        same("decode int32", posit_decode(pats, P16), posit_decode(pats, P16, use_kernel=False))
         p16 = ((pats ^ 0x8000) - 0x8000).to(torch.int16)
-        same("decode int16", posit_decode(p16, P16), posit_decode(p16, P16, use_kernel=False))
+        for n, es in K3_PATH_SPECS:
+            spec = PositSpec(n, es)
+            for p in (pats, p16, pats[1:], p16[1:]):
+                same(f"decode {spec} {str(p.dtype)[6:]} [{p.numel()}]", posit_decode(p, spec),
+                     posit_decode(p, spec, use_kernel=False))
+        # ... and tiled and shuffled to K3_DECODE_BIG_LANES, where each thread
+        # of the grid takes more than two chunks (the two-in-flight loop, which
+        # every prequantized weight of phase static runs), the same four ways
+        g = self.gen(29)
+        tiled = p16.repeat(-(-K3_DECODE_BIG_LANES // (1 << 16)))[:K3_DECODE_BIG_LANES]
+        tiled = tiled[torch.randperm(tiled.numel(), generator=g, device=self.dev)]
+        for n, es in K3_PATH_SPECS:
+            spec = PositSpec(n, es)
+            for p in (tiled, tiled.to(torch.int32) & 0xFFFF):
+                for part in (p, p[1:]):
+                    same(f"decode {spec} {str(p.dtype)[6:]} [{part.numel()}]",
+                         posit_decode(part, spec), posit_decode(part, spec, use_kernel=False))
+        del tiled
+        # K3's computed paths at their edges of one lane a thread (each
+        # threshold - 1, its value, + 1; aligned and at offset 1): the
+        # decode, the encode and the quantize of bf16 and f32
+        edges = self.k3_by_lane_max()
+        edge = edges["decode"]
+        pe = p16.repeat(-(-(edge + 2) // (1 << 16)))
+        for size in (edge - 1, edge, edge + 1):
+            for off in (0, 1):
+                part = slice(off, off + size)
+                same(f"decode P16 int16 [{size}] at {off}", posit_decode(pe[part]),
+                     posit_decode(pe[part], use_kernel=False))
+        edge = edges["quantize"]
+        xe = torch.randn((edge + 2,), generator=g, device=self.dev)
+        for size in (edge - 1, edge, edge + 1):
+            for off in (0, 1):
+                part = slice(off, off + size)
+                for xt in (xe[part], xe.to(torch.bfloat16)[part]):
+                    tag = f"{str(xt.dtype)[6:]} [{size}] at {off}"
+                    same(f"encode {tag}", posit_encode(xt, P16, out_dtype=torch.int16),
+                         posit_encode(xt, P16, out_dtype=torch.int16, use_kernel=False))
+                    # Posit<20,2>: bf16 computes at every size (no table for n > 16)
+                    for spec in (P16, PositSpec(20, 2)):
+                        same(f"quantize {tag} {spec}", posit_quantize(xt, spec),
+                             posit_quantize(xt, spec, use_kernel=False))
         # K3 — encode / quantize over a seeded f32 sweep with the edge cases
         g = self.gen(3)
         expo = torch.randint(-140, 130, (1 << 20,), generator=g, device=self.dev)
@@ -896,10 +996,13 @@ class Smoke:
                 same(f"quantize {tag}", posit_quantize(xt, P16),
                      posit_quantize(xt, P16, use_kernel=False))
         paths = self.check_encode_paths(same, failures, sweep)
+        quant_paths = self.check_quantize_paths(same, failures, sweep)
         k3_ok = not failures
         log(f"K3 posit codec vs plain: {'bit-identical' if k3_ok else failures} (decode over "
-            f"all patterns; encode and quantize over the f32 sweep and the activation shapes, "
-            f"f32 and bf16; {paths['calls']} encode calls over both paths)")
+            f"all patterns at {K3_PATH_SPECS}, also tiled to {K3_DECODE_BIG_LANES} lanes; the "
+            f"computed paths at {edges} +- 1 lanes; encode and quantize over the f32 sweep and the "
+            f"activation shapes, f32 and bf16; {paths['calls']} encode and "
+            f"{quant_paths['calls']} quantize calls over both paths)")
 
         # K1 — main-path shapes, int16 B (and int32 B for one shape); at
         # K = N = 4096 every decode-batch M, int16 and int32
@@ -958,6 +1061,7 @@ class Smoke:
         self.results["kernels"] = {"k1_bit_identical": k1_ok, "k1_fused": fused,
                                    "k1_grouped": grouped, "k3_training_shapes": training,
                                    "k3_bit_identical": k3_ok, "k3_paths": paths,
+                                   "k3_quantize_paths": quant_paths,
                                    "k2": k2,
                                    "k4_bit_identical": k4_ok, "k5": k5,
                                    "canaries": canaries,
@@ -966,8 +1070,9 @@ class Smoke:
             raise AssertionError("; ".join(failures))
 
     def check_quantize_shapes(self, same, failures) -> dict:
-        """K3's quantize at the training path's weights (bf16 and f32) and
-        activations, bit for bit against its plain version.  (K1 at the
+        """K3's quantize at the training path's weights (bf16 and f32), the
+        MoE families' expert stacks and the activations, bit for bit
+        against its plain version.  (K1 at the
         Table II shapes is held in phase train, at the shapes its runs
         launch it with.)"""
         torch = self.torch
@@ -976,12 +1081,13 @@ class Smoke:
 
         g = self.gen(17)
         n_before = len(failures)
-        shapes = K3_QUANT_WEIGHT_SHAPES + K3_QUANT_ACT_SHAPES
+        weights = K3_QUANT_WEIGHT_SHAPES + K3_QUANT_STACK_SHAPES
+        shapes = weights + K3_QUANT_ACT_SHAPES
         for shape in shapes:
             for dtype in (torch.bfloat16, torch.float32):
                 x = torch.randn(shape, generator=g, device=self.dev)
-                if shape in K3_QUANT_WEIGHT_SHAPES:
-                    x = x * shape[0] ** -0.5
+                if shape in weights:
+                    x = x * shape[-2] ** -0.5
                 x = x.to(dtype)
                 same(f"posit_quantize {shape} {str(dtype)[6:]}", posit_quantize(x, P16),
                      quantize_plain(x, P16))
@@ -1005,7 +1111,7 @@ class Smoke:
         sweep at an odd offset, at Posit<16,1> (the spec compiled in) and
         Posit<16,2> (given at run time); and seeded bf16 weights at
         K3_WEIGHT_SHAPES (64 blocks of 4 strides at wk/wv; beyond, the
-        grid capped at 2 x SMs, ~21 and ~121 strides on 132 SMs) at
+        grid capped at one block an SM, ~43 and ~242 strides on 132 SMs) at
         Posit<16,1>."""
         torch = self.torch
         import numpy as np
@@ -1084,6 +1190,81 @@ class Smoke:
             f"{size} lanes, table and computed path, odd offsets), the threshold "
             f"{TABLE_MIN_NUMEL} -1/+0/+1/+7, the f32 sweep at an odd offset and the "
             f"weights {K3_WEIGHT_SHAPES}")
+        return {"table_builds": built, "calls": calls}
+
+    def check_quantize_paths(self, same, failures, sweep) -> dict:
+        """K3's quantize against its plain version, bit for bit, on both
+        paths: the card's quantize table (built by the computed path)
+        against quantize_table_plain at K3_TABLE_SPECS, each built once
+        and counted apart (posit_codec_quant_table); all 65,536 bf16
+        patterns tiled and shuffled to 2^20 + 13 lanes at K3_PATH_SPECS
+        through the table path (the whole, and at element offsets 1, 2 and
+        4) and the computed path (two halves under the threshold); at
+        Posit<16,1>, lanes at the threshold - 1, + 0, + 1 and + 7; and the
+        f32 sweep (computed) at Posit<16,2>, the spec given at run time,
+        aligned and at an odd offset (phase kernels takes it at
+        Posit<16,1>)."""
+        torch = self.torch
+        import numpy as np
+
+        from repro_torch.kernels import _lib
+        from repro_torch.kernels.posit_codec import (
+            TABLE_MIN_NUMEL,
+            encode_path,
+            posit_quantize,
+            quantize_plain,
+            quantize_table,
+            quantize_table_plain,
+        )
+        from repro_torch.numerics import P16, PositSpec
+
+        before_all = _lib.launches["posit_codec_quant_table"]
+        for n, es in K3_TABLE_SPECS:
+            spec = PositSpec(n, es)
+            before = _lib.launches["posit_codec_quant_table"]
+            same(f"quantize table {spec}", quantize_table(spec, self.dev),
+                 quantize_table_plain(spec).to(self.dev))
+            built_now = _lib.launches["posit_codec_quant_table"] - before
+            quantize_table(spec, self.dev)  # cached: no second build
+            if built_now > 1 or _lib.launches["posit_codec_quant_table"] != before + built_now:
+                failures.append(f"quantize table {spec}: {built_now} builds, then "
+                                f"{_lib.launches['posit_codec_quant_table'] - before - built_now}"
+                                " more")
+        built = _lib.launches["posit_codec_quant_table"] - before_all
+        size = TABLE_MIN_NUMEL + 13
+        pats = np.tile(np.arange(1 << 16, dtype=np.uint16), size // (1 << 16) + 1)[:size]
+        np.random.default_rng(23).shuffle(pats)
+        x = torch.from_numpy(pats.view(np.int16).copy()).to(self.dev).view(torch.bfloat16)
+        calls, h = 0, size // 2
+        for n, es in K3_PATH_SPECS:
+            spec = PositSpec(n, es)
+            assert encode_path(x.dtype, size, spec) == "table"
+            assert encode_path(x.dtype, h + 1, spec) == "computed"
+            want = quantize_plain(x, spec)
+            same(f"quantize table path, all bf16 patterns {spec}", posit_quantize(x, spec), want)
+            same(f"quantize computed path, all bf16 patterns {spec}",
+                 torch.cat([posit_quantize(x[:h], spec), posit_quantize(x[h:], spec)]), want)
+            for off in (1, 2, 4):
+                same(f"quantize table path, x[{off}:] {spec}", posit_quantize(x[off:], spec),
+                     want[off:])
+            calls += 6
+            torch.cuda.synchronize()
+        for d in (-1, 0, 1, 7):
+            xs = x[:TABLE_MIN_NUMEL + d]
+            same(f"quantize {xs.numel()} lanes (threshold {d:+d})", posit_quantize(xs, P16),
+                 quantize_plain(xs, P16))
+            calls += 1
+        spec = PositSpec(16, 2)
+        for part in (sweep, sweep[1:]):
+            same(f"quantize f32 sweep [{part.numel()}] {spec}", posit_quantize(part, spec),
+                 quantize_plain(part, spec))
+            calls += 1
+        torch.cuda.synchronize()
+        log(f"K3 quantize paths: {built} table builds for {len(K3_TABLE_SPECS)} specs "
+            f"(at most one each; Posit<16,1>'s may come from the sweep above); {calls} "
+            f"quantize calls at {K3_PATH_SPECS} (all bf16 patterns, {size} lanes, table and "
+            f"computed path, offsets 1, 2, 4), the threshold {TABLE_MIN_NUMEL} -1/+0/+1/+7 "
+            f"and the f32 sweep at Posit<16,2>")
         return {"table_builds": built, "calls": calls}
 
     def check_prefill_edges(self, same) -> int:
@@ -2821,7 +3002,6 @@ class Smoke:
         g = torch.Generator().manual_seed(seed)
         return torch.randint(0, vocab, (batch, length), generator=g, dtype=torch.int32)
 
-    @contextlib.contextmanager
     def counting_plain(self):
         """Calls of K1's and K3's plain versions on CUDA tensors while the
         block runs (there should be none: every wrapper launches its
@@ -2829,9 +3009,24 @@ class Smoke:
         from repro_torch.kernels import plam_matmul as k1_mod
         from repro_torch.kernels import posit_codec
 
+        return self.counting_cuda_calls(
+            ((k1_mod, "plam_matmul_seqref"), (posit_codec, "encode_plain"),
+             (posit_codec, "decode_plain"), (posit_codec, "quantize_plain")))
+
+    def counting_codec(self):
+        """Calls of K3's decode and quantize wrappers on CUDA tensors while
+        the block runs."""
+        from repro_torch.kernels import posit_codec
+
+        return self.counting_cuda_calls(((posit_codec, "posit_decode"),
+                                         (posit_codec, "posit_quantize")))
+
+    @contextlib.contextmanager
+    def counting_cuda_calls(self, targets):
+        """Calls of each (module, name) function on a CUDA tensor (its first
+        argument) while the block runs, by name."""
         calls, saved = {}, []
-        for mod, name in ((k1_mod, "plam_matmul_seqref"), (posit_codec, "encode_plain"),
-                          (posit_codec, "decode_plain"), (posit_codec, "quantize_plain")):
+        for mod, name in targets:
             real = getattr(mod, name)
             saved.append((mod, name, real))
             calls[name] = 0
@@ -3168,8 +3363,13 @@ class Smoke:
         del eng
 
         # 3. mamba2 under its config's own numerics (posit_quant: K3's
-        # quantize on both operands of every projection, an f32 matmul)
+        # quantize on both operands of every projection, an f32 matmul),
+        # on bf16 weights and then on prequantized ones
         if cfg.family == "ssm":
+            from repro_torch.kernels.posit_codec import quantize_table
+            from repro_torch.numerics import P16
+
+            quantize_table(P16, self.dev)  # built once, outside the gated runs
             qcfg = cfg.with_numerics(native)
             eng = Engine(qcfg, params=model, device=self.dev)
             run = self.static_run(f"{arch} {qcfg.numerics.mode}:16:1", eng, short, STATIC_NEW)
@@ -3178,6 +3378,8 @@ class Smoke:
                                                  + run["launches"]["posit_codec"])
             res["posit_quant"] = run_summary(run)
             del eng
+            res["posit_quant_prequantized"] = self.static_posit_quant_prequantized(
+                qcfg, model, short, run, k1, failures)
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -3189,6 +3391,79 @@ class Smoke:
             **{f"prequantized_{k}": run_summary(v) for k, v in pq.items()},
             **{f"bf16_{k}": run_summary(v) for k, v in bf.items()}})
         return res
+
+    def static_posit_quant_prequantized(self, qcfg, model, prompts, want, k1, failures):
+        """``model`` (bf16 weights) prequantized in place under its own
+        posit_quant policy and served on ``prompts``: each forward decodes
+        its k1 int16 weights with K3 (core/modes.py::_pattern_matmul) and
+        quantizes the k1 activations with K3, no plain codec call on the
+        card, and the greedy tokens of ``want``, the same numerics on the
+        bf16 weights (decode . encode of a bf16 weight is its quantize)."""
+        from repro_torch.core.prequant import quantize_params
+        from repro_torch.kernels import _lib
+        from repro_torch.serving import Engine
+
+        arch = qcfg.name
+        _lib.reset_launches()
+        _, meta = quantize_params(qcfg, model)
+        encodes = _lib.launches["posit_codec"]
+        self.path_launches["posit_codec"] = self.path_launches.get("posit_codec", 0) + encodes
+        if encodes != launch_counts(qcfg)["build"]:
+            failures.append(f"{arch} posit_quant prequantized: {encodes} weight encodes at "
+                            f"build, {len(meta)} sites")
+        eng = Engine(qcfg, params=model, device=self.dev)
+        with self.recording_k3("posit_decode") as decodes, self.recording_k3() as quants, \
+                self.counting_codec() as codec, self.counting_plain() as plain:
+            run = self.static_run(f"{arch} posit_quant:16:1 prequantized", eng, prompts,
+                                  STATIC_NEW)
+        del eng
+        forwards = len(run["calls"])
+        # each (shape, dtype) K3 decoded or quantized, bit for bit against the
+        # plain version at its first launch, and a decode step's calls
+        # against K3_STEP_CALLS (the calls phase times sums)
+        recorded = {"decode": decodes, "quantize": quants}
+        wrong = {f"{op} {rec['shape']} {rec['dtype']}": rec["lanes_differ"]
+                 for op, seen in recorded.items() for rec in seen.values() if rec["lanes_differ"]}
+        if wrong:
+            failures.append(f"{arch} posit_quant prequantized: K3 lanes that differ from the "
+                            f"plain version {wrong}")
+        steps = sum(kind == "decode" for kind, _, _ in run["calls"])
+        step_calls = {}
+        for op, shape, kind, per_step, per_prefill in K3_STEP_CALLS:
+            rec = recorded[op].get((tuple(shape), {"bf16": "bfloat16"}.get(kind, kind)))
+            got = 0 if rec is None else rec["launches"]
+            expect = per_step * steps + per_prefill * (forwards - steps)
+            step_calls[f"{op} {list(shape)} {kind}"] = got
+            if got != expect:
+                failures.append(f"{arch} posit_quant prequantized: {got} K3 {op} calls at "
+                                f"{list(shape)} {kind}, K3_STEP_CALLS says {expect} ({per_step} "
+                                f"a decode step, {per_prefill} a prefill)")
+        seen = {op: [(r["shape"], r["dtype"], r["launches"]) for r in rec.values()]
+                for op, rec in recorded.items()}
+        log(f"  {arch} posit_quant prequantized: K3 (shape, dtype, launches), each bit for bit "
+            f"at its first launch: {seen}; lanes that differ {wrong or 0}")
+        failures.extend(f"{arch} posit_quant prequantized: {f}"
+                        for f in self.static_gates(run, 0, 2 * k1))
+        self.path_launches["posit_codec"] = (self.path_launches.get("posit_codec", 0)
+                                             + run["launches"]["posit_codec"])
+        if codec != {"posit_decode": k1 * forwards, "posit_quantize": k1 * forwards}:
+            failures.append(f"{arch} posit_quant prequantized: K3 calls {codec} over "
+                            f"{forwards} forwards, expected {k1} decodes and {k1} quantizes each")
+        if any(plain.values()):
+            failures.append(f"{arch} posit_quant prequantized: plain calls on the card {plain}")
+        same = run["outputs"] == want["outputs"]
+        if not same:
+            failures.append(f"{arch} posit_quant prequantized: greedy tokens differ from the "
+                            f"bf16-weight run's: {self.static_diffs(run, want)}")
+        log(f"  {arch} posit_quant:16:1 on prequantized weights: {encodes} encodes at build, "
+            f"{len(meta)} sites; K3 per forward {codec['posit_decode'] // max(forwards, 1)} "
+            f"decodes and {codec['posit_quantize'] // max(forwards, 1)} quantizes over "
+            f"{forwards} forwards; plain calls on the card {plain}; greedy tokens "
+            f"{'equal to' if same else 'DIFFER from'} the bf16-weight run's")
+        return {**run_summary(run), "encodes_at_build": encodes, "codec_calls": codec,
+                "plain_calls": plain, "tokens_equal": same,
+                "k3_recorded": {op: list(seen.values()) for op, seen in recorded.items()},
+                "k3_step_calls": step_calls}
 
     def static_yi(self, failures):
         """yi-6b at full width cut to STATIC_YI_LAYERS layers, prequantized,
@@ -3782,7 +4057,10 @@ class Smoke:
         torch.cuda.empty_cache()
         if enc:  # the config's own numerics on bf16 weights: K3 quantizes both operands
             from repro_torch.configs import get_config
+            from repro_torch.kernels.posit_codec import quantize_table
+            from repro_torch.numerics import P16
 
+            quantize_table(P16, self.dev)  # built once, outside the gated run
             qcfg = cfg.with_numerics(get_config(arch).numerics)
             bf_model = build(qcfg).init(seed=0, device=self.dev)
             eng = Engine(qcfg, params=bf_model, device=self.dev)
@@ -3943,10 +4221,13 @@ class Smoke:
         if busy == 0:
             log("  train step profile: no device time recorded (not measured)")
             return None
+        def is_k3(name):  # the quantize's computed and table kernels
+            return "quantize_kernel" in name or "quantize_table_kernel" in name
+
         gemm = sum(us for n, us in by_name.items() if "gemm" in n.lower())
-        k3 = sum(us for n, us in by_name.items() if "quantize_kernel" in n)
+        k3 = sum(us for n, us in by_name.items() if is_k3(n))
         rest = sorted(((n, us) for n, us in by_name.items()
-                       if "gemm" not in n.lower() and "quantize_kernel" not in n),
+                       if "gemm" not in n.lower() and not is_k3(n)),
                       key=lambda kv: -kv[1])
         log(f"  train step profile (a step after the counted ones): wall {wall_us / 1e3:.1f} "
             f"ms, device busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}; f32 "
@@ -4261,19 +4542,27 @@ class Smoke:
         return 3 * fwd + 2 * head + (2 * body if remat else 0), n_mm, head + body
 
     @contextlib.contextmanager
-    def recording_quantize(self):
-        """K3's quantize while the block runs, by (shape, dtype): its
-        launches and, checked at the first launch of each there and then,
-        the lanes of its output that differ from the plain version on the
-        same operands (over slices of PLAIN_LANES lanes, which bound the
-        compared copy at qwen2-vl-72b's unembed; no counting_plain entered
-        inside the block sees these plain calls)."""
+    def recording_k3(self, name: str = "posit_quantize"):
+        """K3's ``name`` wrapper (posit_quantize or posit_decode) while the
+        block runs, by (shape, dtype): its launches and, checked at the
+        first launch of each there and then, the lanes of its output that
+        differ from the plain version on the same operands (over slices of
+        PLAIN_LANES lanes, which bound the compared copy at qwen2-vl-72b's
+        unembed; the plain versions' bodies are called from numerics, so
+        that no counting_plain sees them)."""
         torch = self.torch
         from repro_torch.kernels import posit_codec
         from repro_torch.kernels.ref import PLAIN_LANES
-        from repro_torch.numerics import P16
+        from repro_torch.numerics import P16, decode, encode, unpack16
 
-        real, plain, seen = posit_codec.posit_quantize, posit_codec.quantize_plain, {}
+        real = getattr(posit_codec, name)
+
+        def plain(part, spec):  # the plain versions' bodies, out of counting_plain's sight
+            if name == "posit_quantize":
+                return decode(encode(part, spec), spec)
+            return decode(unpack16(part) if part.dtype == torch.int16 else part, spec)
+
+        seen = {}
 
         def recorded(x, spec=P16, *, use_kernel=None):
             out = real(x, spec, use_kernel=use_kernel)
@@ -4291,11 +4580,11 @@ class Smoke:
                 seen[key]["launches"] += 1
             return out
 
-        posit_codec.posit_quantize = recorded
+        setattr(posit_codec, name, recorded)
         try:
             yield seen
         finally:
-            posit_codec.posit_quantize = real
+            setattr(posit_codec, name, real)
 
     @contextlib.contextmanager
     def recording_ssd_exponent(self):
@@ -4449,7 +4738,7 @@ class Smoke:
             f"parameters ({n_mm / 1e9:.3f} G multiply){cut}; batch {shapes}; init and state "
             f"{init_s:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
         losses, secs, k3, exps = [], [], [], []
-        with self.recording_quantize() as seen, self.counting_plain() as plain_calls, \
+        with self.recording_k3() as seen, self.counting_plain() as plain_calls, \
                 self.recording_ssd_exponent() as take_exp:
             for i in range(TRAIN_STEPS):
                 batch = batch0 if i == 0 else self.family_batch(api, cfg, rows, seq, i)
@@ -5207,8 +5496,12 @@ class Smoke:
         k1_grouped_main = self.time_grouped(add, int_rate, word_ops, row_ops, mean)
         self.time_fused_on_serve_activations()
         k3_main = self.time_encode(add, int_rate)
-        self.time_decode_quantize(add)
-        self.time_train_quantize(add)
+        ops = self.k3_codec_ops()
+        self.k3_criteria(self.time_decode_quantize(add, int_rate, ops)
+                         + self.time_train_quantize(add, int_rate, ops))
+        self.time_by_lane()
+        self.time_table_edge()
+        self.time_k3_step()
         self.time_table_fill()
         # K2 at the serving shape (4 sequences of yi-6b heads, bf16 pool) and
         # at a long paged context; the library yardstick is SDPA over the
@@ -5465,97 +5758,43 @@ class Smoke:
         torch.cuda.empty_cache()
         return main
 
-    def time_decode_quantize(self, add):
-        """K3's decode and quantize (the conformance oracle's calls) at
-        K3_OTHER_TIMES and K3_OTHER_LANES, Posit<16,1>: window and spun,
-        beside the bytes bound (each input read once, each f32 output
-        written once), the plain version and a copy of the same bytes (a
-        torch conversion of the input into the f32 output)."""
-        torch = self.torch
-        from repro_torch.kernels.posit_codec import posit_decode, posit_quantize
-        from repro_torch.numerics import P16
+    def k3_by_lane_max(self) -> dict:
+        """The lane counts below which K3's computed paths take one lane a
+        thread, read from posit_codec.cu: {"decode": kDecodeByLaneMaxLanes,
+        "encode": and "quantize": kByLaneMaxLanes}."""
+        with open(K3_SOURCE) as f:
+            src = f.read()
+        decode, other = (int(re.search(rf"constexpr int64_t {c} = (\d+);", src).group(1))
+                         for c in ("kDecodeByLaneMaxLanes", "kByLaneMaxLanes"))
+        return {"decode": decode, "encode": other, "quantize": other}
 
-        g = self.gen(21)
-        for lanes in K3_OTHER_LANES:
-            for op, kind in K3_OTHER_TIMES:
-                if op == "decode":
-                    x = torch.randint(0, 1 << 16, (lanes,), generator=g, device=self.dev,
-                                      dtype=torch.int32)
-                    if kind == "int16":
-                        x = ((x ^ 0x8000) - 0x8000).to(torch.int16)
-                    fn = posit_decode
-                else:
-                    x = torch.randn((lanes,), generator=g, device=self.dev)
-                    if kind == "bf16":
-                        x = x.to(torch.bfloat16)
-                    fn = posit_quantize
-                ms = self.timed(lambda: fn(x, P16), reps=20)
-                plain = self.events_ms(lambda: fn(x, P16, use_kernel=False), reps=2)
-                dst = torch.empty((lanes,), dtype=torch.float32, device=self.dev)
-                copy_ms = self.timed(lambda: dst.copy_(x), reps=20)
-                row = add("posit_codec", f"{op} [{lanes}] {kind}->float32", ms, plain,
-                          lanes * (x.element_size() + 4), 0, 1.0)
-                row.update({"copy_ms": copy_ms[0], "copy_device_ms": copy_ms[1]})
-                log(f"  copy of the same bytes: {copy_ms[0]:.4f} ms, device "
-                    f"{copy_ms[1]:.4f} ms")
-                del x, dst
-        torch.cuda.empty_cache()
-
-    def time_train_quantize(self, add):
-        """K3's quantize at the training paths' shapes (K3_QUANT_TIMES: yi-6b's
-        two largest weights, bf16 -> f32, and an activation; the other
-        families' new weights), window and spun, beside the bytes bound and
-        the plain version (which takes at most PLAIN_LANES lanes at a
-        time, its int64 temporaries)."""
-        torch = self.torch
-        from repro_torch.kernels.posit_codec import posit_quantize, quantize_plain
-        from repro_torch.numerics import P16
-
-        g = self.gen(23)
-        for shape, kind in K3_QUANT_TIMES:
-            x = torch.randn(shape, generator=g, device=self.dev)
-            if kind == "bf16":
-                x = x.to(torch.bfloat16)
-            ms = self.timed(lambda: posit_quantize(x, P16), reps=20)
-            plain_ms = self.events_ms(lambda: quantize_plain(x, P16), reps=1, warmup=1)
-            add("posit_codec", f"quantize {list(shape)} {kind}->float32 (training)", ms,
-                plain_ms, x.numel() * (x.element_size() + 4), 0, 1.0)
-            del x
-            torch.cuda.empty_cache()
-
-    def time_table_fill(self):
-        """The table fill's share of K3's table path, and the one variation
-        its design allows (K3_FILL_VARIANT_LANES lanes a block): this
-        tree's posit_codec.cu beside two variants made from its text, one
-        with the fill taken out (its output is garbage; only its time is
-        read) and one with more lanes a block, each built into a library of
-        its own under build/ (both nvcc at once) and called through
-        posit_encode_launch on one input and output at K3_FILL_SHAPES
-        (Posit<16,1>), in turns (design, variants, variants, design), spun
-        after an L2 flush.  These launches pass no wrapper: no count moves."""
-        torch = self.torch
+    def k3_variants(self) -> dict:
+        """K3_VARIANTS, each made from this tree's posit_codec.cu by its
+        replacements and built into a library of its own under
+        build/k3_variants (every nvcc at once, once a run), with its three
+        launches bound; "design" is the port's own library.  Their
+        launches pass no wrapper: no count moves."""
+        libs = getattr(self, "_k3_libs", None)
+        if libs is not None:
+            return libs
         import ctypes
 
         from repro_torch.kernels import _lib
-        from repro_torch.kernels.posit_codec import bf16_table
-        from repro_torch.numerics import P16
 
         with open(K3_SOURCE) as f:
             src = f.read()
-        fill = "for (int i = threadIdx.x; i < kTableBytes / 16; i += blockDim.x) smem[i] = src[i];"
-        lanes = "constexpr int kTableLanesPerBlock = 32768;"
-        if fill not in src or lanes not in src:
-            raise AssertionError("table fill probe: posit_codec.cu's fill loop or lanes a "
-                                 "block, which the probe rewrites, changed")
-        texts = {"no fill": src.replace(fill, "(void)src;"),
-                 f"{K3_FILL_VARIANT_LANES} lanes a block":
-                     src.replace(lanes, lanes.replace("32768", str(K3_FILL_VARIANT_LANES)))}
-        out_dir = os.path.join(ROOT, "build", "k3_fill_probe")
+        out_dir = os.path.join(ROOT, "build", "k3_variants")
         os.makedirs(out_dir, exist_ok=True)
         t0 = time.perf_counter()
         procs = []
         try:
-            for i, (name, text) in enumerate(texts.items()):
+            for i, (name, edits) in enumerate(K3_VARIANTS.items()):
+                text = src
+                for old, new in edits:
+                    if old not in text:
+                        raise AssertionError(f"K3 variant {name!r}: posit_codec.cu no longer "
+                                             f"holds {old!r}")
+                    text = text.replace(old, new)
                 cu, so = (os.path.join(out_dir, f"variant{i}{ext}") for ext in (".cu", ".so"))
                 with open(cu, "w") as f:
                     f.write(text)
@@ -5567,44 +5806,320 @@ class Smoke:
             for name, so, proc in procs:
                 out, _ = proc.communicate()
                 if proc.returncode != 0:
-                    raise RuntimeError(f"table fill probe: nvcc failed on {name}:\n{out}")
+                    raise RuntimeError(f"K3 variant {name!r}: nvcc failed:\n{out}")
                 lib = ctypes.CDLL(so)
-                lib.posit_encode_launch.argtypes = _lib._SIGNATURES["posit_encode_launch"]
-                lib.posit_encode_launch.restype = ctypes.c_int
+                for fn in ("posit_encode_launch", "posit_decode_launch", "posit_quantize_launch"):
+                    getattr(lib, fn).argtypes = _lib._SIGNATURES[fn]
+                    getattr(lib, fn).restype = ctypes.c_int
                 libs[name] = lib
         finally:
             for _, _, proc in procs:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
-        log(f"K3 table fill probe: variants built in {time.perf_counter() - t0:.1f} s")
-        table = bf16_table(P16, self.dev)
-        stream = torch.cuda.current_stream().cuda_stream
+        log(f"K3 variants {list(K3_VARIANTS)} built in {time.perf_counter() - t0:.1f} s")
+        self._k3_libs = libs
+        return libs
+
+    def k3_raw(self, lib, op, x, out, table=None):
+        """A call of ``lib``'s raw K3 launch ``op`` ("encode", "decode" or
+        "quantize") of x into the preallocated out at Posit<16,1>; table:
+        the table path's table, or None for the computed path."""
+        from repro_torch.kernels import _lib
+
+        stream = self.torch.cuda.current_stream().cuda_stream
+        code, n = _lib.DTYPE_CODES[x.dtype], x.numel()
+        tp = None if table is None else table.data_ptr()
+
+        def fn():
+            if op == "decode":
+                err = lib.posit_decode_launch(x.data_ptr(), code, out.data_ptr(), n, 16, 1, stream)
+            elif op == "quantize":
+                err = lib.posit_quantize_launch(x.data_ptr(), code, out.data_ptr(), n, 16, 1, tp,
+                                                stream)
+            else:
+                err = lib.posit_encode_launch(x.data_ptr(), code, out.data_ptr(),
+                                              _lib.DTYPE_CODES[out.dtype], n, 16, 1, tp, stream)
+            if err:
+                raise RuntimeError(f"K3 raw {op} of {tuple(x.shape)}: launch failed ({err})")
+        return fn
+
+    def k3_turns(self, calls: dict, reps: int = 20) -> dict:
+        """Spun device ms of each named call after an L2 flush, in turns:
+        the names in order, then backwards (first, ..., last, last, ...,
+        first)."""
+        turns = {name: [] for name in calls}
+        for name in list(calls) + list(calls)[::-1]:
+            turns[name].append(self.events_ms(calls[name], reps=reps, spin=True))
+        return turns
+
+    def k3_same(self, what, got, want):
+        """Raises unless got and want hold the same bits."""
+        torch = self.torch
+        g, w = (t.view(torch.int32) if t.dtype == torch.float32 else t for t in (got, want))
+        if got.shape != want.shape or not torch.equal(g, w):
+            bad = int((g != w).sum()) if got.shape == want.shape else -1
+            raise AssertionError(f"K3 {what}: {bad} lanes differ from the plain version")
+
+    def time_k3_row(self, add, op, x, kind, floor_ops, int_rate, training=False):
+        """One K3 decode or quantize row at Posit<16,1>: the wrapper's time,
+        window and spun, beside the bytes bound (each input read once, each
+        f32 output written once), the design floor (the larger of the
+        bytes and floor_ops a lane at the int32 rate), the plain version
+        (at most PLAIN_LANES lanes at a time), whose output the wrapper's
+        must equal bit for bit, and a copy of the same bytes (a torch
+        conversion of x into the f32 output); then the raw launch beside
+        the first form's (K3_VARIANTS), in turns."""
+        torch = self.torch
+        from repro_torch.kernels.posit_codec import (
+            encode_path,
+            posit_decode,
+            posit_quantize,
+            quantize_table,
+        )
+        from repro_torch.numerics import P16
+
+        fn = posit_decode if op == "decode" else posit_quantize
+        n = x.numel()
+        path = "computed" if op == "decode" else encode_path(x.dtype, n, P16)
+        ms = self.timed(lambda: fn(x, P16), reps=20)
+        plain = self.events_ms(lambda: fn(x, P16, use_kernel=False), reps=1, warmup=1)
+        name = (f"{op} {list(x.shape)} {kind}->float32 ({path} path"
+                + (", training)" if training else ")"))
+        self.k3_same(name, fn(x, P16), fn(x, P16, use_kernel=False))
+        dst = torch.empty(x.shape, dtype=torch.float32, device=self.dev)
+        copy_ms = self.timed(lambda: dst.copy_(x), reps=20)
+        bytes_ = n * (x.element_size() + 4)
+        floor = max(bytes_ / HBM_BYTES_PER_S, n * floor_ops / int_rate) * 1e3
+        row = add("posit_codec", name, ms, plain, bytes_, 0, 1.0, floor_ms=floor)
+        row.update({"path": path, "copy_ms": copy_ms[0], "copy_device_ms": copy_ms[1],
+                    "bound_share": row["bound_ms"] / row["device_ms"]})
+        log(f"  copy of the same bytes: {copy_ms[0]:.4f} ms, device {copy_ms[1]:.4f} ms; "
+            f"{row['bound_share']:.1%} of the bytes bound")
+        libs = self.k3_variants()
+        table = quantize_table(P16, self.dev) if path == "table" else None
+        turns = self.k3_turns({"first form": self.k3_raw(libs["first form"], op, x, dst),
+                               "design": self.k3_raw(libs["design"], op, x, dst, table)})
+        old, new = (sum(turns[k]) / 2 for k in ("first form", "design"))
+        row.update({"turns_device_ms": turns, "first_form_device_ms": old,
+                    "design_device_ms": new, "speedup": old / new})
+        order = (turns["first form"][0], *turns["design"], turns["first form"][1])
+        log(f"  in turns (first form, design, design, first form), spun: "
+            f"{[round(v, 4) for v in order]} ms: {old / new:.2f}x the first form's speed")
+        del dst
+        return row
+
+    def k3_codec_ops(self):
+        """The hand counts of K3's decode and quantize floors, read from the
+        header of its source."""
+        with open(K3_SOURCE) as f:
+            src = f.read()
+        ops = {c: int(re.search(rf"constexpr int {c} = (\d+);", src).group(1))
+               for c in ("kDecodeFixedAluOpsPerLane", "kQuantizeFixedAluOpsPerLane",
+                         "kQuantizeTableAluOpsPerLane")}
+        log(f"K3 decode and quantize ALU-pipe operations a lane (counted in posit_codec.cu): "
+            f"{ops}")
+        return {"decode": ops["kDecodeFixedAluOpsPerLane"],
+                "computed": ops["kQuantizeFixedAluOpsPerLane"],
+                "table": ops["kQuantizeTableAluOpsPerLane"]}
+
+    def k3_codec_input(self, g, op, shape, kind):
+        """A seeded input of K3's decode (uniform 16-bit patterns, int16 or
+        int32) or quantize (N(0, 1), f32 or bf16)."""
+        torch = self.torch
+        if op == "decode":
+            x = torch.randint(0, 1 << 16, shape, generator=g, device=self.dev,
+                              dtype=torch.int32)
+            return ((x ^ 0x8000) - 0x8000).to(torch.int16) if kind == "int16" else x
+        x = torch.randn(shape, generator=g, device=self.dev)
+        return x.to(torch.bfloat16) if kind == "bf16" else x
+
+    def time_decode_quantize(self, add, int_rate, ops):
+        """K3's decode and quantize (the conformance oracle's calls and the
+        prequantized decode) at K3_OTHER_TIMES and K3_OTHER_LANES,
+        Posit<16,1>, by time_k3_row; ops: k3_codec_ops'."""
+        torch = self.torch
+        from repro_torch.kernels.posit_codec import encode_path
+        from repro_torch.numerics import P16
+
+        g = self.gen(21)
+        rows = []
+        for lanes in K3_OTHER_LANES:
+            for op, kind in K3_OTHER_TIMES:
+                x = self.k3_codec_input(g, op, (lanes,), kind)
+                floor_ops = ops["decode" if op == "decode" else encode_path(x.dtype, lanes, P16)]
+                rows.append(self.time_k3_row(add, op, x, kind, floor_ops, int_rate))
+                del x
+        torch.cuda.empty_cache()
+        return rows
+
+    def time_train_quantize(self, add, int_rate, ops):
+        """K3's quantize at the training paths' shapes (K3_QUANT_TIMES: yi-6b's
+        two largest weights, bf16 -> f32, and an activation; the other
+        families' new weights), Posit<16,1>, by time_k3_row; ops:
+        k3_codec_ops'."""
+        torch = self.torch
+        from repro_torch.kernels.posit_codec import encode_path
+        from repro_torch.numerics import P16
+
+        g = self.gen(23)
+        rows = []
+        for shape, kind in K3_QUANT_TIMES:
+            x = self.k3_codec_input(g, "quantize", shape, kind)
+            rows.append(self.time_k3_row(add, "quantize", x, kind,
+                                         ops[encode_path(x.dtype, x.numel(), P16)], int_rate,
+                                         training=True))
+            del x
+            torch.cuda.empty_cache()
+        return rows
+
+    def k3_criteria(self, rows):
+        """The design's aims, read and logged (not gated: two calls may land
+        on two cards): each bf16 quantize of K3_QUANT_TIMES at >= 50% of its
+        bytes bound and faster than the first form's; decode int16 -> f32
+        at 2^24 lanes at >= 60%; the f32 quantize at [1024, 4096] and 2^24
+        lanes faster than the first form's."""
+        met = {}
+        for row in rows:
+            name, share, faster = row["shape"], row["bound_share"], row["speedup"] > 1
+            if "training" in name and "bf16" in name:
+                met[name] = share >= 0.5 and faster
+            elif name.startswith(f"decode [{1 << 24}] int16"):
+                met[name] = share >= 0.6
+            elif (name.startswith(f"quantize [{1 << 24}] f32")
+                  or name.startswith("quantize [1024, 4096] f32")):
+                met[name] = faster
+        log("K3 decode and quantize against the design's aims: "
+            + "; ".join(f"{k}: {'met' if v else 'NOT met'}" for k, v in met.items()))
+        self.results["k3_criteria"] = met
+
+    def time_by_lane(self):
+        """K3's computed paths on both sides of their thresholds of one lane
+        a thread (k3_by_lane_max), at K3_BY_LANE_SWEEP: the decode of int16
+        and the computed quantize of bf16 and f32, the design beside the
+        "by lane" and "by chunk" variants (K3_VARIANTS), raw launches in turns, spun, each output
+        equal to the plain version's."""
+        torch = self.torch
+        from repro_torch.kernels.posit_codec import posit_decode, posit_quantize
+        from repro_torch.numerics import P16
+
+        libs, edges = self.k3_variants(), self.k3_by_lane_max()
+        names = ("design", "by lane", "by chunk")
+        g = self.gen(31)
+        rows = []
+        for lanes in K3_BY_LANE_SWEEP:
+            for op, kind in (("decode", "int16"), ("quantize", "bf16"), ("quantize", "f32")):
+                x = self.k3_codec_input(g, op, (lanes,), kind)
+                out = torch.empty((lanes,), dtype=torch.float32, device=self.dev)
+                want = (posit_decode if op == "decode" else posit_quantize)(
+                    x, P16, use_kernel=False)
+                calls = {k: self.k3_raw(libs[k], op, x, out) for k in names}
+                for k in names:
+                    out.fill_(0)
+                    calls[k]()
+                    self.k3_same(f"{k} {op} {kind} [{lanes}]", out, want)
+                turns = self.k3_turns(calls)
+                mean = {k: sum(v) / 2 for k, v in turns.items()}
+                by_lane = lanes < edges[op]
+                rows.append({"op": op, "input": kind, "lanes": lanes, "by_lane": by_lane,
+                             "device_ms": turns, "mean_device_ms": mean})
+                log(f"  K3 {op} {kind} [{lanes}] ({'one lane' if by_lane else 'chunks'} "
+                    f"in the design), spun ms in turns: "
+                    + "; ".join(f"{k} {[round(v, 4) for v in vs]}" for k, vs in turns.items()))
+                del x, out, want
+        self.results["k3_by_lane"] = {"max_lanes": edges, "rows": rows}
+
+    def time_table_edge(self):
+        """K3's bf16 quantize on both sides of TABLE_MIN_NUMEL
+        (K3_TABLE_EDGE_SHAPES): the table path beside the computed path,
+        raw launches in turns, spun, each output equal to the plain
+        version's."""
+        torch = self.torch
+        from repro_torch.kernels.posit_codec import TABLE_MIN_NUMEL, posit_quantize, quantize_table
+        from repro_torch.numerics import P16
+
+        lib, table = self.k3_variants()["design"], quantize_table(P16, self.dev)
+        g = self.gen(33)
+        rows = []
+        for shape in K3_TABLE_EDGE_SHAPES:
+            x = self.k3_codec_input(g, "quantize", shape, "bf16")
+            out = torch.empty(shape, dtype=torch.float32, device=self.dev)
+            want = posit_quantize(x, P16, use_kernel=False)
+            calls = {"table": self.k3_raw(lib, "quantize", x, out, table),
+                     "computed": self.k3_raw(lib, "quantize", x, out)}
+            for k, fn in calls.items():
+                out.fill_(0)
+                fn()
+                self.k3_same(f"quantize bf16 {list(shape)} on the {k} path", out, want)
+            turns = self.k3_turns(calls)
+            taken = "table" if x.numel() >= TABLE_MIN_NUMEL else "computed"
+            rows.append({"shape": list(shape), "lanes": x.numel(), "path": taken,
+                         "device_ms": turns})
+            log(f"  K3 quantize bf16 {list(shape)} ({taken} path in the design), spun ms in "
+                f"turns: " + "; ".join(f"{k} {[round(v, 4) for v in vs]}"
+                                       for k, vs in turns.items()))
+            del x, out, want
+        self.results["k3_table_edge"] = rows
+
+    def time_k3_step(self):
+        """K3's device time in one posit_quant decode step of mamba2-780m on
+        prequantized weights (K3_STEP_CALLS, the calls phase static
+        records): each call's raw launch, the design (its path by
+        encode_path) beside the first form, in turns, spun, summed over the
+        step's calls."""
+        torch = self.torch
+        from repro_torch.kernels.posit_codec import encode_path, quantize_table
+        from repro_torch.numerics import P16
+
+        libs = self.k3_variants()
+        g = self.gen(35)
+        rows, total = [], {"first form": 0.0, "design": 0.0}
+        for op, shape, kind, calls, _ in K3_STEP_CALLS:
+            x = self.k3_codec_input(g, op, shape, kind)
+            out = torch.empty(shape, dtype=torch.float32, device=self.dev)
+            path = "computed" if op == "decode" else encode_path(x.dtype, x.numel(), P16)
+            table = quantize_table(P16, self.dev) if path == "table" else None
+            turns = self.k3_turns({"first form": self.k3_raw(libs["first form"], op, x, out),
+                                   "design": self.k3_raw(libs["design"], op, x, out, table)})
+            for k in total:
+                total[k] += calls * sum(turns[k]) / 2
+            rows.append({"op": op, "shape": list(shape), "input": kind, "calls": calls,
+                         "path": path, "device_ms": turns})
+            log(f"  K3 step call {op} {kind} {list(shape)} x {calls}, spun ms in turns: "
+                + "; ".join(f"{k} {[round(v, 4) for v in vs]}" for k, vs in turns.items()))
+            del x, out
+        log(f"K3 in one posit_quant mamba2-780m decode step (sum of its calls): design "
+            f"{total['design']:.4f} ms, first form {total['first form']:.4f} ms")
+        self.results["k3_posit_quant_decode_step"] = {"rows": rows, "device_ms": total}
+
+    def time_table_fill(self):
+        """The table fill's share of K3's table paths and the variations
+        their design allows: this tree's posit_codec.cu beside the "no
+        fill" (its output is garbage; only its time is read), "65536 lanes
+        a block" and "two blocks an SM" variants (K3_VARIANTS), raw launches
+        of the encode at K3_FILL_SHAPES and of the quantize at
+        K3_FILL_QUANT_SHAPES (Posit<16,1>), in turns, spun."""
+        torch = self.torch
+        from repro_torch.kernels.posit_codec import bf16_table, quantize_table
+        from repro_torch.numerics import P16
+
+        libs = self.k3_variants()
+        names = ("design", "no fill", "65536 lanes a block", "two blocks an SM")
         g = self.gen(19)
         rows = []
-        for shape, od_name in K3_FILL_SHAPES:
-            od = getattr(torch, od_name)
+        cases = [("encode", shape, od) for shape, od in K3_FILL_SHAPES]
+        cases += [("quantize", shape, "float32") for shape in K3_FILL_QUANT_SHAPES]
+        for op, shape, od_name in cases:
             x = self.k3_input(g, shape, "bf16")
-            out = torch.empty(shape, dtype=od, device=self.dev)
-
-            def call(lib):
-                def fn():
-                    err = lib.posit_encode_launch(
-                        x.data_ptr(), _lib.DTYPE_CODES[x.dtype], out.data_ptr(),
-                        _lib.DTYPE_CODES[od], x.numel(), P16.n, P16.es, table.data_ptr(),
-                        stream)
-                    if err:
-                        raise RuntimeError(f"table fill probe: launch failed ({err})")
-                return fn
-
-            turns = {name: [] for name in libs}
-            for name in list(libs) + list(libs)[::-1]:
-                turns[name].append(self.events_ms(call(libs[name]), reps=30, spin=True))
+            out = torch.empty(shape, dtype=getattr(torch, od_name), device=self.dev)
+            table = (bf16_table if op == "encode" else quantize_table)(P16, self.dev)
+            turns = self.k3_turns({k: self.k3_raw(libs[k], op, x, out, table) for k in names},
+                                  reps=30)
             design = sum(turns["design"]) / 2
             share = (design - sum(turns["no fill"]) / 2) / design
-            rows.append({"shape": list(shape), "out": od_name, "device_ms": turns,
+            rows.append({"op": op, "shape": list(shape), "out": od_name, "device_ms": turns,
                          "fill_share": share})
-            log(f"  table fill probe {list(shape)} bf16->{od_name}, spun ms in turns: "
+            log(f"  table probe {op} {list(shape)} bf16->{od_name}, spun ms in turns: "
                 + "; ".join(f"{k} {[round(v, 4) for v in vs]}" for k, vs in turns.items())
                 + f"; fill share {share:.3f}")
             del x, out

@@ -34,7 +34,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.numerics import PositSpec, decode, mitchell_mul_f32, unpack16
+from repro_torch.numerics import PositSpec, mitchell_mul_f32
 
 MODES = ("f32", "bf16", "posit_quant", "plam_sim", "mitchell_f32")
 
@@ -149,16 +149,19 @@ def _pattern_matmul(x, w_pat, ncfg: NumericsConfig, out_dtype, use_kernel):
 
     For ``plam_sim`` the patterns feed ``kernels.ops.plam_dense``
     directly (int16 patterns are read as they are, never widened);
-    every other mode decodes them to their exact posit-grid f32 values
-    and reuses the linear-weight path with the weight codec skipped.
+    every other mode decodes them with the codec kernel (its plain version
+    on the CPU) to their exact posit-grid f32 values and reuses the
+    linear-weight path with the weight codec skipped.
     """
     spec = ncfg.spec
     if ncfg.mode == "plam_sim":
         from repro_torch.kernels.ops import plam_dense
 
         return plam_dense(x, w_pat, spec, use_kernel=use_kernel).to(out_dtype)
-    bits = unpack16(w_pat) if w_pat.dtype == torch.int16 else w_pat.to(torch.int32)
-    w_lin = decode(bits, spec)
+    from repro_torch.kernels.posit_codec import posit_decode
+
+    bits = w_pat if w_pat.dtype in (torch.int16, torch.int32) else w_pat.to(torch.int32)
+    w_lin = posit_decode(bits.contiguous(), spec, use_kernel=use_kernel)
     ncfg_pq = dataclasses.replace(ncfg, prequantized_weights=True)
     return nmatmul(x, w_lin, ncfg_pq, out_dtype=out_dtype, use_kernel=use_kernel)
 

@@ -143,15 +143,17 @@ def quantize_params(cfg, model: nn.Module, *, pack: bool = True,
 @torch.no_grad()
 def dequantize_params(model: nn.Module, meta, dtype=torch.float32):
     """Inverse of :func:`quantize_params` (to the posit-grid values), in
-    place; everything needed to decode is in ``meta``."""
-    from repro_torch.numerics import PositSpec, decode, unpack16
+    place, through the codec kernel's decode (its plain version on the
+    CPU); everything needed to decode is in ``meta``."""
+    from repro_torch.kernels.posit_codec import posit_decode
+    from repro_torch.numerics import PositSpec
 
     for name, param in list(model.named_parameters()):
         info = meta.get(param_path(name))
         if info is None or param.is_floating_point():
             continue
-        bits = unpack16(param) if param.dtype == torch.int16 else param
-        vals = decode(bits, PositSpec(info["n"], info["es"])).to(dtype)
+        vals = posit_decode(param.detach().contiguous(),
+                            PositSpec(info["n"], info["es"])).to(dtype)
         owner, attr = _owner(model, name)
         setattr(owner, attr, nn.Parameter(vals, requires_grad=False))
     return model

@@ -42,7 +42,8 @@ launches: Dict[str, int] = {
     "plam_matmul_grouped": 0,  # the K1 launches above that run over an expert axis
     "paged_decode_attention": 0,
     "posit_codec": 0,
-    "posit_codec_table": 0,  # K3's bf16 tables, built once per (spec, device)
+    "posit_codec_table": 0,  # K3's bf16 encode tables, built once per (spec, device)
+    "posit_codec_quant_table": 0,  # K3's bf16 quantize tables, likewise
     "posit_mul": 0,
     "decode_attention": 0,
 }
@@ -138,7 +139,7 @@ _SIGNATURES = {
     "plam_matmul_prefill_width": [_I, _I, _I, _I, _I],
     "posit_encode_launch": [_P, _I, _P, _I, ctypes.c_int64, _I, _I, _P, _P],
     "posit_decode_launch": [_P, _I, _P, ctypes.c_int64, _I, _I, _P],
-    "posit_quantize_launch": [_P, _I, _P, ctypes.c_int64, _I, _I, _P],
+    "posit_quantize_launch": [_P, _I, _P, ctypes.c_int64, _I, _I, _P, _P],
     "paged_decode_attention_launch": [
         _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
         ctypes.c_float, _P],

@@ -155,7 +155,8 @@ __device__ __forceinline__ uint32_t encode_f32_bits(uint32_t b, const S& sp) {
 }
 
 // posit pattern -> f32 (repro.numerics.decode).
-__device__ __forceinline__ float decode_f32(uint32_t bits, const Spec& sp) {
+template <class S>
+__device__ __forceinline__ float decode_f32(uint32_t bits, const S& sp) {
   const Fields f = decode_fields(bits, sp);
   if (f.is_zero) return 0.0f;
   if (f.is_nar) return __uint_as_float(0x7FC00000u);

@@ -6,10 +6,12 @@ Port of the Pallas TPU kernels in ``repro/kernels/posit_codec.py``:
 * K3, ``posit_encode / posit_decode / posit_quantize`` as
   ``csrc/posit_codec.cu``: element-wise f32/bf16 -> pattern (RNE on the
   pattern, saturating, never to zero or NaR), pattern -> f32, and
-  decode . encode.  Encode takes one of two paths (:func:`encode_path`):
-  a bf16 weight looks its patterns up in a table of the 32,768
-  non-negative bf16 patterns in shared memory (:func:`bf16_table`), the
-  rest computes each lane's fields.
+  decode . encode.  Encode and quantize take one of two paths by one rule
+  (:func:`encode_path`): a bf16 tensor of at least
+  TABLE_MIN_NUMEL lanes looks each lane up in a table of the 32,768
+  non-negative bf16 patterns in shared memory (:func:`bf16_table`,
+  :func:`quantize_table`), the rest computes each lane's fields; decode
+  always computes.
 * K4, ``plam_mul_elementwise / exact_mul_elementwise`` as
   ``csrc/posit_mul.cu``: pattern x pattern -> pattern, the PLAM product
   and the exact product with RNE (the conformance oracles' multipliers).
@@ -41,14 +43,15 @@ from . import _lib
 _FLOATS = (torch.float32, torch.bfloat16)
 _PATTERNS = (torch.int32, torch.int16)
 
-#: lanes from which a bf16 encode takes the table path (every weight of
-#: the serving models); fewer (activations, conformance vectors) compute
+#: lanes from which a bf16 encode or quantize takes the table path (every
+#: weight of the serving models, a training batch's activations); fewer
+#: (decode-step activations, conformance vectors) compute
 TABLE_MIN_NUMEL = 1 << 20
 #: the non-negative bf16 patterns, whose posits give all 65,536 by sign
 TABLE_ENTRIES = 1 << 15
 
-# (n, es, device index) -> the card's table, built once
-_tables: Dict[Tuple[int, int, Optional[int]], torch.Tensor] = {}
+# (kind, n, es, device index) -> the card's table, built once
+_tables: Dict[Tuple[str, int, int, Optional[int]], torch.Tensor] = {}
 
 
 def _by_slices(fn, x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
@@ -86,37 +89,77 @@ def quantize_plain(x: torch.Tensor, spec: PositSpec):
 
 
 def encode_path(x_dtype: torch.dtype, numel: int, spec: PositSpec) -> str:
-    """The kernel path that encodes ``numel`` lanes of ``x_dtype`` at
-    ``spec``, for int16 and int32 patterns alike: ``"table"`` for bf16
+    """The kernel path that encodes or quantizes ``numel`` lanes of
+    ``x_dtype`` at ``spec``, for every output type: ``"table"`` for bf16
     with n <= 16 from TABLE_MIN_NUMEL lanes, ``"computed"`` otherwise."""
     if x_dtype == torch.bfloat16 and spec.n <= 16 and numel >= TABLE_MIN_NUMEL:
         return "table"
     return "computed"
 
 
+def _magnitudes(device=None) -> torch.Tensor:
+    """The 32,768 non-negative bf16 patterns, in order."""
+    return torch.arange(TABLE_ENTRIES, dtype=torch.int16, device=device).view(torch.bfloat16)
+
+
+def _card_table(kind: str, spec: PositSpec, device, build) -> torch.Tensor:
+    """The ``kind`` table at ``spec`` on ``device``, made by ``build(device)``
+    on first use and cached per (kind, spec, device)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (kind, spec.n, spec.es, device.index)
+    table = _tables.get(key)
+    if table is None:
+        table = _tables[key] = build(device)
+    return table
+
+
 def bf16_table_plain(spec: PositSpec) -> torch.Tensor:
     """The table path's table, plain: the Posit<n,es> patterns of the
     32,768 non-negative bf16 patterns (entry ``bits & 0x7FFF``), int16
     holding the uint16 patterns."""
-    mags = torch.arange(TABLE_ENTRIES, dtype=torch.int16).view(torch.bfloat16)
-    return pack16(encode(mags, spec))
+    return pack16(encode(_magnitudes(), spec))
 
 
 def bf16_table(spec: PositSpec, device: torch.device) -> torch.Tensor:
     """The table path's table on ``device``: built once per (spec,
     device) by the computed path over the 32,768 non-negative bf16
     patterns (counted as ``posit_codec_table``), then cached."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    key = (spec.n, spec.es, device.index)
-    table = _tables.get(key)
-    if table is None:
-        mags = torch.arange(TABLE_ENTRIES, dtype=torch.int16, device=device).view(torch.bfloat16)
-        table = torch.empty(TABLE_ENTRIES, dtype=torch.int16, device=device)
-        _encode_launch(mags, table, spec, None, "posit_codec_table")
-        _tables[key] = table
-    return table
+    def build(dev):
+        table = torch.empty(TABLE_ENTRIES, dtype=torch.int16, device=dev)
+        _encode_launch(_magnitudes(dev), table, spec, None, "posit_codec_table")
+        return table
+
+    return _card_table("encode", spec, device, build)
+
+
+def quantize_table_plain(spec: PositSpec) -> torch.Tensor:
+    """The quantize's table path's table, plain: the bf16 bits of
+    decode(encode(x)) for the 32,768 non-negative bf16 patterns x (entry
+    ``bits & 0x7FFF``), the high 16 bits of each f32 as int16.  A negative
+    x gives its entry with the sign bit set, except where the entry is +0
+    or NaN (``0x7FC0``)."""
+    q = decode(encode(_magnitudes(), spec), spec)
+    return (q.view(torch.int32) >> 16).to(torch.int16)
+
+
+def quantize_table(spec: PositSpec, device: torch.device) -> torch.Tensor:
+    """The quantize's table on ``device``: built once per (spec, device) by
+    the computed quantize over the 32,768 non-negative bf16 patterns
+    (counted as ``posit_codec_quant_table``), its f32 results' high 16 bits
+    kept; raises where a result is not a bf16 value (low 16 bits set)."""
+    def build(dev):
+        q = torch.empty(TABLE_ENTRIES, dtype=torch.float32, device=dev)
+        _quantize_launch(_magnitudes(dev), q, spec, None, "posit_codec_quant_table")
+        bits = q.view(torch.int32)
+        inexact = int(torch.count_nonzero(bits & 0xFFFF))
+        if inexact:
+            raise ValueError(f"{spec}: {inexact} quantized bf16 magnitudes are not bf16 "
+                             "values; the quantize table cannot hold them")
+        return (bits >> 16).to(torch.int16)
+
+    return _card_table("quantize", spec, device, build)
 
 
 def _encode_launch(x, out, spec, table, counter):
@@ -124,6 +167,13 @@ def _encode_launch(x, out, spec, table, counter):
         x.data_ptr(), _lib.DTYPE_CODES[x.dtype], out.data_ptr(), _lib.DTYPE_CODES[out.dtype],
         x.numel(), spec.n, spec.es, None if table is None else table.data_ptr(),
         _lib.stream_ptr(x))
+    _lib.check_launch(counter, err)
+
+
+def _quantize_launch(x, out, spec, table, counter):
+    err = _lib.library().posit_quantize_launch(
+        x.data_ptr(), _lib.DTYPE_CODES[x.dtype], out.data_ptr(), x.numel(), spec.n, spec.es,
+        None if table is None else table.data_ptr(), _lib.stream_ptr(x))
     _lib.check_launch(counter, err)
 
 
@@ -175,10 +225,9 @@ def posit_quantize(
     _lib.require(x, "x", _FLOATS)
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if x.numel():
-        err = _lib.library().posit_quantize_launch(
-            x.data_ptr(), _lib.DTYPE_CODES[x.dtype], out.data_ptr(), x.numel(),
-            spec.n, spec.es, _lib.stream_ptr(x))
-        _lib.check_launch("posit_codec", err)
+        table = (quantize_table(spec, x.device)
+                 if encode_path(x.dtype, x.numel(), spec) == "table" else None)
+        _quantize_launch(x, out, spec, table, "posit_codec")
     return out
 
 

@@ -243,7 +243,7 @@ TABLE_IDS = [f"p{n}es{es}" for n, es in TABLE_SPECS]
 # the table path at Posit<16,1> and three other specs on the card
 TABLE_PATH_SPECS = [(16, 1), (16, 2), (10, 1), (8, 0)]
 # the serve path's weight shapes at which the card's encode is checked:
-# wk/wv, wg/wu (the grid capped at 2 x SMs) and the unembed
+# wk/wv, wg/wu (the grid capped at one block an SM) and the unembed
 WEIGHT_SHAPES = [(4096, 512), (4096, 11008), (4096, 64000)]
 
 
@@ -649,7 +649,7 @@ def test_cuda_encode_both_paths_bit_identical(cuda_device, n, es):
 @pytest.mark.parametrize("shape", WEIGHT_SHAPES, ids=["wkv", "wgu", "unembed"])
 def test_cuda_encode_weight_shapes_bit_identical(cuda_device, shape):
     """Seeded bf16 weights at the serve path's shapes, where the table
-    path's grid is capped at 2 x SMs and each thread's loop strides many
+    path's grid is capped at one block an SM and each thread's loop strides many
     times, against the plain version computed 2^25 lanes at a time."""
     g = torch.Generator(device=cuda_device).manual_seed(17)
     w = (torch.randn(shape, generator=g, device=cuda_device) * shape[0] ** -0.5).bfloat16()
