@@ -5,9 +5,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--layers N]
                           [--phases device,kernels,conformance,serve,serve_paths,observe,moe,
-                                    static,archs,train,train_families,e2e,times]
+                                    static,archs,train,train_families,e2e,times,dryrun]
 
-It imports ``repro_torch`` (never JAX) and runs thirteen phases, each on
+It imports ``repro_torch`` (never JAX) and runs fourteen phases, each on
 its own lines:
 
 1. device      — the card's name and power limit (nvidia-smi), the torch
@@ -231,6 +231,21 @@ its own lines:
    turns, the 64 launches of the 2-D kernel it replaces.  K2 is timed at
    the serving shape and at a long paged context, and K5 also at other
    split sizes.
+14. dryrun     — the launch tools held against measured steps: for each
+   of ``DRYRUN_CELLS`` (yi-6b's decode, mamba2-780m's prefill and
+   granite-moe-1b-a400m's decode at full width under
+   ``default=plam_sim:16:1`` with int16 prequantized weights, and yi-6b's
+   training step at phase train's width, depth and numerics) the step of
+   ``launch/dryrun.py::build_cell`` is built on the card from the port's
+   seeded init, run once, then timed over ``DRYRUN_STEPS`` steps (host
+   clock after a synchronize, p50) with the peak of allocated memory and
+   the launches of each step, and then dry-run on the meta device.  Gates:
+   the launches by kernel equal the dry run's; the dry run's peak bytes
+   within ``DRYRUN_MEM_TOL`` of the measured peak; the roofline's bound
+   time (``launch/roofline.py``) at most ``DRYRUN_BOUND_SLACK`` times the
+   measured step.  Printed: the measured step, the bound and its dominant
+   term, the ideal step over the measured one (its roofline fraction) and
+   the predicted against the measured memory.
 
 It exits non-zero if any phase fails, if no CUDA device is present, or if
 ``repro_torch`` cannot be imported.  Its last line is
@@ -254,12 +269,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ["device", "kernels", "conformance", "serve", "serve_paths", "observe", "moe",
-          "static", "archs", "train", "train_families", "e2e", "times"]
+          "static", "archs", "train", "train_families", "e2e", "times", "dryrun"]
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 CUDA-core FLOP/s.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-SMS, INT32_LANES_PER_SM = 132, 64
+# H100 SXM peaks (NVIDIA data sheet), from the port's roofline, the one
+# source of them: HBM3 bytes/s, f32 CUDA-core FLOP/s, SMs and the INT32
+# lanes of each.  Without the repository's sources main() says so.
+try:
+    from repro_torch.launch.roofline import (  # noqa: E402
+        HBM_BW as HBM_BYTES_PER_S,
+        INT32_LANES_PER_SM,
+        PEAK_F32 as F32_FLOPS,
+        SMS,
+    )
+except ImportError:
+    HBM_BYTES_PER_S = F32_FLOPS = SMS = INT32_LANES_PER_SM = None
 # lane instructions an SM starts a clock: 4 warp schedulers of 32 lanes
 INSTR_LANES_PER_SM = 128
 # clock cycles (~0.1 ms) of the device spin that events_ms(spin=True) queues
@@ -670,6 +693,22 @@ CANARY_CASES = 120
 K4_SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "posit_mul.cu")
 K4_OPS = {"plam_mul_elementwise": "kPlamMulAluOpsPerLane",
           "exact_mul_elementwise": "kExactMulAluOpsPerLane"}
+# phase dryrun: (arch, ShapeSpec fields, numerics policy or None for the
+# config's own, prequantized weights, layers or None for the config's):
+# the serving models at full width and depth, and phase train's step
+DRYRUN_POLICY = "default=plam_sim:16:1"
+DRYRUN_CELLS = [
+    ("yi-6b", ("chip_decode", 64, 4, "decode"), DRYRUN_POLICY, True, None),
+    ("mamba2-780m", ("chip_prefill", 64, 4, "prefill"), DRYRUN_POLICY, True, None),
+    ("granite-moe-1b-a400m", ("chip_decode", 64, 4, "decode"), DRYRUN_POLICY, True, None),
+    ("yi-6b", ("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train"), None, False, TRAIN_LAYERS),
+]
+DRYRUN_STEPS = 3
+# the dry run's peak bytes against the measured peak, and the roofline's
+# bound time against the measured step (a bound above the step means the
+# counts are wrong)
+DRYRUN_MEM_TOL = 0.15
+DRYRUN_BOUND_SLACK = 1.05
 
 
 def launch_counts(cfg, prequantized: bool = True) -> dict:
@@ -6199,6 +6238,109 @@ class Smoke:
         return add("decode_attention", f"B={b} H={h} kv={kv} hd={hd} S={s} bf16 "
                    f"lens={K5_LENGTHS}", ms, plain, bytes_, 4 * live * h * hd, F32_FLOPS,
                    library_ms=lib_ms)
+
+    # -- phase 14 ------------------------------------------------------------
+
+    def phase_dryrun(self):
+        """The dry run, the op analysis and the roofline held against the
+        card: each cell's step measured here, then dry-run on meta."""
+        torch = self.torch
+        import gc
+
+        failures, rows = [], {}
+        self.yi_model = None  # the earlier phases' model
+        for arch, fields, policy, prequantized, layers in DRYRUN_CELLS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            row = self.dryrun_cell(arch, fields, policy, prequantized, layers, failures)
+            rows[f"{arch} {fields[0]}"] = row
+        self.results["dryrun"] = {"card": self.results["device"]["nvidia_smi"],
+                                  "tf32": torch.backends.cuda.matmul.allow_tf32, "cells": rows}
+        if failures:
+            raise AssertionError("; ".join(failures[:8]))
+
+    def dryrun_cell(self, arch, fields, policy, prequantized, layers, failures) -> dict:
+        """One cell: built on the card from the seeded init, run once, timed
+        over DRYRUN_STEPS steps (launches and peak memory read), then the
+        same step dry-run on meta and its roofline row."""
+        torch = self.torch
+        import gc
+
+        import numpy as np
+
+        from repro_torch.configs import ShapeSpec, get_config
+        from repro_torch.kernels import _lib
+        from repro_torch.launch import dryrun, roofline
+
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=min(layers, self.args.layers))
+        if policy:
+            cfg = cfg.with_numerics(policy)
+        shape = ShapeSpec(*fields)
+        name = f"{arch} {shape.kind} ({shape.global_batch} x {shape.seq_len}, "
+        name += f"{cfg.n_layers} layers{', prequantized' if prequantized else ''})"
+        base = torch.cuda.memory_allocated()
+        step, args = dryrun.build_cell(cfg, shape, device=self.dev, prequantize=prequantized)
+        step(*args)  # the warm-up: the K3 tables a step needs are built here
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, per_step = [], []
+        for _ in range(DRYRUN_STEPS):
+            _lib.reset_launches()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            per_step.append({k: v for k, v in _lib.launches.items() if v})
+            del out
+        measured_peak = torch.cuda.max_memory_allocated() - base
+        del step, args
+        gc.collect()
+        torch.cuda.empty_cache()
+        step_s = float(np.median(times))
+
+        # the same step on meta: a warm-up (the meta device's K3 tables, as
+        # the card's were built above), then the traced step
+        t0 = time.perf_counter()
+        rec, _ = dryrun.analyze_cell(cfg, shape, prequantize=prequantized, warmup=True)
+        dry_s = time.perf_counter() - t0
+        row = roofline.roofline_row(rec, cfg, shape)
+        predicted = rec["memory"]["peak_bytes"]
+        mem_err = (predicted - measured_peak) / measured_peak
+        share = row["t_bound_s"] / step_s
+        res = {"step_s": times, "step_p50_s": step_s, "launches": per_step[0],
+               "dry_launches": rec["launches"], "measured_peak_bytes": measured_peak,
+               "predicted_peak_bytes": predicted, "memory": rec["memory"],
+               "predicted_over_measured": predicted / measured_peak,
+               "t_compute_s": row["t_compute_s"], "t_memory_s": row["t_memory_s"],
+               "t_collective_s": row["t_collective_s"], "dominant": row["dominant"],
+               "t_bound_s": row["t_bound_s"], "t_ideal_s": row["t_ideal_s"],
+               "bound_over_step": share, "roofline_fraction": row["t_ideal_s"] / step_s,
+               "flops_by_class": rec["flops_by_class"], "int_ops": rec["int_ops"],
+               "elem_ops": rec["elem_ops"], "bytes_accessed": rec["bytes_accessed"],
+               "mode": row["mode"], "dry_run_s": dry_s}
+        log(f"dryrun {name}: step p50 {step_s * 1e3:.2f} ms (steps "
+            + ", ".join(f"{t * 1e3:.2f}" for t in times) + f" ms); bound "
+            f"{row['t_bound_s'] * 1e3:.3f} ms ({row['dominant']}: compute "
+            f"{row['t_compute_s'] * 1e3:.3f}, memory {row['t_memory_s'] * 1e3:.3f} ms) = "
+            f"{share:.3f} of the step; ideal {row['t_ideal_s'] * 1e3:.3f} ms ({row['mode']}) "
+            f"= roofline fraction {row['t_ideal_s'] / step_s:.4f}; peak memory predicted "
+            f"{predicted / 2**30:.3f} GiB, measured {measured_peak / 2**30:.3f} GiB "
+            f"({mem_err:+.4f}); launches {per_step[0]} (dry run {rec['launches']}); "
+            f"dry run {dry_s:.1f} s; {self.results['device']['nvidia_smi']}")
+        if any(c != per_step[0] for c in per_step):
+            failures.append(f"{name}: launches differ between steps: {per_step}")
+        if per_step[0] != rec["launches"]:
+            failures.append(f"{name}: launches {per_step[0]} but the dry run's "
+                            f"{rec['launches']}")
+        if abs(mem_err) > DRYRUN_MEM_TOL:
+            failures.append(f"{name}: predicted peak {predicted / 2**30:.3f} GiB is "
+                            f"{mem_err:+.3f} of the measured {measured_peak / 2**30:.3f}")
+        if share > DRYRUN_BOUND_SLACK:
+            failures.append(f"{name}: the bound {row['t_bound_s'] * 1e3:.3f} ms is "
+                            f"{share:.3f} of the measured step")
+        return res
 
     def kernels_line(self):
         out = []

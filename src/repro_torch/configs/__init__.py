@@ -16,7 +16,17 @@ from . import (
     yi_6b,
     zamba2_1_2b,
 )
-from .base import ModelConfig  # noqa: F401
+from .base import (  # noqa: F401
+    ALL_SHAPES,
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    TRAIN_4K,
+    ModelConfig,
+    ShapeSpec,
+    applicable_shapes,
+    shape_by_name,
+)
 
 ARCHS = {
     "minitron-8b": minitron_8b.config,

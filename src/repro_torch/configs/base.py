@@ -3,7 +3,9 @@
 Field for field the same as the reference's ``ModelConfig``, so one
 configuration describes the same model in both packages.  The port
 serves all six families: ``dense``, ``moe``, ``ssm``, ``hybrid``,
-``encdec`` and ``vlm``.
+``encdec`` and ``vlm``.  :class:`ShapeSpec` and the four assigned
+shapes are the reference's too, the cells of the dry run
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -99,3 +101,31 @@ class ModelConfig:
             frontend_dim=128 if self.frontend else 0,
             mrope_sections=(4, 6, 6) if self.mrope_sections else None,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524_288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def shape_by_name(name: str) -> ShapeSpec:
+    for s in ALL_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
+
+def applicable_shapes(cfg: ModelConfig):
+    """Which of the four assigned shapes apply to this architecture:
+    every one, except the 524k-token decode for quadratic attention."""
+    return [s for s in ALL_SHAPES if s.name != "long_500k" or cfg.sub_quadratic]

@@ -19,3 +19,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "available; pass device='cpu' to run the plain versions"
         )
     return dev
+
+
+def init_generator(device: torch.device, seed: int) -> torch.Generator:
+    """The seeded generator of a model's init on ``device``.  The meta
+    device has no generator: its tensors hold no values, and a CPU
+    generator stands in for it (``torch.randn(..., generator=<CPU
+    generator>, device="meta")`` draws nothing and allocates nothing), so
+    a model built on meta has the shapes and dtypes of the real one."""
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
+    gen.manual_seed(seed)
+    return gen

@@ -11,19 +11,30 @@ Nothing is built or imported when this module is imported.
 Every wrapper adds one to its kernel's entry in :data:`launches` where
 it launches the kernel, and nowhere else, so a run can show that the
 main path went through the kernels.
+
+The meta device takes the kernels' path too (:func:`wants_kernel`): a
+launch on meta tensors (:func:`launch`) loads no library, calls no
+``nvcc`` and runs nothing, but returns the kernel's output (an empty
+meta tensor of its shape and dtype, which the wrapper allocated), counts
+the launch in :data:`launches` as the card would, and hands its work
+(:class:`Work`) to every analysis listening (``launch/op_analysis.py``).
+A model run on meta is so the dry run of the step the card would run
+(``launch/dryrun.py``).  CPU tensors still take the plain versions.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -60,16 +71,74 @@ def reset_launches() -> None:
 def wants_kernel(t: torch.Tensor, use_kernel: Optional[bool]) -> bool:
     """Kernel or plain version for tensor ``t``.
 
-    ``None`` decides by device: the kernel for a CUDA tensor, the plain
-    version for a CPU tensor.  ``False`` asks for the plain version on
-    any device (tests and the chip smoke use it as the reference);
-    ``True`` insists on the kernel and raises for a CPU tensor.
+    ``None`` decides by device: the kernel for a CUDA or a meta tensor
+    (whose launch runs nothing: :func:`launch`), the plain version for a
+    CPU tensor.  ``False`` asks for the plain version on any device (tests
+    and the chip smoke use it as the reference); ``True`` insists on the
+    kernel and raises for a CPU tensor.
     """
     if use_kernel is None:
-        return t.is_cuda
-    if use_kernel and not t.is_cuda:
+        return t.is_cuda or t.is_meta
+    if use_kernel and not (t.is_cuda or t.is_meta):
         raise ValueError("the CUDA kernels need CUDA tensors")
     return bool(use_kernel)
+
+
+@dataclasses.dataclass(frozen=True)
+class Work:
+    """One launch's work, as PERF.md's bounds count it: integer lane
+    operations (K1: one add a product; K3: one a lane; K4: its ALU
+    operations a lane), f32 FLOPs (K2, K5: two a multiply-add), and the
+    bytes it must move (each operand read once, the output written once),
+    with the operands' shapes and dtypes."""
+
+    int_ops: float
+    flops: float
+    bytes: float
+    shapes: tuple
+    dtypes: tuple
+
+
+#: the analyses that hear of every launch: callables (name, Work)
+listeners: List[Callable[[str, Work], None]] = []
+
+
+def launch(name: str, out: torch.Tensor, call: Callable[[], int], *,
+           inputs: Sequence[torch.Tensor] = (), int_ops: float = 0.0,
+           flops: float = 0.0, moved: Optional[float] = None) -> torch.Tensor:
+    """Launch kernel ``name``: ``call()`` hands the pointers to the library
+    (and returns its error code) on CUDA tensors; on meta tensors nothing
+    is called.  Either way the launch counts under ``name`` and its work
+    goes to :data:`listeners`.  ``moved`` overrides the bytes of
+    ``inputs`` and ``out`` (K2 reads only the blocks its table names).
+    Returns ``out``."""
+    tensors = (*inputs, out)
+    on_meta = {t.is_meta for t in tensors}
+    if len(on_meta) > 1:
+        raise ValueError(f"{name}: meta and CUDA tensors in one launch")
+    if True in on_meta:
+        launches[name] += 1
+    else:
+        check_launch(name, call())
+    if listeners:
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        work = Work(float(int_ops), float(flops), float(nbytes if moved is None else moved),
+                    tuple(tuple(t.shape) for t in tensors),
+                    tuple(str(t.dtype).replace("torch.", "") for t in tensors))
+        for listen in listeners:
+            listen(name, work)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def source_constant(source: str, name: str) -> int:
+    """``constexpr int <name> = <N>;`` of ``csrc/<source>``: the hand
+    counts of a kernel's operations live beside its code."""
+    text = (CSRC / source).read_text()
+    m = re.search(rf"constexpr\s+int\s+{name}\s*=\s*(\d+)\s*;", text)
+    if m is None:
+        raise KeyError(f"{name} not found in {source}")
+    return int(m.group(1))
 
 
 def _nvcc() -> str:
@@ -181,8 +250,10 @@ def check_launch(name: str, err: int) -> None:
 
 
 def require(t: torch.Tensor, name: str, dtypes, ndim: Optional[int] = None) -> None:
-    """Checks every wrapper makes before handing a pointer to a kernel."""
-    if not t.is_cuda:
+    """Checks every wrapper makes before handing a pointer to a kernel.
+    A meta tensor passes as a CUDA one would: :func:`launch` hands no
+    pointer of it to the library."""
+    if not (t.is_cuda or t.is_meta):
         raise ValueError(f"{name} must be a CUDA tensor")
     if t.dtype not in dtypes:
         raise TypeError(f"{name} has dtype {t.dtype}; expected one of {dtypes}")

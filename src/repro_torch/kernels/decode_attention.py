@@ -30,6 +30,10 @@ cache's capacity and the card's SMs.
 A sequence of length 0 has every key masked: as in the reference, its
 weights are uniform over every key the cache holds (``max_blk *
 block_size`` paged, ``S`` contiguous).
+
+On meta tensors (the dry run, ``launch/dryrun.py``) the kernels plan
+their splits for an H100's SMs and count as their work every key the
+cache holds: a meta run has no lengths to read.
 """
 from __future__ import annotations
 
@@ -65,6 +69,24 @@ MAX_SPLIT_KEYS = 4096
 def card_sms(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(q: torch.Tensor) -> int:
+    """The SMs a launch on ``q``'s device plans for: the card's, or on the
+    meta device an H100 SXM's."""
+    if q.is_meta:
+        from repro_torch.launch.roofline import SMS
+
+        return SMS
+    return card_sms(q.device.index)
+
+
+def _attention_work(q: torch.Tensor, kv_bytes: float, keys: int) -> dict:
+    """``_lib.launch``'s work of a decode attention launch over ``keys``
+    keys a sequence: two f32 FLOPs a multiply-add of Q.K^T and P.V."""
+    b, h, hd = q.shape
+    return dict(flops=4 * b * h * keys * hd,
+                moved=2 * q.numel() * q.element_size() + kv_bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +132,8 @@ def _scratch(q: torch.Tensor, batch: int, kv: int, hd: int, plan: SplitPlan):
     h = q.shape[1]
     partials = torch.empty(batch * h * plan.n_splits * (hd + 2), dtype=torch.float32,
                            device=q.device)
+    if q.is_meta:  # the counters are the card's, once per stream
+        return partials, 0, 0
     key = (q.device.index, _lib.stream_ptr(q))
     counters = _counters.get(key)
     if counters is None or counters.numel() < batch * kv:
@@ -187,16 +211,19 @@ def paged_decode_attention_kernel(q, k_pool, v_pool, block_tables, lengths):
         raise ValueError("block_tables and lengths need one row per sequence")
     _check_core_shape(q, kv, [("q", q), ("k_pool", k_pool), ("v_pool", v_pool)])
     max_blk = block_tables.shape[1]
-    plan = split_plan(b, kv, max_blk * bs, card_sms(q.device.index))
+    plan = split_plan(b, kv, max_blk * bs, _sms(q))
     _keep, partials, counters = _scratch(q, b, kv, hd, plan)
     out = torch.empty_like(q)
-    err = _lib.library().paged_decode_attention_launch(
-        q.data_ptr(), _lib.DTYPE_CODES[q.dtype], k_pool.data_ptr(), v_pool.data_ptr(),
-        _lib.DTYPE_CODES[k_pool.dtype], block_tables.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), partials, counters, b, h, kv, hd, bs, max_blk, plan.n_splits,
-        plan.split_keys, hd ** -0.5, _lib.stream_ptr(q))
-    _lib.check_launch("paged_decode_attention", err)
-    return out
+    keys = max_blk * bs  # every key the table rows name
+    kv_bytes = 2 * b * keys * kv * hd * k_pool.element_size() + (
+        block_tables.numel() + lengths.numel()) * 4
+    return _lib.launch(
+        "paged_decode_attention", out, lambda: _lib.library().paged_decode_attention_launch(
+            q.data_ptr(), _lib.DTYPE_CODES[q.dtype], k_pool.data_ptr(), v_pool.data_ptr(),
+            _lib.DTYPE_CODES[k_pool.dtype], block_tables.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), partials, counters, b, h, kv, hd, bs, max_blk, plan.n_splits,
+            plan.split_keys, hd ** -0.5, _lib.stream_ptr(q)),
+        inputs=(q, k_pool, v_pool, block_tables, lengths), **_attention_work(q, kv_bytes, keys))
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
@@ -245,15 +272,16 @@ def decode_attention_kernel(q, k, v, lengths, *, blk: Optional[int] = None):
     if blk is not None and blk <= 0:
         raise ValueError(f"blk must be positive, got {blk}")
     _check_core_shape(q, kv, [("q", q), ("k", k), ("v", v)])
-    plan = split_plan(b, kv, s, card_sms(q.device.index), blk)
+    plan = split_plan(b, kv, s, _sms(q), blk)
     _keep, partials, counters = _scratch(q, b, kv, hd, plan)
     out = torch.empty_like(q)
-    err = _lib.library().decode_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _lib.DTYPE_CODES[q.dtype],
-        lengths.data_ptr(), partials, counters, out.data_ptr(), b, h, kv, hd, s,
-        plan.n_splits, plan.split_keys, hd ** -0.5, _lib.stream_ptr(q))
-    _lib.check_launch("decode_attention", err)
-    return out
+    kv_bytes = 2 * k.numel() * k.element_size() + lengths.numel() * 4
+    return _lib.launch(
+        "decode_attention", out, lambda: _lib.library().decode_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _lib.DTYPE_CODES[q.dtype],
+            lengths.data_ptr(), partials, counters, out.data_ptr(), b, h, kv, hd, s,
+            plan.n_splits, plan.split_keys, hd ** -0.5, _lib.stream_ptr(q)),
+        inputs=(q, k, v, lengths), **_attention_work(q, kv_bytes, s))
 
 
 def decode_attention(q, k, v, lengths, *, blk: Optional[int] = None,

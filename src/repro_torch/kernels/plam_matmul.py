@@ -64,11 +64,12 @@ def _launch(entry, a: torch.Tensor, a_args, b_bits: torch.Tensor, spec: PositSpe
         return out
     if k == 0:
         return out.zero_()
-    err = getattr(_lib.library(), entry)(
-        a.data_ptr(), *a_args, b_bits.data_ptr(), int(b_bits.dtype == torch.int16),
-        out.data_ptr(), m, n, k, e, m * k, k * n, m * n, spec.n, spec.es,
-        _lib.stream_ptr(a))
-    _lib.check_launch("plam_matmul", err)
+    _lib.launch(
+        "plam_matmul", out, lambda: getattr(_lib.library(), entry)(
+            a.data_ptr(), *a_args, b_bits.data_ptr(), int(b_bits.dtype == torch.int16),
+            out.data_ptr(), m, n, k, e, m * k, k * n, m * n, spec.n, spec.es,
+            _lib.stream_ptr(a)),
+        inputs=(a, b_bits), int_ops=e * m * n * k)  # one integer add a product
     if grouped:
         _lib.launches["plam_matmul_grouped"] += 1
     return out

@@ -50,8 +50,9 @@ TABLE_MIN_NUMEL = 1 << 20
 #: the non-negative bf16 patterns, whose posits give all 65,536 by sign
 TABLE_ENTRIES = 1 << 15
 
-# (kind, n, es, device index) -> the card's table, built once
-_tables: Dict[Tuple[str, int, int, Optional[int]], torch.Tensor] = {}
+# (kind, n, es, device type, device index) -> the card's table (or the
+# meta device's), built once
+_tables: Dict[Tuple[str, int, int, str, Optional[int]], torch.Tensor] = {}
 
 
 def _by_slices(fn, x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
@@ -108,7 +109,7 @@ def _card_table(kind: str, spec: PositSpec, device, build) -> torch.Tensor:
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    key = (kind, spec.n, spec.es, device.index)
+    key = (kind, spec.n, spec.es, device.type, device.index)
     table = _tables.get(key)
     if table is None:
         table = _tables[key] = build(device)
@@ -153,7 +154,7 @@ def quantize_table(spec: PositSpec, device: torch.device) -> torch.Tensor:
         q = torch.empty(TABLE_ENTRIES, dtype=torch.float32, device=dev)
         _quantize_launch(_magnitudes(dev), q, spec, None, "posit_codec_quant_table")
         bits = q.view(torch.int32)
-        inexact = int(torch.count_nonzero(bits & 0xFFFF))
+        inexact = 0 if q.is_meta else int(torch.count_nonzero(bits & 0xFFFF))
         if inexact:
             raise ValueError(f"{spec}: {inexact} quantized bf16 magnitudes are not bf16 "
                              "values; the quantize table cannot hold them")
@@ -163,18 +164,17 @@ def quantize_table(spec: PositSpec, device: torch.device) -> torch.Tensor:
 
 
 def _encode_launch(x, out, spec, table, counter):
-    err = _lib.library().posit_encode_launch(
+    _lib.launch(counter, out, lambda: _lib.library().posit_encode_launch(
         x.data_ptr(), _lib.DTYPE_CODES[x.dtype], out.data_ptr(), _lib.DTYPE_CODES[out.dtype],
         x.numel(), spec.n, spec.es, None if table is None else table.data_ptr(),
-        _lib.stream_ptr(x))
-    _lib.check_launch(counter, err)
+        _lib.stream_ptr(x)), inputs=(x,), int_ops=x.numel())  # one operation a lane
 
 
 def _quantize_launch(x, out, spec, table, counter):
-    err = _lib.library().posit_quantize_launch(
+    _lib.launch(counter, out, lambda: _lib.library().posit_quantize_launch(
         x.data_ptr(), _lib.DTYPE_CODES[x.dtype], out.data_ptr(), x.numel(), spec.n, spec.es,
-        None if table is None else table.data_ptr(), _lib.stream_ptr(x))
-    _lib.check_launch(counter, err)
+        None if table is None else table.data_ptr(), _lib.stream_ptr(x)),
+        inputs=(x,), int_ops=x.numel())
 
 
 def posit_encode(
@@ -209,10 +209,9 @@ def posit_decode(
     _lib.require(bits, "bits", _PATTERNS)
     out = torch.empty(bits.shape, dtype=torch.float32, device=bits.device)
     if bits.numel():
-        err = _lib.library().posit_decode_launch(
+        _lib.launch("posit_codec", out, lambda: _lib.library().posit_decode_launch(
             bits.data_ptr(), _lib.DTYPE_CODES[bits.dtype], out.data_ptr(), bits.numel(),
-            spec.n, spec.es, _lib.stream_ptr(bits))
-        _lib.check_launch("posit_codec", err)
+            spec.n, spec.es, _lib.stream_ptr(bits)), inputs=(bits,), int_ops=bits.numel())
     return out
 
 
@@ -245,10 +244,12 @@ def _posit_mul(a_bits, b_bits, spec, use_kernel, exact: bool):
         raise ValueError("a_bits and b_bits lie on different devices")
     out = torch.empty(a_bits.shape, dtype=torch.int32, device=a_bits.device)
     if a_bits.numel():
-        err = _lib.library().posit_mul_launch(
+        per_lane = _lib.source_constant(
+            "posit_mul.cu", "kExactMulAluOpsPerLane" if exact else "kPlamMulAluOpsPerLane")
+        _lib.launch("posit_mul", out, lambda: _lib.library().posit_mul_launch(
             a_bits.data_ptr(), b_bits.data_ptr(), out.data_ptr(), a_bits.numel(), spec.n,
-            spec.es, int(exact), _lib.stream_ptr(a_bits))
-        _lib.check_launch("posit_mul", err)
+            spec.es, int(exact), _lib.stream_ptr(a_bits)),
+            inputs=(a_bits, b_bits), int_ops=per_lane * a_bits.numel())
     return out
 
 

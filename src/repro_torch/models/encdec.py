@@ -76,12 +76,12 @@ class EncDecLM(nn.Module):
 
 
 def encdec_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> EncDecLM:
-    """The port's own seeded init on ``device`` (CUDA by default)."""
-    from repro_torch.device import resolve_device
+    """The port's own seeded init on ``device`` (CUDA by default; on
+    ``"meta"`` shapes and dtypes only, ``device.init_generator``)."""
+    from repro_torch.device import init_generator, resolve_device
 
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = init_generator(device, seed)
     return EncDecLM(cfg, generator=gen, device=device)
 
 

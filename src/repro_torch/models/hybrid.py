@@ -71,12 +71,12 @@ class HybridLM(nn.Module):
 
 
 def hybrid_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> HybridLM:
-    """The port's own seeded init on ``device`` (CUDA by default)."""
-    from repro_torch.device import resolve_device
+    """The port's own seeded init on ``device`` (CUDA by default; on
+    ``"meta"`` shapes and dtypes only, ``device.init_generator``)."""
+    from repro_torch.device import init_generator, resolve_device
 
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = init_generator(device, seed)
     return HybridLM(cfg, generator=gen, device=device)
 
 

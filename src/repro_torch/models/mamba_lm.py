@@ -66,12 +66,12 @@ class MambaLM(nn.Module):
 
 
 def mamba_lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> MambaLM:
-    """The port's own seeded init on ``device`` (CUDA by default)."""
-    from repro_torch.device import resolve_device
+    """The port's own seeded init on ``device`` (CUDA by default; on
+    ``"meta"`` shapes and dtypes only, ``device.init_generator``)."""
+    from repro_torch.device import init_generator, resolve_device
 
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = init_generator(device, seed)
     return MambaLM(cfg, generator=gen, device=device)
 
 

@@ -22,7 +22,16 @@ describe the training and prefill batches as meta tensors, the analogue
 of the reference's ``ShapeDtypeStruct``s (a vlm row's ``seq_len`` counts
 its patches, an encdec row's its source frames); the stub frontends'
 inputs are the caller's (seeded numpy arrays in the tests and the chip
-smoke).
+smoke).  ``decode_inputs(batch, seq_len)`` describes one decode step
+after ``seq_len`` cached positions: the token [B, 1], the family's caches
+(bf16 K/V [L, B, S, kv, hd] for the transformer families; the ssm's and
+hybrid's ``cache_init`` at (B, S); the encdec's decoder caches at its
+target prefix, with ``enc_out`` [B, S, d]) and ``cache_len``, the cache's
+last slot.  ``cache_len`` is a host int where the reference traces an
+int32 scalar: the port's eager attention slices the cache with it
+(``attention.py::attn_apply``), so a meta tensor could not stand in.
+Together with ``init(seed, device="meta")`` these are the dry run's
+cells (``launch/dryrun.py``), built without a byte of device memory.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ class ModelAPI:
     decode_step: Callable  # (model, batch with caches, use_kernel=None) -> (logits, caches)
     train_inputs: Callable  # (batch, seq_len) -> {name: meta tensor}
     prefill_inputs: Callable  # (batch, seq_len) -> {name: meta tensor}
+    decode_inputs: Callable  # (batch, seq_len) -> {name: meta tensor, "cache_len": int}
     # the paged KV-cache path (continuous batching); None for the families
     # without a paged layout (the ssm/hybrid state caches)
     paged_pool_init: Optional[Callable] = None  # (num_blocks, block_size, dtype, device)
@@ -79,6 +89,18 @@ def _labelled(inputs):
 
 def _train_inputs(batch: int, seq_len: int):
     return _labelled(_prefill_inputs(batch, seq_len))
+
+
+def _decode_inputs(caches, cache_key: str, batch: int, cache_len: int, **extra):
+    """One decode step's inputs: the token [B, 1], ``caches`` under
+    ``cache_key``, ``cache_len`` (the host int the step writes at)."""
+    return {"token": _meta((batch, 1)), cache_key: caches, **extra,
+            "cache_len": cache_len}
+
+
+def _kv_caches(layers: int, batch: int, seq_len: int, cfg: ModelConfig):
+    shape = (layers, batch, seq_len, cfg.n_kv, cfg.hd)
+    return (_meta(shape, CACHE_DTYPE), _meta(shape, CACHE_DTYPE))
 
 
 def vlm_patches(cfg: ModelConfig) -> int:
@@ -112,6 +134,10 @@ def build(cfg: ModelConfig) -> ModelAPI:
         def decode_step(model, batch, use_kernel=None):
             return _mamba.decode_step(cfg, model, batch["token"], batch["caches"],
                                       batch["cache_len"], use_kernel)
+
+        def decode_inputs(batch: int, seq_len: int):
+            caches = _mamba.cache_init(cfg, batch, seq_len, CACHE_DTYPE, "meta")
+            return _decode_inputs(caches, "caches", batch, seq_len - 1)
     elif fam == "hybrid":
         def init(seed: int = 0, device=None):
             return _hybrid.hybrid_init(cfg, seed=seed, device=device)
@@ -128,11 +154,15 @@ def build(cfg: ModelConfig) -> ModelAPI:
         def decode_step(model, batch, use_kernel=None):
             return _hybrid.decode_step(cfg, model, batch["token"], batch["caches"],
                                        batch["cache_len"], use_kernel)
+
+        def decode_inputs(batch: int, seq_len: int):
+            caches = _hybrid.cache_init(cfg, batch, seq_len, CACHE_DTYPE, "meta")
+            return _decode_inputs(caches, "caches", batch, seq_len - 1)
     else:
         raise ValueError(f"unknown family {fam!r}")
     return ModelAPI(cfg=cfg, init=init, train_loss=train_loss, prefill=prefill,
                     decode_step=decode_step, train_inputs=_train_inputs,
-                    prefill_inputs=_prefill_inputs)
+                    prefill_inputs=_prefill_inputs, decode_inputs=decode_inputs)
 
 
 def _build_encdec(cfg: ModelConfig) -> ModelAPI:
@@ -161,9 +191,15 @@ def _build_encdec(cfg: ModelConfig) -> ModelAPI:
     def train_inputs(batch: int, seq_len: int):
         return _labelled(prefill_inputs(batch, seq_len))
 
+    def decode_inputs(batch: int, seq_len: int):
+        t = encdec_tgt_len(cfg, seq_len)
+        enc_out = _meta((batch, seq_len, cfg.d_model), _tf.torch_dtype(cfg.act_dtype))
+        return _decode_inputs(_kv_caches(cfg.dec_layers, batch, t, cfg), "kv_caches", batch,
+                              t - 1, enc_out=enc_out)
+
     return ModelAPI(cfg=cfg, init=init, train_loss=train_loss, prefill=prefill,
                     decode_step=decode_step, train_inputs=train_inputs,
-                    prefill_inputs=prefill_inputs)
+                    prefill_inputs=prefill_inputs, decode_inputs=decode_inputs)
 
 
 def _build_transformer(cfg: ModelConfig) -> ModelAPI:
@@ -185,6 +221,10 @@ def _build_transformer(cfg: ModelConfig) -> ModelAPI:
         return _tf.decode_step(cfg, model, batch["token"], batch["kv_caches"],
                                batch["cache_len"], use_kernel)
 
+    def decode_inputs(batch: int, seq_len: int):
+        return _decode_inputs(_kv_caches(cfg.n_layers, batch, seq_len, cfg), "kv_caches",
+                              batch, seq_len - 1)
+
     if cfg.family == "vlm":
         def prefill_inputs(batch: int, seq_len: int):
             p = vlm_patches(cfg)
@@ -197,7 +237,7 @@ def _build_transformer(cfg: ModelConfig) -> ModelAPI:
 
         return ModelAPI(cfg=cfg, init=init, train_loss=train_loss, prefill=prefill,
                         decode_step=decode_step, train_inputs=train_inputs,
-                        prefill_inputs=prefill_inputs)
+                        prefill_inputs=prefill_inputs, decode_inputs=decode_inputs)
 
     def paged_pool_init(num_blocks, block_size, dtype, device):
         return _tf.paged_kv_pool_init(cfg, num_blocks, block_size, dtype, device)
@@ -224,7 +264,8 @@ def _build_transformer(cfg: ModelConfig) -> ModelAPI:
 
     return ModelAPI(cfg=cfg, init=init, train_loss=train_loss, prefill=prefill,
                     decode_step=decode_step, train_inputs=_train_inputs,
-                    prefill_inputs=_prefill_inputs, paged_pool_init=paged_pool_init,
+                    prefill_inputs=_prefill_inputs, decode_inputs=decode_inputs,
+                    paged_pool_init=paged_pool_init,
                     paged_prefill=paged_prefill, paged_prefill_chunk=paged_prefill_chunk,
                     paged_decode_step=paged_decode_step,
                     paged_score_tokens=paged_score_tokens)

@@ -99,12 +99,12 @@ class DenseLM(nn.Module):
 def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> DenseLM:
     """The port's own seeded init, drawn on ``device`` (CUDA by default),
     one tensor at a time in f32 and cast to the parameter dtype, so that
-    no f32 copy of the model is ever held."""
-    from repro_torch.device import resolve_device
+    no f32 copy of the model is ever held (on ``"meta"`` shapes and
+    dtypes only, ``device.init_generator``)."""
+    from repro_torch.device import init_generator, resolve_device
 
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = init_generator(device, seed)
     return DenseLM(cfg, generator=gen, device=device)
 
 
