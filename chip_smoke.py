@@ -5,9 +5,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--layers N]
                           [--phases device,kernels,conformance,serve,serve_paths,observe,moe,
-                                    static,archs,train,train_families,e2e,times,dryrun]
+                                    static,archs,train,train_families,e2e,times,dryrun,tp]
 
-It imports ``repro_torch`` (never JAX) and runs fourteen phases, each on
+It imports ``repro_torch`` (never JAX) and runs fifteen phases, each on
 its own lines:
 
 1. device      — the card's name and power limit (nvidia-smi), the torch
@@ -246,6 +246,30 @@ its own lines:
    measured step.  Printed: the measured step, the bound and its dominant
    term, the ideal step over the measured one (its roofline fraction) and
    the predicted against the measured memory.
+15. tp         — tensor-parallel serving on the continuous engine, each
+   world of ranks spawned from here (``launch/mesh.py::spawn``), the
+   ranks of every world but the last processes on this one card over
+   gloo: yi-6b at full width and depth under ``default=plam_sim:16:1``,
+   each rank drawing its shard of the seeded init and encoding it to
+   int16, at tp = 2 on the serve phase's 4 requests, plainly and with
+   chunked prefill and n-gram spec; yi-6b cut to ``TP_CUT_LAYERS`` at tp =
+   8 (its 4 kv heads < 8: each rank keeps the kv head its q heads read);
+   granite-moe-1b-a400m at full width and depth (TP inside each expert,
+   its vocab of 49,155 kept whole) and deepseek-moe-16b cut to
+   ``TP_CUT_LAYERS`` at tp = 2; yi-6b at tp = 1 in a world of one over
+   nccl.  Gates: each rank's launches a forward (7L+1 K1 at the sharded
+   shapes ``TP_YI_K1``, the MoE models' 3L over their expert stacks; L K2
+   a decode step on H/tp q heads and the rank's kv heads), no plain K1
+   or codec call, K1 bit for bit against its plain version at every
+   (M, K, N) a rank launched (expert stacks included), K2 within K5's
+   gates on a decode step's operands, every rank's tokens equal, and
+   rank 0's equal to the tp = 1 run's (phase serve's for yi-6b, else
+   served here) or parting only where the tp = 1 context's top-2 margin
+   is below ``E2E_LOGIT_TOL``.  Printed beside the card's name and power
+   limit (every rank shares the card: no multi-card figure): each world's
+   backend and size, each rank's peak memory, the step p50 at tp = 1 and
+   tp = 2, K1's device times at the sharded shapes (rank 0, the others
+   held at a barrier) and the collectives' share of a decode step.
 
 It exits non-zero if any phase fails, if no CUDA device is present, or if
 ``repro_torch`` cannot be imported.  Its last line is
@@ -269,7 +293,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ["device", "kernels", "conformance", "serve", "serve_paths", "observe", "moe",
-          "static", "archs", "train", "train_families", "e2e", "times", "dryrun"]
+          "static", "archs", "train", "train_families", "e2e", "times", "dryrun", "tp"]
 
 # H100 SXM peaks (NVIDIA data sheet), from the port's roofline, the one
 # source of them: HBM3 bytes/s, f32 CUDA-core FLOP/s, SMs and the INT32
@@ -564,6 +588,9 @@ MITCHELL_ATOL = 1e-6
 # K1_PLAIN_LANES lanes of A and of the output (its int64 and int32
 # temporaries), when it is held to a recorded launch
 K1_PLAIN_LANES = 1 << 26
+# experts of a recorded K1 launch over a stack held to the plain version:
+# the first this many, and the last
+K1_GROUPED_CHECKED = 8
 # K3's quantize at the training path's shapes (yi-6b, batch 8 x seq 128 =
 # 1024 tokens): every weight of a block and the unembed, bf16 and f32, and
 # the two activation widths
@@ -709,6 +736,15 @@ DRYRUN_STEPS = 3
 # counts are wrong)
 DRYRUN_MEM_TOL = 0.15
 DRYRUN_BOUND_SLACK = 1.05
+# phase tp: tensor-parallel serving, every rank a process on this one card
+# (gloo), and a world of one over nccl.  yi-6b's K1 (K, N) at tp = 2: wq,
+# wk/wv, wo, wg/wu, wd and the unembed, each rank's block
+TP_YI_K1 = {(4096, 2048), (4096, 256), (2048, 4096), (4096, 5504), (5504, 4096),
+            (4096, 32000)}
+TP_FALLBACK = 8  # yi-6b's kv = 4 < 8: each rank keeps the kv head its q heads read
+TP_CUT_LAYERS = 4  # the depth of the tp = 8 yi-6b and the deepseek-moe-16b runs
+TP_K1_TIME_REPS = 10
+TP_TIMEOUT_S = 600  # a spawned world's limit
 
 
 def launch_counts(cfg, prequantized: bool = True) -> dict:
@@ -5013,7 +5049,9 @@ class Smoke:
         """Where two recorded serving runs (recording_serve_events) first
         part, if they do: a routing call whose chosen experts differ (each
         differing token with the router's top-k margin in ``want``, the
-        k-th probability less the next) or a token pick that differs (with
+        k-th probability less the next, and its swap margin, the gap
+        between ``want``'s probabilities at the first rank where the two
+        choices differ and the next) or a token pick that differs (with
         ``want``'s top-2 logit margin there).  Both runs make the same
         calls in the same order up to there; what follows descends from
         it.  Returns (the departure, [] where they never part; the largest
@@ -5031,11 +5069,16 @@ class Smoke:
                 perturbation = max(perturbation,
                                    float((torch.softmax(g[2], dim=-1) - pw).abs().max()))
                 if not torch.equal(g[1], w[1]):
-                    rows = (g[1].view(-1, top_k) != w[1].view(-1, top_k)).any(dim=1)
+                    differ = g[1].view(-1, top_k) != w[1].view(-1, top_k)
                     probs = pw.sort(dim=-1, descending=True).values
-                    return [{"event": "route", "token": int(r),
-                             "router_topk_margin": float(probs[r, top_k - 1] - probs[r, top_k])}
-                            for r in rows.nonzero()[:, 0].tolist()], perturbation
+                    out = []
+                    for r in differ.any(dim=1).nonzero()[:, 0].tolist():
+                        j = int(differ[r].nonzero()[0, 0])
+                        out.append({"event": "route", "token": r,
+                                    "router_topk_margin": float(probs[r, top_k - 1]
+                                                                - probs[r, top_k]),
+                                    "router_swap_margin": float(probs[r, j] - probs[r, j + 1])})
+                    return out, perturbation
             if g[0] == "pick" and g[1:4] != w[1:4]:
                 return [{"event": "pick", "request": w[1], "position": w[2], "got": g[3],
                          "want": w[3], "plain_top2_margin": w[4]}], perturbation
@@ -5158,12 +5201,13 @@ class Smoke:
                 "seconds_flash": sf, "seconds_plain": s0}
 
     @contextlib.contextmanager
-    def recording_k1(self):
+    def recording_k1(self, clone_b: bool = True):
         """The first K1 launch over float activations
         (``ops.plam_matmul_float``, which ``plam_dense`` calls) at each
         (A shape and dtype, B shape and dtype, spec) while the block runs:
         copies of its operands and its output, and the count of launches
-        at that key."""
+        at that key.  ``clone_b=False`` keeps B itself, for weights that
+        stay as they are while the block runs (served, not trained)."""
         from repro_torch.kernels import ops
 
         real, seen = ops.plam_matmul_float, {}
@@ -5173,7 +5217,8 @@ class Smoke:
             key = (tuple(x.shape), str(x.dtype)[6:], tuple(b.shape), str(b.dtype)[6:],
                    (spec.n, spec.es))
             if key not in seen and x.is_cuda:
-                seen[key] = [x.detach().clone(), b.clone(), spec, out.detach().clone(), 0]
+                seen[key] = [x.detach().clone(), b.clone() if clone_b else b, spec,
+                             out.detach().clone(), 0]
             if key in seen:
                 seen[key][4] += 1
             return out
@@ -5195,18 +5240,26 @@ class Smoke:
         n_before, t0, cases = len(failures), time.perf_counter(), []
         for key in sorted(seen, key=lambda k: (k[0][0], k[0][-1], k[2][-1])):
             x, b, spec, got, calls = seen[key]
-            (m, k), n = x.shape, b.shape[-1]
+            (m, k), n = x.shape[-2:], b.shape[-1]
             rows = max(1, K1_PLAIN_LANES // max(k, n))
+            # a launch over a stack of experts: its first K1_GROUPED_CHECKED
+            # experts and its last, each against the 2-D plain version
+            parts = [(x, b, got)]
+            if x.dim() == 3:
+                experts = {*range(min(K1_GROUPED_CHECKED, x.shape[0])), x.shape[0] - 1}
+                parts = [(x[e], b[e], got[e]) for e in sorted(experts)]
             bad = 0
-            for r0 in range(0, m, rows):
-                want = plam_matmul_float(x[r0:r0 + rows], b, spec, use_kernel=False)
-                bad += int((got[r0:r0 + rows].view(torch.int32)
-                            != want.view(torch.int32)).sum())
-                del want
+            for xe, be, ge in parts:
+                for r0 in range(0, m, rows):
+                    want = plam_matmul_float(xe[r0:r0 + rows], be, spec, use_kernel=False)
+                    bad += int((ge[r0:r0 + rows].view(torch.int32)
+                                != want.view(torch.int32)).sum())
+                    del want
             if bad:
                 failures.append(f"{what}: K1 M={m} K={k} N={n} A={key[1]} B={key[3]}: "
                                 f"{bad} lanes differ from the plain version")
             cases.append({"m": m, "k": k, "n": n, "a": key[1], "b": key[3], "launches": calls,
+                          "experts": x.shape[0] if x.dim() == 3 else 0,
                           "lanes_differ": bad})
         seen.clear()  # the kept operands and outputs
         torch.cuda.synchronize()
@@ -6342,6 +6395,177 @@ class Smoke:
                             f"{share:.3f} of the measured step")
         return res
 
+    # -- phase 15 ------------------------------------------------------------
+
+    def phase_tp(self):
+        """Tensor-parallel serving, each world spawned from here
+        (``launch/mesh.py::spawn``): yi-6b at full width and depth at tp = 2
+        (plain, then chunked prefill with n-gram spec), yi-6b cut in depth
+        at tp = 8 (the replicated-kv-head fallback), granite-moe-1b-a400m at
+        full width and depth and deepseek-moe-16b cut in depth at tp = 2,
+        and yi-6b at tp = 1 in a world of one over nccl.  Every world but the
+        last runs its ranks over gloo on this one card."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.launch.mesh import spawn
+
+        self.yi_model = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        card = self.results["device"]["nvidia_smi"]
+        note = f"[{card}; every rank on this one card: not multi-card figures]"
+        failures, res = [], {"card": card}
+        layers = self.args.layers
+        base = dict(max_new_tokens=16, block_size=16, max_slots=4, num_blocks=64,
+                    max_seq_len=128, prequantize=True)
+        cfg = self.yi_cfg(layers)
+        prompts, want, ref = self.tp_reference(cfg, base)
+        res["tp1_step_p50_s"] = ref["step_p50_s"]
+
+        def world(name, tp, job, want, cfg, model_of, prompts, want_events=None):
+            """One spawned world: its ranks' gates, then rank 0's tokens
+            against the tp = 1 run's under the serve-paths margin rule (a
+            MoE's: where its routing calls and token picks first part from
+            the tp = 1 run's, a router top-k margin below MOE_ROUTE_TOL or a
+            top-2 logit margin below E2E_LOGIT_TOL, as phase
+            train_families holds the trained MoE)."""
+            t0 = time.perf_counter()
+            ranks = spawn(tp_rank, tp, "cuda", self.args, job, timeout=TP_TIMEOUT_S)
+            row = {"seconds": time.perf_counter() - t0, "ranks": ranks}
+            res[name] = row
+            r0 = ranks[0]
+            for r in ranks:
+                failures.extend(f"{name} rank {r['rank']}: {f}" for f in r["failures"])
+                for run, out in r["outputs"].items():
+                    if out != r0["outputs"][run]:
+                        failures.append(f"{name} rank {r['rank']}: {run} tokens differ from "
+                                        f"rank 0's")
+            log(f"tp {name}: backend {r0['backend']}, world {r0['world']}, peak per rank "
+                f"{[round(r['peak_gib'], 3) for r in ranks]} GiB, step p50 "
+                + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in r0["step_p50_s"].items())
+                + f", {row['seconds']:.1f} s with the spawn {note}")
+            for run, out in r0["outputs"].items():
+                if want_events is not None:
+                    # a routing call may part where two experts' probabilities
+                    # lie within twice the largest move of any probability so
+                    # far (each moved by at most that), that move below
+                    # MOE_ROUTE_TOL; a token pick by the margin rule
+                    diffs, moved = self.first_departure(r0["events"], want_events, cfg.top_k)
+                    row["router_prob_perturbation"] = moved
+                    bad = [d for d in diffs if (
+                        d["event"] == "route" and not (moved < MOE_ROUTE_TOL and
+                                                       d["router_swap_margin"] <= 2 * moved))
+                        or d.get("plain_top2_margin", 0.0) >= E2E_LOGIT_TOL
+                        or d["event"] == "structure"]
+                    if diffs:
+                        log(f"  {name}: router probabilities' largest |difference| from tp = 1 "
+                            f"up to where they part {moved:.3e}")
+                else:
+                    diffs = [] if out == want else self.token_diffs(cfg, model_of(), prompts,
+                                                                    out, want)
+                    bad = [d for d in diffs if d["plain_top2_margin"] >= E2E_LOGIT_TOL]
+                row.setdefault("token_diffs", {})[run] = diffs
+                failures.extend(f"{name} {run}: parts from tp = 1 at {d}" for d in bad)
+                log(f"  {name} {run}: greedy tokens "
+                    + ("equal to the tp = 1 run's" if out == want else "differ from the tp = 1 "
+                       f"run's; where the runs first part: {diffs}"))
+            r0.pop("events", None)
+            return r0
+
+        # a. yi-6b, full width and depth, tp = 2
+        job = dict(arch="yi-6b", layers=layers, tp=2, prompts=prompts, base=base,
+                   runs={"plain": {}, "chunk_spec": {"prefill_chunk": SERVE_CHUNK,
+                                                     "spec_k": SERVE_SPEC_K}},
+                   k1_shapes=TP_YI_K1, check_k2=True, time_k1=True, collectives=True)
+        r0 = world("yi-6b tp=2", 2, job, want, cfg, ref["model"], prompts)
+        ref["model"].cache_clear()
+        res["step_p50_s"] = {"tp1": ref["step_p50_s"], "tp2": r0["step_p50_s"]["plain"]}
+        log(f"tp yi-6b step p50: tp = 1 {ref['step_p50_s'] * 1e3:.1f} ms, tp = 2 "
+            f"{r0['step_p50_s']['plain'] * 1e3:.1f} ms; collectives "
+            f"{r0['collectives']['decode_share']:.3f} of a decode step "
+            f"({r0['collectives']['per_decode_step']} a step) {note}")
+        # b. yi-6b cut in depth at tp = 8: kv = 4 < 8, the replicated-kv-head
+        # fallback
+        cut = self.yi_cfg(min(layers, TP_CUT_LAYERS))
+        cut_ref = self.tp_model_run("yi-6b", cut.n_layers, base, prompts)
+        job = dict(arch="yi-6b", layers=cut.n_layers, tp=TP_FALLBACK, prompts=prompts,
+                   base=base, runs={"plain": {}}, layout="replicated_kv_heads")
+        world(f"yi-6b tp={TP_FALLBACK} {cut.n_layers} layers", TP_FALLBACK, job,
+              cut_ref["outputs"], cut, cut_ref["model"], prompts)
+        del cut_ref
+        # c. the MoE family at tp = 2: granite at full depth (its vocab of
+        # 49,155 kept whole), deepseek cut in depth
+        for arch, depth in (("granite-moe-1b-a400m", None),
+                            ("deepseek-moe-16b", TP_CUT_LAYERS)):
+            mcfg = self.moe_cfg(arch)
+            depth = min(depth or mcfg.n_layers, layers)
+            _, mprompts = self.moe_prompts(mcfg.vocab)
+            mref = self.tp_model_run(arch, depth, base, mprompts)
+            job = dict(arch=arch, layers=depth, tp=2, prompts=mprompts, base=base,
+                       runs={"plain": {}}, layout="kv_heads", check_k1=True)
+            world(f"{arch} tp=2 {depth} layers", 2, job, mref["outputs"],
+                  dataclasses.replace(mcfg, n_layers=depth), mref["model"], mprompts,
+                  mref["events"])
+            del mref
+            gc.collect()
+            torch.cuda.empty_cache()
+        # d. yi-6b at tp = 1 in a world of one: the nccl path
+        job = dict(arch="yi-6b", layers=layers, tp=1, prompts=prompts, base=base,
+                   runs={"plain": {}}, backend="nccl")
+        world("yi-6b tp=1 nccl", 1, job, want, cfg, ref["model"], prompts)
+        ref["model"].cache_clear()
+        self.results["tp"] = res
+        if failures:
+            raise AssertionError("; ".join(failures[:8]))
+
+    def tp_reference(self, cfg, base):
+        """Phase serve's prompts and tokens at tp = 1 (served here when that
+        phase did not run), with its step p50 and the tp = 1 model made on
+        demand (for the margin of a token that differs)."""
+        import functools
+
+        from repro_torch.core.prequant import quantize_params
+        from repro_torch.models import transformer as tf
+
+        serve = self.results.get("serve", {})
+        if serve.get("layers") == cfg.n_layers and getattr(self, "serve_prompts", None):
+            prompts, want = self.serve_prompts, serve["outputs"]
+            p50 = serve["run_step_p50_s"]
+        else:
+            g = self.torch.Generator().manual_seed(7)  # the serve phase's requests
+            lens = self.torch.randint(32, 65, (4,), generator=g).tolist()
+            prompts = [self.torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+                       for n in lens]
+            run = self.tp_model_run("yi-6b", cfg.n_layers, base, prompts)
+            want, p50 = run["outputs"], run["step_p50_s"]
+
+        @functools.lru_cache(maxsize=1)
+        def model():
+            m = tf.lm_init(cfg, seed=0, device=self.dev)
+            quantize_params(cfg, m)
+            return m
+
+        return prompts, want, {"step_p50_s": p50, "model": model}
+
+    def tp_model_run(self, arch, layers, base, prompts):
+        """``arch`` at full width and ``layers`` deep from the seeded init,
+        prequantized, served at tp = 1 here: its tokens, step p50, the
+        model (for the margins) and, for a MoE, its routing calls and
+        token picks (``recording_serve_events``)."""
+        from repro_torch.core.prequant import quantize_params
+        from repro_torch.models import transformer as tf
+        from repro_torch.serving import ServeOptions
+
+        cfg = tp_cfg(arch, layers)
+        model = tf.lm_init(cfg, seed=0, device=self.dev)
+        quantize_params(cfg, model)
+        with self.recording_serve_events() as events:
+            run = self.serve_run(f"{arch} tp=1 {layers} layers", cfg, model,
+                                 ServeOptions(**base), prompts)
+        return {"outputs": run["outputs"], "step_p50_s": run["step_p50_s"],
+                "model": lambda: model, "events": events if cfg.n_experts else None}
+
     def kernels_line(self):
         out = []
         for name, (row, source, replaces) in self.kernels.items():
@@ -6356,6 +6580,180 @@ class Smoke:
                 "shape": row["shape"],
             })
         return {"kernels": out}
+
+
+def tp_cfg(arch, layers):
+    """``arch`` at full width, ``layers`` deep, under default=plam_sim:16:1."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    return cfg.with_numerics("default=plam_sim:16:1")
+
+
+def tp_rank(device, args, job):
+    """One rank of phase tp (``launch/mesh.py::spawn``): the seeded init
+    drawn and cut for this rank, encoded to int16 in place, then each of
+    ``job["runs"]`` served on it through ``Smoke.serve_run`` (launches
+    per forward gated; K1's and K2's operands recorded where asked, and
+    no plain K1 or codec call allowed); then K1 bit for bit against its
+    plain version at each (M, K, N) launched, K2 within K5's gates, K1's
+    device times at the sharded shapes and the collectives' share of a
+    decode step (rank 0 times, the others wait).  Rank 0 logs."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.prequant import quantize_params
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServeOptions, build_engine
+
+    rank = dist.get_rank()
+    with contextlib.ExitStack() as quiet:
+        if rank:
+            quiet.enter_context(contextlib.redirect_stdout(
+                quiet.enter_context(open(os.devnull, "w"))))
+        smoke = Smoke(args)
+        cfg = tp_cfg(job["arch"], job["layers"])
+        mesh = make_host_mesh(model=job["tp"])
+        torch.cuda.reset_peak_memory_stats()
+        model = tf.lm_init(cfg, seed=0, device=device, mesh=mesh)
+        quantize_params(cfg, model)
+        out = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend(),
+               "failures": [], "outputs": {}, "step_p50_s": {}, "runs": {}}
+        fails = out["failures"]
+        if job.get("backend") and out["backend"] != job["backend"]:
+            fails.append(f"backend {out['backend']}, not {job['backend']}")
+        counts = (launch_counts(cfg) if not cfg.n_experts else None)
+        record_k1 = bool(job.get("k1_shapes") or job.get("check_k1"))
+        with contextlib.ExitStack() as stack:
+            plain = stack.enter_context(smoke.counting_plain())
+            k1_seen = (stack.enter_context(smoke.recording_k1(clone_b=False)) if record_k1
+                       else {})
+            k2_seen = stack.enter_context(smoke.recording_k2()) if job.get("check_k2") else {}
+            events = (stack.enter_context(smoke.recording_serve_events()) if cfg.n_experts
+                      else None)
+            for name, over in job["runs"].items():
+                opts = ServeOptions(tp=job["tp"], **{**job["base"], **over})
+                run = smoke.serve_run(f"rank {rank} {name}", cfg, model, opts, job["prompts"])
+                gates = (smoke.moe_gates(run, cfg, False) if cfg.n_experts
+                         else smoke.forward_gates(run, cfg.n_layers, counts))
+                fails.extend(f"{name}: {f}" for f in gates)
+                out["outputs"][name] = run["outputs"]
+                out["step_p50_s"][name] = run["step_p50_s"]
+                out["runs"][name] = run_summary(run)
+        # the serving peak: before the checks' plain versions run on the card
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if any(plain.values()):
+            fails.append(f"plain K1 or codec calls on the card: {plain}")
+        if events is not None and rank == 0:
+            out["events"] = events
+        probe = build_engine(cfg, ServeOptions(tp=job["tp"], **job["base"]), params=model)
+        out["pool_layout"], out["kv_heads"] = probe.pool_layout, probe._k_pool.shape[3]
+        if job.get("layout") and probe.pool_layout != job["layout"]:
+            fails.append(f"pool layout {probe.pool_layout}, not {job['layout']}")
+        del probe
+        if job.get("k1_shapes"):
+            shapes = {key[2][-2:] for key in k1_seen}
+            if shapes != job["k1_shapes"]:
+                fails.append(f"K1 (K, N) launched {sorted(shapes)}, not "
+                             f"{sorted(job['k1_shapes'])}")
+        if job.get("time_k1"):
+            out["k1_times"] = tp_k1_times(smoke, k1_seen, rank)
+        if record_k1:
+            out["k1_check"] = smoke.check_recorded_k1(f"rank {rank} K1", k1_seen, fails)
+        if job.get("check_k2"):
+            out["k2"] = one_rank_at_a_time(rank, lambda: tp_check_k2(smoke, rank, k2_seen, fails))
+            heads = {(r["h"], r["kv"]) for r in out["k2"]}
+            want = (cfg.n_heads // job["tp"], out["kv_heads"])
+            if heads != {want}:
+                fails.append(f"K2 ran on (q, kv) heads {heads}, not {want}")
+        if job.get("collectives"):
+            out["collectives"] = tp_collective_share(smoke, cfg, model, job)
+        del model
+    return out
+
+
+def one_rank_at_a_time(rank, fn):
+    """fn() on each rank in turn, the others held at a barrier, so that the
+    card times one rank's launches at a time."""
+    import torch.distributed as dist
+
+    out = None
+    for turn in range(dist.get_world_size()):
+        dist.barrier()
+        if turn == rank:
+            out = fn()
+    dist.barrier()
+    return out
+
+
+def tp_check_k2(smoke, rank, seen, fails):
+    """``Smoke.check_k2`` on the recorded K2 calls (their gates, the
+    kernel's times and SDPA's), each row with its plain version's device
+    time on the same operands."""
+    import importlib
+
+    k2_mod = importlib.import_module("repro_torch.kernels.decode_attention")
+    plain = {key: smoke.events_ms(lambda a=args: k2_mod.paged_decode_attention_ref(*a[:5]),
+                                  reps=TP_K1_TIME_REPS, spin=True)
+             for key, args in seen.items()}
+    rows = smoke.check_k2(f"rank {rank}", seen, fails)
+    for row, plain_ms in zip(rows, plain.values()):
+        row["plain_device_ms"] = plain_ms
+    return rows
+
+
+def tp_k1_times(smoke, seen, rank):
+    """Rank 0's device times of K1 at each recorded (M, K, N), the other
+    ranks held at a barrier so that the card runs one rank's launches."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+
+    rows = []
+    dist.barrier()
+    if rank == 0:
+        for key, (x, b, spec, _, _) in sorted(seen.items()):
+            (m, k), n = x.shape[-2:], b.shape[-1]
+            ms, dev_ms = smoke.timed(lambda: ops.plam_matmul_float(x, b, spec),
+                                     reps=TP_K1_TIME_REPS)
+            bound = (x.numel() * x.element_size() + b.numel() * b.element_size()
+                     + m * n * 4) / HBM_BYTES_PER_S * 1e3
+            rows.append({"m": m, "k": k, "n": n, "ms": ms, "device_ms": dev_ms,
+                         "bytes_bound_ms": bound})
+            log(f"  K1 M={m} K={k} N={n}: {ms:.4f} ms, device {dev_ms:.4f} ms, bytes "
+                f"bound {bound:.4f} ms")
+    dist.barrier()
+    return rows
+
+
+def tp_collective_share(smoke, cfg, model, job):
+    """One more plain run with the mesh timing its collectives (the card
+    synchronized around each): their host seconds inside the decode
+    steps over those steps' seconds, and the collectives a decode step."""
+    from repro_torch.serving import ServeOptions, build_engine
+
+    eng = build_engine(cfg, ServeOptions(tp=job["tp"], **job["base"]), params=model)
+    eng.mesh.time_collectives = True
+    api, spent = eng.api, {"s": 0.0, "collective_s": 0.0, "steps": 0, "calls": 0}
+
+    def decode(*a, **kw):
+        c0, n0, t0 = eng.mesh.collective_s, sum(eng.mesh.collectives.values()), time.perf_counter()
+        out = api.paged_decode_step(*a, **kw)
+        spent["s"] += time.perf_counter() - t0
+        spent["collective_s"] += eng.mesh.collective_s - c0
+        spent["calls"] += sum(eng.mesh.collectives.values()) - n0
+        spent["steps"] += 1
+        return out
+
+    eng.api = dataclasses.replace(api, paged_decode_step=decode)
+    for i, p in enumerate(job["prompts"]):
+        eng.submit(p, max_new_tokens=job["base"]["max_new_tokens"], arrival_step=i)
+    eng.run()
+    return {"decode_s": spent["s"], "decode_collective_s": spent["collective_s"],
+            "decode_steps": spent["steps"],
+            "per_decode_step": spent["calls"] // max(1, spent["steps"]),
+            "decode_share": spent["collective_s"] / max(spent["s"], 1e-12)}
 
 
 def main() -> int:

@@ -5,7 +5,9 @@ from typing import Optional
 
 import torch
 
-from .modes import NumericsConfig, nmatmul
+from repro_torch.parallel.sharding import reduce_model
+
+from .modes import NumericsConfig, matmul_sums, nmatmul, round_sums
 
 
 def dense_init(d_in: int, d_out: int, *, generator: torch.Generator,
@@ -18,9 +20,20 @@ def dense_init(d_in: int, d_out: int, *, generator: torch.Generator,
     return (w * scale).to(dtype)
 
 
-def dense(x, w, ncfg: NumericsConfig, bias=None, use_kernel: Optional[bool] = None):
-    """y = x @ w (+ bias), multiplying per the configured numerics mode."""
-    y = nmatmul(x, w, ncfg, out_dtype=x.dtype, use_kernel=use_kernel)
+def dense(x, w, ncfg: NumericsConfig, bias=None, use_kernel: Optional[bool] = None,
+          reduce: bool = False):
+    """y = x @ w (+ bias), multiplying per the configured numerics mode.
+
+    ``reduce``: ``w`` is this rank's K block of a row-parallel weight
+    (``parallel/sharding.py``), so the f32 sums are added over the mesh's
+    model axis before the mode's rounding and the cast to x's dtype (a
+    sum of rounded partials would not be what one rank computes; the f32
+    sum differs from it only in the order of one addition)."""
+    if reduce:
+        sums = reduce_model(matmul_sums(x, w, ncfg, use_kernel=use_kernel))
+        y = round_sums(sums, ncfg, x.dtype)
+    else:
+        y = nmatmul(x, w, ncfg, out_dtype=x.dtype, use_kernel=use_kernel)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y

@@ -144,8 +144,8 @@ def _codec_float(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype in (torch.float32, torch.bfloat16) else t.to(torch.float32)
 
 
-def _pattern_matmul(x, w_pat, ncfg: NumericsConfig, out_dtype, use_kernel):
-    """x @ w where w arrived as pre-encoded posit patterns.
+def _pattern_matmul(x, w_pat, ncfg: NumericsConfig, use_kernel):
+    """The f32 sums of x @ w where w arrived as pre-encoded posit patterns.
 
     For ``plam_sim`` the patterns feed ``kernels.ops.plam_dense``
     directly (int16 patterns are read as they are, never widened);
@@ -157,13 +157,58 @@ def _pattern_matmul(x, w_pat, ncfg: NumericsConfig, out_dtype, use_kernel):
     if ncfg.mode == "plam_sim":
         from repro_torch.kernels.ops import plam_dense
 
-        return plam_dense(x, w_pat, spec, use_kernel=use_kernel).to(out_dtype)
+        return plam_dense(x, w_pat, spec, use_kernel=use_kernel)
     from repro_torch.kernels.posit_codec import posit_decode
 
     bits = w_pat if w_pat.dtype in (torch.int16, torch.int32) else w_pat.to(torch.int32)
     w_lin = posit_decode(bits.contiguous(), spec, use_kernel=use_kernel)
     ncfg_pq = dataclasses.replace(ncfg, prequantized_weights=True)
-    return nmatmul(x, w_lin, ncfg_pq, out_dtype=out_dtype, use_kernel=use_kernel)
+    return matmul_sums(x, w_lin, ncfg_pq, use_kernel=use_kernel)
+
+
+def matmul_sums(x, w, ncfg: NumericsConfig, use_kernel: Optional[bool] = None):
+    """The f32 sums of :func:`nmatmul` (x @ w under ``ncfg``) before the
+    mode's rounding and the output cast: what a row-parallel projection
+    sums over the ranks (``core/dense.py``)."""
+    if w.dim() == 3 and (x.dim() != 3 or x.shape[0] != w.shape[0]):
+        raise ValueError(f"a stack of {w.shape[0]} experts takes x [E, C, K], "
+                         f"got {tuple(x.shape)}")
+    if not w.is_floating_point():
+        return _pattern_matmul(x, w, ncfg, use_kernel)
+    f32, bf16 = torch.float32, torch.bfloat16
+    if ncfg.mode == "f32":
+        return torch.matmul(x.to(f32), w.to(f32))
+    if ncfg.mode == "bf16":
+        # bf16 operands, f32 products and sums (preferred_element_type=f32)
+        return torch.matmul(x.to(bf16).to(f32), w.to(bf16).to(f32))
+    if ncfg.mode == "posit_quant":
+        # bf16 carrier: bf16 operands, cotangents and product, the product
+        # summed in f32 and rounded once (round_sums; the reference's bf16
+        # dot; torch's bf16 matmul on the CPU does not always round once);
+        # f32: the posit grid exactly
+        spec, carrier = ncfg.spec, _carrier(ncfg)
+        xq = (posit_quantize_ste(x, spec, carrier, use_kernel) if ncfg.quantize_acts
+              else x.to(carrier))
+        wq = (w.to(carrier) if ncfg.prequantized_weights
+              else posit_quantize_ste(w, spec, carrier, use_kernel))
+        return torch.matmul(xq.to(f32), wq.to(f32))
+    if ncfg.mode == "plam_sim":
+        return _plam_matmul(_codec_float(x), _codec_float(w), ncfg.spec, use_kernel)
+    if ncfg.mode == "mitchell_f32":
+        return _mitchell_matmul(x, w, ncfg.plam_chunk)
+    raise ValueError(ncfg.mode)  # pragma: no cover
+
+
+def _carrier(ncfg: NumericsConfig):
+    return torch.bfloat16 if ncfg.carrier == "bf16" else torch.float32
+
+
+def round_sums(sums, ncfg: NumericsConfig, out_dtype):
+    """f32 sums as :func:`nmatmul` returns them: ``posit_quant`` rounds
+    to its carrier dtype, then every mode casts to ``out_dtype``."""
+    if ncfg.mode == "posit_quant":
+        sums = sums.to(_carrier(ncfg))
+    return sums.to(out_dtype)
 
 
 def nmatmul(x, w, ncfg: NumericsConfig, out_dtype=None,
@@ -174,36 +219,7 @@ def nmatmul(x, w, ncfg: NumericsConfig, out_dtype=None,
     Integer-dtype ``w`` is read as pre-encoded Posit<n,es> patterns
     (prequantized weight storage).
     """
-    out_dtype = out_dtype or x.dtype
-    if w.dim() == 3 and (x.dim() != 3 or x.shape[0] != w.shape[0]):
-        raise ValueError(f"a stack of {w.shape[0]} experts takes x [E, C, K], "
-                         f"got {tuple(x.shape)}")
-    if not w.is_floating_point():
-        return _pattern_matmul(x, w, ncfg, out_dtype, use_kernel)
-    f32, bf16 = torch.float32, torch.bfloat16
-    if ncfg.mode == "f32":
-        out = torch.matmul(x.to(f32), w.to(f32))
-    elif ncfg.mode == "bf16":
-        # bf16 operands, f32 products and sums (preferred_element_type=f32)
-        out = torch.matmul(x.to(bf16).to(f32), w.to(bf16).to(f32))
-    elif ncfg.mode == "posit_quant":
-        # bf16 carrier: bf16 operands, cotangents and product, the product
-        # summed in f32 and rounded once (the reference's bf16 dot; torch's
-        # bf16 matmul on the CPU does not always round once); f32: the posit
-        # grid exactly
-        spec, carrier = ncfg.spec, bf16 if ncfg.carrier == "bf16" else f32
-        xq = (posit_quantize_ste(x, spec, carrier, use_kernel) if ncfg.quantize_acts
-              else x.to(carrier))
-        wq = (w.to(carrier) if ncfg.prequantized_weights
-              else posit_quantize_ste(w, spec, carrier, use_kernel))
-        out = torch.matmul(xq.to(f32), wq.to(f32)).to(carrier)
-    elif ncfg.mode == "plam_sim":
-        out = _plam_matmul(_codec_float(x), _codec_float(w), ncfg.spec, use_kernel)
-    elif ncfg.mode == "mitchell_f32":
-        out = _mitchell_matmul(x, w, ncfg.plam_chunk)
-    else:  # pragma: no cover
-        raise ValueError(ncfg.mode)
-    return out.to(out_dtype)
+    return round_sums(matmul_sums(x, w, ncfg, use_kernel), ncfg, out_dtype or x.dtype)
 
 
 def nquant_weight(w: torch.Tensor, ncfg: NumericsConfig,

@@ -11,13 +11,20 @@ DeviceLike = Optional[Union[str, torch.device]]
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names
     another.  Raises when CUDA is asked for (or defaulted to) and there
-    is no card, instead of carrying on on the CPU."""
+    is no card, instead of carrying on on the CPU.  Inside a
+    ``torch.distributed`` world a CUDA device without an index is the
+    rank's own, ``cuda:(rank % device_count)`` (``launch/mesh.py``)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run the plain versions"
         )
+    if dev.type == "cuda" and dev.index is None:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
     return dev
 
 

@@ -43,6 +43,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.parallel.sharding import current_mesh
+
 from . import _lib
 
 _FLOATS = (torch.float32, torch.bfloat16)
@@ -226,10 +228,35 @@ def paged_decode_attention_kernel(q, k_pool, v_pool, block_tables, lengths):
         inputs=(q, k_pool, v_pool, block_tables, lengths), **_attention_work(q, kv_bytes, keys))
 
 
+def paged_decode_attention_tp(q, k_pool, v_pool, block_tables, lengths,
+                              *, use_kernel: Optional[bool] = None):
+    """Head-sharded paged decode attention under tensor parallelism (K6).
+
+    The reference's ``shard_map`` over the ``model`` axis runs K2 on each
+    device's kv-head slice of the pool and the matching q heads.  Here
+    each rank is its own process and holds only its slice
+    (``parallel/sharding.py``): q [B, H/tp, hd] its q heads, the pools its
+    kv heads (``kv_heads_for_rank``: its block of kv/tp heads, or, where
+    the kv heads do not divide tp, the heads its q heads read, replicated
+    across ranks).  GQA groups q heads contiguously by kv head, so the
+    rank's q heads attend exactly its kv heads: K2 (its plain version on
+    the CPU) runs unchanged on the slice, with no collective.  Block
+    tables and lengths are the same on every rank."""
+    if _lib.wants_kernel(q, use_kernel):
+        return paged_decode_attention_kernel(q, k_pool, v_pool, block_tables, lengths)
+    return paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths)
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
                            *, use_kernel: Optional[bool] = None):
     """Paged decode attention: the kernel for CUDA tensors, the plain
-    version for CPU tensors (or anywhere under ``use_kernel=False``)."""
+    version for CPU tensors (or anywhere under ``use_kernel=False``).
+    Under a mesh of more than one rank it is the head-sharded
+    :func:`paged_decode_attention_tp`, as the reference dispatches."""
+    mesh = current_mesh()
+    if mesh is not None and mesh.model_size > 1:
+        return paged_decode_attention_tp(q, k_pool, v_pool, block_tables, lengths,
+                                         use_kernel=use_kernel)
     if _lib.wants_kernel(q, use_kernel):
         return paged_decode_attention_kernel(q, k_pool, v_pool, block_tables, lengths)
     return paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths)

@@ -36,8 +36,9 @@ Usage:
 (string or saved-artifact path); ``--numerics`` is the single-mode sugar
 for ``default=<mode>``; ``--prequantized`` encodes the policy's posit
 weights to patterns first, as the serving engines' ``prequantize`` does.
-The reference's ``--multi-pod`` mesh needs tensor parallelism, which the
-port does not have yet (``ROADMAP.md``, queue 1, item 6).
+The reference's ``--multi-pod`` mesh is a data-parallel training mesh,
+which waits for the training side of tensor parallelism (``ROADMAP.md``,
+queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -248,10 +249,9 @@ def main(argv=None):
                     help="encode the policy's posit weights to patterns before the step")
     args = ap.parse_args(argv)
     if args.multi_pod:
-        from repro_torch.serving.api import LATER, TENSOR_PARALLELISM
+        from repro_torch.launch.mesh import make_production_mesh
 
-        raise NotImplementedError("--multi-pod (a mesh over many cards) "
-                                  + LATER.format(TENSOR_PARALLELISM))
+        make_production_mesh(multi_pod=True)  # raises, naming its ROADMAP item
 
     policy = None
     if args.numerics_policy is not None:

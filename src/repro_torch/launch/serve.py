@@ -24,10 +24,16 @@ archs ``yi-6b``, ``gemma-7b``, ``minitron-8b`` and ``command-r-plus-104b``
 serve on either engine); chunked
 prefill, speculative decoding, preemption, deadlines and priorities then
 exit asking for ``--continuous``, and the encdec and vlm families exit
-pointing at ``examples/``, as in the reference.  ``--tp N`` (N > 1) and
-``--force-host-devices`` raise ``NotImplementedError`` (``ROADMAP.md``,
-queue 1, item 6).  ``--prefill-chunk M`` turns on chunked prefill (M a
-multiple of the block size, 8).
+pointing at ``examples/``, as in the reference.  ``--prefill-chunk M``
+turns on chunked prefill (M a multiple of the block size, 8).
+
+``--tp N --continuous`` serves tensor-parallel: N ranks started by
+``launch/mesh.py::spawn``, each an engine over its shard of the model,
+over ``nccl`` when every rank has a card of its own and ``gloo`` when
+they share one (one H100: N ranks on one card) or run on the CPU
+(``--device cpu``); rank 0's lines are printed.  ``--force-host-devices
+N`` runs on N host devices, the reference's meaning: the ranks run on
+the CPU, and ``--tp`` may not exceed N.
 
 Engine options beyond those flags are spelled ``--opt KEY=VAL``
 (repeatable), with KEY any ``repro_torch.serving.ServeOptions`` field,
@@ -86,7 +92,8 @@ def make_parser() -> argparse.ArgumentParser:
                     help="paged-KV continuous batching (the only engine "
                          "ported so far)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel ways (not ported: > 1 raises)")
+                    help="tensor-parallel ways: > 1 serves from that many ranks "
+                         "(--continuous only)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked prefill width (0 = whole-prompt; "
                          "must be a multiple of the block size, 8)")
@@ -118,8 +125,9 @@ def make_parser() -> argparse.ArgumentParser:
                     help="wrap engine phases in torch.profiler.record_function "
                          "spans (visible inside a profiler capture)")
     ap.add_argument("--force-host-devices", type=int, default=0,
-                    help="the reference's forced multi-device CPU platform for "
-                         "tensor parallelism (not ported: > 0 raises)")
+                    help="run on N host (CPU) devices, the reference's forced "
+                         "multi-device platform: the ranks run on the CPU and "
+                         "--tp may not exceed N")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the kernels' "
                          "plain versions)")
@@ -200,22 +208,46 @@ def options_from_args(args):
 
 def main(argv=None) -> None:
     args = make_parser().parse_args(argv)
+    opts = options_from_args(args)
+    if args.force_host_devices:
+        if args.device not in (None, "cpu"):
+            raise SystemExit("--force-host-devices runs on host devices; drop --device")
+        if opts.tp > args.force_host_devices:
+            raise SystemExit(f"tp={opts.tp} needs {opts.tp} ranks/devices, found "
+                             f"{args.force_host_devices} host devices")
+        args.device = "cpu"
+    if opts.tp > 1:
+        if opts.engine != "continuous":
+            raise SystemExit("tp / prefill_chunk / spec_k / preemption / "
+                             "deadline_s / priority require --continuous")
+        from repro_torch.launch.mesh import spawn
 
+        for line in spawn(_serve_rank, opts.tp, args.device, args, opts)[0]:
+            print(line)
+        return
+    from repro_torch.device import resolve_device
+
+    _serve(args, opts, resolve_device(args.device), print)
+
+
+def _serve_rank(device, args, opts) -> list:
+    """One rank of a ``--tp`` run (``launch/mesh.py::spawn``): serve, and
+    return rank 0's lines."""
+    import torch.distributed as dist
+
+    lines = []
+    _serve(args, opts, device, lines.append if dist.get_rank() == 0 else None)
+    return lines
+
+
+def _serve(args, opts, device, say) -> None:
+    """Serve the CLI's requests on ``device``; ``say`` prints a line (None:
+    a rank other than 0, which neither prints nor writes files)."""
     import numpy as np
 
     from repro_torch.configs import ARCHS, get_config
     from repro_torch.core.policy import describe, load_policy_arg, parse_policy
-    from repro_torch.device import resolve_device
     from repro_torch.serving import build_engine
-    from repro_torch.serving.api import LATER, TENSOR_PARALLELISM
-
-    if args.force_host_devices:
-        raise NotImplementedError(
-            "--force-host-devices (a multi-device platform for tensor parallelism) "
-            + LATER.format(TENSOR_PARALLELISM))
-    opts = options_from_args(args)
-    opts.check_supported()  # tp > 1 raises here
-    device = resolve_device(args.device)
 
     if args.arch not in ARCHS:
         raise SystemExit(f"unknown arch {args.arch!r}; pick from {sorted(ARCHS)}")
@@ -241,6 +273,8 @@ def main(argv=None) -> None:
                           arrival_step=i, **opts.submit_kwargs())
                for i in range(args.batch)]
     done = eng.run()
+    if say is None:
+        return
     spec = (f" spec_k={opts.spec_k} "
             f"accept={eng.stats.acceptance_rate():.1%} "
             f"tok/verify={eng.stats.tokens_per_verify_step():.2f}"
@@ -254,21 +288,21 @@ def main(argv=None) -> None:
         spec += (f" prefix_hits={al.hits} prefix_misses={al.misses}"
                  f" prefill_tokens_saved={al.tokens_saved}"
                  f" prefix_evictions={al.evictions}")
-    print(f"arch={cfg.name} numerics={numerics_label!r} engine=continuous "
-          f"tp={opts.tp} prefill_chunk={opts.prefill_chunk} "
-          f"steps={eng.stats.steps} pad_waste={eng.stats.padding_waste():.1%} "
-          f"step_p50={eng.stats.latency_p50() * 1e3:.1f}ms "
-          f"step_p95={eng.stats.latency_p95() * 1e3:.1f}ms" + spec)
+    say(f"arch={cfg.name} numerics={numerics_label!r} engine=continuous "
+        f"tp={opts.tp} prefill_chunk={opts.prefill_chunk} "
+        f"steps={eng.stats.steps} pad_waste={eng.stats.padding_waste():.1%} "
+        f"step_p50={eng.stats.latency_p50() * 1e3:.1f}ms "
+        f"step_p95={eng.stats.latency_p95() * 1e3:.1f}ms" + spec)
     for i, h in enumerate(handles):
-        print(f"req[{i}]: {done[h.rid]}")
+        say(f"req[{i}]: {done[h.rid]}")
         bd = h.breakdown()
         if bd is not None:
-            print(f"  queue={bd.queue_s * 1e3:.1f}ms "
-                  f"prefill={bd.prefill_s * 1e3:.1f}ms "
-                  f"decode={bd.decode_s * 1e3:.1f}ms "
-                  f"parked={bd.parked_s * 1e3:.1f}ms "
-                  f"ttft={bd.first_token_s * 1e3:.1f}ms")
-    _write_artifacts(args, eng)
+            say(f"  queue={bd.queue_s * 1e3:.1f}ms "
+                f"prefill={bd.prefill_s * 1e3:.1f}ms "
+                f"decode={bd.decode_s * 1e3:.1f}ms "
+                f"parked={bd.parked_s * 1e3:.1f}ms "
+                f"ttft={bd.first_token_s * 1e3:.1f}ms")
+    _write_artifacts(args, eng, say)
 
 
 def _serve_static(args, cfg, opts, numerics_label, rng, device) -> None:
@@ -294,26 +328,86 @@ def _serve_static(args, cfg, opts, numerics_label, rng, device) -> None:
           f"step_p95={eng.stats.latency_p95() * 1e3:.1f}ms")
     for i, row in enumerate(out.cpu().tolist()):
         print(f"batch[{i}]: {row}")
-    _write_artifacts(args, eng)
+    _write_artifacts(args, eng, print)
 
 
-def _write_artifacts(args, eng) -> None:
-    """Honor --trace-out / --metrics-out after a run."""
+#: the engine counters serve_jobs reports
+JOB_STATS = ("steps", "prefills", "decode_steps", "generated_tokens", "preemptions",
+             "resumes", "spec_steps", "drafted_tokens", "accepted_tokens")
+
+
+def serve_jobs(device, jobs) -> list:
+    """Serve each job on ``device``: a ``launch/mesh.py::spawn`` target
+    (one rank's engines; every rank returns the same tokens), also called
+    outside a world.  A job is a dict: ``cfg``, ``opts`` (ServeOptions),
+    ``requests`` (``submit`` keyword dicts, each with its ``prompt``),
+    and optionally ``params`` (the reference's parameter tree as numpy,
+    through ``convert.params_from_jax``; else the seeded init of
+    ``init_seed``) and ``prefill_logits`` (also return each request
+    prompt's whole-prompt prefill logits at its last token, f32 numpy).
+    Returns per job {"outputs", "stats", "cache", "pool_layout",
+    "kv_heads"[, "logits"]}."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.serving import build_engine
+
+    out = []
+    for job in jobs:
+        cfg = job["cfg"]
+        params = (params_from_jax(job["params"], cfg, device="cpu")
+                  if job.get("params") is not None else None)
+        eng = build_engine(cfg, job["opts"], params=params,
+                           init_seed=job.get("init_seed", 0), device=device)
+        handles = [eng.submit(**req) for req in job["requests"]]
+        done = eng.run()
+        res = {"outputs": [done[h.rid] for h in handles],
+               "stats": {k: getattr(eng.stats, k) for k in JOB_STATS},
+               "cache": {k: getattr(eng.allocator, k)
+                         for k in ("hits", "misses", "tokens_saved", "num_free")},
+               "pool_layout": eng.pool_layout, "kv_heads": eng._k_pool.shape[3]}
+        if job.get("prefill_logits"):
+            res["logits"] = [_prefill_logits(eng, req["prompt"]) for req in job["requests"]]
+        out.append(res)
+    return out
+
+
+def _prefill_logits(eng, prompt):
+    """The whole-prompt paged prefill's logits at the prompt's last token
+    (f32 numpy [V]), into a fresh pool of the engine's layout."""
+    import torch
+
+    from repro_torch.parallel.sharding import use_mesh
+    from repro_torch.serving.kv_cache import padded_prompt_len
+
+    bs = eng.pcfg.block_size
+    s_pad = padded_prompt_len(len(prompt), bs)
+    kp, vp = eng.api.paged_pool_init(s_pad // bs + 1, bs, eng._k_pool.dtype, eng.device,
+                                     n_kv=eng._k_pool.shape[3])
+    toks = torch.zeros((1, s_pad), dtype=torch.int32, device=eng.device)
+    toks[0, :len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
+    blocks = torch.arange(1, s_pad // bs + 1, dtype=torch.int32, device=eng.device)
+    with use_mesh(eng.mesh):
+        logits, _ = eng.api.paged_prefill(eng.model, toks, kp, vp, blocks, len(prompt),
+                                          use_kernel=eng.pcfg.use_kernel)
+    return logits[0, -1].float().cpu().numpy()
+
+
+def _write_artifacts(args, eng, say) -> None:
+    """Honor --trace-out / --metrics-out after a run; ``say`` prints."""
     trace = getattr(eng, "trace", None)
     if args.trace_out:
         if trace is None:
-            print(f"trace-out skipped: engine has no trace "
-                  f"(static engine or trace=False): {args.trace_out}")
+            say(f"trace-out skipped: engine has no trace "
+                f"(static engine or trace=False): {args.trace_out}")
         elif args.trace_out.endswith(".json"):
             trace.to_chrome_trace(args.trace_out)
-            print(f"wrote Chrome trace: {args.trace_out}")
+            say(f"wrote Chrome trace: {args.trace_out}")
         else:
             trace.to_jsonl(args.trace_out)
-            print(f"wrote trace events: {args.trace_out}")
+            say(f"wrote trace events: {args.trace_out}")
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             f.write(eng.metrics.to_prometheus_text())
-        print(f"wrote metrics: {args.metrics_out}")
+        say(f"wrote metrics: {args.metrics_out}")
 
 
 if __name__ == "__main__":

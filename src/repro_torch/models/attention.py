@@ -24,7 +24,15 @@ from .common import apply_rope, causal_mask, decode_positions
 
 
 class Attention(nn.Module):
-    """Weights ``wq`` [d, H*hd], ``wk``/``wv`` [d, kv*hd], ``wo`` [H*hd, d]."""
+    """Weights ``wq`` [d, H*hd], ``wk``/``wv`` [d, kv*hd], ``wo`` [H*hd, d].
+
+    Under tensor parallelism (``parallel/sharding.py``) a rank holds its
+    H/tp q heads' columns of ``wq`` and rows of ``wo`` (``row_parallel``:
+    the output projection's partial sums are added over the ranks) and
+    the kv heads those q heads read; the forward takes its head counts
+    from the weights it holds."""
+
+    row_parallel = False
 
     def __init__(self, d: int, n_heads: int, n_kv: int, head_dim: int, *,
                  generator, device, dtype=torch.float32):
@@ -157,7 +165,10 @@ def attn_core_blockwise(q, k, v, *, causal: bool, block: int, softcap=None):
     return _BlockwiseAttention.apply(q, k, v, causal, block, softcap)
 
 
-def _project_qkv(p: Attention, x, ncfg, n_heads, n_kv, head_dim, use_kernel):
+def _project_qkv(p: Attention, x, ncfg, head_dim, use_kernel):
+    """q, k, v [B, S, heads, hd] of the heads this rank holds (all of
+    them without tensor parallelism)."""
+    n_heads, n_kv = p.wq.shape[-1] // head_dim, p.wk.shape[-1] // head_dim
     qkv_cfg = site(ncfg, "attn.qkv")
     q = _split_heads(dense(x, p.wq, qkv_cfg, use_kernel=use_kernel), n_heads, head_dim)
     k = _split_heads(dense(x, p.wk, qkv_cfg, use_kernel=use_kernel), n_kv, head_dim)
@@ -204,7 +215,7 @@ def attn_apply(
     Without a cache, a ``flash_block`` that divides S and a string
     ``mask`` select :func:`attn_core_blockwise`, as in the reference."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, ncfg, n_heads, n_kv, head_dim, use_kernel)
+    q, k, v = _project_qkv(p, x, ncfg, head_dim, use_kernel)
     q = apply_rope(q, positions, rope_theta, mrope_sections)
     k = apply_rope(k, positions, rope_theta, mrope_sections)
 
@@ -246,8 +257,8 @@ def attn_apply(
         out = attn_core(q, k, v, m, softcap)
         new_kv = (k, v)
 
-    out = dense(out.reshape(b, s, n_heads * head_dim), p.wo, site(ncfg, "attn.out"),
-                use_kernel=use_kernel)
+    out = dense(out.reshape(b, s, q.shape[2] * head_dim), p.wo, site(ncfg, "attn.out"),
+                use_kernel=use_kernel, reduce=p.row_parallel)
     return out, new_kv
 
 
@@ -301,7 +312,7 @@ def attn_apply_paged(
         raise ValueError("paged attention is a single-token decode path")
     if softcap is not None:
         raise NotImplementedError("paged decode does not support logit softcap")
-    q, k, v = _project_qkv(p, x, ncfg, n_heads, n_kv, head_dim, use_kernel)
+    q, k, v = _project_qkv(p, x, ncfg, head_dim, use_kernel)
     positions = decode_positions(lengths)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
@@ -314,8 +325,8 @@ def attn_apply_paged(
     out = paged_decode_attention(
         q[:, 0].contiguous(), k_pages, v_pages, block_tables, lengths + 1,
         use_kernel=use_kernel)
-    out = dense(out.reshape(b, 1, n_heads * head_dim), p.wo, site(ncfg, "attn.out"),
-                use_kernel=use_kernel)
+    out = dense(out.reshape(b, 1, q.shape[2] * head_dim), p.wo, site(ncfg, "attn.out"),
+                use_kernel=use_kernel, reduce=p.row_parallel)
     return out, (k_pages, v_pages)
 
 

@@ -11,6 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.dense import dense, dense_init
+from repro_torch.core.modes import matmul_sums
 from repro_torch.core.policy import SiteNumerics, site
 
 ACTS = {
@@ -22,7 +23,13 @@ ACTS = {
 
 
 class MLP(nn.Module):
-    """Weights ``wu`` [d, d_ff], ``wd`` [d_ff, d] and, gated, ``wg``."""
+    """Weights ``wu`` [d, d_ff], ``wd`` [d_ff, d] and, gated, ``wg``.
+
+    Under tensor parallelism (``parallel/sharding.py``) a rank holds its
+    block of d_ff: ``wu``/``wg`` columns and ``wd`` rows
+    (``row_parallel``)."""
+
+    row_parallel = False
 
     def __init__(self, d: int, d_ff: int, glu: bool, *, generator, device,
                  dtype=torch.float32):
@@ -37,11 +44,18 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p: MLP, x, ncfg: SiteNumerics, act: str = "silu", role: str = "mlp",
-              use_kernel: Optional[bool] = None):
+              use_kernel: Optional[bool] = None, partial: bool = False):
+    """The MLP of x.  A ``row_parallel`` ``wd``'s partial sums are added
+    over the ranks; with ``partial`` the f32 sums of ``wd`` come back as
+    they are (unreduced and unrounded), for the caller to add to others
+    before its one reduction (a MoE layer's shared experts)."""
     fn = ACTS[act]
     up = dense(x, p.wu, site(ncfg, f"{role}.up"), use_kernel=use_kernel)
     if p.wg is not None:
         up = fn(dense(x, p.wg, site(ncfg, f"{role}.gate"), use_kernel=use_kernel)) * up
     else:
         up = fn(up)
-    return dense(up, p.wd, site(ncfg, f"{role}.down"), use_kernel=use_kernel)
+    down = site(ncfg, f"{role}.down")
+    if partial:
+        return matmul_sums(up, p.wd, down, use_kernel=use_kernel)
+    return dense(up, p.wd, down, use_kernel=use_kernel, reduce=p.row_parallel)

@@ -39,8 +39,9 @@ import torch
 from torch import nn
 
 from repro_torch.core.dense import dense_init
-from repro_torch.core.modes import nmatmul
+from repro_torch.core.modes import matmul_sums, nmatmul, round_sums
 from repro_torch.core.policy import SiteNumerics, site
+from repro_torch.parallel.sharding import reduce_model
 
 from .mlp import ACTS, MLP, mlp_apply
 
@@ -57,7 +58,14 @@ def expert_init(n_experts: int, d_in: int, d_out: int, *, generator: torch.Gener
 class MoE(nn.Module):
     """``router`` [d, E] f32; ``wg``, ``wu`` [E, d, f] and ``wd`` [E, f, d]
     in the parameter dtype; ``shared``, an MLP of width f * n_shared, when
-    there are shared experts.  Every expert is gated, as in the reference."""
+    there are shared experts.  Every expert is gated, as in the reference.
+
+    Under tensor parallelism (``parallel/sharding.py``) the router stays
+    whole and each expert is cut inside: a rank holds its block of f of
+    every expert (``wg``/``wu`` [E, d, f/tp], ``wd`` [E, f/tp, d]:
+    ``row_parallel``), and the shared experts' MLP its block of theirs."""
+
+    row_parallel = False
 
     def __init__(self, d: int, n_experts: int, moe_d_ff: int, n_shared: int,
                  shared_d_ff: int, glu: bool, *, generator, device, dtype=torch.float32):
@@ -110,32 +118,45 @@ def dispatch(xf: torch.Tensor, eid, pos, keep, n_experts: int, cap: int) -> torc
 
 
 def experts_apply(p: MoE, buf: torch.Tensor, ncfg: SiteNumerics, act: str,
-                  use_kernel: Optional[bool] = None) -> torch.Tensor:
+                  use_kernel: Optional[bool] = None, sums: bool = False) -> torch.Tensor:
     """The routed experts' gated FFN on their buffers, [E, C, d] -> [E, C, d]:
     three ``nmatmul`` calls over the whole stack, outputs in the activation
-    dtype (the reference's ``jax.vmap(expert)``)."""
+    dtype (the reference's ``jax.vmap(expert)``); with ``sums`` the down
+    projection's f32 sums, unrounded (a rank's partial sums under tensor
+    parallelism)."""
     fn = ACTS[act]
     kw = dict(out_dtype=buf.dtype, use_kernel=use_kernel)
     up = nmatmul(buf, p.wu, site(ncfg, "moe.expert.up"), **kw)
     up = fn(nmatmul(buf, p.wg, site(ncfg, "moe.expert.gate"), **kw)) * up
+    if sums:
+        return matmul_sums(up, p.wd, site(ncfg, "moe.expert.down"), use_kernel=use_kernel)
     return nmatmul(up, p.wd, site(ncfg, "moe.expert.down"), **kw)
 
 
 def _dispatch_group(p: MoE, xf, router_logits, ncfg, *, top_k: int, cap: int, act: str,
-                    use_kernel):
-    """Capacity dispatch, expert FFNs and combine for ONE token group:
-    xf [Tg, d] -> [Tg, d]."""
-    t, d = xf.shape
+                    use_kernel, sums: bool = False):
+    """Capacity dispatch and the expert FFNs for ONE token group xf [Tg, d]:
+    (the experts' output buffer [E, cap, d], the group's routing).  With
+    ``sums`` the buffer holds the down projection's f32 sums (a rank's
+    partial sums under tensor parallelism)."""
     n_experts = router_logits.shape[-1]
-    gate, eid, pos, keep = route(router_logits, top_k, cap)
+    routing = route(router_logits, top_k, cap)
+    _, eid, pos, keep = routing
     out_buf = experts_apply(p, dispatch(xf, eid, pos, keep, n_experts, cap), ncfg, act,
-                            use_kernel)
+                            use_kernel, sums=sums)
+    return out_buf, routing
+
+
+def _combine(out_buf, routing, top_k: int, cap: int, dtype):
+    """The gate-weighted sum of each token's kept expert rows, [Tg, d]."""
+    gate, eid, pos, keep = routing
+    n_experts, _, d = out_buf.shape
     rows = torch.where(keep, eid * cap + pos, torch.zeros_like(eid))
     gathered = out_buf.reshape(n_experts * cap, d)[rows]
     gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
-    weighted = gathered.reshape(t, top_k, d) * gate[..., None].to(xf.dtype)
+    weighted = gathered.reshape(-1, top_k, d) * gate[..., None].to(dtype)
     # jnp.sum over a bf16 axis adds in f32 and rounds once
-    return weighted.sum(dim=1, dtype=torch.float32).to(xf.dtype)
+    return weighted.sum(dim=1, dtype=torch.float32).to(dtype)
 
 
 def moe_apply(p: MoE, x: torch.Tensor, ncfg: SiteNumerics, *, n_experts: int, top_k: int,
@@ -147,6 +168,12 @@ def moe_apply(p: MoE, x: torch.Tensor, ncfg: SiteNumerics, *, n_experts: int, to
     on its own (capacity, ranks and drops group-local), as the reference
     does under its data-parallel sharding; ``groups`` that do not divide
     the tokens fall back to one group, as there.
+
+    Under tensor parallelism the cut experts' f32 partial sums (the
+    routed experts' buffers and the shared experts' output) are added
+    over the ranks in ONE reduction, then rounded and combined as one rank
+    rounds and combines the whole sums, so that the two differ only in the
+    order of the partial sums' addition.
     """
     b, s, d = x.shape
     t = b * s
@@ -156,16 +183,27 @@ def moe_apply(p: MoE, x: torch.Tensor, ncfg: SiteNumerics, *, n_experts: int, to
     g = groups if t % max(groups, 1) == 0 else 1
     tg = t // g
     cap = max(1, int(tg * top_k / n_experts * capacity_factor))
-    kw = dict(top_k=top_k, cap=cap, act=act, use_kernel=use_kernel)
-    if g == 1:
-        combined = _dispatch_group(p, xf, logits, ncfg, **kw)
-    else:
-        combined = torch.cat([
-            _dispatch_group(p, xg, lg, ncfg, **kw)
-            for xg, lg in zip(xf.reshape(g, tg, d), logits.reshape(g, tg, n_experts))])
-    if p.shared is not None:
-        combined = combined + mlp_apply(p.shared, xf, ncfg, act, role="moe.shared",
-                                        use_kernel=use_kernel)
+    kw = dict(top_k=top_k, cap=cap, act=act, use_kernel=use_kernel, sums=p.row_parallel)
+    grouped = [_dispatch_group(p, xg, lg, ncfg, **kw)
+               for xg, lg in zip(xf.reshape(g, tg, d), logits.reshape(g, tg, n_experts))]
+    bufs = [buf for buf, _ in grouped]
+    shared_cut = p.shared is not None and p.shared.row_parallel
+    shared = None if p.shared is None else mlp_apply(
+        p.shared, xf, ncfg, act, role="moe.shared", use_kernel=use_kernel, partial=shared_cut)
+    cut = (bufs if p.row_parallel else []) + ([shared] if shared_cut else [])
+    if cut:
+        sums = reduce_model(torch.cat([c.reshape(-1, d) for c in cut]))
+        sums = list(sums.split([c.numel() // d for c in cut]))
+        if p.row_parallel:
+            down = site(ncfg, "moe.expert.down")
+            bufs = [round_sums(sums.pop(0).view_as(buf), down, xf.dtype) for buf in bufs]
+        if shared_cut:
+            shared = round_sums(sums.pop(0), site(ncfg, "moe.shared.down"), xf.dtype)
+    combined = [_combine(buf, routing, top_k, cap, xf.dtype)
+                for buf, (_, routing) in zip(bufs, grouped)]
+    combined = combined[0] if g == 1 else torch.cat(combined)
+    if shared is not None:
+        combined = combined + shared
     return combined.reshape(b, s, d)
 
 

@@ -32,6 +32,12 @@ int32 scalar: the port's eager attention slices the cache with it
 (``attention.py::attn_apply``), so a meta tensor could not stand in.
 Together with ``init(seed, device="meta")`` these are the dry run's
 cells (``launch/dryrun.py``), built without a byte of device memory.
+
+Under tensor parallelism the dense and MoE hooks run on one rank's
+shard (``parallel/sharding.py``): ``init(mesh=...)`` draws it,
+``paged_pool_init(n_kv=...)`` allocates the rank's kv heads, and the
+paged entry points take the shard as they take a whole model, their
+collectives called inside the engine's mesh.
 """
 from __future__ import annotations
 
@@ -55,7 +61,7 @@ ENCDEC_TGT_LEN = 4096  # the encdec's longest target prefix (64 when reduced)
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: ModelConfig
-    init: Callable  # (seed=0, device=None) -> model
+    init: Callable  # (seed=0, device=None; transformers: mesh=None) -> model
     train_loss: Callable  # (model, batch, use_kernel=None) -> scalar f32 loss
     prefill: Callable  # (model, batch, use_kernel=None) -> (logits, caches)
     decode_step: Callable  # (model, batch with caches, use_kernel=None) -> (logits, caches)
@@ -64,7 +70,8 @@ class ModelAPI:
     decode_inputs: Callable  # (batch, seq_len) -> {name: meta tensor, "cache_len": int}
     # the paged KV-cache path (continuous batching); None for the families
     # without a paged layout (the ssm/hybrid state caches)
-    paged_pool_init: Optional[Callable] = None  # (num_blocks, block_size, dtype, device)
+    # (num_blocks, block_size, dtype, device, n_kv=None: a rank's kv heads)
+    paged_pool_init: Optional[Callable] = None
     paged_prefill: Optional[Callable] = None  # (model, tokens, kp, vp, block_ids, true_len, uk)
     # (model, tokens, kp, vp, block_ids, cache_len, last_idx, use_kernel)
     paged_prefill_chunk: Optional[Callable] = None
@@ -203,8 +210,8 @@ def _build_encdec(cfg: ModelConfig) -> ModelAPI:
 
 
 def _build_transformer(cfg: ModelConfig) -> ModelAPI:
-    def init(seed: int = 0, device=None):
-        return _tf.lm_init(cfg, seed=seed, device=device)
+    def init(seed: int = 0, device=None, mesh=None):
+        return _tf.lm_init(cfg, seed=seed, device=device, mesh=mesh)
 
     def train_loss(model, batch, use_kernel=None):
         return _tf.train_loss(cfg, model, batch, use_kernel)
@@ -239,8 +246,8 @@ def _build_transformer(cfg: ModelConfig) -> ModelAPI:
                         decode_step=decode_step, train_inputs=train_inputs,
                         prefill_inputs=prefill_inputs, decode_inputs=decode_inputs)
 
-    def paged_pool_init(num_blocks, block_size, dtype, device):
-        return _tf.paged_kv_pool_init(cfg, num_blocks, block_size, dtype, device)
+    def paged_pool_init(num_blocks, block_size, dtype, device, n_kv=None):
+        return _tf.paged_kv_pool_init(cfg, num_blocks, block_size, dtype, device, n_kv)
 
     def paged_prefill(model, tokens, k_pool, v_pool, block_ids, true_len,
                       use_kernel=None):

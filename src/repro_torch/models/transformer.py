@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dense import dense, dense_init
 from repro_torch.core.policy import site_for
+from repro_torch.parallel.sharding import current_mesh, gather_model, reduce_model, sharded_init
 
 from .attention import Attention, attn_apply, attn_apply_paged, paged_write
 from .common import RMSNorm, iter_layers, multi_token_positions, rmsnorm
@@ -71,7 +72,16 @@ class DenseLM(nn.Module):
     """Parameters in the reference's layout: ``embed`` [V, d], per-block
     weights [d_in, d_out] (a MoE block's experts stacked [E, d_in,
     d_out]), ``ln_f``, and ``unembed`` [d, V] unless the embeddings are
-    tied.  Built for the dense, MoE and vlm families."""
+    tied.  Built for the dense, MoE and vlm families.
+
+    Under tensor parallelism (``parallel/sharding.py``) each rank holds
+    its slice of the weights; ``vocab_parallel`` marks ``embed`` (and
+    ``unembed``) cut to the rank's block of the vocabulary, which the
+    lookup and the head then sum and gather over the ranks.  ``tp_shard``
+    is (rank, tp) once the model is cut."""
+
+    vocab_parallel = False
+    tp_shard = None
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device: torch.device):
@@ -96,16 +106,24 @@ class DenseLM(nn.Module):
                 requires_grad=False)
 
 
-def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> DenseLM:
+def lm_init(cfg: ModelConfig, *, seed: int = 0, device=None, mesh=None) -> DenseLM:
     """The port's own seeded init, drawn on ``device`` (CUDA by default),
     one tensor at a time in f32 and cast to the parameter dtype, so that
     no f32 copy of the model is ever held (on ``"meta"`` shapes and
-    dtypes only, ``device.init_generator``)."""
+    dtypes only, ``device.init_generator``).  Under a ``mesh`` each
+    tensor is cut to this rank's slice as soon as it is drawn
+    (``parallel/sharding.py::sharded_init``): the values of
+    ``shard_model`` of the whole model, with one whole tensor held at a
+    time."""
     from repro_torch.device import init_generator, resolve_device
 
     device = resolve_device(device)
     gen = init_generator(device, seed)
-    return DenseLM(cfg, generator=gen, device=device)
+    with sharded_init(cfg, mesh):
+        model = DenseLM(cfg, generator=gen, device=device)
+    if mesh is not None:
+        model.tp_shard = (mesh.model_rank, mesh.model_size)
+    return model
 
 
 def _ffn_fwd(cfg: ModelConfig, nsite, blk: Block, hn, use_kernel):
@@ -156,11 +174,17 @@ def lm_backbone(cfg: ModelConfig, model: DenseLM, embeds, positions, kv_caches=N
 
 
 def lm_logits(cfg: ModelConfig, model: DenseLM, hidden, use_kernel: Optional[bool] = None):
+    """The head's logits [..., V]; a vocab-parallel head computes its
+    rank's block of V (column-parallel) and gathers the others', so that
+    every rank holds all of them."""
     w = model.embed.T if cfg.tie_embeddings else model.unembed
     head_cfg = site_for(cfg.numerics, "lm_head", n_layers=cfg.n_layers)
-    if not w.is_floating_point():  # prequantized lm_head patterns
-        return dense(hidden, w, head_cfg, use_kernel=use_kernel)
-    return dense(hidden, w.to(hidden.dtype), head_cfg, use_kernel=use_kernel)
+    if w.is_floating_point():  # else prequantized lm_head patterns
+        w = w.to(hidden.dtype)
+    logits = dense(hidden, w, head_cfg, use_kernel=use_kernel)
+    if getattr(model, "vocab_parallel", False):  # the other families' models: never
+        return gather_model(logits, -1)
+    return logits
 
 
 def lm_loss_chunked(cfg: ModelConfig, model: DenseLM, hidden, labels, chunk: int = 512,
@@ -230,7 +254,19 @@ def set_trainable(model: nn.Module, trainable: bool = True) -> nn.Module:
 
 
 def embed_tokens(cfg: ModelConfig, model: DenseLM, tokens):
-    return model.embed[tokens.to(torch.long)].to(torch_dtype(cfg.act_dtype))
+    """The tokens' embeddings in the activation dtype.  Vocab-parallel:
+    each rank looks up the tokens of its block of the vocabulary, zero for
+    the others', and the ranks' rows are summed in f32; one term of each
+    sum is nonzero, so it is exact."""
+    act = torch_dtype(cfg.act_dtype)
+    if not getattr(model, "vocab_parallel", False):
+        return model.embed[tokens.to(torch.long)].to(act)
+    v = model.embed.shape[0]
+    local = tokens.to(torch.long) - current_mesh().model_rank * v
+    inside = (local >= 0) & (local < v)
+    rows = model.embed[local.clamp(0, v - 1)].to(torch.float32)
+    rows = torch.where(inside[..., None], rows, torch.zeros((), device=rows.device))
+    return reduce_model(rows).to(act)
 
 
 def default_positions(cfg: ModelConfig, b: int, s: int, offset: int = 0, device=None):
@@ -243,8 +279,10 @@ def default_positions(cfg: ModelConfig, b: int, s: int, offset: int = 0, device=
 
 
 def kv_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-                  device=None):
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
+                  device=None, n_kv: Optional[int] = None):
+    """Contiguous K/V caches [L, B, S, kv, hd] (``n_kv``: the kv heads a
+    rank holds under tensor parallelism; all of them by default)."""
+    shape = (cfg.n_layers, batch, max_len, n_kv or cfg.n_kv, cfg.hd)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
@@ -278,12 +316,20 @@ def decode_step(cfg: ModelConfig, model: DenseLM, token, kv_caches, cache_len: i
     return lm_logits(cfg, model, hidden, use_kernel), kv_caches
 
 
+def local_kv_heads(cfg: ModelConfig, model: DenseLM) -> int:
+    """The kv heads ``model`` holds: all of them, or a rank's under tensor
+    parallelism (``parallel/sharding.py::kv_heads_for_rank``)."""
+    return model.blocks[0].attn.wk.shape[-1] // cfg.hd
+
+
 def paged_kv_pool_init(cfg: ModelConfig, num_blocks: int, block_size: int,
-                       dtype=torch.bfloat16, device=None):
+                       dtype=torch.bfloat16, device=None, n_kv: Optional[int] = None):
     """Block-pool KV storage shared by all sequences: two tensors of
     shape [L, num_blocks, block_size, kv, hd].  Sequences own disjoint
-    sets of blocks, named by their block tables (``repro_torch.serving``)."""
-    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv, cfg.hd)
+    sets of blocks, named by their block tables (``repro_torch.serving``).
+    ``n_kv``: the kv heads a rank holds under tensor parallelism
+    (:func:`local_kv_heads`); all of them by default."""
+    shape = (cfg.n_layers, num_blocks, block_size, n_kv or cfg.n_kv, cfg.hd)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
@@ -307,12 +353,13 @@ def paged_prefill(cfg: ModelConfig, model: DenseLM, tokens, k_pool, v_pool, bloc
     if s != nb * block_size:
         raise ValueError(f"{s} tokens do not fill {nb} blocks of {block_size}")
     dev = tokens.device
-    caches = kv_cache_init(cfg, b, s, k_pool.dtype, device=dev)
+    n_kv = k_pool.shape[3]  # this rank's kv heads
+    caches = kv_cache_init(cfg, b, s, k_pool.dtype, device=dev, n_kv=n_kv)
     x = embed_tokens(cfg, model, tokens)
     positions = default_positions(cfg, b, s, device=dev)
     hidden, (ck, cv) = lm_backbone(cfg, model, x, positions, kv_caches=caches,
                                    cache_len=0, use_kernel=use_kernel)
-    kv_shape = (cfg.n_layers, nb, block_size, cfg.n_kv, cfg.hd)
+    kv_shape = (cfg.n_layers, nb, block_size, n_kv, cfg.hd)
     ids = block_ids.to(torch.long)
     k_pool[:, ids] = ck[:, 0].reshape(kv_shape)
     v_pool[:, ids] = cv[:, 0].reshape(kv_shape)

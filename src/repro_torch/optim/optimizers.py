@@ -10,8 +10,8 @@ norm, the master math is f32, and each parameter is cast back to its
 storage dtype.  No f32 copy of all gradients is held at once.
 
 The reference's ``state_shardings`` (ZeRO-1 sharding of the state over
-the data axis) comes with tensor and data parallelism (``ROADMAP.md``,
-queue 1, item 6).
+the data axis) comes with the training side of tensor parallelism
+(``ROADMAP.md``, queue 1, item 8).
 """
 from __future__ import annotations
 

@@ -4,9 +4,10 @@ Port of ``repro/serving/api.py``.  :class:`ServeOptions` keeps the
 reference's field names and defaults.  Chunked prefill, speculative
 decoding (n-gram or draft-model drafts), recompute preemption, the
 prefix cache, tracing (on by default), profiler spans and the static
-engine are served.  Tensor parallelism, not ported yet, raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item; it is never
-silently ignored.  :func:`build_engine` picks the continuous engine for
+engine are served, and ``tp`` serves tensor-parallel on the continuous
+engine, one engine a rank of a ``torch.distributed`` world
+(``launch/mesh.py::spawn``); the static engine serves at tp = 1, as the
+reference's does.  :func:`build_engine` picks the continuous engine for
 the paged families and the static engine for the others (ssm, hybrid,
 encdec, vlm), as the reference does.
 
@@ -36,10 +37,9 @@ from .scheduler import Request, RequestState
 #: families served by the continuous-batching engine under engine="auto"
 PAGED_FAMILIES = ("dense", "moe")
 
-#: the message of an option whose slice is not ported yet, and those
-#: slices by ROADMAP.md queue 1 item
+#: the message of an option whose slice is not ported yet, by its
+#: ROADMAP.md queue 1 item (launch/mesh.py::TP_TRAINING)
 LATER = "is not ported yet (ROADMAP.md, queue 1, item {})"
-TENSOR_PARALLELISM = "6: tensor parallelism"
 
 
 @dataclasses.dataclass
@@ -78,14 +78,8 @@ class ServeOptions:
     profile: bool = False
     time_steps: bool = False  # static engine only
 
-    def check_supported(self) -> None:
-        """Raise for every option of a later slice that is set."""
-        if self.tp != 1:
-            raise NotImplementedError("ServeOptions.tp " + LATER.format(TENSOR_PARALLELISM))
-
     def paged(self) -> PagedServeConfig:
         """Project onto the continuous engine's internal config."""
-        self.check_supported()
         return PagedServeConfig(
             block_size=self.block_size,
             num_blocks=self.num_blocks,
@@ -104,6 +98,7 @@ class ServeOptions:
             clock=self.clock,
             trace=self.trace,
             profile=self.profile,
+            tp=self.tp,
         )
 
     def static(self) -> ServeConfig:
@@ -196,9 +191,11 @@ def build_engine(
     one the port's own seeded init (``init_seed``) runs on the device.
     The static engine takes ``prequantize`` and ``use_kernel`` from
     ``opts`` and its per-call options from :meth:`ServeOptions.static`;
-    the continuous engine's capacity options do not apply to it."""
+    the continuous engine's capacity options do not apply to it, and it
+    serves at ``tp`` = 1 only.  With ``tp`` > 1 this is called in each
+    rank of a world of tp ranks (``launch/mesh.py::spawn``); elsewhere the
+    continuous engine raises ``ValueError``."""
     opts = opts or ServeOptions()
-    opts.check_supported()
     kind = opts.engine
     if kind == "auto":
         kind = "continuous" if cfg.family in PAGED_FAMILIES else "static"
@@ -206,6 +203,9 @@ def build_engine(
         return ContinuousBatchingEngine(
             cfg, params=params, init_seed=init_seed, pcfg=opts.paged(), device=device)
     if kind == "static":
+        if opts.tp != 1:
+            raise ValueError(f"the static engine serves at tp=1, not tp={opts.tp}; "
+                             f"tensor parallelism is the continuous engine's")
         return Engine(cfg, params=params, init_seed=init_seed, prequantize=opts.prequantize,
                       device=device, use_kernel=opts.use_kernel)
     raise ValueError(

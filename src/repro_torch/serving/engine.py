@@ -15,8 +15,11 @@ engine is observable as the reference's is: a typed per-request trace
 (``self.trace``, on unless ``trace=False``), a metrics registry wired
 with live sources (``self.metrics``), ``stream()``, and, with
 ``profile=True``, a ``torch.profiler.record_function`` span around
-each phase's launches (``serving/observability.py``).  Tensor
-parallelism is a later slice (``ROADMAP.md``, queue 1, item 6).
+each phase's launches (``serving/observability.py``).  With
+``tp > 1`` it serves tensor-parallel over the ranks of a
+``torch.distributed`` world (``launch/mesh.py::spawn``), each holding
+its shard of the model (``parallel/sharding.py``) and its kv heads of
+the pool, every rank running the same host control plane.
 
 :class:`Engine` is the reference's static batcher: one prefill of a
 fixed batch, then lockstep decode over contiguous caches; the only
@@ -42,7 +45,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import ModelAPI, build
-from repro_torch.models.transformer import torch_dtype
+from repro_torch.models.transformer import local_kv_heads, torch_dtype
+from repro_torch.parallel.sharding import pool_layout, shard_model, use_mesh
 
 from .kv_cache import SCRATCH_BLOCK, BlockAllocator, padded_prompt_len
 from .observability import (
@@ -335,6 +339,12 @@ class PagedServeConfig:
     prefix_cache: content-addressed sharing of full prompt blocks
         (``kv_cache.BlockAllocator``); hits skip prefill, the miss suffix
         goes through the chunk path.
+    tp: tensor-parallel ways.  The engine then runs in each rank of an
+        initialized ``torch.distributed`` world of exactly tp ranks
+        (``launch/mesh.py::spawn``): a (data=1, model=tp) mesh, the
+        parameters cut Megatron-style (``parallel/sharding.py``), the
+        pool holding the rank's kv heads.  Inside a world of one, tp = 1
+        runs the same path with every collective an identity.
     trace: record one typed ``TraceEvent`` per request lifecycle
         transition (host-side appends), the source of the per-request
         latency breakdown and of the JSON-lines / Chrome trace exports.
@@ -360,6 +370,23 @@ class PagedServeConfig:
     clock: Optional[object] = None  # monotonic seconds; None = time.monotonic
     trace: bool = True
     profile: bool = False
+    tp: int = 1
+
+
+def serving_mesh(tp: int):
+    """The engine's mesh: None outside a ``torch.distributed`` world at
+    tp = 1; inside one, the (data=1, model=tp) mesh over its ranks, which
+    must be tp."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if dist.is_available() and dist.is_initialized():
+        return make_host_mesh(model=tp)
+    if tp > 1:
+        raise ValueError(f"tp={tp} needs {tp} ranks/devices, found 1: serve from each "
+                         f"rank of a world started by repro_torch.launch.mesh.spawn")
+    return None
 
 
 class ContinuousBatchingEngine:
@@ -382,7 +409,13 @@ class ContinuousBatchingEngine:
          not outlive them are zeroed in one batched, in-place scrub
          before the next compute.
 
-    Runs on ``device`` (CUDA unless the caller passes another).
+    Runs on ``device`` (CUDA unless the caller passes another).  Under
+    ``pcfg.tp`` (and in any ``torch.distributed`` world) it is one rank's
+    engine: ``self.mesh`` is set, the model (the seeded init, or
+    ``params``, cut in place) holds the rank's shard, and every forward
+    runs inside the mesh, whose collectives leave every rank the same
+    logits, so that every rank picks the same tokens and its scheduler,
+    allocator and drafter take the same decisions.
     """
 
     def __init__(
@@ -405,6 +438,7 @@ class ContinuousBatchingEngine:
                 f"prefill_chunk={pcfg.prefill_chunk} must be a multiple of "
                 f"block_size={pcfg.block_size}")
         self.device = resolve_device(device)
+        self.mesh = serving_mesh(pcfg.tp)
         self.drafter = None
         if pcfg.spec_k:
             if pcfg.temperature > 0:
@@ -415,9 +449,9 @@ class ContinuousBatchingEngine:
                                          device=self.device, use_kernel=pcfg.use_kernel)
                             if isinstance(pcfg.spec_draft, str) else pcfg.spec_draft)
         if params is None:
-            self.model = self.api.init(seed=init_seed, device=self.device)
+            self.model = self.api.init(seed=init_seed, device=self.device, mesh=self.mesh)
         else:
-            self.model = params.to(self.device)
+            self.model = shard_model(params, cfg, self.mesh).to(self.device)
         self.prequant_meta = {}
         if pcfg.prequantize:
             from repro_torch.core.prequant import quantize_params
@@ -431,7 +465,11 @@ class ContinuousBatchingEngine:
         # acceptance is known, into the sequence's own reserved blocks
         self.max_blocks_per_seq = -(-(pcfg.max_seq_len + pcfg.spec_k) // bs)
         self._k_pool, self._v_pool = self.api.paged_pool_init(
-            nb, bs, torch_dtype(pcfg.cache_dtype), self.device)
+            nb, bs, torch_dtype(pcfg.cache_dtype), self.device,
+            n_kv=local_kv_heads(cfg, self.model))
+        # "kv_heads" or "replicated_kv_heads" (parallel/sharding.py)
+        self.pool_layout = (pool_layout(self.mesh, (cfg.n_layers, nb, bs, cfg.n_kv, cfg.hd))
+                            if self.mesh is not None else None)
         self.allocator = BlockAllocator(nb, bs, prefix_cache=pcfg.prefix_cache)
         self._clock = pcfg.clock if pcfg.clock is not None else time.monotonic
         self.scheduler = Scheduler(
@@ -731,7 +769,7 @@ class ContinuousBatchingEngine:
         toks = np.zeros((1, s_pad), np.int32)
         toks[0, :plen] = req.prefill_tokens
         block_ids = self._tensor(np.asarray(req.alloc.blocks[: s_pad // bs], np.int32))
-        with phase_annotation("serve.prefill", self._profile):
+        with use_mesh(self.mesh), phase_annotation("serve.prefill", self._profile):
             logits, _ = self.api.paged_prefill(
                 self.model, self._tensor(toks), self._k_pool, self._v_pool, block_ids,
                 plen, use_kernel=self.pcfg.use_kernel)
@@ -753,7 +791,7 @@ class ContinuousBatchingEngine:
         toks[0, :real] = req.prefill_tokens[start:start + real]
         table_row = self._tensor(
             np.asarray(req.alloc.table_row(self.max_blocks_per_seq), np.int32))
-        with phase_annotation("serve.prefill", self._profile):
+        with use_mesh(self.mesh), phase_annotation("serve.prefill", self._profile):
             logits, _ = self.api.paged_prefill_chunk(
                 self.model, self._tensor(toks), self._k_pool, self._v_pool, table_row,
                 start, real - 1, use_kernel=self.pcfg.use_kernel)
@@ -834,7 +872,7 @@ class ContinuousBatchingEngine:
     def _do_decode(self, step: int) -> List[Request]:
         self._flush_scrubs()
         t0 = time.perf_counter()
-        with phase_annotation("serve.decode", self._profile):
+        with use_mesh(self.mesh), phase_annotation("serve.decode", self._profile):
             logits, _ = self.api.paged_decode_step(
                 self.model,
                 self._tensor(self._last_tok[:, None]),
@@ -892,7 +930,7 @@ class ContinuousBatchingEngine:
             drafts[slot] = d
             tokens[slot, 1:] = d
         t0 = time.perf_counter()
-        with phase_annotation("serve.verify", self._profile):
+        with use_mesh(self.mesh), phase_annotation("serve.verify", self._profile):
             logits, _ = self.api.paged_score_tokens(
                 self.model, self._tensor(tokens), self._k_pool, self._v_pool,
                 self._tensor(self._tables), self._tensor(self._lengths),

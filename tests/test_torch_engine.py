@@ -169,11 +169,12 @@ def test_engine_rejects_oversized_request(port_engine):
     ("spec_draft", "model:yi-6b"),
 ])
 def test_later_slice_options_raise(field, value):
-    """The options that once named a later slice: tensor parallelism still
-    raises naming its ROADMAP item; the static engine and a draft model,
-    served since their slice was ported, build and serve (the static
-    engine's tokens against the JAX engine's are held in
-    tests/test_torch_static_engine.py)."""
+    """The options that once named a later slice: tensor parallelism, served
+    since its slice was ported from a world of tp ranks, raises
+    ``ValueError`` naming the ranks outside one (its tokens at tp = 2 are
+    held in tests/test_torch_tp_serving.py); the static engine and a draft
+    model build and serve (the static engine's tokens against the JAX
+    engine's are held in tests/test_torch_static_engine.py)."""
     from repro_torch.serving import DraftModelDrafter, Engine
 
     _, tc = _cfgs("f32")
@@ -181,7 +182,7 @@ def test_later_slice_options_raise(field, value):
     if field == "spec_draft":
         opts["spec_k"] = 2  # the drafter is made only when speculative decoding is on
     if field == "tp":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 6"):
+        with pytest.raises(ValueError, match="tp=2 needs 2 ranks/devices, found 1"):
             build_engine(tc, ServeOptions(**opts), device="cpu")
         return
     eng = build_engine(tc, ServeOptions(**opts), device="cpu")

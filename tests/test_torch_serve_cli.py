@@ -144,15 +144,18 @@ def test_main_without_trace_skips_the_trace_file(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["--arch", "yi-6b", "--reduced"], None),
-    (REDUCED + ["--tp", "2"], "item 6"),
-    (REDUCED + ["--force-host-devices", "8"], "item 6"),
+    (REDUCED + ["--tp", "2", "--device", "cpu"], "tp"),
+    (REDUCED + ["--force-host-devices", "8"], "tp"),
 ], ids=["static", "tp2", "force-host-devices"])
 def test_later_slices_raise(argv, item, capsys):
-    """Tensor parallelism still raises naming its ROADMAP item.  The static
-    engine (a run without --continuous), a later slice until it was
-    ported, now serves: the reference's summary line and one batch row a
-    prompt (its tokens against the JAX CLI's are held in
-    tests/test_torch_static_engine.py)."""
+    """The options that once named a later slice serve.  The static engine
+    (a run without --continuous): the reference's summary line and one
+    batch row a prompt (its tokens against the JAX CLI's are held in
+    tests/test_torch_static_engine.py).  Tensor parallelism: ``--tp 2 --device
+    cpu`` serves from two CPU ranks and ``--force-host-devices 8`` on host
+    devices (the reference's meaning), each printing the ``--tp 1`` run's
+    requests and tokens (tp = 2 against the JAX engine:
+    tests/test_torch_tp_serving.py)."""
     if item is None:
         t_serve.main(argv + ["--device", "cpu", "--numerics-policy", "default=f32",
                              "--batch", "2", "--prompt-len", "6", "--new-tokens", "3"])
@@ -160,8 +163,17 @@ def test_later_slices_raise(argv, item, capsys):
         assert out[0].startswith("arch=yi-6b numerics='default=f32' step_p50=")
         assert [ln.split(":")[0] for ln in out[1:]] == ["batch[0]", "batch[1]"]
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1, {item}"):
-        t_serve.main(argv + ["--device", "cpu"])
+    policy = ["--numerics-policy", "default=f32"]
+    t_serve.main(REDUCED + policy + ["--device", "cpu"])
+    want = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("req[")]
+    t_serve.main(argv + policy)
+    out = capsys.readouterr().out.splitlines()
+    tp = 2 if "--tp" in argv else 1
+    summary = next(ln for ln in out if ln.startswith("arch="))
+    assert f" tp={tp} " in summary
+    assert [ln for ln in out if ln.startswith("req[")] == want and len(want) == 3
+    if tp > 1:
+        assert "mesh: 2 ranks on cpu over gloo" in out
 
 
 def test_main_without_a_card_raises():
