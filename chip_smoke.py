@@ -5,9 +5,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--layers N]
                           [--phases device,kernels,conformance,serve,serve_paths,observe,moe,
-                                    static,archs,train,train_families,e2e,times,dryrun,tp]
+                                    static,archs,train,train_families,e2e,times,dryrun,tp,
+                                    tp_train]
 
-It imports ``repro_torch`` (never JAX) and runs fifteen phases, each on
+It imports ``repro_torch`` (never JAX) and runs sixteen phases, each on
 its own lines:
 
 1. device      — the card's name and power limit (nvidia-smi), the torch
@@ -270,6 +271,37 @@ its own lines:
    backend and size, each rank's peak memory, the step p50 at tp = 1 and
    tp = 2, K1's device times at the sharded shapes (rank 0, the others
    held at a barrier) and the collectives' share of a decode step.
+16. tp_train   — training over a (data 2 x model 2) mesh: one world of
+   four ranks spawned from here, sharing this one card over gloo, each
+   drawing its shard of the seeded init, at phase train's settings
+   (posit_quant:16:1, bf16, remat, AdamW at lr 1e-3, a global batch of
+   8 x 128 from ``lm_batch``, each data rank its rows; ZeRO-1 AdamW
+   state): yi-6b at full width cut to ``TP_TRAIN_LAYERS`` layers (gloo's
+   traffic through host memory sets the phase's time) for
+   ``TP_TRAIN_STEPS`` steps, its
+   whole leaves gathered and written by rank 0 after
+   ``TP_TRAIN_CKPT_AFTER``; granite-moe-1b-a400m at full width and depth
+   for ``TP_TRAIN_MOE_STEPS``; yi-6b at ``TP_TRAIN_EXACT_LAYERS`` layers
+   with f32 parameters, activations and numerics, one sharded step against one
+   rank's on rank 0.  Then the checkpoint is restored here on one rank,
+   which takes the remaining steps (elastic restore).  Gates: every
+   rank's losses equal; step 0 within ``TP_TRAIN_LOSS_RTOL`` of one
+   rank's (phase train's and train_families' where they ran, else a
+   forward here); losses finite, and batch 0's after the steps below its
+   step-0 loss; each rank's K3 quantizes a
+   step by ``family_quantize_count`` (28L+4 for yi-6b), confirmed by a
+   no-grad forward; no plain codec call on the card; K3 bit for bit at
+   each (shape, dtype) rank 0 launched; each rank's m + v bytes the
+   per-device count of ``zero1_dims`` on the stacked leaves; yi-6b's
+   collectives a step by ``tp_train_collectives``; the f32 step's loss
+   and parameters within ``TP_TRAIN_EXACT_TOL`` of one rank's and its m
+   and v within ``TP_TRAIN_EXACT_MOMENT_ATOL`` + ``TP_TRAIN_EXACT_TOL``
+   of theirs; the restored run's first loss within
+   ``TP_TRAIN_LOSS_RTOL`` of the world's.  Printed beside the card's
+   name and power limit: the world's backend and ranks, each step's
+   seconds, per-rank peak memory and state bytes, the collectives a step
+   and their share of the last step, the checkpoint's and the restore's
+   seconds.
 
 It exits non-zero if any phase fails, if no CUDA device is present, or if
 ``repro_torch`` cannot be imported.  Its last line is
@@ -293,7 +325,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ["device", "kernels", "conformance", "serve", "serve_paths", "observe", "moe",
-          "static", "archs", "train", "train_families", "e2e", "times", "dryrun", "tp"]
+          "static", "archs", "train", "train_families", "e2e", "times", "dryrun", "tp",
+          "tp_train"]
 
 # H100 SXM peaks (NVIDIA data sheet), from the port's roofline, the one
 # source of them: HBM3 bytes/s, f32 CUDA-core FLOP/s, SMs and the INT32
@@ -745,6 +778,46 @@ TP_FALLBACK = 8  # yi-6b's kv = 4 < 8: each rank keeps the kv head its q heads r
 TP_CUT_LAYERS = 4  # the depth of the tp = 8 yi-6b and the deepseek-moe-16b runs
 TP_K1_TIME_REPS = 10
 TP_TIMEOUT_S = 600  # a spawned world's limit
+# phase tp_train: training over a (data x model) mesh whose ranks share this
+# one card over gloo, at phase train's settings (posit_quant:16:1, bf16,
+# remat, AdamW at TRAIN_LR, global batch TRAIN_BATCH x TRAIN_SEQ, seed 0):
+# yi-6b at full width for TP_TRAIN_STEPS steps with a checkpoint of
+# whole leaves after TP_TRAIN_CKPT_AFTER, restored on one rank here (elastic
+# restore); TP_TRAIN_MOE at full width and depth; yi-6b at
+# TP_TRAIN_EXACT_LAYERS layers with f32 parameters and activations, one
+# sharded step against one rank's.  The exactness run's AdamW eps is
+# TP_TRAIN_EXACT_EPS: its first step divides each gradient element by its
+# own magnitude plus eps, so at 1e-8 a gradient element near 0 would move
+# its parameter by a share of lr set by its f32 rounding
+# (tests/test_torch_tp_train.py)
+TP_TRAIN_MESH = (2, 2)  # (data, model)
+# yi-6b's depth: gloo moves each step's f32 gradients (3.8 GB a rank at
+# phase train's 8 layers) and ZeRO-1's updated parameters through host
+# memory, 17-18 s a step at 8 layers on the H100 (0.96 of it collectives)
+# and 7-15 s at 4 (the host's throughput differs between machines): cut in
+# depth, never in width, to keep the whole script inside its time limit
+TP_TRAIN_LAYERS = 2
+TP_TRAIN_STEPS, TP_TRAIN_CKPT_AFTER = 4, 2
+TP_TRAIN_MOE, TP_TRAIN_MOE_STEPS = "granite-moe-1b-a400m", 2
+TP_TRAIN_EXACT_LAYERS, TP_TRAIN_EXACT_EPS = 2, 1e-5
+TP_TRAIN_LOSS_RTOL = 1e-3  # a step-0 loss against one rank's (the forward's sum order)
+TP_TRAIN_EXACT_TOL = 1e-5  # the f32 step: loss (relative) and parameters (absolute)
+TP_TRAIN_EXACT_MOMENT_ATOL = 1e-6  # m and v: within 1e-6 + 1e-5 |one rank's|
+# the exactness step's policy and its parameters' tolerance: f32, the sum
+# order alone.  (Under posit_quant:16:1 with an f32 carrier, K3 on both
+# sides, an activation that the sharded sums put across a posit rounding
+# boundary moves its gradient elements, and AdamW turns that, where an
+# element is near eps, into up to a tenth of the step's move: 1.84e-5 on the
+# H100, PERF.md section 6, PR 31; tests/test_torch_tp_train.py holds that
+# case against the reference.  It left the phase for the script's time.)
+TP_TRAIN_EXACT_POLICIES = {"f32": ("default=f32", TP_TRAIN_EXACT_TOL)}
+TP_TRAIN_TIMEOUT_S = 900
+# yi-6b at all 32 layers, where the world has a card a rank: at TRAIN_LR its
+# loss rises (batch 0's 11.56 -> 12.66 over 4 steps on four H100s, PERF.md
+# section 6, PR 31): AdamW's first steps move every weight by about lr, 6%
+# of its init scale (d^-1/2), in the gradient's sign, and 32 layers compound
+# it; the full-depth run takes a tenth of it
+TP_TRAIN_FULL_LR = 1e-4
 
 
 def launch_counts(cfg, prequantized: bool = True) -> dict:
@@ -6566,6 +6639,440 @@ class Smoke:
         return {"outputs": run["outputs"], "step_p50_s": run["step_p50_s"],
                 "model": lambda: model, "events": events if cfg.n_experts else None}
 
+    def phase_tp_train(self):
+        """Training over a (data x model) mesh of ranks, one world spawned
+        from here (``launch/mesh.py::spawn``), its four ranks sharing this
+        card over gloo: yi-6b at TP_TRAIN_LAYERS layers and phase train's settings
+        (TP_TRAIN_STEPS steps; tensor parallelism over model, the global
+        batch over data, ZeRO-1 AdamW state) with a checkpoint of whole
+        leaves after TP_TRAIN_CKPT_AFTER, TP_TRAIN_MOE at full width and
+        depth, and yi-6b at TP_TRAIN_EXACT_LAYERS layers in f32 against a
+        one-rank step (``Smoke.tp_train_steps``, ``Smoke.tp_train_exact``);
+        then the checkpoint restored on one rank here, which takes the
+        remaining steps (elastic restore, 2 x 2 -> 1 x 1).  Where the
+        machine has a card a rank, the world runs over nccl, and yi-6b also
+        trains at its full depth (``yi_full``: steps only, no checkpoint, at
+        TP_TRAIN_FULL_LR)."""
+        torch = self.torch
+        import gc
+        import shutil
+
+        from repro_torch.configs import get_config
+        from repro_torch.core.policy import describe
+        from repro_torch.launch.mesh import choose_backend, spawn
+
+        self.yi_model = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        card = self.results["device"]["nvidia_smi"]
+        data, tp = TP_TRAIN_MESH
+        backend = choose_backend(data * tp, "cuda")
+        cards = torch.cuda.device_count()
+        note = (f"[{card}; the ranks share this one card over gloo: not multi-card figures]"
+                if backend == "gloo" else f"[{cards} x {card}, a card a rank over nccl]")
+        yi = dataclasses.replace(self.train_cfg(),
+                                 n_layers=min(self.args.layers, TP_TRAIN_LAYERS))
+        moe = get_config(TP_TRAIN_MOE)
+        moe = dataclasses.replace(moe, n_layers=min(self.args.layers, moe.n_layers))
+        exact = dataclasses.replace(get_config("yi-6b"), n_layers=TP_TRAIN_EXACT_LAYERS,
+                                    param_dtype="float32", act_dtype="float32")
+        ckpt_dir = os.path.join(ROOT, "build", "tp_train_ckpt")
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        failures, res = [], {"card": card, "mesh": {"data": data, "model": tp}}
+        want0 = {"yi": self.tp_train_loss0(yi, "train", "yi"),
+                 "moe": self.tp_train_loss0(moe, "train_families", TP_TRAIN_MOE)}
+        jobs = {"yi": dict(kind="steps", cfg=yi, steps=TP_TRAIN_STEPS,
+                           ckpt_after=TP_TRAIN_CKPT_AFTER, ckpt_dir=ckpt_dir, count=True),
+                "moe": dict(kind="steps", cfg=moe, steps=TP_TRAIN_MOE_STEPS),
+                "exact": dict(kind="exact", cfgs={
+                    k: (exact.with_numerics(pol), tol)
+                    for k, (pol, tol) in TP_TRAIN_EXACT_POLICIES.items()})}
+        if backend == "nccl":  # a card a rank: room for all 32 layers
+            full = dataclasses.replace(yi, n_layers=get_config("yi-6b").n_layers)
+            jobs["yi_full"] = dict(kind="steps", cfg=full, steps=TP_TRAIN_STEPS, count=True,
+                                   lr=TP_TRAIN_FULL_LR)
+            want0["yi_full"] = self.tp_train_loss0(full, "train", "yi")
+        for job in jobs.values():
+            job.update(data=data, model=tp)
+        log(f"tp_train: a world of {data * tp} ranks, (data {data} x model {tp}) over {backend} "
+            f"on {cards} card(s); yi-6b {yi.n_layers} of 32 layers ({describe(yi.numerics)!r}), "
+            f"{TP_TRAIN_MOE} {moe.n_layers} layers, yi-6b {exact.n_layers} layers f32"
+            + (", yi-6b 32 layers" if "yi_full" in jobs else ""))
+        cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # the ranks' deterministic cuBLAS
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn(tp_train_rank, data * tp, "cuda", self.args, jobs,
+                          timeout=TP_TRAIN_TIMEOUT_S)
+        finally:
+            if cublas is None:
+                os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+        res["world_s"] = time.perf_counter() - t0
+        r0 = ranks[0]
+        res["backend"], res["world"] = r0["backend"], r0["world"]
+        log(f"tp_train: backend {r0['backend']}, world {r0['world']}, ranks "
+            f"{[r['rank'] for r in ranks]} at (data, model) "
+            f"{[(r['data_rank'], r['model_rank']) for r in ranks]}; the world in "
+            f"{res['world_s']:.1f} s with the spawn {note}")
+        if r0["backend"] != backend or r0["world"] != data * tp:
+            failures.append(f"world {r0['world']} over {r0['backend']}, not {data * tp} over "
+                            f"{backend}")
+        for name in [n for n in ("yi", "moe", "yi_full") if n in jobs]:
+            res[name] = self.tp_train_gates(name, jobs[name]["cfg"], ranks, want0[name], failures,
+                                            note)
+        res["exact"] = {name: [r["exact"][name] for r in ranks] for name in r0["exact"]}
+        for name, per_rank in res["exact"].items():
+            ex = per_rank[0]
+            for r, got in zip(ranks, per_rank):
+                failures.extend(f"exact {name} rank {r['rank']}: {f}" for f in got["failures"])
+            worst = {k: max(x[k] for x in per_rank)
+                     for k in ("max_param_diff", "max_m_diff", "max_v_diff", "loss_rel_diff")}
+            log(f"tp_train exact {name} (yi-6b {exact.n_layers} layers, f32 parameters and "
+                f"activations, AdamW eps {TP_TRAIN_EXACT_EPS}, deterministic algorithms; each "
+                f"rank's slices against one rank's step): loss {ex['loss']:.6f} against one "
+                f"rank's {ex['one_rank_loss']:.6f} ({worst['loss_rel_diff']:.2e}); largest "
+                f"|difference| of a parameter {worst['max_param_diff']:.3e} (tolerance "
+                f"{ex['param_tol']:.0e}), of m {worst['max_m_diff']:.3e}, of v "
+                f"{worst['max_v_diff']:.3e} over {ex['leaves']} leaves; the sharded step "
+                f"{ex['step_s']:.2f} s; K3 at {ex['k3_shapes']} (shape, dtype) "
+                f"{'bit-identical' if not ex['k3_differ'] else ex['k3_differ']}")
+        res["restore"] = self.tp_train_restore(yi, ckpt_dir, r0["yi"]["losses"], failures, note)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        k3 = sum(sum(r["yi"]["k3"]) + sum(r["moe"]["k3"]) for r in ranks[:1])
+        self.path_launches["posit_codec"] = self.path_launches.get("posit_codec", 0) + k3
+        self.results["tp_train"] = res
+        if failures:
+            raise AssertionError("; ".join(failures[:8]))
+
+    def tp_train_loss0(self, cfg, phase, key):
+        """One rank's step-0 loss of ``cfg``'s seeded init on batch 0: phase
+        ``phase``'s where it trained the same depth, else a no-grad forward
+        here."""
+        from repro_torch.models import build
+
+        got = self.results.get(phase, {})
+        got = got.get("models", got).get(key)
+        if got is not None and got.get("layers") == cfg.n_layers:
+            return {"loss": got["losses"][0], "from": f"phase {phase}"}
+        api = build(cfg)
+        model = api.init(seed=0, device=self.dev)
+        with self.torch.no_grad():
+            loss = float(api.train_loss(model, self.family_batch(api, cfg, TRAIN_BATCH,
+                                                                 TRAIN_SEQ, 0)))
+        del model
+        self.torch.cuda.empty_cache()
+        return {"loss": loss, "from": "a one-rank forward here"}
+
+    def tp_train_gates(self, name, cfg, ranks, want0, failures, note):
+        """Phase tp_train's gates on one model's steps, every rank's."""
+        import numpy as np
+
+        r0 = ranks[0][name]
+        row = {"ranks": [r[name] for r in ranks], "step0_reference": want0}
+        for r in ranks:
+            got = r[name]
+            failures.extend(f"{name} rank {r['rank']}: {f}" for f in got["failures"])
+            if got["losses"] != r0["losses"]:
+                failures.append(f"{name} rank {r['rank']}: losses {got['losses']} differ from "
+                                f"rank 0's {r0['losses']}")
+        losses = r0["losses"]
+        rel0 = abs(losses[0] - want0["loss"]) / abs(want0["loss"])
+        row["step0_rel_diff"] = rel0
+        if not rel0 <= TP_TRAIN_LOSS_RTOL:
+            failures.append(f"{name}: step-0 loss {losses[0]} against one rank's "
+                            f"{want0['loss']} ({want0['from']}): {rel0:.2e} > "
+                            f"{TP_TRAIN_LOSS_RTOL}")
+        # falling: batch 0's loss after the steps below its step-0 loss (the
+        # batches differ, so one step's loss may lie above another's)
+        if not all(np.isfinite(losses)) or not r0["batch0_after"] < losses[0]:
+            failures.append(f"{name}: losses {losses}, batch 0's {r0['batch0_after']} after "
+                            f"them: not finite and falling")
+        p50 = float(np.quantile(r0["step_s"][1:], 0.5))
+        row["step_p50_s"] = p50
+        log(f"tp_train {name} ({cfg.name}, {cfg.n_layers} layers, AdamW lr {r0['lr']}): losses "
+            f"{[round(x, 4) for x in losses]}, batch 0's {r0['batch0_after']:.4f} after them "
+            f"(step 0 {rel0:.2e} from one rank's "
+            f"{want0['loss']:.4f}, {want0['from']}); step seconds "
+            f"{[round(x, 3) for x in r0['step_s']]}, p50 over steps 1+ {p50:.3f} s; init "
+            f"{r0['init_s']:.1f} s; peak per rank {[round(r[name]['peak_gib'], 2) for r in ranks]} "
+            f"GiB; m + v a rank {[r[name]['state_bytes'] for r in ranks]} bytes (ZeRO-1's "
+            f"per-device count {r0['state_bytes_want']}) {note}")
+        log(f"  K3 posit_quantize a step per rank {[r[name]['k3'] for r in ranks]} (hand count "
+            f"{r0['k3_want']}; a no-grad forward {r0['k3_forward']}, hand count "
+            f"{r0['k3_forward_want']}); plain calls on the card {r0['plain_calls']}; rank 0's K3 "
+            f"at {len(r0['k3_seen'])} (shape, dtype): "
+            f"{[(s['shape'], s['dtype'], s['launches']) for s in r0['k3_seen']]}")
+        if r0.get("collectives_want") is not None:
+            log(f"  collectives a step (rank 0) {r0['collectives']} (hand count "
+                f"{r0['collectives_want']}); the last step's collectives, the card synchronized "
+                f"around each, {r0['collective_s']:.3f} s of its {r0['step_s'][-1]:.3f} s: "
+                f"{r0['collective_s'] / r0['step_s'][-1]:.3f}")
+        if r0.get("ckpt_s") is not None:
+            log(f"  checkpoint after step {TP_TRAIN_CKPT_AFTER}: whole leaves gathered and "
+                f"written by rank 0 in {r0['ckpt_s']:.1f} s ({r0['ckpt_bytes'] / 1e9:.2f} GB)")
+        return row
+
+    def tp_train_steps(self, job, mesh):
+        """One rank's steps of ``job["cfg"]`` over ``mesh`` from the sharded
+        seeded init at phase train's settings: each step's loss, seconds
+        and K3 quantizes (against ``family_quantize_count``, confirmed by a
+        no-grad forward of this rank's rows), no plain codec call on the
+        card, K3 bit for bit at each (shape, dtype) rank 0 launched, the
+        rank's ZeRO-1 state bytes against the per-device count of
+        ``zero1_dims`` on the stacked leaves, peak memory; with ``count``,
+        the collectives a step against ``tp_train_collectives`` and the
+        last step's collectives timed; with ``ckpt_after``, the whole
+        leaves gathered and written by rank 0 after that many steps."""
+        torch = self.torch
+        from repro_torch.kernels import _lib
+        from repro_torch.models import build
+        from repro_torch.models.transformer import set_trainable
+        from repro_torch.optim.optimizers import OptConfig, Zero1, init_state, zero1_dims, \
+            zero1_numel
+        from repro_torch.parallel.sharding import leaf_layouts, use_mesh
+        from repro_torch.train import checkpoint as ckpt_lib
+        from repro_torch.train.loop import (
+            TrainConfig,
+            gather_train_tree,
+            local_rows,
+            make_train_step,
+        )
+
+        cfg, rank = job["cfg"], mesh.rank
+        api = build(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = set_trainable(api.init(seed=0, device=self.dev, mesh=mesh))
+        zero = Zero1(leaf_layouts(cfg, mesh), mesh, cfg.n_layers)
+        tcfg = TrainConfig(opt=OptConfig(name="adamw", lr=job.get("lr", TRAIN_LR)))
+        state = init_state(tcfg.opt, model, zero)
+        step = make_train_step(api.train_loss, tcfg, zero)
+        torch.cuda.synchronize()
+        fwd_k3, want_k3 = self.family_quantize_count(cfg, TRAIN_SEQ)
+        want_bytes = 0
+        for names in zero.by_path.values():
+            lay = zero.layouts[names[0]]
+            shape = ((cfg.n_layers,) if lay.layer is not None else ()) + lay.shape
+            want_bytes += 8 * zero1_numel(shape, zero1_dims(lay.path, shape, mesh), mesh)
+        out = {"init_s": time.perf_counter() - t0, "losses": [], "step_s": [], "k3": [],
+               "lr": tcfg.opt.lr,
+               "failures": [], "state_bytes": zero.state_bytes(state),
+               "state_bytes_want": want_bytes, "k3_want": want_k3, "k3_forward_want": fwd_k3,
+               "collectives_want": (tp_train_collectives(cfg, zero, model) if job.get("count")
+                                    else None),
+               "ckpt_s": None}
+        fails = out["failures"]
+        if out["state_bytes"] != want_bytes:
+            fails.append(f"m + v {out['state_bytes']} bytes, ZeRO-1's count {want_bytes}")
+        batch0 = self.family_batch(api, cfg, TRAIN_BATCH, TRAIN_SEQ, 0)
+        with contextlib.ExitStack() as stack:
+            seen = stack.enter_context(self.recording_k3()) if rank == 0 else {}
+            plain = stack.enter_context(self.counting_plain())
+            for i in range(job["steps"]):
+                batch = batch0 if i == 0 else self.family_batch(api, cfg, TRAIN_BATCH,
+                                                                TRAIN_SEQ, i)
+                mesh.time_collectives = bool(job.get("count")) and i == job["steps"] - 1
+                mesh.collectives.clear()
+                mesh.collective_s = 0.0
+                torch.cuda.synchronize()
+                _lib.reset_launches()
+                t0 = time.perf_counter()
+                loss = float(step(model, state, batch)[2]["loss"])
+                torch.cuda.synchronize()
+                out["step_s"].append(time.perf_counter() - t0)
+                out["losses"].append(loss)
+                out["k3"].append(_lib.launches["posit_codec"])
+                out["collectives"] = dict(mesh.collectives)
+                out["collective_s"] = mesh.collective_s
+                log(f"  {cfg.name} step {i}: loss {loss:.4f}, {out['step_s'][-1]:.3f} s, K3 "
+                    f"{out['k3'][-1]}, collectives {out['collectives']}")
+                if job.get("ckpt_after") == i + 1:
+                    t0 = time.perf_counter()
+                    tree = gather_train_tree(model, state, zero)
+                    if tree is not None:
+                        ckpt_lib.save(job["ckpt_dir"], i + 1, tree)
+                        out["ckpt_bytes"] = sum(t.numel() * t.element_size()
+                                                for t in ckpt_lib._flatten(tree)[0])
+                        del tree
+                    mesh.barrier()
+                    out["ckpt_s"] = time.perf_counter() - t0
+            mesh.time_collectives = False
+            out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            with torch.no_grad(), use_mesh(mesh):
+                _lib.reset_launches()
+                after = api.train_loss(model, local_rows(batch0, mesh))
+                out["k3_forward"] = _lib.launches["posit_codec"]
+            # this rank's share of batch 0's loss (its label count the global batch's)
+            out["batch0_after"] = float(mesh.all_reduce(after, "data"))
+        out["plain_calls"] = dict(plain)
+        out["k3_seen"] = list(seen.values())
+        if any(n != want_k3 for n in out["k3"]) or out["k3_forward"] != fwd_k3:
+            fails.append(f"K3 launches {out['k3']}, forward {out['k3_forward']}; expected "
+                         f"{want_k3} and {fwd_k3}")
+        if any(plain.values()):
+            fails.append(f"plain calls on the card {dict(plain)}")
+        differ = [s for s in seen.values() if s["lanes_differ"]]
+        if differ or (rank == 0 and not seen):
+            fails.append(f"K3 quantize differs from its plain version: {differ}")
+        if out["collectives_want"] is not None and out["collectives"] != out["collectives_want"]:
+            fails.append(f"collectives a step {out['collectives']}, hand count "
+                         f"{out['collectives_want']}")
+        del model, state, step
+        return out
+
+    def tp_train_exact(self, job, mesh):
+        """For each of ``job["cfgs"]`` (f32 parameters and activations; its
+        parameters' tolerance beside it): one sharded step under
+        deterministic algorithms, AdamW at eps TP_TRAIN_EXACT_EPS; then each
+        rank in turn (the others waiting) takes one rank's step of the same
+        init and batch and holds its own slices of every parameter, m and v
+        against that step's: the loss within TP_TRAIN_EXACT_TOL (relative),
+        each parameter within the tolerance, m and v within
+        TP_TRAIN_EXACT_MOMENT_ATOL + TP_TRAIN_EXACT_TOL |one rank's|.  The
+        ranks' slices cover every element.  K3 bit for bit at each (shape,
+        dtype) rank 0 launched."""
+        torch = self.torch
+        det = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            return {name: self.tp_train_exact_one(cfg, tol, mesh)
+                    for name, (cfg, tol) in job["cfgs"].items()}
+        finally:
+            torch.use_deterministic_algorithms(det)
+
+    def tp_train_exact_one(self, cfg, param_tol, mesh):
+        torch = self.torch
+        import gc
+
+        from repro_torch.models import build
+        from repro_torch.models.transformer import set_trainable
+        from repro_torch.optim.optimizers import OptConfig, Zero1, init_state, named_params
+        from repro_torch.parallel.sharding import leaf_layouts
+        from repro_torch.train.loop import TrainConfig, make_train_step
+
+        rank = mesh.rank
+        api = build(cfg)
+        tcfg = TrainConfig(opt=OptConfig(name="adamw", lr=TRAIN_LR, eps=TP_TRAIN_EXACT_EPS))
+        batch = self.family_batch(api, cfg, TRAIN_BATCH, TRAIN_SEQ, 0)
+        out = {"failures": [], "param_tol": param_tol}
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            seen = stack.enter_context(self.recording_k3()) if rank == 0 else {}
+            model = set_trainable(api.init(seed=0, device=self.dev, mesh=mesh))
+            zero = Zero1(leaf_layouts(cfg, mesh), mesh, cfg.n_layers)
+            state = init_state(tcfg.opt, model, zero)
+            out["loss"] = float(make_train_step(api.train_loss, tcfg, zero)(
+                model, state, batch)[2]["loss"])
+        torch.cuda.synchronize()
+        out["step_s"] = time.perf_counter() - t0
+
+        @torch.no_grad()
+        def compare_slices(one, st):
+            whole, mine = named_params(one), named_params(model)
+            res = {"over": []}
+            worst = {"param": 0.0, "m": 0.0, "v": 0.0}
+            for n, lay in zero.layouts.items():
+                pairs = [("param", mine[n], lay.local(whole[n], mesh.model_rank))]
+                pairs += [(k, state[k][n], zero.slice(n, lay.local(st[k][n], mesh.model_rank)))
+                          for k in ("m", "v") if n in state[k]]
+                for kind, got, want in pairs:
+                    d = (got.float() - want.float()).abs()
+                    worst[kind] = max(worst[kind], float(d.max()))
+                    lim = (param_tol if kind == "param" else
+                           TP_TRAIN_EXACT_MOMENT_ATOL + TP_TRAIN_EXACT_TOL * want.float().abs())
+                    if bool((d > lim).any()):
+                        res["over"].append((kind, n, float(d.max())))
+            res.update(max_param_diff=worst["param"], max_m_diff=worst["m"],
+                       max_v_diff=worst["v"], leaves=len(zero.layouts))
+            return res
+
+        def compare():
+            one = set_trainable(api.init(seed=0, device=self.dev))
+            st = init_state(tcfg.opt, one)
+            loss = float(make_train_step(api.train_loss, tcfg)(one, st, batch)[2]["loss"])
+            res = {"one_rank_loss": loss, **compare_slices(one, st)}
+            del one, st
+            gc.collect()
+            torch.cuda.empty_cache()
+            return res
+
+        out.update(one_rank_at_a_time(rank, compare))
+        rel = abs(out["loss"] - out["one_rank_loss"]) / abs(out["one_rank_loss"])
+        out["loss_rel_diff"] = rel
+        if not rel <= TP_TRAIN_EXACT_TOL:
+            out["failures"].append(f"loss {out['loss']} against one rank's "
+                                   f"{out['one_rank_loss']}: {rel:.2e}")
+        if out["over"]:
+            out["failures"].append(f"leaves beyond the tolerance (kind, leaf, max |diff|): "
+                                   f"{out['over'][:6]}")
+        differ = [s for s in seen.values() if s["lanes_differ"]]
+        out["k3_shapes"] = len(seen)
+        out["k3_differ"] = differ
+        if differ:
+            out["failures"].append(f"K3 quantize differs from its plain version: {differ}")
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    def tp_train_restore(self, cfg, ckpt_dir, world_losses, failures, note):
+        """The world's checkpoint of whole leaves (after TP_TRAIN_CKPT_AFTER
+        steps, by rank 0) restored here on one rank (another seed's init,
+        overwritten leaf by leaf), which takes the remaining steps; its
+        first loss against the world's at that step within
+        TP_TRAIN_LOSS_RTOL."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.convert import named_tree
+        from repro_torch.models import build
+        from repro_torch.models.transformer import set_trainable
+        from repro_torch.optim.optimizers import OptConfig, init_state, named_params
+        from repro_torch.train import checkpoint as ckpt_lib
+        from repro_torch.train.loop import TrainConfig, load_train_tree, make_train_step
+
+        api = build(cfg)
+        model = set_trainable(api.init(seed=1, device=self.dev))
+        tcfg = TrainConfig(opt=OptConfig(name="adamw", lr=TRAIN_LR))
+        state = init_state(tcfg.opt, model)
+        # the like tree: the shapes, from the meta device (no copy anywhere)
+        meta = api.init(seed=1, device="meta")
+        meta_state = init_state(tcfg.opt, meta)
+        keep = lambda t: t  # noqa: E731
+        like = (named_tree(named_params(meta), keep),
+                {**{k: named_tree(v, keep) for k, v in meta_state.items() if k != "step"},
+                 "step": state["step"]})
+        t0 = time.perf_counter()
+        tree, manifest = ckpt_lib.restore(ckpt_dir, like)
+        del like
+        load_train_tree(tree, model, state)
+        del tree
+        gc.collect()
+        restore_s = time.perf_counter() - t0
+        step = make_train_step(api.train_loss, tcfg)
+        losses = []
+        for i in range(manifest["step"], TP_TRAIN_STEPS):
+            batch = self.family_batch(api, cfg, TRAIN_BATCH, TRAIN_SEQ, i)
+            losses.append(float(step(model, state, batch)[2]["loss"]))
+        rel = abs(losses[0] - world_losses[manifest["step"]]) / abs(world_losses[manifest["step"]])
+        if not rel <= TP_TRAIN_LOSS_RTOL:
+            failures.append(f"restore: step-{manifest['step']} loss {losses[0]} on one rank "
+                            f"against the world's {world_losses[manifest['step']]}: {rel:.2e}")
+        if int(state["step"]) != TP_TRAIN_STEPS:
+            failures.append(f"restore: the optimizer's step {int(state['step'])}")
+        log(f"tp_train restore (2 x 2 -> 1 x 1): the step-{manifest['step']} checkpoint read "
+            f"and placed in {restore_s:.1f} s; losses of steps {manifest['step']}-"
+            f"{TP_TRAIN_STEPS - 1} on one rank {[round(x, 4) for x in losses]} against the "
+            f"world's {[round(x, 4) for x in world_losses[manifest['step']:]]} "
+            f"({rel:.2e} at step {manifest['step']}) {note}")
+        del model, state, step, meta, meta_state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"step": manifest["step"], "losses": losses, "restore_s": restore_s,
+                "rel_diff": rel}
+
     def kernels_line(self):
         out = []
         for name, (row, source, replaces) in self.kernels.items():
@@ -6754,6 +7261,58 @@ def tp_collective_share(smoke, cfg, model, job):
             "decode_steps": spent["steps"],
             "per_decode_step": spent["calls"] // max(1, spent["steps"]),
             "decode_share": spent["collective_s"] / max(spent["s"], 1e-12)}
+
+
+def tp_train_collectives(cfg, zero, model) -> dict:
+    """The collectives of a dense model's sharded step, by hand (remat on,
+    a vocab-parallel head, no kv head on two ranks).  Over ``model``: the
+    embedding's sum, wo's and wd's in the forward (2L), wo's again in the
+    remat recompute (which stops after the last tensor the layer's backward
+    needs, the input of wd, so before wd's sum), the two ``copy_model``
+    sums in the backward (2L), the head's copy once a 512-position loss
+    chunk, and the gradient norm's: 5L + 2 + chunks; the head's all-gather
+    a chunk, twice (the chunk's checkpoint recomputes it).  Over ``data``:
+    the loss's label count and the loss; each float leaf's gradient, an
+    all-gather for a bf16 one over two data ranks (``train/loop.py::
+    _data_sum``), else an all-reduce; and one all-gather of the updated
+    parameters a reference leaf that ZeRO-1 cuts over ``data``."""
+    import torch
+
+    n = cfg.n_layers
+    chunks = -(-TRAIN_SEQ // 512)
+    bf16 = (sum(p.dtype == torch.bfloat16 for p in model.parameters())
+            if zero.mesh.data_size == 2 else 0)
+    return {"all_reduce": 5 * n + 2 + chunks, "all_gather": 2 * chunks,
+            "data_all_reduce": 2 + len(zero.layouts) - bf16,
+            "data_all_gather": bf16 + sum(zero.sliced(names[0])
+                                          for names in zero.by_path.values())}
+
+
+def tp_train_rank(device, args, jobs):
+    """One rank of phase tp_train (``launch/mesh.py::spawn``): each job on
+    its mesh of the world's ranks (``Smoke.tp_train_steps`` or
+    ``Smoke.tp_train_exact``), its backend and place.  Rank 0 logs."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rank = dist.get_rank()
+    out = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend()}
+    with contextlib.ExitStack() as quiet:
+        if rank:
+            quiet.enter_context(contextlib.redirect_stdout(
+                quiet.enter_context(open(os.devnull, "w"))))
+        smoke = Smoke(args)
+        for name, job in jobs.items():
+            mesh = make_host_mesh(data=job["data"], model=job["model"])
+            out.update(data_rank=mesh.data_rank, model_rank=mesh.model_rank)
+            out[name] = getattr(smoke, f"tp_train_{job['kind']}")(job, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:

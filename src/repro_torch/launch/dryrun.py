@@ -37,8 +37,7 @@ Usage:
 for ``default=<mode>``; ``--prequantized`` encodes the policy's posit
 weights to patterns first, as the serving engines' ``prequantize`` does.
 The reference's ``--multi-pod`` mesh is a data-parallel training mesh,
-which waits for the training side of tensor parallelism (``ROADMAP.md``,
-queue 1, item 8).
+which waits for the sharded dry run (``ROADMAP.md``, queue 1, item 8b).
 """
 from __future__ import annotations
 

@@ -24,9 +24,9 @@ import torch
 
 from repro_torch.parallel.sharding import Mesh
 
-#: the item of ROADMAP.md's queue 1 that holds the training side of tensor
-#: parallelism (data parallelism, ZeRO-1, the production mesh)
-TP_TRAINING = "8: tensor parallelism's training side"
+#: the item of ROADMAP.md's queue 1 that holds the sharded dry run and the
+#: reference's production meshes (its one user)
+TP_TRAINING = "8b: the sharded dry run and the production meshes"
 
 
 def choose_backend(world: int, device) -> str:
@@ -41,21 +41,33 @@ def choose_backend(world: int, device) -> str:
 
 def make_host_mesh(*, data: int = 1, model: int = 1) -> Mesh:
     """The (data, model) mesh over the initialized default group, whose
-    world must hold data * model ranks.  Data parallelism waits for the
-    training side (``ROADMAP.md``, queue 1, item 8), so ``data`` is 1."""
+    world must hold data * model ranks.  Rank r sits at (r // model,
+    r % model).  With a data axis above one, each axis' process groups
+    are made here, in the same order on every rank (one ``model`` group a
+    data index, then one ``data`` group a model index); without one the
+    model axis is the default group, as serving has it."""
     import torch.distributed as dist
 
-    from repro_torch.serving.api import LATER
-
-    if data != 1:
-        raise NotImplementedError(f"a data axis of {data} " + LATER.format(TP_TRAINING))
+    n = data * model
+    what = f"tp={model}" if data == 1 else f"a mesh of data={data} x model={model}"
     if not (dist.is_available() and dist.is_initialized()):
-        raise ValueError(f"tp={model} needs {model} ranks/devices, found no torch.distributed "
+        raise ValueError(f"{what} needs {n} ranks/devices, found no torch.distributed "
                          f"world: start the ranks with repro_torch.launch.mesh.spawn")
     world = dist.get_world_size()
-    if world != data * model:
-        raise ValueError(f"tp={model} needs {model} ranks/devices, found a world of {world}")
-    return Mesh(dist.get_rank(), model, backend=dist.get_backend())
+    if world != n:
+        raise ValueError(f"{what} needs {n} ranks/devices, found a world of {world}")
+    rank = dist.get_rank()
+    groups = {}
+    if data > 1:
+        for d in range(data):
+            g = dist.new_group([d * model + m for m in range(model)])
+            if d == rank // model:
+                groups["model"] = g
+        for m in range(model):
+            g = dist.new_group([d * model + m for d in range(data)])
+            if m == rank % model:
+                groups["data"] = g
+    return Mesh(rank, model, backend=dist.get_backend(), data=data, groups=groups)
 
 
 def mesh_dims(mesh: Mesh) -> dict:
@@ -63,8 +75,8 @@ def mesh_dims(mesh: Mesh) -> dict:
 
 
 def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16 x 16 (2 x 16 x 16 across two pods) mesh: a
-    data-parallel training mesh, which waits for the training side."""
+    """The reference's 16 x 16 (2 x 16 x 16 across two pods) mesh, whose
+    one user is the sharded dry run."""
     from repro_torch.serving.api import LATER
 
     what = "the 2-pod mesh" if multi_pod else "the production mesh"
@@ -107,8 +119,8 @@ def _rank_main(rank, world, store_path, backend, device, threads, fn, args, resu
 def spawn(fn: Callable, tp: int, device, *args, threads: Optional[int] = None,
           timeout: Optional[float] = None) -> List:
     """Run ``fn(rank_device, *args)`` in each of ``tp`` new processes, the
-    ranks of one ``torch.distributed`` world, and return their results in
-    rank order.
+    ranks of one ``torch.distributed`` world (``tp`` = data x model ranks
+    for a training mesh), and return their results in rank order.
 
     The ranks start from ``torch.multiprocessing``'s spawn context (so
     ``fn`` and ``args`` must pickle: ``fn`` a module-level function) and

@@ -19,6 +19,7 @@ from torch import nn
 
 from repro_torch.core.dense import dense, dense_init
 from repro_torch.core.policy import SiteNumerics, site
+from repro_torch.parallel.sharding import copy_model
 
 from .common import apply_rope, causal_mask, decode_positions
 
@@ -167,8 +168,11 @@ def attn_core_blockwise(q, k, v, *, causal: bool, block: int, softcap=None):
 
 def _project_qkv(p: Attention, x, ncfg, head_dim, use_kernel):
     """q, k, v [B, S, heads, hd] of the heads this rank holds (all of
-    them without tensor parallelism)."""
+    them without tensor parallelism; x enters the cut weights through
+    ``copy_model``)."""
     n_heads, n_kv = p.wq.shape[-1] // head_dim, p.wk.shape[-1] // head_dim
+    if p.row_parallel:
+        x = copy_model(x)
     qkv_cfg = site(ncfg, "attn.qkv")
     q = _split_heads(dense(x, p.wq, qkv_cfg, use_kernel=use_kernel), n_heads, head_dim)
     k = _split_heads(dense(x, p.wk, qkv_cfg, use_kernel=use_kernel), n_kv, head_dim)

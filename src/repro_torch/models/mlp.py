@@ -13,6 +13,7 @@ from torch import nn
 from repro_torch.core.dense import dense, dense_init
 from repro_torch.core.modes import matmul_sums
 from repro_torch.core.policy import SiteNumerics, site
+from repro_torch.parallel.sharding import copy_model
 
 ACTS = {
     "silu": F.silu,
@@ -46,10 +47,14 @@ class MLP(nn.Module):
 def mlp_apply(p: MLP, x, ncfg: SiteNumerics, act: str = "silu", role: str = "mlp",
               use_kernel: Optional[bool] = None, partial: bool = False):
     """The MLP of x.  A ``row_parallel`` ``wd``'s partial sums are added
-    over the ranks; with ``partial`` the f32 sums of ``wd`` come back as
+    over the ranks (and x enters the cut ``wu``/``wg`` through
+    ``copy_model``); with ``partial`` the f32 sums of ``wd`` come back as
     they are (unreduced and unrounded), for the caller to add to others
-    before its one reduction (a MoE layer's shared experts)."""
+    before its one reduction, and x as the caller passed it (a MoE
+    layer's shared experts)."""
     fn = ACTS[act]
+    if p.row_parallel and not partial:
+        x = copy_model(x)
     up = dense(x, p.wu, site(ncfg, f"{role}.up"), use_kernel=use_kernel)
     if p.wg is not None:
         up = fn(dense(x, p.wg, site(ncfg, f"{role}.gate"), use_kernel=use_kernel)) * up

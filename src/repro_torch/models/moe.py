@@ -41,7 +41,7 @@ from torch import nn
 from repro_torch.core.dense import dense_init
 from repro_torch.core.modes import matmul_sums, nmatmul, round_sums
 from repro_torch.core.policy import SiteNumerics, site
-from repro_torch.parallel.sharding import reduce_model
+from repro_torch.parallel.sharding import copy_model, current_mesh, data_offsets, reduce_model
 
 from .mlp import ACTS, MLP, mlp_apply
 
@@ -104,6 +104,17 @@ def route(router_logits: torch.Tensor, top_k: int, cap: int):
     return gate, eid, pos, pos < cap
 
 
+def spread_routing(routing, n_experts: int, cap: int):
+    """The routing of this data rank's block of a token group that runs
+    over the mesh's data ranks: each expert's ranks offset by the rows the
+    earlier data ranks gave it (``data_offsets``), and kept by the
+    group's capacity."""
+    gate, eid, pos, _ = routing
+    counts = nn.functional.one_hot(eid, n_experts).sum(dim=0, dtype=torch.int32)
+    pos = pos + data_offsets(counts)[eid]
+    return gate, eid, pos, pos < cap
+
+
 def dispatch(xf: torch.Tensor, eid, pos, keep, n_experts: int, cap: int) -> torch.Tensor:
     """The [E, cap, d] expert buffer: row ``xf[t]`` at ``[eid, pos]`` for
     every kept (token, choice), zero elsewhere.  Dropped rows go to a
@@ -134,13 +145,16 @@ def experts_apply(p: MoE, buf: torch.Tensor, ncfg: SiteNumerics, act: str,
 
 
 def _dispatch_group(p: MoE, xf, router_logits, ncfg, *, top_k: int, cap: int, act: str,
-                    use_kernel, sums: bool = False):
-    """Capacity dispatch and the expert FFNs for ONE token group xf [Tg, d]:
-    (the experts' output buffer [E, cap, d], the group's routing).  With
-    ``sums`` the buffer holds the down projection's f32 sums (a rank's
-    partial sums under tensor parallelism)."""
+                    use_kernel, sums: bool = False, spread: bool = False):
+    """Capacity dispatch and the expert FFNs for ONE token group xf [Tg, d]
+    (this data rank's block of it with ``spread``): (the experts' output
+    buffer [E, cap, d], the group's routing).  With ``sums`` the buffer
+    holds the down projection's f32 sums (a rank's partial sums under
+    tensor parallelism)."""
     n_experts = router_logits.shape[-1]
     routing = route(router_logits, top_k, cap)
+    if spread:
+        routing = spread_routing(routing, n_experts, cap)
     _, eid, pos, keep = routing
     out_buf = experts_apply(p, dispatch(xf, eid, pos, keep, n_experts, cap), ncfg, act,
                             use_kernel, sums=sums)
@@ -167,7 +181,10 @@ def moe_apply(p: MoE, x: torch.Tensor, ncfg: SiteNumerics, *, n_experts: int, to
     ``groups > 1`` dispatches each of ``groups`` contiguous token groups
     on its own (capacity, ranks and drops group-local), as the reference
     does under its data-parallel sharding; ``groups`` that do not divide
-    the tokens fall back to one group, as there.
+    the tokens fall back to one group, as there.  The groups are those of
+    the global batch: under a mesh's data axis a rank dispatches its whole
+    groups, or its block of the one group (capacity ranks offset by the
+    earlier data ranks' rows).
 
     Under tensor parallelism the cut experts' f32 partial sums (the
     routed experts' buffers and the shared experts' output) are added
@@ -180,16 +197,27 @@ def moe_apply(p: MoE, x: torch.Tensor, ncfg: SiteNumerics, *, n_experts: int, to
     xf = x.reshape(t, d)
     logits = nmatmul(xf, p.router, site(ncfg, "moe.router"), out_dtype=torch.float32,
                      use_kernel=use_kernel)
-    g = groups if t % max(groups, 1) == 0 else 1
+    mesh = current_mesh()
+    data = 1 if mesh is None else mesh.data_size
+    g_all = groups if (t * data) % max(groups, 1) == 0 else 1
+    if g_all % data and g_all != 1:
+        raise ValueError(f"{g_all} MoE dispatch groups over {data} data ranks")
+    g = g_all // data if g_all % data == 0 else 1
     tg = t // g
-    cap = max(1, int(tg * top_k / n_experts * capacity_factor))
-    kw = dict(top_k=top_k, cap=cap, act=act, use_kernel=use_kernel, sums=p.row_parallel)
-    grouped = [_dispatch_group(p, xg, lg, ncfg, **kw)
-               for xg, lg in zip(xf.reshape(g, tg, d), logits.reshape(g, tg, n_experts))]
-    bufs = [buf for buf, _ in grouped]
+    cap = max(1, int(t * data // g_all * top_k / n_experts * capacity_factor))
+    kw = dict(top_k=top_k, cap=cap, act=act, use_kernel=use_kernel, sums=p.row_parallel,
+              spread=g_all % data != 0)
     shared_cut = p.shared is not None and p.shared.row_parallel
+    # the router reads x as it is; the cut experts' (and shared experts')
+    # up projections read it through ONE copy_model
+    xc = copy_model(xf) if p.row_parallel or shared_cut else xf
+    x_exp = xc if p.row_parallel else xf
+    grouped = [_dispatch_group(p, xg, lg, ncfg, **kw)
+               for xg, lg in zip(x_exp.reshape(g, tg, d), logits.reshape(g, tg, n_experts))]
+    bufs = [buf for buf, _ in grouped]
     shared = None if p.shared is None else mlp_apply(
-        p.shared, xf, ncfg, act, role="moe.shared", use_kernel=use_kernel, partial=shared_cut)
+        p.shared, xc if shared_cut else xf, ncfg, act, role="moe.shared",
+        use_kernel=use_kernel, partial=shared_cut)
     cut = (bufs if p.row_parallel else []) + ([shared] if shared_cut else [])
     if cut:
         sums = reduce_model(torch.cat([c.reshape(-1, d) for c in cut]))

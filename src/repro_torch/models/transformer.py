@@ -35,7 +35,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dense import dense, dense_init
 from repro_torch.core.policy import site_for
-from repro_torch.parallel.sharding import current_mesh, gather_model, reduce_model, sharded_init
+from repro_torch.parallel.sharding import (
+    copy_model,
+    current_mesh,
+    data_sum,
+    gather_model,
+    reduce_model,
+    sharded_init,
+    use_mesh,
+)
 
 from .attention import Attention, attn_apply, attn_apply_paged, paged_write
 from .common import RMSNorm, iter_layers, multi_token_positions, rmsnorm
@@ -160,11 +168,14 @@ def lm_backbone(cfg: ModelConfig, model: DenseLM, embeds, positions, kv_caches=N
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     remat = cfg.remat and kv_caches is None and torch.is_grad_enabled()
+    mesh = current_mesh()
     for i, nsite in iter_layers(cfg.numerics, cfg.n_layers):
         kv_slice = None if kv_caches is None else (kv_caches[0][i], kv_caches[1][i])
         if remat:
             def layer(x, nsite=nsite, blk=model.blocks[i]):
-                return _layer_fwd(cfg, nsite, blk, x, positions, None, None, use_kernel)[0]
+                with use_mesh(mesh):  # the recompute may run on a device thread
+                    return _layer_fwd(cfg, nsite, blk, x, positions, None, None,
+                                      use_kernel)[0]
 
             x = checkpoint(layer, x, use_reentrant=False)
         else:
@@ -181,10 +192,10 @@ def lm_logits(cfg: ModelConfig, model: DenseLM, hidden, use_kernel: Optional[boo
     head_cfg = site_for(cfg.numerics, "lm_head", n_layers=cfg.n_layers)
     if w.is_floating_point():  # else prequantized lm_head patterns
         w = w.to(hidden.dtype)
-    logits = dense(hidden, w, head_cfg, use_kernel=use_kernel)
-    if getattr(model, "vocab_parallel", False):  # the other families' models: never
-        return gather_model(logits, -1)
-    return logits
+    parallel = getattr(model, "vocab_parallel", False)  # the other families' models: never
+    logits = dense(copy_model(hidden) if parallel else hidden, w, head_cfg,
+                   use_kernel=use_kernel)
+    return gather_model(logits, -1) if parallel else logits
 
 
 def lm_loss_chunked(cfg: ModelConfig, model: DenseLM, hidden, labels, chunk: int = 512,
@@ -195,14 +206,20 @@ def lm_loss_chunked(cfg: ModelConfig, model: DenseLM, hidden, labels, chunk: int
     formed, reduced and dropped, and formed again in the backward pass
     (``torch.utils.checkpoint``), so peak logits memory is B * chunk * V.
     Label -1 marks a masked position.  The mean is over unmasked
-    positions.
+    positions; under a mesh with a data axis, over those of the global
+    batch (``data_sum``), so that the ranks' losses add up to it.
     """
     s = hidden.shape[1]
     chunk = min(chunk, s)
     valid = (labels >= 0).to(torch.float32)
     labels = labels.clamp(min=0).to(torch.long)
+    mesh = current_mesh()
 
     def chunk_loss(h, lab, v):
+        with use_mesh(mesh):  # the recompute may run on a device thread
+            return _chunk_loss(h, lab, v)
+
+    def _chunk_loss(h, lab, v):
         logits = lm_logits(cfg, model, h, use_kernel).to(torch.float32)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, lab[..., None])[..., 0]
@@ -216,7 +233,7 @@ def lm_loss_chunked(cfg: ModelConfig, model: DenseLM, hidden, labels, chunk: int
             tot = tot + checkpoint(chunk_loss, *part, use_reentrant=False)
         else:
             tot = tot + chunk_loss(*part)
-    return tot / torch.clamp(valid.sum(), min=1.0)
+    return tot / torch.clamp(data_sum(valid.sum()), min=1.0)
 
 
 def train_loss(cfg: ModelConfig, model: DenseLM, batch,

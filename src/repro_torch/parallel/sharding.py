@@ -2,28 +2,43 @@
 ``repro/parallel/sharding.py``).
 
 The reference names logical axes and lets GSPMD place its arrays.  The
-port runs one process a rank (``launch/mesh.py``), keeps each rank's
-slice of every parameter (:func:`shard_model`, or :func:`sharded_init`
-while the seeded init draws them) and calls the collectives itself where
-the reference calls ``constrain``:
+port runs one process a rank (``launch/mesh.py``) on a (data, model)
+:class:`Mesh`, keeps each rank's slice of every parameter
+(:func:`shard_model`, or :func:`sharded_init` while the seeded init draws
+them) and calls the collectives itself where the reference calls
+``constrain``:
 
 * :func:`reduce_model`: ``all_reduce`` (sum) over the mesh's ``model``
   group, after a row-parallel projection (``wo``, ``wd``: the f32 partial
   sums, before their cast to the activation dtype, ``core/dense.py``)
   and after the vocab-parallel embedding lookup;
+* :func:`copy_model`: the identity where a replicated activation enters
+  column-parallel weights (``wq``/``wk``/``wv``, ``wg``/``wu``, the
+  experts' up projections, the vocab-parallel head), whose gradient is
+  summed over ``model`` in a backward pass: with :func:`reduce_model`
+  (the identity in a backward pass) Megatron's pair;
 * :func:`gather_model`: ``all_gather`` and ``cat``, for the
   column-parallel head's logits along V, so that every rank holds all of
-  them and picks the same token.
+  them and picks the same token (in a backward pass each rank keeps its
+  block of the gradient).
 
-Both are the identity with no mesh (:func:`use_mesh`), so a path run
-without one is what it was.  The rules are the reference's, copied
-(``_PARAM_RULES``, ``_PARAM_RULES_EP``, :func:`spec_for_param`,
-:func:`sanitize`, :func:`paged_pool_spec`'s choice) and matched against
-``core/prequant.py::param_path`` names: Megatron-style column-parallel
-in-projections, row-parallel out-projections, vocab-parallel embeddings,
-TP inside each expert.  A rule whose dimension does not divide the
-``model`` axis keeps the parameter whole (granite's vocab of 49,155 at
-tp = 2).
+All are the identity with no mesh (:func:`use_mesh`), so a path run
+without one is what it was, and with no gradient each is the serving
+path's call.  A replicated weight that reads the same activation (the
+router, the norms) sits outside :func:`copy_model`, so that its input's
+gradient is not summed tp times; a ``wk``/``wv`` whose kv heads more than
+one rank holds gets its gradient summed over them (:func:`sum_partial`,
+which the training step calls).  The training step's data axis:
+:func:`data_sum` (the loss's label count over the global batch),
+:func:`data_offsets` (a MoE expert's capacity ranks over the global
+batch), :class:`LeafLayout` (what each rank keeps of a parameter).  The
+rules are the reference's, copied (``_PARAM_RULES``, ``_PARAM_RULES_EP``,
+:func:`spec_for_param`, :func:`sanitize`, :func:`paged_pool_spec`'s
+choice) and matched against ``core/prequant.py::param_path`` names:
+Megatron-style column-parallel in-projections, row-parallel
+out-projections, vocab-parallel embeddings, TP inside each expert.  A
+rule whose dimension does not divide the ``model`` axis keeps the
+parameter whole (granite's vocab of 49,155 at tp = 2).
 
 One layout differs (:func:`kv_heads_for_rank`).  Where the kv heads do
 not divide the model axis, the reference shards the paged pool on
@@ -37,9 +52,10 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import re
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -57,84 +73,134 @@ _LOGICAL = {
 class Mesh:
     """The stand-in of the reference's ``jax.sharding.Mesh`` over
     ``torch.distributed`` ranks: this process's ``rank`` in a world of
-    ``model`` ranks (the default group: the ``data`` axis is 1, data
-    parallelism coming with the training side, ``ROADMAP.md``, queue 1,
-    item 8) and the group's ``backend``, with the reference's
-    ``axis_names`` and ``shape`` (all that :func:`sanitize` reads).
+    ``data`` x ``model`` ranks, with the reference's ``axis_names`` and
+    ``shape`` (all that :func:`sanitize` reads) and the world's
+    ``backend``.  Rank ``r`` sits at ``(r // model, r % model)``, so the
+    ranks of one ``model`` group are neighbours (adjacent cards).
+    ``groups`` holds the process group of this rank's ``model`` and
+    ``data`` axes (``launch/mesh.py::make_host_mesh`` makes them); an axis
+    without one is the whole world, the default group.
 
-    The collectives count their calls in ``collectives``; with
-    ``time_collectives`` set they also add their host seconds, the card
-    synchronized on both sides, to ``collective_s``.  Under ``gloo``,
-    which moves host tensors, a CUDA tensor crosses through host memory
-    and bf16 as f32 (both exact)."""
+    The collectives count their calls in ``collectives`` (the ``model``
+    axis' as ``all_reduce`` and ``all_gather``, the others' under
+    ``"<axis>_<kind>"``); with ``time_collectives`` set they also add
+    their host seconds, the card synchronized on both sides, to
+    ``collective_s``.  Under ``gloo``, which moves host tensors, a CUDA
+    tensor crosses through host memory, bf16 as f32 in a sum and as its
+    two-byte bits (a float16 view) in a gather (all exact)."""
 
     axis_names = ("data", "model")
 
-    def __init__(self, rank: int, model: int, backend: str = "gloo"):
-        if not 0 <= rank < model:
-            raise ValueError(f"rank {rank} outside a model axis of {model}")
+    def __init__(self, rank: int, model: int, backend: str = "gloo", data: int = 1,
+                 groups: Optional[Dict[str, object]] = None):
+        if not 0 <= rank < data * model:
+            raise ValueError(f"rank {rank} outside a mesh of {data} x {model}")
         self.rank = rank
         self.backend = backend
-        self.shape = {"data": 1, "model": model}
-        self.collectives = {"all_reduce": 0, "all_gather": 0}
+        self.shape = {"data": data, "model": model}
+        self.groups = dict(groups or {})
+        self.collectives: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
         self.collective_s = 0.0
         self.time_collectives = False
 
     @property
     def model_rank(self) -> int:
-        return self.rank
+        return self.rank % self.shape["model"]
 
     @property
     def model_size(self) -> int:
         return self.shape["model"]
 
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.shape["model"]
+
+    @property
+    def data_size(self) -> int:
+        return self.shape["data"]
+
     def __repr__(self) -> str:
         return (f"Mesh(rank={self.rank}, shape={self.shape}, "
                 f"backend={self.backend!r})")
 
-    def _wire(self, x: torch.Tensor) -> torch.Tensor:
-        """A copy of x as it crosses the wire."""
+    def _wire(self, x: torch.Tensor, sum_: bool = True) -> torch.Tensor:
+        """A copy of x as it crosses the wire (``sum_``: to be added)."""
         if self.backend == "gloo":
-            dt = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
-            return x.detach().to("cpu", dt, copy=True).contiguous()
+            if x.dtype == torch.bfloat16:
+                if sum_:
+                    return x.detach().to("cpu", torch.float32, copy=True).contiguous()
+                return x.detach().contiguous().view(torch.float16).to("cpu", copy=True)
+            return x.detach().to("cpu", copy=True).contiguous()
         return x.detach().clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def _unwire(part: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """A gathered ``part`` back in x's dtype (a bf16 crossed as its bits)."""
+        return part.view(torch.bfloat16) if x.dtype == torch.bfloat16 else part
 
     def _sync(self, x: torch.Tensor) -> None:
         if x.is_cuda:
             torch.cuda.synchronize(x.device)
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of x over the model axis, on every rank."""
+    @contextlib.contextmanager
+    def _call(self, axis: str, kind: str, x: torch.Tensor):
+        """Count (and with ``time_collectives`` time) one collective."""
+        key = kind if axis == "model" else f"{axis}_{kind}"
+        self.collectives[key] = self.collectives.get(key, 0) + 1
+        if not self.time_collectives:
+            yield
+            return
+        self._sync(x)
+        t0 = time.perf_counter()
+        yield
+        self._sync(x)
+        self.collective_s += time.perf_counter() - t0
+
+    def all_reduce(self, x: torch.Tensor, axis: str = "model", op: str = "sum") -> torch.Tensor:
+        """The sum (or ``op="max"``: the largest) of x over ``axis``, on
+        every rank of it."""
         import torch.distributed as dist
 
-        self.collectives["all_reduce"] += 1
-        if self.time_collectives:
-            self._sync(x)
-            t0 = time.perf_counter()
-        buf = self._wire(x)
-        dist.all_reduce(buf)
-        out = buf.to(x.device, x.dtype)
-        if self.time_collectives:
-            self._sync(out)
-            self.collective_s += time.perf_counter() - t0
+        with self._call(axis, "all_reduce", x):
+            buf = self._wire(x)
+            dist.all_reduce(buf, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                            group=self.groups.get(axis))
+            out = buf.to(x.device, x.dtype)
         return out
 
-    def all_gather(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """Every rank's x, in rank order, on every rank."""
+    def all_gather(self, x: torch.Tensor, axis: str = "model") -> List[torch.Tensor]:
+        """Every rank's x over ``axis``, in the axis' rank order, on every
+        rank of it."""
         import torch.distributed as dist
 
-        self.collectives["all_gather"] += 1
-        if self.time_collectives:
-            self._sync(x)
-            t0 = time.perf_counter()
-        buf = self._wire(x)
-        parts = [torch.empty_like(buf) for _ in range(self.model_size)]
-        dist.all_gather(parts, buf)
-        out = [p.to(x.device, x.dtype) for p in parts]
-        if self.time_collectives:
-            self._sync(out[0])
-            self.collective_s += time.perf_counter() - t0
+        with self._call(axis, "all_gather", x):
+            buf = self._wire(x, sum_=False)
+            parts = [torch.empty_like(buf) for _ in range(self.shape[axis])]
+            dist.all_gather(parts, buf, group=self.groups.get(axis))
+            out = [self._unwire(p, x).to(x.device) for p in parts]
         return out
+
+    def gather_to_first(self, x: torch.Tensor, axis: Optional[str] = None
+                        ) -> Optional[List[torch.Tensor]]:
+        """Every rank's x (on the host) at the first rank of ``axis`` (the
+        whole world with None), in rank order; None on the other ranks.
+        The checkpoints' path: one rank holds the whole leaf."""
+        import torch.distributed as dist
+
+        group = None if axis is None else self.groups.get(axis)
+        n = self.data_size * self.model_size if axis is None else self.shape[axis]
+        first = 0 if axis is None else (self.rank - self.model_rank if axis == "model"
+                                        else self.model_rank)
+        with self._call(axis or "world", "gather", x):
+            buf = self._wire(x, sum_=False)
+            parts = [torch.empty_like(buf) for _ in range(n)] if self.rank == first else None
+            dist.gather(buf, parts, dst=first, group=group)
+        return None if parts is None else [self._unwire(p, x).cpu() for p in parts]
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+
+        dist.barrier()
 
 
 _MESH: contextvars.ContextVar[Optional[Mesh]] = contextvars.ContextVar(
@@ -143,7 +209,10 @@ _MESH: contextvars.ContextVar[Optional[Mesh]] = contextvars.ContextVar(
 
 @contextlib.contextmanager
 def use_mesh(mesh: Optional[Mesh]):
-    """Make ``mesh`` the current mesh inside the block (None: no mesh)."""
+    """Make ``mesh`` the current mesh inside the block (None: no mesh).
+    The mesh is a context variable, which the autograd engine's device
+    threads do not inherit: a function that a backward pass runs again
+    (``torch.utils.checkpoint``) enters the mesh itself."""
     tok = _MESH.set(mesh)
     try:
         yield mesh
@@ -155,17 +224,99 @@ def current_mesh() -> Optional[Mesh]:
     return _MESH.get()
 
 
+# The Megatron pair (and the head's gather) as autograd Functions, for the
+# training step: a replicated activation enters the column-parallel weights
+# through _Copy (its gradient, partial on each rank, summed in the backward);
+# the row-parallel partial sums leave through _Reduce (summed in the forward,
+# the gradient passed on as it is).  Each keeps its mesh for the backward,
+# which a device thread runs outside the caller's context.
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.slice = (dim, mesh.model_rank * x.shape[dim], x.shape[dim])
+        return torch.cat(mesh.all_gather(x), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(*ctx.slice), None, None
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def reduce_model(x: torch.Tensor) -> torch.Tensor:
-    """Sum x over the current mesh's model axis; the identity with no mesh."""
+    """Sum x over the current mesh's model axis (in a backward pass the
+    identity); the identity with no mesh."""
     mesh = _MESH.get()
-    return x if mesh is None else mesh.all_reduce(x)
+    if mesh is None:
+        return x
+    return _Reduce.apply(x, mesh) if _tracked(x) else mesh.all_reduce(x)
+
+
+def copy_model(x: torch.Tensor) -> torch.Tensor:
+    """x as it enters this rank's column-parallel weights: the identity,
+    whose gradient is summed over the model axis in a backward pass (each
+    rank's is the part its columns give).  The identity with no mesh or
+    no gradient."""
+    mesh = _MESH.get()
+    return _Copy.apply(x, mesh) if mesh is not None and _tracked(x) else x
 
 
 def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Concatenate the model axis' blocks of x along ``dim``, in rank order;
-    the identity with no mesh."""
+    """Concatenate the model axis' blocks of x along ``dim``, in rank order
+    (in a backward pass each rank takes its block of the gradient); the
+    identity with no mesh."""
     mesh = _MESH.get()
-    return x if mesh is None else torch.cat(mesh.all_gather(x), dim=dim)
+    if mesh is None:
+        return x
+    if _tracked(x):
+        return _Gather.apply(x, mesh, dim % x.dim())
+    return torch.cat(mesh.all_gather(x), dim=dim)
+
+
+def data_sum(x: torch.Tensor) -> torch.Tensor:
+    """x (no gradient) summed over the current mesh's data axis: a count
+    of the global batch from each data rank's rows.  The identity with no
+    mesh or one data rank."""
+    mesh = _MESH.get()
+    if mesh is None or mesh.data_size == 1:
+        return x
+    return mesh.all_reduce(x.detach(), axis="data")
+
+
+def data_offsets(counts: torch.Tensor) -> torch.Tensor:
+    """The sum of ``counts`` over the data ranks before this one (zeros with
+    no mesh or one data rank): where this rank's rows start in a count
+    that runs over the global batch, such as a MoE expert's capacity."""
+    mesh = _MESH.get()
+    if mesh is None or mesh.data_size == 1:
+        return torch.zeros_like(counts)
+    parts = mesh.all_gather(counts, "data")
+    return sum(parts[:mesh.data_rank], torch.zeros_like(counts))
 
 
 def _resolve(mesh: Mesh, logical):
@@ -285,8 +436,11 @@ def check_shardable(cfg, tp: int) -> None:
     """Raise unless ``cfg`` can be cut ``tp`` ways: a dense or MoE
     transformer whose q heads divide tp."""
     if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"tensor parallelism serves the dense and moe families, "
-                         f"not {cfg.family!r}")
+        from repro_torch.serving.api import LATER
+
+        raise ValueError(f"tensor parallelism serves and trains the dense and moe families, "
+                         f"not {cfg.family!r}: the {cfg.family} family under a mesh "
+                         + LATER.format("8c"))
     if cfg.n_heads % tp:
         raise ValueError(f"{cfg.name}: {cfg.n_heads} q heads do not divide tp={tp}")
 
@@ -296,28 +450,122 @@ _ROW = re.compile(r"(^|/)(wo|wd)$")
 _VOCAB = re.compile(r"(^|/)(un)?embed$")
 
 
+def _keep(path: str, shape, cfg, mesh: Mesh, rank: int):
+    """(dim, the entries of it that model rank ``rank`` keeps) of parameter
+    ``path`` of whole ``shape``: a ``range`` (a block of the dim its rule
+    names, where ``sanitize`` keeps the rule), a list of columns
+    (``wk``/``wv``: the kv heads of :func:`kv_heads_for_rank`), or
+    (None, None) where the parameter stays whole."""
+    tp = mesh.model_size
+    if _KV_COLUMNS.search(path):
+        heads = kv_heads_for_rank(cfg.n_heads, cfg.n_kv, tp, rank)
+        if heads == list(range(cfg.n_kv)):
+            return None, None
+        return len(shape) - 1, [h * cfg.hd + j for h in heads for j in range(cfg.hd)]
+    dims = sanitize(mesh, spec_for_param(path, len(shape)), tuple(shape))
+    for d, logical in enumerate(dims):
+        if _resolve(mesh, logical) == "model":
+            n = shape[d] // tp
+            return d, range(rank * n, (rank + 1) * n)
+    return None, None
+
+
+def _take(t, dim: int, keep):
+    """t's entries ``keep`` along ``dim`` (a torch tensor or numpy array)."""
+    if isinstance(keep, range):
+        return t.narrow(dim, keep.start, len(keep)) if torch.is_tensor(t) else \
+            t[(slice(None),) * dim + (slice(keep.start, keep.stop),)]
+    if torch.is_tensor(t):
+        return t.index_select(dim, torch.tensor(keep, device=t.device))
+    return t.take(keep, axis=dim)
+
+
 def shard_tensor(path: str, t: torch.Tensor, cfg, mesh: Mesh
                  ) -> Tuple[torch.Tensor, Optional[int]]:
     """(this rank's slice of parameter ``path``, the dim it was cut on, or
     None where the parameter stays whole).  ``wk``/``wv`` keep the
     columns of :func:`kv_heads_for_rank`'s heads; every other parameter
     its block of the dim its rule names, where ``sanitize`` keeps it."""
-    tp, rank = mesh.model_size, mesh.model_rank
-    if _KV_COLUMNS.search(path):
-        heads = kv_heads_for_rank(cfg.n_heads, cfg.n_kv, tp, rank)
-        if heads == list(range(cfg.n_kv)):
-            return t, None
-        hd, last = cfg.hd, t.dim() - 1
-        cols = torch.tensor([h * hd + j for h in heads for j in range(hd)], device=t.device)
-        return t.index_select(last, cols), last
-    dims = sanitize(mesh, spec_for_param(path, t.dim()), t.shape)
-    for d, logical in enumerate(dims):
-        if _resolve(mesh, logical) == "model":
-            if tp == 1:  # a mesh of one: whole, and marked as cut
-                return t, d
-            n = t.shape[d] // tp
-            return t.narrow(d, rank * n, n).clone(), d
-    return t, None
+    dim, keep = _keep(path, t.shape, cfg, mesh, mesh.model_rank)
+    if dim is None:
+        return t, None
+    if isinstance(keep, range) and mesh.model_size == 1:  # a mesh of one: whole, marked cut
+        return t, dim
+    return _take(t, dim, keep).clone(), dim
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafLayout:
+    """One parameter of a model cut for a mesh, as the training step sees
+    it: its name, the reference's ``path``, its ``layer`` (None outside the
+    layer stacks), its whole ``shape``, the ``dim`` it is cut on (None:
+    whole on every rank) and each model rank's entries of it (``keeps``,
+    :func:`_keep`'s).  ``partial``: a ``wk``/``wv`` whose kv heads more
+    than one rank holds (kv < tp, or kv = 1), so that each rank's gradient
+    is the part its q heads give, to be summed over the ranks that hold
+    the head (:func:`sum_partial`)."""
+
+    name: str
+    path: str
+    layer: Optional[int]
+    shape: Tuple[int, ...]
+    dim: Optional[int]
+    keeps: Tuple
+    partial: bool
+
+    def keep(self, rank: int):
+        return self.keeps[rank]
+
+    def local(self, whole, rank: int):
+        """Model rank ``rank``'s slice of the whole leaf (tensor or array)."""
+        return whole if self.dim is None else _take(whole, self.dim, self.keeps[rank])
+
+    def whole(self, pieces: List[torch.Tensor], lead: int = 0) -> torch.Tensor:
+        """The whole leaf from every model rank's slice, in rank order (with
+        ``lead`` leading axes, such as a stack of layers, before it)."""
+        if self.dim is None:
+            return pieces[0]
+        d = self.dim + lead
+        if isinstance(self.keeps[0], range):
+            return torch.cat(pieces, dim=d)
+        shape = pieces[0].shape[:d] + (self.shape[self.dim],) + pieces[0].shape[d + 1:]
+        out = pieces[0].new_zeros(shape)
+        for piece, keep in zip(pieces, self.keeps):
+            out.index_copy_(d, torch.tensor(keep), piece)
+        return out
+
+
+def leaf_layouts(cfg, mesh: Mesh) -> Dict[str, LeafLayout]:
+    """Every parameter's :class:`LeafLayout` under ``mesh``, by name, from
+    the whole model's shapes (a ``meta`` init)."""
+    from repro_torch.core.prequant import layer_index, param_path
+    from repro_torch.models.transformer import lm_init
+
+    check_shardable(cfg, mesh.model_size)
+    tp = mesh.model_size
+    out = {}
+    for name, p in lm_init(cfg, device="meta").named_parameters():
+        path, shape = param_path(name), tuple(p.shape)
+        keeps = [_keep(path, shape, cfg, mesh, r) for r in range(tp)]
+        dim = keeps[0][0]
+        partial = False
+        if _KV_COLUMNS.search(path) and tp > 1:
+            held = sum(shape[-1] if k is None else len(k) for _, k in keeps)
+            partial = held > shape[-1]
+        out[name] = LeafLayout(name, path, layer_index(name), shape, dim,
+                               tuple(k for _, k in keeps), partial)
+    return out
+
+
+def sum_partial(g: torch.Tensor, lay: LeafLayout, mesh: Mesh) -> torch.Tensor:
+    """The whole gradient of a ``partial`` leaf from each rank's part: the
+    rank's columns added into the whole leaf (a column a rank holds twice,
+    twice), summed over the model axis."""
+    if lay.dim is None:
+        return mesh.all_reduce(g)
+    keep = torch.tensor(lay.keep(mesh.model_rank), device=g.device)
+    whole = g.new_zeros(lay.shape).index_add_(lay.dim, keep, g)
+    return mesh.all_reduce(whole)
 
 
 def _mark(owner: nn.Module, path: str, dim: int, ndim: int) -> None:

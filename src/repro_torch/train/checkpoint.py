@@ -145,11 +145,18 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, like_tree, *, step: Optional[int] = None):
+def restore(ckpt_dir: str, like_tree, *, step: Optional[int] = None, shardings=None):
     """Restore into the structure of ``like_tree`` (leaves with a
-    ``shape``).  Returns (tree of numpy arrays, manifest); bf16 leaves come
-    back as ``uint16`` views.  Raises ValueError when the checkpoint's
-    leaf count or a shape differs from ``like_tree``'s."""
+    ``shape``: the whole leaves').  Returns (tree of numpy arrays,
+    manifest); bf16 leaves come back as ``uint16`` views.  Raises
+    ValueError when the checkpoint's leaf count or a shape differs from
+    ``like_tree``'s.
+
+    ``shardings`` (elastic restore under a new mesh, the reference's
+    re-placement of each leaf): a tree of ``like_tree``'s structure whose
+    leaves are callables, each given its leaf as it is read and returning
+    what the restored tree holds in its place (a rank's slices), so that
+    no more than one whole leaf is held at a time."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -160,16 +167,20 @@ def restore(ckpt_dir: str, like_tree, *, step: Optional[int] = None):
     if manifest["n_leaves"] != len(leaves):
         raise ValueError(f"checkpoint/model structure mismatch: {manifest['n_leaves']} "
                          f"leaves saved, {len(leaves)} expected")
+    places = _flatten(shardings)[0] if shardings is not None else [None] * len(leaves)
+    if len(places) != len(leaves):
+        raise ValueError(f"{len(places)} shardings for {len(leaves)} leaves")
     new_leaves = []
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        for i, old in enumerate(leaves):
+        for i, (old, place) in enumerate(zip(leaves, places)):
             arr = data[f"leaf_{i}"]
             if manifest["dtypes"][i] == BF16:
                 arr = arr.view(np.uint16)
             if tuple(old.shape) != tuple(arr.shape):
                 raise ValueError(f"leaf {i}: shape {tuple(arr.shape)} saved, "
                                  f"{tuple(old.shape)} expected")
-            new_leaves.append(arr)
+            new_leaves.append(arr if place is None else place(arr))
+            del arr
     return _unflatten(like_tree, new_leaves), manifest
 
 

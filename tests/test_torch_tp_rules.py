@@ -243,20 +243,24 @@ def test_collectives_are_the_identity_without_a_mesh():
 
 def test_meshes_need_a_world_and_the_training_side_raises():
     """Outside a torch.distributed world a mesh of two ranks raises naming
-    them; data parallelism and the production mesh name the training
-    side's ROADMAP item; the backend rule: gloo where ranks share a card
-    or run on the CPU."""
+    them, a data axis among them (the training side's meshes); the
+    production mesh names the sharded dry run's ROADMAP item (8b); the
+    backend rule: gloo where ranks share a card or run on the CPU; the
+    mesh's dims and its rank layout (model groups of neighbours)."""
     with pytest.raises(ValueError, match="tp=2 needs 2 ranks/devices"):
         t_mesh.make_host_mesh(model=2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(ValueError, match="needs 2 ranks/devices"):
         t_mesh.make_host_mesh(data=2, model=1)
     for multi_pod in (False, True):
-        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 8b"):
             t_mesh.make_production_mesh(multi_pod=multi_pod)
     assert t_mesh.choose_backend(2, "cpu") == "gloo"
     if torch.cuda.device_count() < 8:
         assert t_mesh.choose_backend(8, "cuda") == "gloo"
     assert t_mesh.mesh_dims(t_sh.Mesh(1, 4)) == {"data": 1, "model": 4}
+    mesh = t_sh.Mesh(3, 2, data=2)
+    assert t_mesh.mesh_dims(mesh) == {"data": 2, "model": 2}
+    assert (mesh.data_rank, mesh.model_rank) == (1, 1)
 
 
 def test_static_engine_serves_at_tp_1_only():
