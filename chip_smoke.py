@@ -250,14 +250,15 @@ its own lines:
 15. tp         — tensor-parallel serving on the continuous engine, each
    world of ranks spawned from here (``launch/mesh.py::spawn``), the
    ranks of every world but the last processes on this one card over
-   gloo: yi-6b at full width and depth under ``default=plam_sim:16:1``,
-   each rank drawing its shard of the seeded init and encoding it to
-   int16, at tp = 2 on the serve phase's 4 requests, plainly and with
+   gloo: yi-6b at full width cut to ``TP_YI_LAYERS`` layers under
+   ``default=plam_sim:16:1``, each rank drawing its shard of the seeded
+   init and encoding it to int16, at tp = 2 on the serve phase's 4
+   requests (served at tp = 1 here at that depth), plainly and with
    chunked prefill and n-gram spec; yi-6b cut to ``TP_CUT_LAYERS`` at tp =
    8 (its 4 kv heads < 8: each rank keeps the kv head its q heads read);
-   granite-moe-1b-a400m at full width and depth (TP inside each expert,
-   its vocab of 49,155 kept whole) and deepseek-moe-16b cut to
-   ``TP_CUT_LAYERS`` at tp = 2; yi-6b at tp = 1 in a world of one over
+   granite-moe-1b-a400m (TP inside each expert, its vocab of 49,155 kept
+   whole) and deepseek-moe-16b at full width cut to ``TP_CUT_LAYERS`` at
+   tp = 2; yi-6b at ``TP_YI_LAYERS`` at tp = 1 in a world of one over
    nccl.  Gates: each rank's launches a forward (7L+1 K1 at the sharded
    shapes ``TP_YI_K1``, the MoE models' 3L over their expert stacks; L K2
    a decode step on H/tp q heads and the rank's kv heads), no plain K1
@@ -280,9 +281,9 @@ its own lines:
    traffic through host memory sets the phase's time) for
    ``TP_TRAIN_STEPS`` steps, its
    whole leaves gathered and written by rank 0 after
-   ``TP_TRAIN_CKPT_AFTER``; granite-moe-1b-a400m at full width and depth
-   for ``TP_TRAIN_MOE_STEPS``; yi-6b at ``TP_TRAIN_EXACT_LAYERS`` layers
-   with f32 parameters, activations and numerics, one sharded step against one
+   ``TP_TRAIN_CKPT_AFTER``; granite-moe-1b-a400m at full width cut to
+   ``TP_TRAIN_MOE_LAYERS`` for ``TP_TRAIN_MOE_STEPS``; yi-6b at
+   ``TP_TRAIN_EXACT_LAYERS`` layers with f32 parameters, activations and numerics, one sharded step against one
    rank's on rank 0.  Then the checkpoint is restored here on one rank,
    which takes the remaining steps (elastic restore).  Gates: every
    rank's losses equal; step 0 within ``TP_TRAIN_LOSS_RTOL`` of one
@@ -302,6 +303,35 @@ its own lines:
    seconds, per-rank peak memory and state bytes, the collectives a step
    and their share of the last step, the checkpoint's and the restore's
    seconds.
+17. tp_ssm     — the state-space and hybrid families over a (data 2 x
+   model 2) mesh: one world of four ranks spawned from here, sharing this
+   card over gloo (over nccl with a card a rank).  (a) mamba2-780m and
+   zamba2-1.2b at full width and depth under default=plam_sim:16:1 with
+   int16 prequantized seeded weights, each rank its shard (in_proj cut
+   block by block, the shared block column- and row-parallel): the
+   prefill of ``TP_SSM_PROMPT`` seeded tokens (each data rank its rows)
+   and ``TP_SSM_DECODE`` greedy decode steps; (b) zamba2 at global batch
+   1, its shared K/V positions over ``data``; (c) ``TP_SSM_TRAIN_STEPS``
+   AdamW steps of each under its config's posit_quant:16:1 with ZeRO-1
+   state, phase train's global batch (8 x 128), built by the dry run's
+   ``build_cell`` on the card and cut in depth to ``TP_SSM_TRAIN_LAYERS``;
+   (d) each of those cells dry-run on this rank's ``VirtualMesh`` (meta);
+   (e) (a) and (b) again with f32 parameters, activations, numerics and
+   caches, TF32 off: the prefill and ``TP_SSM_F32_DECODE`` teacher-forced
+   decode steps.
+   Gates: the tokens of (a) and (b) equal one rank's (served here) or
+   parting only where its top-2 margin is below ``TP_SSM_MARGIN``; the
+   logits of (e) within ``TP_SSM_F32_TOL`` of one rank's, relative to
+   its largest |logit| (a gate that does not ride on bf16's near ties); K1
+   launches a forward 2L+1 (mamba2) and 2L+8L/6+1 (zamba2), no plain K1
+   or codec call, K1 bit for bit against its plain version at every
+   (M, K, N) rank 0 launched; every rank's losses equal, step 0 within
+   ``TP_TRAIN_LOSS_RTOL`` of one rank's, K3 quantizes a step by
+   ``family_quantize_count``, bit for bit at rank 0's (shape, dtype), m + v
+   bytes the per-device ZeRO-1 count, the collectives a step by
+   ``tp_ssm_collectives``; (d) the virtual mesh's launches and collectives
+   (axis, kind, calls, result bytes) equal to each rank's measured ones,
+   and its peak within ``DRYRUN_MEM_TOL`` of the measured one.
 
 It exits non-zero if any phase fails, if no CUDA device is present, or if
 ``repro_torch`` cannot be imported.  Its last line is
@@ -326,7 +356,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ["device", "kernels", "conformance", "serve", "serve_paths", "observe", "moe",
           "static", "archs", "train", "train_families", "e2e", "times", "dryrun", "tp",
-          "tp_train"]
+          "tp_train", "tp_ssm"]
 
 # H100 SXM peaks (NVIDIA data sheet), from the port's roofline, the one
 # source of them: HBM3 bytes/s, f32 CUDA-core FLOP/s, SMs and the INT32
@@ -775,7 +805,13 @@ DRYRUN_BOUND_SLACK = 1.05
 TP_YI_K1 = {(4096, 2048), (4096, 256), (2048, 4096), (4096, 5504), (5504, 4096),
             (4096, 32000)}
 TP_FALLBACK = 8  # yi-6b's kv = 4 < 8: each rank keeps the kv head its q heads read
-TP_CUT_LAYERS = 4  # the depth of the tp = 8 yi-6b and the deepseek-moe-16b runs
+TP_CUT_LAYERS = 4  # the depth of the tp = 8 yi-6b and the MoE runs
+# the depth of the tp = 2 and tp = 1 (nccl) yi-6b runs: cut from 32, with
+# granite-moe-1b-a400m's from 24 to TP_CUT_LAYERS, when phase tp_ssm came, to
+# keep the whole script inside its time limit (the gloo worlds' steps move
+# through host memory, whose speed differs between machines: the whole script
+# took 1237 s on one H100 at full depth here, PERF.md section 6)
+TP_YI_LAYERS = 4
 TP_K1_TIME_REPS = 10
 TP_TIMEOUT_S = 600  # a spawned world's limit
 # phase tp_train: training over a (data x model) mesh whose ranks share this
@@ -783,7 +819,7 @@ TP_TIMEOUT_S = 600  # a spawned world's limit
 # remat, AdamW at TRAIN_LR, global batch TRAIN_BATCH x TRAIN_SEQ, seed 0):
 # yi-6b at full width for TP_TRAIN_STEPS steps with a checkpoint of
 # whole leaves after TP_TRAIN_CKPT_AFTER, restored on one rank here (elastic
-# restore); TP_TRAIN_MOE at full width and depth; yi-6b at
+# restore); TP_TRAIN_MOE at full width, TP_TRAIN_MOE_LAYERS deep; yi-6b at
 # TP_TRAIN_EXACT_LAYERS layers with f32 parameters and activations, one
 # sharded step against one rank's.  The exactness run's AdamW eps is
 # TP_TRAIN_EXACT_EPS: its first step divides each gradient element by its
@@ -795,11 +831,13 @@ TP_TRAIN_MESH = (2, 2)  # (data, model)
 # phase train's 8 layers) and ZeRO-1's updated parameters through host
 # memory, 17-18 s a step at 8 layers on the H100 (0.96 of it collectives)
 # and 7-15 s at 4 (the host's throughput differs between machines): cut in
-# depth, never in width, to keep the whole script inside its time limit
-TP_TRAIN_LAYERS = 2
+# depth, never in width, to keep the whole script inside its time limit (2
+# until phase tp_ssm took the time)
+TP_TRAIN_LAYERS = 1
 TP_TRAIN_STEPS, TP_TRAIN_CKPT_AFTER = 4, 2
 TP_TRAIN_MOE, TP_TRAIN_MOE_STEPS = "granite-moe-1b-a400m", 2
-TP_TRAIN_EXACT_LAYERS, TP_TRAIN_EXACT_EPS = 2, 1e-5
+TP_TRAIN_MOE_LAYERS = 4  # cut from 24 for phase tp_ssm (the whole script's time)
+TP_TRAIN_EXACT_LAYERS, TP_TRAIN_EXACT_EPS = 1, 1e-5  # 2 layers before phase tp_ssm
 TP_TRAIN_LOSS_RTOL = 1e-3  # a step-0 loss against one rank's (the forward's sum order)
 TP_TRAIN_EXACT_TOL = 1e-5  # the f32 step: loss (relative) and parameters (absolute)
 TP_TRAIN_EXACT_MOMENT_ATOL = 1e-6  # m and v: within 1e-6 + 1e-5 |one rank's|
@@ -818,6 +856,31 @@ TP_TRAIN_TIMEOUT_S = 900
 # of its init scale (d^-1/2), in the gradient's sign, and 32 layers compound
 # it; the full-depth run takes a tenth of it
 TP_TRAIN_FULL_LR = 1e-4
+# phase tp_ssm: mamba2-780m and zamba2-1.2b over a (data x model) mesh whose
+# ranks share this one card over gloo.  Serving at full width and depth
+# (TP_SSM_PROMPT rows x tokens, each data rank its rows, then TP_SSM_DECODE
+# greedy steps); a differing token is a near tie where one rank's top-2
+# logit margin there is below TP_SSM_MARGIN.  Training cut in depth only
+# (gloo moves each step's gradients through host memory, and the whole
+# script's time): mamba2 to 2 of 48 layers, zamba2 to 6 of 38 (one
+# shared-block invocation).  The bf16 tokens part from one rank's at near
+# ties that sum order alone moves (48 bf16 layers carry a change of f32
+# sum order to top-logit gaps up to 0.17, PERF.md section 6), so the same
+# forms also run in f32 at full depth, where the mesh moved the logits by
+# 6e-6 to 8e-6 of the largest one (H100, PERF.md section 6) and a rank
+# reading the wrong channels moves them by far more
+# (tests/test_torch_tp_ssm.py holds TP_SSM_F32_TOL between the two at
+# reduced size; relative to one rank's largest |logit|)
+TP_SSM_MESH = (2, 2)  # (data, model)
+TP_SSM_ARCHS = ("mamba2-780m", "zamba2-1.2b")
+TP_SSM_PROMPT = (4, 64)
+TP_SSM_DECODE = 8
+TP_SSM_MARGIN = 0.1
+TP_SSM_TRAIN_LAYERS = {"mamba2-780m": 2, "zamba2-1.2b": 6}
+TP_SSM_TRAIN_STEPS = 2
+TP_SSM_TIMEOUT_S = 600
+TP_SSM_F32_DECODE = 2
+TP_SSM_F32_TOL = 1e-3
 
 
 def launch_counts(cfg, prequantized: bool = True) -> dict:
@@ -6472,11 +6535,11 @@ class Smoke:
 
     def phase_tp(self):
         """Tensor-parallel serving, each world spawned from here
-        (``launch/mesh.py::spawn``): yi-6b at full width and depth at tp = 2
-        (plain, then chunked prefill with n-gram spec), yi-6b cut in depth
-        at tp = 8 (the replicated-kv-head fallback), granite-moe-1b-a400m at
-        full width and depth and deepseek-moe-16b cut in depth at tp = 2,
-        and yi-6b at tp = 1 in a world of one over nccl.  Every world but the
+        (``launch/mesh.py::spawn``): yi-6b at full width cut to TP_YI_LAYERS
+        at tp = 2 (plain, then chunked prefill with n-gram spec), yi-6b cut
+        in depth at tp = 8 (the replicated-kv-head fallback),
+        granite-moe-1b-a400m and deepseek-moe-16b cut in depth at tp = 2,
+        and yi-6b at TP_YI_LAYERS at tp = 1 in a world of one over nccl.  Every world but the
         last runs its ranks over gloo on this one card."""
         torch = self.torch
         import gc
@@ -6489,7 +6552,7 @@ class Smoke:
         card = self.results["device"]["nvidia_smi"]
         note = f"[{card}; every rank on this one card: not multi-card figures]"
         failures, res = [], {"card": card}
-        layers = self.args.layers
+        layers = min(self.args.layers, TP_YI_LAYERS)
         base = dict(max_new_tokens=16, block_size=16, max_slots=4, num_blocks=64,
                     max_seq_len=128, prequantize=True)
         cfg = self.yi_cfg(layers)
@@ -6567,9 +6630,9 @@ class Smoke:
         world(f"yi-6b tp={TP_FALLBACK} {cut.n_layers} layers", TP_FALLBACK, job,
               cut_ref["outputs"], cut, cut_ref["model"], prompts)
         del cut_ref
-        # c. the MoE family at tp = 2: granite at full depth (its vocab of
-        # 49,155 kept whole), deepseek cut in depth
-        for arch, depth in (("granite-moe-1b-a400m", None),
+        # c. the MoE family at tp = 2 (granite's vocab of 49,155 kept whole),
+        # both cut in depth
+        for arch, depth in (("granite-moe-1b-a400m", TP_CUT_LAYERS),
                             ("deepseek-moe-16b", TP_CUT_LAYERS)):
             mcfg = self.moe_cfg(arch)
             depth = min(depth or mcfg.n_layers, layers)
@@ -6645,8 +6708,8 @@ class Smoke:
         card over gloo: yi-6b at TP_TRAIN_LAYERS layers and phase train's settings
         (TP_TRAIN_STEPS steps; tensor parallelism over model, the global
         batch over data, ZeRO-1 AdamW state) with a checkpoint of whole
-        leaves after TP_TRAIN_CKPT_AFTER, TP_TRAIN_MOE at full width and
-        depth, and yi-6b at TP_TRAIN_EXACT_LAYERS layers in f32 against a
+        leaves after TP_TRAIN_CKPT_AFTER, TP_TRAIN_MOE at full width cut to
+        TP_TRAIN_MOE_LAYERS, and yi-6b at TP_TRAIN_EXACT_LAYERS layers in f32 against a
         one-rank step (``Smoke.tp_train_steps``, ``Smoke.tp_train_exact``);
         then the checkpoint restored on one rank here, which takes the
         remaining steps (elastic restore, 2 x 2 -> 1 x 1).  Where the
@@ -6673,7 +6736,7 @@ class Smoke:
         yi = dataclasses.replace(self.train_cfg(),
                                  n_layers=min(self.args.layers, TP_TRAIN_LAYERS))
         moe = get_config(TP_TRAIN_MOE)
-        moe = dataclasses.replace(moe, n_layers=min(self.args.layers, moe.n_layers))
+        moe = dataclasses.replace(moe, n_layers=min(self.args.layers, TP_TRAIN_MOE_LAYERS))
         exact = dataclasses.replace(get_config("yi-6b"), n_layers=TP_TRAIN_EXACT_LAYERS,
                                     param_dtype="float32", act_dtype="float32")
         ckpt_dir = os.path.join(ROOT, "build", "tp_train_ckpt")
@@ -6874,7 +6937,7 @@ class Smoke:
                 batch = batch0 if i == 0 else self.family_batch(api, cfg, TRAIN_BATCH,
                                                                 TRAIN_SEQ, i)
                 mesh.time_collectives = bool(job.get("count")) and i == job["steps"] - 1
-                mesh.collectives.clear()
+                mesh.traffic.clear()
                 mesh.collective_s = 0.0
                 torch.cuda.synchronize()
                 _lib.reset_launches()
@@ -7073,6 +7136,486 @@ class Smoke:
         return {"step": manifest["step"], "losses": losses, "restore_s": restore_s,
                 "rel_diff": rel}
 
+    # -- phase 17 ------------------------------------------------------------
+
+    def phase_tp_ssm(self):
+        """The state-space and hybrid families over a (data x model) mesh of
+        ranks, one world spawned from here (``tp_ssm_rank``), its four
+        ranks sharing this card over gloo: each model served at full width
+        and depth (``Smoke.tp_ssm_serve``; zamba2 also at batch 1 with its
+        shared K/V positions over ``data``) and trained cut in depth
+        (``Smoke.tp_ssm_train``), every cell also dry-run on the rank's
+        virtual mesh.  One rank's tokens and step-0 losses are taken here
+        first."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.configs import ShapeSpec, get_config
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import choose_backend, spawn
+        from repro_torch.models import build
+
+        self.yi_model = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        card = self.results["device"]["nvidia_smi"]
+        data, tp = TP_SSM_MESH
+        backend = choose_backend(data * tp, "cuda")
+        note = (f"[{card}; the ranks share this one card over gloo: not multi-card figures]"
+                if backend == "gloo" else f"[{torch.cuda.device_count()} x {card}, nccl]")
+        failures, res = [], {"card": card, "mesh": {"data": data, "model": tp}}
+        t0 = time.perf_counter()
+        rows, seq = TP_SSM_PROMPT
+        vocab = min(get_config(a).vocab for a in TP_SSM_ARCHS)
+        prompt = torch.randint(0, vocab, (rows, seq), generator=self.gen(77), device=self.dev)
+        dec = torch.randint(0, vocab, (rows, TP_SSM_F32_DECODE), generator=self.gen(78),
+                            device=self.dev)
+        jobs, want = {}, {}
+        for arch in TP_SSM_ARCHS:
+            cfg = tp_cfg(arch, get_config(arch).n_layers)
+            want[arch] = self.tp_ssm_one_rank(cfg, prompt)
+            want[arch]["f32"] = self.tp_ssm_f32_one_rank(tp_ssm_f32_cfg(arch), prompt, dec)
+            jobs[arch] = dict(kind="serve", cfg=cfg, prompt=prompt.cpu(), dec=dec.cpu())
+        for arch in TP_SSM_ARCHS:
+            cfg = dataclasses.replace(get_config(arch), n_layers=min(
+                self.args.layers, TP_SSM_TRAIN_LAYERS[arch]))
+            shape = ShapeSpec("tp_ssm_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+            step, (model, opt, batch) = dryrun.build_cell(cfg, shape, device=self.dev)
+            with torch.no_grad():
+                loss0 = float(build(cfg).train_loss(model, batch))
+            del step, model, opt, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+            want[f"{arch}/train"] = loss0
+            jobs[f"{arch}/train"] = dict(kind="train", cfg=cfg, shape=shape)
+        res["one_rank_s"] = time.perf_counter() - t0
+        log(f"tp_ssm: a world of {data * tp} ranks, (data {data} x model {tp}) over {backend}; "
+            f"one rank's runs here in {res['one_rank_s']:.1f} s")
+        t0 = time.perf_counter()
+        ranks = spawn(tp_ssm_rank, data * tp, "cuda", self.args, jobs, timeout=TP_SSM_TIMEOUT_S)
+        res["world_s"] = time.perf_counter() - t0
+        r0 = ranks[0]
+        res["backend"], res["world"] = r0["backend"], r0["world"]
+        log(f"tp_ssm: backend {r0['backend']}, world {r0['world']}, ranks at (data, model) "
+            f"{[(r['data_rank'], r['model_rank']) for r in ranks]}; the world in "
+            f"{res['world_s']:.1f} s with the spawn {note}")
+        if r0["backend"] != backend or r0["world"] != data * tp:
+            failures.append(f"world {r0['world']} over {r0['backend']}, not {data * tp} over "
+                            f"{backend}")
+        for r in ranks:
+            for name in jobs:
+                failures.extend(f"{name} rank {r['rank']}: {f}" for f in r[name]["failures"])
+        for arch in TP_SSM_ARCHS:
+            res[arch] = self.tp_ssm_serve_gates(arch, ranks, want[arch], failures, note)
+            res[f"{arch}/train"] = self.tp_ssm_train_gates(
+                arch, ranks, want[f"{arch}/train"], failures, note)
+        k1 = sum(sum(r0[a]["k1"]) for a in TP_SSM_ARCHS)
+        k3 = sum(sum(r0[f"{a}/train"]["k3"]) for a in TP_SSM_ARCHS)
+        self.path_launches["plam_matmul"] = self.path_launches.get("plam_matmul", 0) + k1
+        self.path_launches["posit_codec"] = self.path_launches.get("posit_codec", 0) + k3
+        self.results["tp_ssm"] = res
+        if failures:
+            raise AssertionError("; ".join(failures[:8]))
+
+    def tp_ssm_model(self, cfg, mesh):
+        """``cfg``'s seeded init on this card (this rank's shard under
+        ``mesh``), encoded to int16 in place."""
+        from repro_torch.core.prequant import quantize_params
+        from repro_torch.models import build
+
+        model = build(cfg).init(seed=0, device=self.dev, mesh=mesh)
+        quantize_params(cfg, model)
+        return model
+
+    def tp_ssm_generate(self, cfg, model, prompt, mesh, base=0, seq_parallel=False):
+        """``prompt`` served on ``model`` through the registry's ``prefill``
+        and TP_SSM_DECODE greedy ``decode_step``s (with ``seq_parallel``, one
+        row whose shared K/V the data ranks hold by positions): each
+        position's token, top logit and top-2 margin, and each forward's
+        launches; under a mesh also each forward's collectives
+        (``Mesh.traffic``) and peak bytes above ``base``."""
+        torch = self.torch
+        from repro_torch.kernels import _lib
+        from repro_torch.models import build
+        from repro_torch.models.hybrid import seq_shard_caches
+        from repro_torch.parallel.sharding import use_mesh
+
+        api = build(cfg)
+        out = {"tokens": [], "top": [], "margins": [], "launches": [], "traffic": [],
+               "peak": []}
+
+        def forward(fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _lib.reset_launches()
+            if mesh is not None:
+                mesh.traffic.clear()
+            logits, caches = fn()
+            torch.cuda.synchronize()
+            out["peak"].append(torch.cuda.max_memory_allocated() - base)
+            out["launches"].append({k: v for k, v in _lib.launches.items() if v})
+            out["traffic"].append(None if mesh is None else dict(mesh.traffic))
+            top = logits[:, -1].float().topk(2, dim=-1)
+            out["tokens"].append(top.indices[:, 0])
+            out["top"].append(top.values[:, 0])
+            out["margins"].append(top.values[:, 0] - top.values[:, 1])
+            return top.indices[:, :1].to(torch.int32), caches
+
+        with torch.no_grad(), use_mesh(mesh):
+            tok, caches = forward(lambda: api.prefill(model, {"tokens": prompt}))
+            if seq_parallel:
+                caches = seq_shard_caches(caches, mesh)
+            for i in range(TP_SSM_DECODE):
+                batch = {"token": tok, "caches": caches, "cache_len": prompt.shape[1] + i}
+                if seq_parallel:
+                    batch["seq_parallel"] = True
+                tok, caches = forward(lambda b=batch: api.decode_step(model, b))
+        del caches
+        for k in ("tokens", "top", "margins"):
+            out[k] = torch.stack(out[k], dim=1)
+        return out
+
+    def tp_ssm_one_rank(self, cfg, prompt):
+        """One rank's tokens, top logits and margins for phase tp_ssm's
+        gates, at the batches the world serves them: each data rank's rows
+        (``prompt`` split over TP_SSM_MESH's data axis), and for the hybrid
+        row 0 alone (the batch-1 run).  (One rank's decode step depends on
+        the batch: the recurrence's f32 ``einsum`` (a batched GEMV) and the
+        gated norm's f32 mean change their sum order with the rows, and 48
+        bf16 layers carry that to the tokens; the prefill does not,
+        ``repro_torch/launch/batch_noise.py``, PERF.md section 6.)"""
+        torch = self.torch
+        model = self.tp_ssm_model(cfg, None)
+        data = TP_SSM_MESH[0]
+        parts = [self.tp_ssm_generate(cfg, model, rows, None)
+                 for rows in prompt.chunk(data)]
+        out = {k: torch.cat([p[k] for p in parts]).cpu() for k in ("tokens", "top", "margins")}
+        if cfg.family == "hybrid":
+            one = self.tp_ssm_generate(cfg, model, prompt[:1], None)
+            out["batch1"] = {k: one[k].cpu() for k in ("tokens", "top", "margins")}
+        del model
+        torch.cuda.empty_cache()
+        return out
+
+    def tp_ssm_f32(self, cfg, model, prompt, dec, mesh, seq_parallel=False):
+        """Phase tp_ssm (e): the f32 logits [rows, 1 + decode steps, V] of
+        ``prompt``'s prefill and the teacher-forced decode of ``dec`` over
+        f32 caches (the modules' own prefill and decode_step, as
+        tests/test_torch_tp_ssm.py runs them), TF32 off; with
+        ``seq_parallel`` one row whose shared K/V the data ranks hold by
+        positions."""
+        torch = self.torch
+        from repro_torch.models import hybrid, mamba_lm
+        from repro_torch.parallel.sharding import use_mesh
+
+        mod = hybrid if cfg.family == "hybrid" else mamba_lm
+        s = prompt.shape[1]
+        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            with torch.no_grad(), use_mesh(mesh):
+                caches = mod.cache_init(cfg, prompt.shape[0], s if cfg.family == "hybrid" else 0,
+                                        torch.float32, self.dev)
+                logits, caches = mod.prefill(cfg, model, prompt, caches)
+                if seq_parallel:
+                    caches = hybrid.seq_shard_caches(caches, mesh)
+                out = [logits]
+                for i in range(dec.shape[1]):
+                    kw = {"seq_parallel": True} if seq_parallel else {}
+                    logits, caches = mod.decode_step(cfg, model, dec[:, i:i + 1], caches, s + i,
+                                                     **kw)
+                    out.append(logits)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        return torch.cat(out, dim=1).float()
+
+    def tp_ssm_f32_one_rank(self, cfg, prompt, dec):
+        """One rank's f32 logits for phase tp_ssm (e), at the batches the
+        world runs them (each data rank's rows; the hybrid's row 0)."""
+        torch = self.torch
+        from repro_torch.models import build
+
+        model = build(cfg).init(seed=0, device=self.dev)
+        data = TP_SSM_MESH[0]
+        out = {"logits": torch.cat([self.tp_ssm_f32(cfg, model, p, d, None).cpu() for p, d in
+                                    zip(prompt.chunk(data), dec.chunk(data))])}
+        if cfg.family == "hybrid":
+            out["seq"] = self.tp_ssm_f32(cfg, model, prompt[:1], dec[:1], None).cpu()
+        del model
+        torch.cuda.empty_cache()
+        return out
+
+    def tp_ssm_serve(self, job, mesh):
+        """One rank's serving of ``job["cfg"]``: its rows of the prompt, and
+        for the hybrid row 0 at batch 1 with the shared K/V positions over
+        ``data`` (phase tp_ssm (a), (b)); K1 launches a forward, no plain K1
+        or codec call, rank 0's K1 bit for bit; each cell dry-run on this
+        rank's virtual mesh (d); (a) and (b) in f32 (e)."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.configs import ShapeSpec
+        from repro_torch.models import build
+
+        cfg = job["cfg"]
+        prompt = job["prompt"].to(self.dev)
+        n = prompt.shape[0] // mesh.data_size
+        mine = prompt[mesh.data_rank * n:(mesh.data_rank + 1) * n]
+        want_k1 = launch_counts(cfg)["k1"]
+        out = {"failures": [], "k1_want": want_k1}
+        fails = out["failures"]
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            plain = stack.enter_context(self.counting_plain())
+            k1_seen = (stack.enter_context(self.recording_k1(clone_b=False)) if mesh.rank == 0
+                       else {})
+            base = torch.cuda.memory_allocated()
+            model = self.tp_ssm_model(cfg, mesh)
+            run = self.tp_ssm_generate(cfg, model, mine, mesh, base)
+            cells = {"prefill": (ShapeSpec("tp_ssm_prefill", prompt.shape[1], prompt.shape[0],
+                                           "prefill"), run, 0),
+                     "decode": (ShapeSpec("tp_ssm_decode", prompt.shape[1], prompt.shape[0],
+                                          "decode"), run, 1)}
+            if cfg.family == "hybrid":
+                seq = self.tp_ssm_generate(cfg, model, prompt[:1], mesh, base, seq_parallel=True)
+                out["seq"] = {k: seq[k].cpu() for k in ("tokens", "top", "margins")}
+                out["seq_k1"] = [f.get("plam_matmul", 0) for f in seq["launches"]]
+                cells["seq_decode"] = (ShapeSpec("tp_ssm_seq_decode", prompt.shape[1], 1,
+                                                 "decode"), seq, 1)
+            del model
+        out["serve_s"] = time.perf_counter() - t0
+        # (e) the same forms in f32 (teacher-forced), after the bf16 model is gone
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg32 = tp_ssm_f32_cfg(cfg.name)
+        dec = job["dec"].to(self.dev)
+        model = build(cfg32).init(seed=0, device=self.dev, mesh=mesh)
+        got = self.tp_ssm_f32(cfg32, model, mine, dec[mesh.data_rank * n:(mesh.data_rank + 1) * n],
+                              mesh)
+        out["f32"] = torch.cat(mesh.all_gather(got.contiguous(), "data")).cpu()
+        if cfg.family == "hybrid":
+            out["f32_seq"] = self.tp_ssm_f32(cfg32, model, prompt[:1], dec[:1], mesh,
+                                             seq_parallel=True).cpu()
+        del model, got
+        out["f32_s"] = time.perf_counter() - t0
+        for k in ("tokens", "top", "margins"):
+            out[k] = torch.cat(mesh.all_gather(run[k].contiguous(), "data")).cpu()
+        out["k1"] = [f.get("plam_matmul", 0) for f in run["launches"]]
+        out["launches"] = run["launches"]
+        out["plain_calls"] = dict(plain)
+        if any(k != want_k1 for k in out["k1"] + out.get("seq_k1", [])):
+            fails.append(f"K1 launches a forward {out['k1']} {out.get('seq_k1', '')}, "
+                         f"not {want_k1}")
+        if any(f.keys() != {"plam_matmul"} for f in run["launches"]):
+            fails.append(f"launches other than K1 in a forward: {run['launches'][:2]}")
+        if any(plain.values()):
+            fails.append(f"plain K1 or codec calls on the card: {dict(plain)}")
+        if mesh.rank == 0:
+            out["k1_shapes"] = sorted({(k[0][-1], k[2][-1]) for k in k1_seen})
+            out["k1_check"] = self.check_recorded_k1(f"rank 0 {cfg.name} K1", k1_seen, fails)
+        # (d) each cell on this rank's virtual mesh, on meta
+        out["cells"] = {}
+        for name, (shape, got, i) in cells.items():
+            out["cells"][name] = self.tp_ssm_dry(cfg, shape, True, mesh, got["launches"][i],
+                                                 got["traffic"][i], got["peak"][i], fails)
+        return out
+
+    def tp_ssm_train(self, job, mesh):
+        """One rank's TP_SSM_TRAIN_STEPS AdamW steps of ``job["cfg"]`` under
+        its config's numerics, built by the dry run's ``build_cell`` on the
+        card with this rank's mesh (its shard, ZeRO-1 state, the global
+        batch that the step cuts): each step's loss, launches and
+        collectives; K3 quantizes a step by ``family_quantize_count``, bit
+        for bit at rank 0's (shape, dtype), no plain codec call; m + v bytes
+        against the per-device ZeRO-1 count; the collectives a step by
+        ``tp_ssm_collectives``; the last step dry-run on the virtual mesh."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.kernels import _lib
+        from repro_torch.launch import dryrun
+        from repro_torch.optim.optimizers import Zero1
+        from repro_torch.parallel.sharding import leaf_layouts
+
+        cfg, shape = job["cfg"], job["shape"]
+        rank = mesh.rank
+        base = torch.cuda.memory_allocated()
+        step, (model, opt, batch) = dryrun.build_cell(cfg, shape, device=self.dev, mesh=mesh)
+        zero = Zero1(leaf_layouts(cfg, mesh), mesh, cfg.n_layers)
+        _, want_k3 = self.family_quantize_count(cfg, shape.seq_len)
+        out = {"failures": [], "losses": [], "k3": [], "step_s": [], "k3_want": want_k3,
+               "state_bytes": sum(t.numel() * t.element_size() for k in ("m", "v")
+                                  for t in opt[k].values()),
+               "state_bytes_want": dryrun.state_bytes_rules(cfg, mesh),
+               "collectives_want": tp_ssm_collectives(cfg, zero, model)}
+        fails = out["failures"]
+        if out["state_bytes"] != out["state_bytes_want"]:
+            fails.append(f"m + v {out['state_bytes']} bytes, ZeRO-1's count "
+                         f"{out['state_bytes_want']}")
+        with contextlib.ExitStack() as stack:
+            seen = stack.enter_context(self.recording_k3()) if rank == 0 else {}
+            plain = stack.enter_context(self.counting_plain())
+            for i in range(TP_SSM_TRAIN_STEPS):
+                mesh.traffic.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _lib.reset_launches()
+                t0 = time.perf_counter()
+                loss = float(step(model, opt, batch)[2]["loss"])
+                torch.cuda.synchronize()
+                out["step_s"].append(time.perf_counter() - t0)
+                out["losses"].append(loss)
+                out["k3"].append(_lib.launches["posit_codec"])
+                out["collectives"] = dict(mesh.collectives)
+                launches = {k: v for k, v in _lib.launches.items() if v}
+                traffic, peak = dict(mesh.traffic), torch.cuda.max_memory_allocated() - base
+                log(f"  {cfg.name} step {i}: loss {loss:.4f}, {out['step_s'][-1]:.3f} s, "
+                    f"launches {launches}, collectives {out['collectives']}")
+                if out["collectives"] != out["collectives_want"]:
+                    fails.append(f"collectives step {i} {out['collectives']}, hand count "
+                                 f"{out['collectives_want']}")
+        out["plain_calls"] = dict(plain)
+        out["k3_seen"] = list(seen.values())
+        if any(n != want_k3 for n in out["k3"]):
+            fails.append(f"K3 launches a step {out['k3']}, expected {want_k3}")
+        if any(plain.values()):
+            fails.append(f"plain calls on the card {dict(plain)}")
+        differ = [s for s in seen.values() if s["lanes_differ"]]
+        if differ or (rank == 0 and not seen):
+            fails.append(f"K3 quantize differs from its plain version: {differ}")
+        del step, model, opt, batch, zero
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (d) the last step (after the first's K3 table build) on the virtual mesh
+        out["cell"] = self.tp_ssm_dry(cfg, shape, False, mesh, launches, traffic, peak, fails)
+        return out
+
+    def tp_ssm_dry(self, cfg, shape, prequantize, mesh, launches, traffic, peak, fails):
+        """Phase tp_ssm (d): ``shape``'s cell dry-run on meta as rank
+        ``mesh.rank`` of a virtual mesh of ``mesh``'s shape (a training step
+        after a warm-up, as the measured step followed the first, which
+        builds K3's table), against this rank's measured launches,
+        collectives by axis and kind, and peak bytes."""
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import VirtualMesh
+
+        vm = VirtualMesh(mesh.rank, data=mesh.data_size, model=mesh.model_size)
+        t0 = time.perf_counter()
+        rec, _ = dryrun.analyze_cell(cfg, shape, prequantize=prequantize, mesh=vm,
+                                     warmup=shape.kind == "train")
+        predicted = rec["memory"]["peak_bytes"]
+        row = {"launches": launches, "dry_launches": rec["launches"], "traffic": traffic,
+               "dry_traffic": dict(vm.traffic), "measured_peak_bytes": peak,
+               "predicted_peak_bytes": predicted, "peak_err": (predicted - peak) / peak,
+               "dry_run_s": time.perf_counter() - t0}
+        what = f"{cfg.name} {shape.name}"
+        if rec["launches"] != launches:
+            fails.append(f"{what}: the dry run's launches {rec['launches']}, measured {launches}")
+        if row["dry_traffic"] != traffic:
+            fails.append(f"{what}: the dry run's collectives {row['dry_traffic']}, measured "
+                         f"{traffic}")
+        if abs(row["peak_err"]) > DRYRUN_MEM_TOL:
+            fails.append(f"{what}: predicted peak {predicted / 2**30:.3f} GiB is "
+                         f"{row['peak_err']:+.3f} of the measured {peak / 2**30:.3f}")
+        return row
+
+    @staticmethod
+    def tp_ssm_departure(got, want):
+        """Where ``got``'s tokens first part from ``want``'s (one rank's) in
+        each row: [(row, position, one rank's top-2 margin there)], [] where
+        none does; and the largest |difference| of the top logit at the
+        positions before that (both runs in the same context)."""
+        parts, noise = [], 0.0
+        for r in range(want["tokens"].shape[0]):
+            differ = (got["tokens"][r] != want["tokens"][r]).nonzero()
+            j = int(differ[0, 0]) if len(differ) else want["tokens"].shape[1]
+            if j < want["tokens"].shape[1]:
+                parts.append((r, j, float(want["margins"][r, j])))
+            if j:
+                noise = max(noise, float((got["top"][r, :j] - want["top"][r, :j]).abs().max()))
+        return parts, noise
+
+    def tp_ssm_serve_gates(self, arch, ranks, want, failures, note):
+        """Phase tp_ssm (a), (b): every rank's gathered tokens equal, and
+        equal to one rank's at the same batches (each data rank's rows; the
+        batch-1 row) or parting where one rank's top-2 margin is below
+        TP_SSM_MARGIN."""
+        r0 = ranks[0][arch]
+        row = {"ranks": [{k: v for k, v in r[arch].items()
+                          if k not in ("tokens", "top", "margins", "seq", "f32", "f32_seq")}
+                         for r in ranks]}
+        for r in ranks[1:]:
+            if not self.torch.equal(r[arch]["tokens"], r0["tokens"]):
+                failures.append(f"{arch}: rank {r['rank']}'s tokens differ from rank 0's")
+        parts, noise = self.tp_ssm_departure(r0, want)
+        row.update(departures=parts, top_logit_diff=noise)
+        if any(m >= TP_SSM_MARGIN for _, _, m in parts):
+            failures.append(f"{arch}: tokens part from one rank's at (row, position, margin) "
+                            f"{parts}")
+        seq_log = ""
+        if "seq" in r0:
+            seq, seq_noise = self.tp_ssm_departure(r0["seq"], want["batch1"])
+            row.update(seq_departures=seq, seq_top_logit_diff=seq_noise)
+            seq_log = (f"; batch 1 over data: {seq or 'equal'}, top logit within "
+                       f"{seq_noise:.4f}")
+            if any(m >= TP_SSM_MARGIN for _, _, m in seq):
+                failures.append(f"{arch} batch 1 over data: tokens part from one rank's at "
+                                f"{seq}")
+        f32 = {"logits": (r0["f32"], want["f32"]["logits"])}
+        if "f32_seq" in r0:
+            f32["batch 1 over data"] = (r0["f32_seq"], want["f32"]["seq"])
+        row["f32_rel_err"] = {k: float((g - w).abs().max() / w.abs().max())
+                              for k, (g, w) in f32.items()}
+        for k, e in row["f32_rel_err"].items():
+            if not e <= TP_SSM_F32_TOL:
+                failures.append(f"{arch} f32 {k}: {e:.3e} of one rank's largest |logit| from "
+                                f"one rank's, over {TP_SSM_F32_TOL}")
+        log(f"tp_ssm {arch} (full width and depth, prequantized plam_sim): K1 a forward "
+            f"{sorted(set(r0['k1'] + r0.get('seq_k1', [])))} (hand count {r0['k1_want']}), "
+            f"rank 0's K1 at (K, N) {r0.get('k1_shapes')}; tokens against one rank's at the "
+            f"same batches: {parts or 'equal'} (row, position, one rank's margin), the top "
+            f"logit within {noise:.4f} before that{seq_log}; served in {r0['serve_s']:.1f} s "
+            f"{note}")
+        log(f"  f32 (parameters, activations, numerics, caches; TF32 off), the prefill and "
+            f"{TP_SSM_F32_DECODE} teacher-forced decode steps: logits from one rank's by "
+            + ", ".join(f"{k} {e:.3e}" for k, e in row["f32_rel_err"].items())
+            + f" of its largest |logit| (tol {TP_SSM_F32_TOL}), in {r0['f32_s']:.1f} s")
+        for name, c in r0["cells"].items():
+            log(f"  dry run {name} (rank 0): launches {c['dry_launches']} (measured "
+                f"{c['launches']}); collectives {c['dry_traffic']} (measured {c['traffic']}); "
+                f"peak predicted {c['predicted_peak_bytes'] / 2**30:.3f} GiB, measured "
+                f"{c['measured_peak_bytes'] / 2**30:.3f} GiB ({c['peak_err']:+.4f})")
+        return row
+
+    def tp_ssm_train_gates(self, arch, ranks, loss0, failures, note):
+        """Phase tp_ssm (c): every rank's losses equal, finite, step 0 within
+        TP_TRAIN_LOSS_RTOL of one rank's."""
+        import math
+
+        key = f"{arch}/train"
+        r0 = ranks[0][key]
+        for r in ranks[1:]:
+            if r[key]["losses"] != r0["losses"]:
+                failures.append(f"{key} rank {r['rank']}: losses {r[key]['losses']} differ "
+                                f"from rank 0's {r0['losses']}")
+        rel = abs(r0["losses"][0] - loss0) / abs(loss0)
+        if not (rel <= TP_TRAIN_LOSS_RTOL and all(math.isfinite(x) for x in r0["losses"])):
+            failures.append(f"{key}: losses {r0['losses']}, step 0 against one rank's {loss0}: "
+                            f"{rel:.2e}")
+        c = r0["cell"]
+        log(f"tp_ssm {key} ({TP_SSM_TRAIN_LAYERS[arch]} layers, posit_quant:16:1, AdamW lr "
+            f"1e-4, ZeRO-1): losses {[round(x, 4) for x in r0['losses']]} (step 0 {rel:.2e} "
+            f"from one rank's {loss0:.4f}); step seconds {[round(x, 3) for x in r0['step_s']]}; "
+            f"K3 a step {r0['k3']} (hand count {r0['k3_want']}); m + v a rank "
+            f"{[r[key]['state_bytes'] for r in ranks]} (ZeRO-1's {r0['state_bytes_want']}); "
+            f"collectives a step {r0['collectives']} (hand count {r0['collectives_want']}) {note}")
+        log(f"  dry run of the step (rank 0): launches {c['dry_launches']} (measured "
+            f"{c['launches']}); collectives {c['dry_traffic']} (measured {c['traffic']}); peak "
+            f"predicted {c['predicted_peak_bytes'] / 2**30:.3f} GiB, measured "
+            f"{c['measured_peak_bytes'] / 2**30:.3f} GiB ({c['peak_err']:+.4f})")
+        return {"ranks": [r[key] for r in ranks], "step0_rel_diff": rel, "one_rank_loss0": loss0}
+
     def kernels_line(self):
         out = []
         for name, (row, source, replaces) in self.kernels.items():
@@ -7087,6 +7630,15 @@ class Smoke:
                 "shape": row["shape"],
             })
         return {"kernels": out}
+
+
+def tp_ssm_f32_cfg(arch):
+    """``arch`` as its config gives it, with f32 parameters, activations
+    and numerics (phase tp_ssm (e))."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype="float32", act_dtype="float32")
+    return cfg.with_numerics("default=f32")
 
 
 def tp_cfg(arch, layers):
@@ -7310,6 +7862,64 @@ def tp_train_rank(device, args, jobs):
             mesh = make_host_mesh(data=job["data"], model=job["model"])
             out.update(data_rank=mesh.data_rank, model_rank=mesh.model_rank)
             out[name] = getattr(smoke, f"tp_train_{job['kind']}")(job, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def tp_ssm_collectives(cfg, zero, model) -> dict:
+    """The collectives of a Mamba2 or hybrid model's sharded training step,
+    by hand (no remat; a vocab-parallel head where the vocabulary divides
+    tp).  Over ``model``, a Mamba2 layer: the gathered B and C (one
+    all-gather), the gated norm's sum of squares and out_proj's partial
+    sums (two all-reduces) in the forward; in the backward the norm's dot
+    term, the gather's summed gradient and ``copy_model``'s (three), and
+    six whole leaves summed (``sum_partial``: conv_w, conv_b, A_log, D,
+    dt_bias, the norm's scale): 11 all-reduces a layer.  A shared-block
+    invocation: wo's, wd's and out_proj's sums forward, the two copies'
+    backward (five), and ``model_block``'s gathered gradient (one
+    all-gather).  Then the embedding's sum, the head's copy a loss chunk,
+    the gradient norm's; the head's all-gather a chunk and its recompute.
+    Over ``data``: as ``tp_train_collectives``."""
+    import torch
+
+    n = cfg.n_layers
+    inv = n // cfg.shared_attn_every if cfg.family == "hybrid" else 0
+    chunks = -(-TRAIN_SEQ // 512)
+    vp = int(getattr(model, "vocab_parallel", False))
+    bf16 = (sum(p.dtype == torch.bfloat16 for p in model.parameters())
+            if zero.mesh.data_size == 2 else 0)
+    return {"all_reduce": vp + 11 * n + 5 * inv + vp * chunks + 1,
+            "all_gather": n + inv + 2 * vp * chunks,
+            "data_all_reduce": 2 + len(zero.layouts) - bf16,
+            "data_all_gather": bf16 + sum(zero.sliced(names[0])
+                                          for names in zero.by_path.values())}
+
+
+def tp_ssm_rank(device, args, jobs):
+    """One rank of phase tp_ssm (``launch/mesh.py::spawn``): each serving
+    job (``Smoke.tp_ssm_serve``), then each training job
+    (``Smoke.tp_ssm_train``), on the (data x model) mesh of the world.
+    Rank 0 logs."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rank = dist.get_rank()
+    out = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend()}
+    with contextlib.ExitStack() as quiet:
+        if rank:
+            quiet.enter_context(contextlib.redirect_stdout(
+                quiet.enter_context(open(os.devnull, "w"))))
+        smoke = Smoke(args)
+        data, tp = TP_SSM_MESH
+        mesh = make_host_mesh(data=data, model=tp)
+        out.update(data_rank=mesh.data_rank, model_rank=mesh.model_rank)
+        for name, job in jobs.items():
+            out[name] = getattr(smoke, f"tp_ssm_{job['kind']}")(job, mesh)
             gc.collect()
             torch.cuda.empty_cache()
     return out

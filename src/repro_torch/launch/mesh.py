@@ -9,6 +9,12 @@ backend follows one rule (:func:`choose_backend`): ``nccl`` when every
 rank has a card of its own, ``gloo`` when ranks share a card or run on
 the CPU.  Nothing here touches a device or a process group when it is
 imported.
+
+:func:`make_production_mesh` gives the reference's 16 x 16 (2 x 16 x 16)
+mesh as a :class:`VirtualMesh`: one rank of it with no world, whose
+collectives take meta tensors, move nothing and are counted, so that the
+sharded dry run (``launch/dryrun.py``) counts one rank's step of a
+256- or 512-card mesh on the CPU.
 """
 from __future__ import annotations
 
@@ -24,9 +30,10 @@ import torch
 
 from repro_torch.parallel.sharding import Mesh
 
-#: the item of ROADMAP.md's queue 1 that holds the sharded dry run and the
-#: reference's production meshes (its one user)
-TP_TRAINING = "8b: the sharded dry run and the production meshes"
+#: the item of ROADMAP.md's queue 1 that holds what no mesh runs yet: the
+#: encdec and vlm families (the dry run's seamless-m4t-medium and
+#: qwen2-vl-72b cells on the production meshes)
+TP_TRAINING = "8d: the encdec and vlm families under a mesh"
 
 
 def choose_backend(world: int, device) -> str:
@@ -74,13 +81,99 @@ def mesh_dims(mesh: Mesh) -> dict:
     return {a: mesh.shape[a] for a in mesh.axis_names}
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16 x 16 (2 x 16 x 16 across two pods) mesh, whose
-    one user is the sharded dry run."""
-    from repro_torch.serving.api import LATER
+class VirtualMesh(Mesh):
+    """Rank ``rank`` of a (pod x) data x model mesh with no world: the
+    dry run's stand-in for a mesh of cards that this process does not
+    have.  Rank r sits at (r // (data model), (r // model) % data,
+    r % model), the model groups neighbours as on :class:`Mesh`.  Its
+    collectives take meta tensors and give meta results of the shape the
+    world's would have, moving nothing; each is counted as the world's
+    are (``Mesh._note``: ``traffic``, read back by ``collectives``, and the op
+    analysis' listeners), its result bytes as the reference's HLO
+    accounting counts them.  A real tensor raises: no fallback computes a
+    value.  The ``pod`` axis folds into the batch axis (the reference's
+    logical ``batch`` = (pod, data)); ZeRO-1 still cuts over ``data``."""
 
-    what = "the 2-pod mesh" if multi_pod else "the production mesh"
-    raise NotImplementedError(f"{what} " + LATER.format(TP_TRAINING))
+    def __init__(self, rank: int = 0, *, data: int, model: int, pod: int = 1):
+        world = pod * data * model
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside a mesh of {pod} x {data} x {model}")
+        self.rank = rank
+        self.backend = "virtual"
+        self.shape = {**({"pod": pod} if pod > 1 else {}), "data": data, "model": model}
+        self.axis_names = tuple(self.shape)
+        self.batch_axis = "batch" if pod > 1 else "data"
+        self.groups = {}
+        self.traffic = {}
+        self.collective_s = 0.0
+        self.time_collectives = False
+
+    @property
+    def data_rank(self) -> int:
+        return (self.rank // self.shape["model"]) % self.shape["data"]
+
+    @property
+    def batch_rank(self) -> int:
+        return self.rank // self.shape["model"]
+
+    @property
+    def world_size(self) -> int:
+        return self.shape.get("pod", 1) * self.shape["data"] * self.shape["model"]
+
+    def axis_size(self, axis: str) -> int:
+        if axis == "batch":
+            return self.shape.get("pod", 1) * self.shape["data"]
+        return self.shape[axis]
+
+    def __repr__(self) -> str:
+        return f"VirtualMesh(rank={self.rank}, shape={self.shape})"
+
+    @staticmethod
+    def _meta(x: torch.Tensor) -> None:
+        if x.device.type != "meta":
+            raise ValueError(f"a virtual mesh moves nothing: its collectives take meta "
+                             f"tensors, not {x.device.type} ones")
+
+    def all_reduce(self, x: torch.Tensor, axis: str = "model", op: str = "sum") -> torch.Tensor:
+        self._meta(x)
+        self._note(axis, "all_reduce", x)
+        return torch.empty_like(x)
+
+    def all_gather(self, x: torch.Tensor, axis: str = "model") -> List[torch.Tensor]:
+        self._meta(x)
+        self._note(axis, "all_gather", x)
+        return [torch.empty_like(x) for _ in range(self.axis_size(axis))]
+
+    def gather_to_first(self, x, axis=None):
+        raise NotImplementedError("a virtual mesh counts a step's collectives; it writes no "
+                                  "checkpoint (gather_to_first)")
+
+    def barrier(self) -> None:
+        pass
+
+
+def parse_mesh(spec: str) -> dict:
+    """``"DxM"`` or ``"PxDxM"`` -> {"pod": P, "data": D, "model": M}."""
+    dims = [int(d) for d in spec.lower().split("x")]
+    if len(dims) not in (2, 3) or min(dims) < 1:
+        raise ValueError(f"a mesh is DxM or PxDxM, not {spec!r}")
+    return dict(zip(("pod", "data", "model"), [1] * (3 - len(dims)) + dims))
+
+
+def mesh_name(mesh: Mesh) -> str:
+    return "x".join(str(mesh.shape[a]) for a in mesh.axis_names)
+
+
+def make_virtual_mesh(spec: str, rank: int = 0) -> VirtualMesh:
+    """Rank ``rank`` of the virtual mesh ``spec`` (:func:`parse_mesh`)."""
+    return VirtualMesh(rank, **parse_mesh(spec))
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> VirtualMesh:
+    """Rank ``rank`` of the reference's 16 x 16 = 256-card mesh (2 x 16 x 16
+    = 512 across two pods, ``repro/launch/mesh.py``), as a
+    :class:`VirtualMesh`: its one user is the sharded dry run."""
+    return make_virtual_mesh("2x16x16" if multi_pod else "16x16", rank)
 
 
 def rank_device(rank: int, device) -> torch.device:

@@ -30,8 +30,12 @@ Per step it records
                           tensors too, where it runs nothing) with its
                           integer lane operations, f32 FLOPs and bytes
                           (``kernels/_lib.py::launch``)
-  * collectives           result bytes and counts by type (none until
-                          the port has tensor parallelism)
+  * collectives           result bytes and counts by type, and by mesh
+                          axis (the group each ran over and its size):
+                          those a mesh runs (``parallel/sharding.py::
+                          Mesh``, which tells ``collective_listeners``;
+                          a virtual mesh's on meta tensors too) and any
+                          functional collective op
   * live bytes            the bytes of the storages the step creates,
                           through weak references to them: their peak and
                           what is still alive at the end, so a dry run on
@@ -54,6 +58,7 @@ from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import _lib
+from repro_torch.parallel import sharding
 
 aten = torch.ops.aten
 
@@ -131,6 +136,8 @@ class Analysis:
         default_factory=lambda: defaultdict(float))
     collective_counts: Dict[str, float] = dataclasses.field(
         default_factory=lambda: defaultdict(float))
+    # axis -> {"group": its size, "bytes": {kind: bytes}, "counts": {kind: calls}}
+    collective_by_axis: Dict[str, dict] = dataclasses.field(default_factory=dict)
     peak_live_bytes: float = 0.0
     end_live_bytes: float = 0.0
     ops: List[dict] = dataclasses.field(default_factory=list)
@@ -149,6 +156,9 @@ class Analysis:
             "collective_bytes": dict(self.collective_bytes),
             "collective_counts": dict(self.collective_counts),
             "collective_total": self.collective_total,
+            "by_axis": {a: {"group": v["group"], "bytes": dict(v["bytes"]),
+                            "counts": dict(v["counts"])}
+                        for a, v in self.collective_by_axis.items()},
         }
 
     def record_fields(self) -> dict:
@@ -169,6 +179,12 @@ class Analysis:
         if rec.get("coll"):
             self.collective_bytes[rec["coll"]] += rec["bytes"]
             self.collective_counts[rec["coll"]] += 1
+            if rec.get("axis"):
+                ax = self.collective_by_axis.setdefault(
+                    rec["axis"], {"group": rec["group"], "bytes": defaultdict(float),
+                                  "counts": defaultdict(float)})
+                ax["bytes"][rec["coll"]] += rec["bytes"]
+                ax["counts"][rec["coll"]] += 1
         if rec.get("kernel"):
             k = self.kernels.setdefault(rec["kernel"], {"launches": 0, "int_ops": 0.0,
                                                         "flops": 0.0, "bytes": 0.0})
@@ -250,12 +266,20 @@ class OpAnalysis(TorchDispatchMode):
                          "bytes": work.bytes, "shapes": [list(s) for s in work.shapes],
                          "dtypes": list(work.dtypes)})
 
+    # -- a mesh's collectives (parallel/sharding.py::Mesh._note) ------------
+
+    def _mesh_collective(self, kind: str, axis: str, group: int, nbytes: int) -> None:
+        self.result.add({"op": "collective", "coll": kind, "axis": axis, "group": group,
+                         "bytes": float(nbytes)})
+
     def __enter__(self):
         _lib.listeners.append(self._kernel)
+        sharding.collective_listeners.append(self._mesh_collective)
         return super().__enter__()
 
     def __exit__(self, *exc):
         _lib.listeners.remove(self._kernel)
+        sharding.collective_listeners.remove(self._mesh_collective)
         self._sweep()
         self.result.end_live_bytes = self._live
         return super().__exit__(*exc)

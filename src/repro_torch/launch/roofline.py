@@ -10,7 +10,11 @@ records (``launch/op_analysis.py``):
                     integer lane operations, and the other ops' result
                     elements (the reference's VPU proxy)
   memory term     = bytes_accessed / HBM_BW
-  collective term = link bytes / LINK_BW  (the reference's ring factors)
+  collective term = each mesh axis' link bytes (the reference's ring
+                    factors) over the link its group crosses: NVLink
+                    (LINK_BW) inside one node of CARDS_PER_NODE cards,
+                    the node's InfiniBand (IB_BW a card) where the
+                    group spans nodes (:func:`axis_link`)
 
 The hardware constants are an H100 SXM's (NVIDIA H100 Tensor Core GPU
 data sheet, SXM5 column, dense rates), where the reference has a TPU
@@ -53,6 +57,12 @@ PEAK_ELEM = SMS * 128 * BOOST_CLOCK_HZ  # heuristic: ~33.4e12 elements/s
 HBM_BW = 3.35e12  # HBM3 bytes/s
 HBM_BYTES = 80e9  # device memory
 LINK_BW = 450e9  # NVLink 4 bytes/s per direction
+# a DGX H100 node (NVIDIA DGX H100 data sheet): 8 cards joined by NVLink,
+# and 8 single-port ConnectX-7 adapters of 400 Gb/s, one a card, to the
+# InfiniBand fabric between nodes
+CARDS_PER_NODE = 8
+IB_BW = 400e9 / 8  # bytes/s per card per direction (ConnectX-7, 400 Gb/s)
+LINKS = {"nvlink": LINK_BW, "ib": IB_BW}
 
 #: the peak of each class of compute that op_analysis.py records
 CLASS_PEAKS = {"bf16": PEAK_BF16, "tf32": PEAK_TF32, "f32": PEAK_F32}
@@ -166,12 +176,40 @@ def ideal_seconds(mode: str, mflops: float, mbytes: float) -> float:
     return max(compute, mbytes / HBM_BW)
 
 
+def axis_link(shape: Dict[str, int], axis: str) -> str:
+    """The link that ``axis``' collectives cross on a mesh of ``shape``
+    ({"pod": P, "data": D, "model": M}; rank ((p D) + d) M + m, cards
+    numbered node by node): ``"nvlink"`` when every group of the axis lies
+    inside one node of CARDS_PER_NODE cards, else ``"ib"``.  ``batch`` is
+    the (pod, data) group."""
+    import itertools
+
+    dims = {"pod": shape.get("pod", 1), "data": shape["data"], "model": shape["model"]}
+    varied = {"batch": ("pod", "data")}.get(axis, (axis,))
+    fixed = [a for a in dims if a not in varied]
+
+    def rank(idx):
+        return (idx["pod"] * dims["data"] + idx["data"]) * dims["model"] + idx["model"]
+
+    for held in itertools.product(*(range(dims[a]) for a in fixed)):
+        base = dict(zip(fixed, held))
+        nodes = {rank({**base, **dict(zip(varied, v))}) // CARDS_PER_NODE
+                 for v in itertools.product(*(range(dims[a]) for a in varied))}
+        if len(nodes) > 1:
+            return "ib"
+    return "nvlink"
+
+
 def terms(rec: dict) -> Dict[str, float]:
-    """The compute, memory and collective terms of a dry-run record."""
+    """The compute, memory and collective terms of a dry-run record (the
+    collectives priced axis by axis at their link, ``by_axis``'s
+    ``link``; a record without it at NVLink's)."""
     t_compute = sum(rec["flops_by_class"].get(c, 0.0) / peak for c, peak in CLASS_PEAKS.items())
     t_compute += rec.get("int_ops", 0.0) / PEAK_INT32 + rec.get("elem_ops", 0.0) / PEAK_ELEM
-    coll = rec["collectives"]["collective_bytes"]
-    t_coll = sum(_COLL_FACTOR.get(k, 1.0) * v for k, v in coll.items()) / LINK_BW
+    coll = rec["collectives"]
+    axes = coll.get("by_axis") or {"": {"bytes": coll["collective_bytes"], "link": "nvlink"}}
+    t_coll = sum(sum(_COLL_FACTOR.get(k, 1.0) * v for k, v in ax["bytes"].items())
+                 / LINKS[ax.get("link", "nvlink")] for ax in axes.values())
     return {"compute": t_compute, "memory": rec["bytes_accessed"] / HBM_BW,
             "collective": t_coll}
 
@@ -204,6 +242,8 @@ def roofline_row(rec: dict, cfg, shape) -> dict:
         "useful_ratio": mf_dev / rec["flops"] if rec["flops"] else float("nan"),
         "mem_useful_ratio": mb_dev / rec["bytes_accessed"] if rec["bytes_accessed"] else float("nan"),
         "roofline_fraction": t_ideal / t_bound if t_bound else float("nan"),
+        "bytes_per_dev": rec["bytes_accessed"],
+        "collectives_by_axis": rec["collectives"].get("by_axis", {}),
         "params_total": params["total"],
         "params_active": params["active"],
         "peak_gb": rec["memory"]["peak_bytes"] / 1e9,
@@ -227,15 +267,23 @@ def load_and_report(dryrun_dir="build/dryrun", out_md="build/roofline.md", mesh_
         rows.append(roofline_row(rec, cfg, shape_by_name(rec["shape"])))
 
     rows.sort(key=lambda r: (r["arch"], r["shape"]))
+    mesh = mesh_filter != "1"  # a rank's counts: its FLOPs, bytes and collectives by axis
     hdr = ("| arch | shape | dominant | compute s | memory s | collective s | "
            "useful-flops | useful-bytes | roofline frac | peak GB | fits |")
-    lines = [hdr, "|" + "---|" * 11]
+    if mesh:
+        hdr += " flops/rank | bytes/rank | collective bytes/rank (axis, link) |"
+    lines = [hdr, "|" + "---|" * (14 if mesh else 11)]
     for r in rows:
-        lines.append(
+        line = (
             f"| {r['arch']} | {r['shape']} | **{r['dominant']}** | "
             f"{r['t_compute_s']:.3e} | {r['t_memory_s']:.3e} | {r['t_collective_s']:.3e} | "
             f"{r['useful_ratio']:.2f} | {r['mem_useful_ratio']:.2f} | "
             f"{r['roofline_fraction']:.3f} | {r['peak_gb']:.1f} | {r['fits']} |")
+        if mesh:
+            axes = "; ".join(f"{a} ({v['link']}) {sum(v['bytes'].values()):.3e}"
+                             for a, v in r["collectives_by_axis"].items())
+            line += f" {r['op_flops_per_dev']:.3e} | {r['bytes_per_dev']:.3e} | {axes} |"
+        lines.append(line)
     md = "\n".join(lines)
     os.makedirs(os.path.dirname(out_md) or ".", exist_ok=True)
     with open(out_md, "w") as f:

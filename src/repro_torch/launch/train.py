@@ -17,7 +17,7 @@ other's.  It trains the dense, MoE, ssm and hybrid archs; an encdec or
 vlm arch prints its parameter count and exits pointing at ``examples/``,
 as the reference's CLI does (their ``train_loss`` is the registry's).
 
-``--data N --model M`` trains the dense and MoE archs over a mesh of
+``--data N --model M`` trains the dense, MoE, ssm and hybrid archs over a mesh of
 N x M ranks started by ``launch/mesh.py::spawn`` (tensor parallelism
 over ``model``, the global batch split over ``data``, ZeRO-1 AdamW
 state; ``train/loop.py``), over ``nccl`` when every rank has a card of
@@ -66,7 +66,7 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--data", type=int, default=1,
                     help="data-parallel ranks (the global batch split over them)")
     ap.add_argument("--model", type=int, default=1,
-                    help="tensor-parallel ranks (dense and moe archs)")
+                    help="tensor-parallel ranks (dense, moe, ssm and hybrid archs)")
     ap.add_argument("--force-host-devices", type=int, default=0,
                     help="run on K host (CPU) devices: the ranks run on the CPU and "
                          "--data x --model may not exceed K")

@@ -19,7 +19,7 @@ from torch import nn
 
 from repro_torch.core.dense import dense, dense_init
 from repro_torch.core.policy import SiteNumerics, site
-from repro_torch.parallel.sharding import copy_model
+from repro_torch.parallel.sharding import copy_model, current_mesh
 
 from .common import apply_rope, causal_mask, decode_positions
 
@@ -197,6 +197,7 @@ def attn_apply(
     softcap=None,
     flash_block: int = 0,
     use_kernel: Optional[bool] = None,
+    seq_parallel: bool = False,
 ):
     """Returns (out [B,S,d], kv): the cache (if one was passed) with the
     span written at ``cache_len`` in place, or the fresh (k, v).
@@ -217,7 +218,11 @@ def attn_apply(
     key, as the reference's hybrid decode does).
 
     Without a cache, a ``flash_block`` that divides S and a string
-    ``mask`` select :func:`attn_core_blockwise`, as in the reference."""
+    ``mask`` select :func:`attn_core_blockwise`, as in the reference.
+
+    ``seq_parallel`` (a one-token decode step with an int ``cache_len``
+    under a mesh): the cache holds this data rank's block of positions
+    (:func:`attn_core_seq_parallel`)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, ncfg, head_dim, use_kernel)
     q = apply_rope(q, positions, rope_theta, mrope_sections)
@@ -237,6 +242,9 @@ def attn_apply(
         m = (ki[None, None, :] <= qi[:, :, None])[:, None]  # [B, 1, Sq, Sk]
         out = attn_core(q, ck, cv, m, softcap)
         new_kv = (ck, cv)
+    elif kv_cache is not None and seq_parallel:
+        out = attn_core_seq_parallel(q, k, v, kv_cache, int(cache_len), current_mesh(), softcap)
+        new_kv = kv_cache
     elif kv_cache is not None:
         # write the span at cache_len (clamped as dynamic_update_slice
         # clamps it), attend causally over the cache prefix at the
@@ -264,6 +272,46 @@ def attn_apply(
     out = dense(out.reshape(b, s, q.shape[2] * head_dim), p.wo, site(ncfg, "attn.out"),
                 use_kernel=use_kernel, reduce=p.row_parallel)
     return out, new_kv
+
+
+def attn_core_seq_parallel(q, k, v, kv_cache, cache_len: int, mesh, softcap=None):
+    """One-token decode attention over a cache whose positions are cut over
+    the mesh's data axis (the reference's ``seq`` sharding of a global
+    batch of 1): this rank holds positions [r S_l, (r + 1) S_l) of S =
+    data x S_l.  The new K/V (q, k, v [B, 1, heads, hd]) are written on
+    the rank that owns position ``cache_len`` (clamped to S - 1, as
+    :func:`attn_apply` clamps it); each rank computes its partial softmax
+    over its keys at or before ``cache_len`` (f32: the running max, the
+    sum of exponentials and the weighted values), the partials are
+    gathered over ``data`` (one all-gather) and merged by log-sum-exp.
+    Returns [B, 1, H, hd] in the cache's dtype."""
+    ck, cv = kv_cache
+    b, sq, h, hd = q.shape
+    if sq != 1:
+        raise ValueError("sequence-parallel attention is a one-token decode path")
+    s_l = ck.shape[1]
+    start = mesh.data_rank * s_l
+    at = max(0, min(cache_len, s_l * mesh.data_size - 1))
+    if start <= at < start + s_l:
+        ck[:, at - start:at - start + 1] = k.to(ck.dtype)
+        cv[:, at - start:at - start + 1] = v.to(cv.dtype)
+    kv = ck.shape[2]
+    f32 = torch.float32
+    qg = q.reshape(b, 1, kv, h // kv, hd).to(f32)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg, ck.to(f32)) * hd ** -0.5
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    live = (start + torch.arange(s_l, device=q.device)) <= cache_len
+    logits = torch.where(live, logits, torch.tensor(-1e30, dtype=f32, device=q.device))
+    m = logits.amax(dim=-1, keepdim=True)  # [B, kv, g, 1, 1]
+    p = torch.exp(logits - m)
+    o = torch.einsum("bkgqs,bskh->bkgqh", p, cv.to(f32))
+    part = torch.cat([o, p.sum(dim=-1, keepdim=True), m], dim=-1)  # [B, kv, g, 1, hd + 2]
+    parts = torch.stack(mesh.all_gather(part, "data"))
+    top = parts[..., -1:].amax(dim=0)
+    w = torch.exp(parts[..., -1:] - top)
+    out = (w * parts[..., :hd]).sum(dim=0) / (w * parts[..., hd:hd + 1]).sum(dim=0)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(cv.dtype)
 
 
 def paged_write(lengths, block_tables, block_size: int):

@@ -14,6 +14,16 @@ engine does not grow them past the prompt (neither does the
 reference's), so a decode step writes its K/V onto the cache's last
 slot and attends to every key there, as the reference's
 ``dynamic_update_slice`` and causal mask do.
+
+Under tensor parallelism (``parallel/sharding.py``) the Mamba2 layers
+are ``mamba_lm``'s; the shared attention and MLP are column- and
+row-parallel, as the dense family's, their K/V caches the rank's kv
+heads; ``shared/out_proj`` [2d, d] is row-parallel over the replicated
+concat, which enters it through ``model_block``.  With ``seq_parallel``
+(a decode step at global batch 1, the reference's ``batch_shardings``)
+each data rank holds S / data positions of the shared K/V
+(:func:`seq_shard_caches`) and the decode attention merges the ranks'
+partial softmaxes (``attention.py::attn_apply``).
 """
 from __future__ import annotations
 
@@ -25,6 +35,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dense import dense, dense_init
 from repro_torch.core.policy import bind, site
+from repro_torch.parallel.sharding import current_mesh, kv_heads_for_rank, model_block, \
+    shard_model
 
 from .attention import Attention, attn_apply
 from .common import RMSNorm, iter_layers, rmsnorm
@@ -37,7 +49,10 @@ from .transformer import (default_positions, embed_tokens, lm_logits, lm_loss_ch
 
 class SharedBlock(nn.Module):
     """``ln1``, ``attn`` (heads of 2 * d_model / n_heads), ``ln2``,
-    ``mlp`` over 2 * d_model, and ``out_proj`` [2 * d_model, d_model]."""
+    ``mlp`` over 2 * d_model, and ``out_proj`` [2 * d_model, d_model]
+    (``row_parallel``: its rows cut for a mesh)."""
+
+    row_parallel = False
 
     def __init__(self, cfg: ModelConfig, *, generator, device, dtype):
         super().__init__()
@@ -53,6 +68,9 @@ class SharedBlock(nn.Module):
 class HybridLM(nn.Module):
     """``embed``, ``blocks[i].{ln, mamba}``, ``shared``, ``ln_f``,
     ``unembed``, in the reference's layout."""
+
+    vocab_parallel = False
+    tp_shard = None
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device: torch.device):
@@ -70,14 +88,15 @@ class HybridLM(nn.Module):
             p.requires_grad_(False)
 
 
-def hybrid_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> HybridLM:
+def hybrid_init(cfg: ModelConfig, *, seed: int = 0, device=None, mesh=None) -> HybridLM:
     """The port's own seeded init on ``device`` (CUDA by default; on
-    ``"meta"`` shapes and dtypes only, ``device.init_generator``)."""
+    ``"meta"`` shapes and dtypes only, ``device.init_generator``); under a
+    ``mesh``, drawn whole and cut to this rank's shard."""
     from repro_torch.device import init_generator, resolve_device
 
     device = resolve_device(device)
     gen = init_generator(device, seed)
-    return HybridLM(cfg, generator=gen, device=device)
+    return shard_model(HybridLM(cfg, generator=gen, device=device), cfg, mesh)
 
 
 def n_shared_invocations(cfg: ModelConfig) -> int:
@@ -85,7 +104,7 @@ def n_shared_invocations(cfg: ModelConfig) -> int:
 
 
 def _shared_block(cfg: ModelConfig, sp: SharedBlock, x, x0, positions, kv_slice,
-                  cache_len, use_kernel):
+                  cache_len, use_kernel, seq_parallel: bool = False):
     """concat(hidden, embeds) -> shared attention and MLP -> projected back
     to d_model and added to the hidden state."""
     d2 = 2 * cfg.d_model
@@ -96,17 +115,23 @@ def _shared_block(cfg: ModelConfig, sp: SharedBlock, x, x0, positions, kv_slice,
         n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=d2 // cfg.n_heads,
         positions=positions, rope_theta=cfg.rope_theta,
         kv_cache=kv_slice, cache_len=cache_len, use_kernel=use_kernel,
+        seq_parallel=seq_parallel,
     )
     cat = cat + h
     cat = cat + mlp_apply(sp.mlp, rmsnorm(sp.ln2, cat), nsite, cfg.act, use_kernel=use_kernel)
-    return x + dense(cat, sp.out_proj, site(nsite, "hybrid.proj"), use_kernel=use_kernel), new_kv
+    if sp.row_parallel:  # this rank's rows of out_proj read its block of the concat
+        cat = model_block(cat, -1)
+    return x + dense(cat, sp.out_proj, site(nsite, "hybrid.proj"), use_kernel=use_kernel,
+                     reduce=sp.row_parallel), new_kv
 
 
 def hybrid_backbone(cfg: ModelConfig, model: HybridLM, embeds, positions, caches=None,
-                    cache_len: Optional[int] = None, use_kernel: Optional[bool] = None):
+                    cache_len: Optional[int] = None, use_kernel: Optional[bool] = None,
+                    seq_parallel: bool = False):
     """Run the Mamba2 layers with the shared block after every
     ``shared_attn_every`` of them.  caches: None, or the dict of
-    :func:`cache_init` (its shared K/V written in place at ``cache_len``).
+    :func:`cache_init` (its shared K/V written in place at ``cache_len``;
+    with ``seq_parallel``, this data rank's positions of them).
     Returns (hidden after ln_f, new caches or None)."""
     x, x0 = embeds, embeds
     every = cfg.shared_attn_every
@@ -120,7 +145,7 @@ def hybrid_backbone(cfg: ModelConfig, model: HybridLM, embeds, positions, caches
             kv_slice = None if caches is None else (caches["shared_k"][inv],
                                                    caches["shared_v"][inv])
             x, _ = _shared_block(cfg, model.shared, x, x0, positions, kv_slice, cache_len,
-                                 use_kernel)
+                                 use_kernel, seq_parallel)
     hidden = rmsnorm(model.ln_f, x)
     if caches is None:
         return hidden, None
@@ -143,8 +168,13 @@ def train_loss(cfg: ModelConfig, model: HybridLM, batch, use_kernel: Optional[bo
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
+    """Zero caches; under the current mesh a model rank's Mamba2 heads and
+    channels and its shared kv heads (``kv_heads_for_rank``)."""
+    mesh = current_mesh()
     hd2 = 2 * cfg.d_model // cfg.n_heads
-    kv_shape = (n_shared_invocations(cfg), batch, max_len, cfg.n_kv, hd2)
+    n_kv = cfg.n_kv if mesh is None else len(kv_heads_for_rank(
+        cfg.n_heads, cfg.n_kv, mesh.model_size, mesh.model_rank))
+    kv_shape = (n_shared_invocations(cfg), batch, max_len, n_kv, hd2)
     return {"ssm": ssm_cache_init(cfg, batch, max_len, dtype, device),
             "shared_k": torch.zeros(kv_shape, dtype=dtype, device=device),
             "shared_v": torch.zeros(kv_shape, dtype=dtype, device=device)}
@@ -164,10 +194,23 @@ def prefill(cfg: ModelConfig, model: HybridLM, tokens, caches,
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, model: HybridLM, token, caches, cache_len: int,
-                use_kernel: Optional[bool] = None):
-    """token [B, 1] at position ``cache_len`` -> (logits [B, 1, V], caches)."""
+                use_kernel: Optional[bool] = None, seq_parallel: bool = False):
+    """token [B, 1] at position ``cache_len`` -> (logits [B, 1, V], caches).
+    ``seq_parallel``: the shared K/V hold this data rank's positions
+    (:func:`seq_shard_caches`)."""
     b = token.shape[0]
     positions = default_positions(cfg, b, 1, offset=cache_len, device=token.device)
     hidden, caches = hybrid_backbone(cfg, model, embed_tokens(cfg, model, token), positions,
-                                     caches, cache_len, use_kernel)
+                                     caches, cache_len, use_kernel, seq_parallel)
     return lm_logits(cfg, model, hidden, use_kernel), caches
+
+
+def seq_shard_caches(caches, mesh):
+    """Caches whose shared K/V keep this data rank's block of positions
+    (S / data of them; the reference's ``seq`` on the ``data`` axis of a
+    global-batch-1 decode), for :func:`decode_step` with
+    ``seq_parallel``; the Mamba2 state is every data rank's."""
+    n = caches["shared_k"].shape[2] // mesh.data_size
+    part = {k: caches[k].narrow(2, mesh.data_rank * n, n).clone()
+            for k in ("shared_k", "shared_v")}
+    return dict(caches, **part)

@@ -11,6 +11,13 @@ A prefill returns new caches with the dtypes the reference's scan gives
 them (``h`` f32, ``conv`` in the activation dtype, whatever the dtype of
 the caches handed in); a decode step writes them in place where the
 dtypes already agree.
+
+Under tensor parallelism (``parallel/sharding.py``) a rank holds its
+shard (``mamba_lm_init(mesh=...)``): its block of the vocabulary of
+``embed`` and ``unembed`` where the vocabulary divides tp, looked up and
+gathered as the transformer's (``transformer.py::embed_tokens``,
+``lm_logits``), and each mixer's heads and channels (``ssm.py``); its
+caches hold the rank's heads and channels (:func:`cache_init`).
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dense import dense_init
+from repro_torch.parallel.sharding import current_mesh, shard_model
 
 from .common import RMSNorm, iter_layers, rmsnorm
 from .ssm import Mamba2, mamba2_apply, mamba2_cache_init
@@ -48,7 +56,11 @@ def embed_init(vocab: int, d: int, *, generator, device, dtype):
 
 class MambaLM(nn.Module):
     """``embed`` [V, d], ``blocks[i].{ln, mamba}``, ``ln_f``, ``unembed``
-    [d, V], in the reference's layout (its [L] axis split across blocks)."""
+    [d, V], in the reference's layout (its [L] axis split across blocks).
+    ``vocab_parallel`` and ``tp_shard``: as ``transformer.DenseLM``'s."""
+
+    vocab_parallel = False
+    tp_shard = None
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device: torch.device):
@@ -65,14 +77,16 @@ class MambaLM(nn.Module):
             p.requires_grad_(False)
 
 
-def mamba_lm_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> MambaLM:
+def mamba_lm_init(cfg: ModelConfig, *, seed: int = 0, device=None, mesh=None) -> MambaLM:
     """The port's own seeded init on ``device`` (CUDA by default; on
-    ``"meta"`` shapes and dtypes only, ``device.init_generator``)."""
+    ``"meta"`` shapes and dtypes only, ``device.init_generator``); under a
+    ``mesh``, drawn whole and cut to this rank's shard
+    (``parallel/sharding.py::shard_model``)."""
     from repro_torch.device import init_generator, resolve_device
 
     device = resolve_device(device)
     gen = init_generator(device, seed)
-    return MambaLM(cfg, generator=gen, device=device)
+    return shard_model(MambaLM(cfg, generator=gen, device=device), cfg, mesh)
 
 
 def run_layer(cfg: ModelConfig, nsite, blk: MambaBlock, x, caches, i: int, use_kernel):
@@ -125,10 +139,13 @@ def train_loss(cfg: ModelConfig, model: MambaLM, batch, use_kernel: Optional[boo
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
     """Zero caches, [L, ...] each (``max_len`` is unused: the state is
-    position-free)."""
+    position-free); under the current mesh a model rank's heads and
+    channels."""
+    mesh = current_mesh()
     one = mamba2_cache_init(batch, cfg.d_model, expand=cfg.ssm_expand,
                             head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state,
-                            d_conv=cfg.ssm_conv, dtype=dtype, device=device)
+                            d_conv=cfg.ssm_conv, dtype=dtype, device=device,
+                            tp=1 if mesh is None else mesh.model_size)
     return {k: v[None].repeat(cfg.n_layers, *([1] * v.dim())) for k, v in one.items()}
 
 

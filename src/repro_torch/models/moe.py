@@ -198,7 +198,7 @@ def moe_apply(p: MoE, x: torch.Tensor, ncfg: SiteNumerics, *, n_experts: int, to
     logits = nmatmul(xf, p.router, site(ncfg, "moe.router"), out_dtype=torch.float32,
                      use_kernel=use_kernel)
     mesh = current_mesh()
-    data = 1 if mesh is None else mesh.data_size
+    data = 1 if mesh is None else mesh.batch_size
     g_all = groups if (t * data) % max(groups, 1) == 0 else 1
     if g_all % data and g_all != 1:
         raise ValueError(f"{g_all} MoE dispatch groups over {data} data ranks")

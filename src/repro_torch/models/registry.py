@@ -33,11 +33,15 @@ int32 scalar: the port's eager attention slices the cache with it
 Together with ``init(seed, device="meta")`` these are the dry run's
 cells (``launch/dryrun.py``), built without a byte of device memory.
 
-Under tensor parallelism the dense and MoE hooks run on one rank's
-shard (``parallel/sharding.py``): ``init(mesh=...)`` draws it,
-``paged_pool_init(n_kv=...)`` allocates the rank's kv heads, and the
+Under tensor parallelism the dense, MoE, ssm and hybrid hooks run on
+one rank's shard (``parallel/sharding.py``): ``init(mesh=...)`` draws
+it, ``paged_pool_init(n_kv=...)`` allocates the rank's kv heads, and the
 paged entry points take the shard as they take a whole model, their
-collectives called inside the engine's mesh.
+collectives called inside the engine's mesh; the ssm's and hybrid's
+static entry points make the rank's caches inside the caller's mesh
+(``use_mesh``), and a hybrid decode batch with ``"seq_parallel": True``
+holds this data rank's positions of the shared K/V
+(``hybrid.py::seq_shard_caches``).
 """
 from __future__ import annotations
 
@@ -61,7 +65,7 @@ ENCDEC_TGT_LEN = 4096  # the encdec's longest target prefix (64 when reduced)
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: ModelConfig
-    init: Callable  # (seed=0, device=None; transformers: mesh=None) -> model
+    init: Callable  # (seed=0, device=None; but encdec: mesh=None) -> model
     train_loss: Callable  # (model, batch, use_kernel=None) -> scalar f32 loss
     prefill: Callable  # (model, batch, use_kernel=None) -> (logits, caches)
     decode_step: Callable  # (model, batch with caches, use_kernel=None) -> (logits, caches)
@@ -105,8 +109,19 @@ def _decode_inputs(caches, cache_key: str, batch: int, cache_len: int, **extra):
             "cache_len": cache_len}
 
 
+def _rank_kv(cfg: ModelConfig) -> int:
+    """The kv heads a cache holds: all of them, or inside a mesh a model
+    rank's (``kv_heads_for_rank``)."""
+    from repro_torch.parallel.sharding import current_mesh, kv_heads_for_rank
+
+    mesh = current_mesh()
+    return cfg.n_kv if mesh is None else len(kv_heads_for_rank(
+        cfg.n_heads, cfg.n_kv, mesh.model_size, mesh.model_rank))
+
+
 def _kv_caches(layers: int, batch: int, seq_len: int, cfg: ModelConfig):
-    shape = (layers, batch, seq_len, cfg.n_kv, cfg.hd)
+    """Meta K/V caches [L, B, S, kv, hd] of :func:`_rank_kv`'s heads."""
+    shape = (layers, batch, seq_len, _rank_kv(cfg), cfg.hd)
     return (_meta(shape, CACHE_DTYPE), _meta(shape, CACHE_DTYPE))
 
 
@@ -127,8 +142,8 @@ def build(cfg: ModelConfig) -> ModelAPI:
     if fam == "encdec":
         return _build_encdec(cfg)
     if fam == "ssm":
-        def init(seed: int = 0, device=None):
-            return _mamba.mamba_lm_init(cfg, seed=seed, device=device)
+        def init(seed: int = 0, device=None, mesh=None):
+            return _mamba.mamba_lm_init(cfg, seed=seed, device=device, mesh=mesh)
 
         def train_loss(model, batch, use_kernel=None):
             return _mamba.train_loss(cfg, model, batch, use_kernel)
@@ -146,8 +161,8 @@ def build(cfg: ModelConfig) -> ModelAPI:
             caches = _mamba.cache_init(cfg, batch, seq_len, CACHE_DTYPE, "meta")
             return _decode_inputs(caches, "caches", batch, seq_len - 1)
     elif fam == "hybrid":
-        def init(seed: int = 0, device=None):
-            return _hybrid.hybrid_init(cfg, seed=seed, device=device)
+        def init(seed: int = 0, device=None, mesh=None):
+            return _hybrid.hybrid_init(cfg, seed=seed, device=device, mesh=mesh)
 
         def train_loss(model, batch, use_kernel=None):
             return _hybrid.train_loss(cfg, model, batch, use_kernel)
@@ -160,7 +175,8 @@ def build(cfg: ModelConfig) -> ModelAPI:
 
         def decode_step(model, batch, use_kernel=None):
             return _hybrid.decode_step(cfg, model, batch["token"], batch["caches"],
-                                       batch["cache_len"], use_kernel)
+                                       batch["cache_len"], use_kernel,
+                                       batch.get("seq_parallel", False))
 
         def decode_inputs(batch: int, seq_len: int):
             caches = _hybrid.cache_init(cfg, batch, seq_len, CACHE_DTYPE, "meta")
@@ -221,7 +237,7 @@ def _build_transformer(cfg: ModelConfig) -> ModelAPI:
         b, s = tokens.shape
         if cfg.family == "vlm":
             return _vlm_prefill(cfg, model, tokens, batch["embeds_prefix"], use_kernel)
-        caches = _tf.kv_cache_init(cfg, b, s, CACHE_DTYPE, tokens.device)
+        caches = _tf.kv_cache_init(cfg, b, s, CACHE_DTYPE, tokens.device, _rank_kv(cfg))
         return _tf.prefill(cfg, model, tokens, caches, use_kernel)
 
     def decode_step(model, batch, use_kernel=None):

@@ -20,7 +20,15 @@ them) and calls the collectives itself where the reference calls
 * :func:`gather_model`: ``all_gather`` and ``cat``, for the
   column-parallel head's logits along V, so that every rank holds all of
   them and picks the same token (in a backward pass each rank keeps its
-  block of the gradient).
+  block of the gradient);
+* :func:`gather_model_summed`: the same gather where each rank's
+  consumers differ (every SSD head reads the whole of the Mamba2 block's
+  B and C): in a backward pass the ranks' gradients are summed and each
+  keeps its block;
+* :func:`model_block`: this rank's block of a replicated activation, for
+  a row-parallel weight that reads one (the hybrid's ``shared/out_proj``
+  over the 2d-wide concat), whose gradient the ranks' blocks gather into
+  the whole.
 
 All are the identity with no mesh (:func:`use_mesh`), so a path run
 without one is what it was, and with no gradient each is the serving
@@ -40,6 +48,15 @@ out-projections, vocab-parallel embeddings, TP inside each expert.  A
 rule whose dimension does not divide the ``model`` axis keeps the
 parameter whole (granite's vocab of 49,155 at tp = 2).
 
+The Mamba2 mixer's ``in_proj`` packs five blocks of columns (z, x, B, C,
+dt); the reference's column rule cuts it blindly, the port cuts each
+block by tp (z, x and dt by SSD heads, B and C by state channels), the
+same (2 di + 2 ds + nh) / tp columns a rank.  The mixer's other leaves
+(``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias``, the gated norm's
+scale) match no rule: whole on every rank, as the reference keeps them
+on every device, each rank reading its channels' or heads' slice and
+their gradients summed over ``model`` (``partial``).
+
 One layout differs (:func:`kv_heads_for_rank`).  Where the kv heads do
 not divide the model axis, the reference shards the paged pool on
 positions (``seq_tp``) and lets GSPMD partition its gather path.  The
@@ -53,6 +70,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import re
 import time
 from typing import Dict, List, Optional, Tuple
@@ -81,15 +99,22 @@ class Mesh:
     ``data`` axes (``launch/mesh.py::make_host_mesh`` makes them); an axis
     without one is the whole world, the default group.
 
-    The collectives count their calls in ``collectives`` (the ``model``
-    axis' as ``all_reduce`` and ``all_gather``, the others' under
-    ``"<axis>_<kind>"``); with ``time_collectives`` set they also add
-    their host seconds, the card synchronized on both sides, to
-    ``collective_s``.  Under ``gloo``, which moves host tensors, a CUDA
-    tensor crosses through host memory, bf16 as f32 in a sum and as its
-    two-byte bits (a float16 view) in a gather (all exact)."""
+    The collectives count their calls and result bytes, as the
+    reference's HLO accounting counts them, in ``traffic`` (``"<axis>/
+    <kind>"`` -> [calls, bytes], the kinds the HLO's: ``all-reduce``,
+    ``all-gather``), which ``collectives`` reads back as calls alone;
+    each is also told to ``collective_listeners`` (the op analysis).  With ``time_collectives`` set they also add their host
+    seconds, the card synchronized on both sides, to ``collective_s``.
+    Under ``gloo``, which moves host tensors, a CUDA tensor crosses
+    through host memory, bf16 as f32 in a sum and as its two-byte bits (a
+    float16 view) in a gather (all exact).
+
+    ``batch_axis`` names the axis that the global batch is split over:
+    ``data`` here (``launch/mesh.py::VirtualMesh`` folds a ``pod`` axis
+    into it, as the reference's logical ``batch`` does)."""
 
     axis_names = ("data", "model")
+    batch_axis = "data"
 
     def __init__(self, rank: int, model: int, backend: str = "gloo", data: int = 1,
                  groups: Optional[Dict[str, object]] = None):
@@ -99,9 +124,21 @@ class Mesh:
         self.backend = backend
         self.shape = {"data": data, "model": model}
         self.groups = dict(groups or {})
-        self.collectives: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
+        self.traffic: Dict[str, List[int]] = {}
         self.collective_s = 0.0
         self.time_collectives = False
+
+    @property
+    def collectives(self) -> Dict[str, int]:
+        """The calls of ``traffic`` (read only: clear ``traffic``), the
+        ``model`` axis' as ``all_reduce`` and ``all_gather``, the others'
+        as ``"<axis>_<kind>"``."""
+        out = {}
+        for name, (calls, _) in self.traffic.items():
+            axis, kind = name.split("/")
+            kind = kind.replace("-", "_")
+            out[kind if axis == "model" else f"{axis}_{kind}"] = calls
+        return out
 
     @property
     def model_rank(self) -> int:
@@ -118,6 +155,22 @@ class Mesh:
     @property
     def data_size(self) -> int:
         return self.shape["data"]
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's index over the batch axis."""
+        return self.data_rank
+
+    @property
+    def batch_size(self) -> int:
+        return self.axis_size(self.batch_axis)
+
+    @property
+    def world_size(self) -> int:
+        return self.data_size * self.model_size
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape[axis]
 
     def __repr__(self) -> str:
         return (f"Mesh(rank={self.rank}, shape={self.shape}, "
@@ -142,11 +195,22 @@ class Mesh:
         if x.is_cuda:
             torch.cuda.synchronize(x.device)
 
+    def _note(self, axis: str, kind: str, x: torch.Tensor) -> None:
+        """Count one collective over ``axis`` of x: its call and its result
+        bytes (an all-gather's the gathered whole)."""
+        hlo = {"all_reduce": "all-reduce", "all_gather": "all-gather"}.get(kind, kind)
+        n = self.world_size if axis == "world" else self.axis_size(axis)
+        nbytes = x.numel() * x.element_size() * (n if kind in ("all_gather", "gather") else 1)
+        tally = self.traffic.setdefault(f"{axis}/{hlo}", [0, 0])
+        tally[0] += 1
+        tally[1] += nbytes
+        for fn in collective_listeners:
+            fn(hlo, axis, n, nbytes)
+
     @contextlib.contextmanager
     def _call(self, axis: str, kind: str, x: torch.Tensor):
         """Count (and with ``time_collectives`` time) one collective."""
-        key = kind if axis == "model" else f"{axis}_{kind}"
-        self.collectives[key] = self.collectives.get(key, 0) + 1
+        self._note(axis, kind, x)
         if not self.time_collectives:
             yield
             return
@@ -188,7 +252,7 @@ class Mesh:
         import torch.distributed as dist
 
         group = None if axis is None else self.groups.get(axis)
-        n = self.data_size * self.model_size if axis is None else self.shape[axis]
+        n = self.world_size if axis is None else self.axis_size(axis)
         first = 0 if axis is None else (self.rank - self.model_rank if axis == "model"
                                         else self.model_rank)
         with self._call(axis or "world", "gather", x):
@@ -202,6 +266,10 @@ class Mesh:
 
         dist.barrier()
 
+
+#: functions told of each collective a mesh runs: (the HLO kind, the axis,
+#: the group's size, the result bytes) (``launch/op_analysis.py``)
+collective_listeners: List = []
 
 _MESH: contextvars.ContextVar[Optional[Mesh]] = contextvars.ContextVar(
     "repro_torch_mesh", default=None)
@@ -264,6 +332,30 @@ class _Gather(torch.autograd.Function):
         return g.narrow(*ctx.slice), None, None
 
 
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh = mesh
+        ctx.slice = (dim, mesh.model_rank * x.shape[dim], x.shape[dim])
+        return torch.cat(mesh.all_gather(x), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g).narrow(*ctx.slice), None, None
+
+
+class _Block(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        n = x.shape[dim] // mesh.model_size
+        return x.narrow(dim, mesh.model_rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(ctx.mesh.all_gather(g.contiguous()), dim=ctx.dim), None, None
+
+
 def _tracked(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -298,14 +390,41 @@ def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat(mesh.all_gather(x), dim=dim)
 
 
+def gather_model_summed(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """:func:`gather_model` for blocks that every rank reads in its own way
+    (each rank's SSD heads read the whole of B and C): in a backward pass
+    the ranks' gradients of the whole are summed over the model axis and
+    each keeps its block.  The identity with no mesh."""
+    mesh = _MESH.get()
+    if mesh is None:
+        return x
+    if _tracked(x):
+        return _GatherSum.apply(x, mesh, dim % x.dim())
+    return torch.cat(mesh.all_gather(x), dim=dim)
+
+
+def model_block(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This model rank's block of a replicated x along ``dim`` (the input
+    of a row-parallel weight that reads a replicated activation); in a
+    backward pass the ranks' block gradients are gathered into the whole
+    one.  The identity with no mesh."""
+    mesh = _MESH.get()
+    if mesh is None:
+        return x
+    if _tracked(x):
+        return _Block.apply(x, mesh, dim % x.dim())
+    n = x.shape[dim] // mesh.model_size
+    return x.narrow(dim, mesh.model_rank * n, n)
+
+
 def data_sum(x: torch.Tensor) -> torch.Tensor:
-    """x (no gradient) summed over the current mesh's data axis: a count
+    """x (no gradient) summed over the current mesh's batch axis: a count
     of the global batch from each data rank's rows.  The identity with no
     mesh or one data rank."""
     mesh = _MESH.get()
-    if mesh is None or mesh.data_size == 1:
+    if mesh is None or mesh.batch_size == 1:
         return x
-    return mesh.all_reduce(x.detach(), axis="data")
+    return mesh.all_reduce(x.detach(), axis=mesh.batch_axis)
 
 
 def data_offsets(counts: torch.Tensor) -> torch.Tensor:
@@ -313,10 +432,10 @@ def data_offsets(counts: torch.Tensor) -> torch.Tensor:
     no mesh or one data rank): where this rank's rows start in a count
     that runs over the global batch, such as a MoE expert's capacity."""
     mesh = _MESH.get()
-    if mesh is None or mesh.data_size == 1:
+    if mesh is None or mesh.batch_size == 1:
         return torch.zeros_like(counts)
-    parts = mesh.all_gather(counts, "data")
-    return sum(parts[:mesh.data_rank], torch.zeros_like(counts))
+    parts = mesh.all_gather(counts, mesh.batch_axis)
+    return sum(parts[:mesh.batch_rank], torch.zeros_like(counts))
 
 
 def _resolve(mesh: Mesh, logical):
@@ -434,20 +553,57 @@ def kv_heads_for_rank(n_heads: int, n_kv: int, tp: int, rank: int) -> List[int]:
 
 def check_shardable(cfg, tp: int) -> None:
     """Raise unless ``cfg`` can be cut ``tp`` ways: a dense or MoE
-    transformer whose q heads divide tp."""
-    if cfg.family not in ("dense", "moe"):
+    transformer whose q heads divide tp; a Mamba2 LM whose SSD heads and
+    state channels divide it; a hybrid whose shared attention's q heads
+    divide it too.  The encdec and vlm families wait for their item."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         from repro_torch.serving.api import LATER
 
-        raise ValueError(f"tensor parallelism serves and trains the dense and moe families, "
-                         f"not {cfg.family!r}: the {cfg.family} family under a mesh "
-                         + LATER.format("8c"))
+        raise ValueError(f"tensor parallelism serves and trains the dense, moe, ssm and hybrid "
+                         f"families, not {cfg.family!r}: the {cfg.family} family under a mesh "
+                         + LATER.format("8d"))
+    if cfg.family in ("ssm", "hybrid"):
+        nh = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+        for what, n in (("SSD heads", nh), ("SSM state channels", cfg.ssm_state)):
+            if n % tp:
+                raise ValueError(f"{cfg.name}: {n} {what} do not divide tp={tp}")
+        if cfg.family == "ssm":
+            return
     if cfg.n_heads % tp:
         raise ValueError(f"{cfg.name}: {cfg.n_heads} q heads do not divide tp={tp}")
 
 
 _KV_COLUMNS = re.compile(r"(^|/)attn/w[kv]$")
-_ROW = re.compile(r"(^|/)(wo|wd)$")
+#: row-parallel leaves; out_proj's mark is also what sends a Mamba2 mixer
+#: down its mesh path (:func:`_mark`, ``models/ssm.py::mamba2_apply``)
+_ROW = re.compile(r"(^|/)(wo|wd|out_proj)$")
 _VOCAB = re.compile(r"(^|/)(un)?embed$")
+#: the Mamba2 mixer's in_proj, cut block by block (:func:`ssm_in_columns`)
+_SSM_IN = re.compile(r"(^|/)mamba/in_proj$")
+#: the mixer's leaves that no rule cuts: whole on every rank, each rank
+#: reading its channels or heads (``models/ssm.py::mamba2_apply``), their
+#: gradients summed over ``model``
+_SSM_WHOLE = re.compile(r"(^|/)mamba/(conv_w|conv_b|A_log|D|dt_bias|norm/scale)$")
+
+
+def head_dim_of(cfg, path: str) -> int:
+    """The head dim of the attention that owns ``path``: the hybrid's
+    shared block attends over 2 d_model with heads of 2 d_model / H."""
+    return 2 * cfg.d_model // cfg.n_heads if path.startswith("shared/") else cfg.hd
+
+
+def ssm_in_columns(cfg, tp: int, rank: int) -> List[int]:
+    """The columns of ``in_proj`` [d, 2 di + 2 ds + nh] (z, x, B, C, dt)
+    that model rank ``rank`` of ``tp`` keeps: its block of each, z, x and
+    dt by SSD heads and B and C by state channels, in that order."""
+    di = cfg.ssm_expand * cfg.d_model
+    ds, nh = cfg.ssm_state, di // cfg.ssm_head_dim
+    out = []
+    for start, width in ((0, di), (di, di), (2 * di, ds), (2 * di + ds, ds),
+                         (2 * di + 2 * ds, nh)):
+        n = width // tp
+        out.extend(range(start + rank * n, start + (rank + 1) * n))
+    return out
 
 
 def _keep(path: str, shape, cfg, mesh: Mesh, rank: int):
@@ -461,8 +617,11 @@ def _keep(path: str, shape, cfg, mesh: Mesh, rank: int):
         heads = kv_heads_for_rank(cfg.n_heads, cfg.n_kv, tp, rank)
         if heads == list(range(cfg.n_kv)):
             return None, None
-        return len(shape) - 1, [h * cfg.hd + j for h in heads for j in range(cfg.hd)]
+        hd = head_dim_of(cfg, path)
+        return len(shape) - 1, [h * hd + j for h in heads for j in range(hd)]
     dims = sanitize(mesh, spec_for_param(path, len(shape)), tuple(shape))
+    if _SSM_IN.search(path) and dims[-1] == "model":
+        return len(shape) - 1, ssm_in_columns(cfg, tp, rank)
     for d, logical in enumerate(dims):
         if _resolve(mesh, logical) == "model":
             n = shape[d] // tp
@@ -535,20 +694,29 @@ class LeafLayout:
         return out
 
 
+@functools.lru_cache(maxsize=64)
+def meta_params(cfg) -> Tuple[Tuple[str, Tuple[int, ...], torch.dtype], ...]:
+    """(name, shape, dtype) of every parameter of the whole model of
+    ``cfg`` (a ``meta`` init, once a config)."""
+    from repro_torch.models.registry import build
+
+    return tuple((n, tuple(p.shape), p.dtype)
+                 for n, p in build(cfg).init(device="meta").named_parameters())
+
+
 def leaf_layouts(cfg, mesh: Mesh) -> Dict[str, LeafLayout]:
     """Every parameter's :class:`LeafLayout` under ``mesh``, by name, from
-    the whole model's shapes (a ``meta`` init)."""
+    the whole model's shapes (:func:`meta_params`)."""
     from repro_torch.core.prequant import layer_index, param_path
-    from repro_torch.models.transformer import lm_init
 
     check_shardable(cfg, mesh.model_size)
     tp = mesh.model_size
     out = {}
-    for name, p in lm_init(cfg, device="meta").named_parameters():
-        path, shape = param_path(name), tuple(p.shape)
+    for name, shape, _ in meta_params(cfg):
+        path = param_path(name)
         keeps = [_keep(path, shape, cfg, mesh, r) for r in range(tp)]
         dim = keeps[0][0]
-        partial = False
+        partial = bool(_SSM_WHOLE.search(path)) and tp > 1
         if _KV_COLUMNS.search(path) and tp > 1:
             held = sum(shape[-1] if k is None else len(k) for _, k in keeps)
             partial = held > shape[-1]
@@ -570,8 +738,9 @@ def sum_partial(g: torch.Tensor, lay: LeafLayout, mesh: Mesh) -> torch.Tensor:
 
 def _mark(owner: nn.Module, path: str, dim: int, ndim: int) -> None:
     """Record on the module what its cut parameter asks of the forward:
-    ``row_parallel`` (a K block of wo / wd: sum the partials) or
-    ``vocab_parallel`` (a V block of embed / unembed)."""
+    ``row_parallel`` (a K block of wo / wd / out_proj: sum the partials;
+    on a Mamba2 mixer, whose in_proj is cut with it, the mark of a cut
+    mixer) or ``vocab_parallel`` (a V block of embed / unembed)."""
     if _ROW.search(path) and dim == ndim - 2:
         owner.row_parallel = True
     elif _VOCAB.search(path):
@@ -580,10 +749,11 @@ def _mark(owner: nn.Module, path: str, dim: int, ndim: int) -> None:
 
 @torch.no_grad()
 def shard_model(model: nn.Module, cfg, mesh: Optional[Mesh]) -> nn.Module:
-    """Keep this rank's slice of every parameter of a dense or MoE
-    ``model``, in place: a column rule its N block, a row rule its K
-    block, ``embed`` its vocab block; ``wk``/``wv`` the columns of
-    :func:`kv_heads_for_rank`.  Float weights and posit patterns alike.
+    """Keep this rank's slice of every parameter of ``model`` (a dense,
+    MoE, Mamba2 or hybrid LM), in place: a column rule its N block, a row
+    rule its K block, ``embed`` its vocab block; ``wk``/``wv`` the
+    columns of :func:`kv_heads_for_rank`; a Mamba2 ``in_proj`` those of
+    :func:`ssm_in_columns`.  Float weights and posit patterns alike.
     The identity with no mesh and on a model already cut for this mesh
     (``tp_shard``).  A mesh of one rank cuts nothing but marks what it
     would cut, so that its forward runs every collective (a world of
@@ -623,8 +793,9 @@ _INIT_PREFIX = {"DenseLM": "", "Attention": "layers/attn/", "MLP": "layers/mlp/"
 
 @contextlib.contextmanager
 def sharded_init(cfg, mesh: Optional[Mesh]):
-    """While a transformer LM is built inside the block, cut each
-    parameter to this rank's slice as soon as it is drawn
+    """While a transformer LM (``DenseLM``; the Mamba2 and hybrid LMs are
+    drawn whole and cut by :func:`shard_model`) is built inside the block,
+    cut each parameter to this rank's slice as soon as it is drawn
     (``nn.Module``'s parameter registration hook), so that a rank holds
     its shard and one full tensor at most; the draws, and so the values,
     are the unsharded init's.  The result equals :func:`shard_model` of

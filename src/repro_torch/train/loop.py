@@ -124,8 +124,9 @@ def _split(batch, accum: int):
 def local_rows(batch, mesh: Mesh, accum: int = 1):
     """This data rank's rows of a global batch: of each of the ``accum``
     micro-batches (the reference's split, :func:`_split`), its block of
-    B / (accum * data) rows, micro-batch by micro-batch."""
-    data, d = mesh.data_size, mesh.data_rank
+    B / (accum * data) rows, micro-batch by micro-batch (``data``: the
+    mesh's batch axis, which folds in a ``pod`` axis)."""
+    data, d = mesh.batch_size, mesh.batch_rank
     if data == 1:
         return batch
     out = {}
@@ -141,10 +142,10 @@ def _data_sum(g: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     crosses as its two-byte bits (an all-gather) and the two are added
     here in f32: one rounding, in either order the f32 all-reduce's
     result, with half its bytes."""
-    if mesh.data_size == 2 and g.dtype == torch.bfloat16:
-        a, b = mesh.all_gather(g, "data")
+    if mesh.batch_size == 2 and g.dtype == torch.bfloat16:
+        a, b = mesh.all_gather(g, mesh.batch_axis)
         return a.to(torch.float32) + b.to(torch.float32)
-    return mesh.all_reduce(g.to(torch.float32), "data")
+    return mesh.all_reduce(g.to(torch.float32), mesh.batch_axis)
 
 
 def _reduce_over_mesh(zero: Zero1, loss, grads):
@@ -152,9 +153,9 @@ def _reduce_over_mesh(zero: Zero1, loss, grads):
     ``data`` (the gradients in f32, :func:`_data_sum`), a ``partial``
     leaf's over ``model`` into its whole."""
     mesh = zero.mesh
-    if mesh.data_size > 1:
+    if mesh.batch_size > 1:
         dev = next((g.device for g in grads.values() if g is not None), loss.device)
-        loss = mesh.all_reduce(loss.to(dev), "data")
+        loss = mesh.all_reduce(loss.to(dev), mesh.batch_axis)
         grads = {n: None if g is None else _data_sum(g, mesh) for n, g in grads.items()}
     for n, g in grads.items():
         if g is not None and zero.layouts[n].partial:

@@ -188,5 +188,7 @@ def test_cli_records_and_reanalysis(tmp_path):
     assert {k: again[k] for k in before} == pytest.approx(before, rel=1e-12)
     rows, _ = roofline.load_and_report(str(out), str(tmp_path / "r.md"))
     assert [r["arch"] for r in rows] == ["mamba2-780m"] and rows[0]["mode"] == "plam_sim"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        dryrun.main(["--arch", "yi-6b", "--shape", "train_4k", "--multi-pod"])
+    dryrun.main(["--arch", "seamless-m4t-medium", "--shape", "train_4k", "--multi-pod",
+                 "--out-dir", str(out)])
+    rec = json.loads((out / "seamless-m4t-medium__train_4k__2x16x16.json").read_text())
+    assert rec["devices"] == 512 and "item 8d" in rec["skipped"]

@@ -244,16 +244,26 @@ def test_collectives_are_the_identity_without_a_mesh():
 def test_meshes_need_a_world_and_the_training_side_raises():
     """Outside a torch.distributed world a mesh of two ranks raises naming
     them, a data axis among them (the training side's meshes); the
-    production mesh names the sharded dry run's ROADMAP item (8b); the
+    production meshes are virtual: one rank of the reference's 16 x 16
+    (2 x 16 x 16) cards with no world, whose collectives on meta tensors
+    are counted and move nothing, and which raise on a real tensor; the
     backend rule: gloo where ranks share a card or run on the CPU; the
     mesh's dims and its rank layout (model groups of neighbours)."""
     with pytest.raises(ValueError, match="tp=2 needs 2 ranks/devices"):
         t_mesh.make_host_mesh(model=2)
     with pytest.raises(ValueError, match="needs 2 ranks/devices"):
         t_mesh.make_host_mesh(data=2, model=1)
-    for multi_pod in (False, True):
-        with pytest.raises(NotImplementedError, match="queue 1, item 8b"):
-            t_mesh.make_production_mesh(multi_pod=multi_pod)
+    for multi_pod, dims, world in ((False, {"data": 16, "model": 16}, 256),
+                                   (True, {"pod": 2, "data": 16, "model": 16}, 512)):
+        mesh = t_mesh.make_production_mesh(multi_pod=multi_pod, rank=world - 1)
+        assert t_mesh.mesh_dims(mesh) == dims and mesh.world_size == world
+        assert (mesh.data_rank, mesh.model_rank, mesh.batch_size) == (15, 15, world // 16)
+        x = torch.empty(3, 4, device="meta")
+        assert mesh.all_reduce(x).shape == x.shape
+        assert [p.shape for p in mesh.all_gather(x, "data")] == [x.shape] * 16
+        assert mesh.traffic == {"model/all-reduce": [1, 48], "data/all-gather": [1, 768]}
+        with pytest.raises(ValueError, match="moves nothing"):
+            mesh.all_reduce(torch.zeros(3))
     assert t_mesh.choose_backend(2, "cpu") == "gloo"
     if torch.cuda.device_count() < 8:
         assert t_mesh.choose_backend(8, "cuda") == "gloo"

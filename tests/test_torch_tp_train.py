@@ -157,7 +157,7 @@ def _steps(device, job, mesh):
     step = loop.make_train_step(api.train_loss, tcfg, zero)
     losses = []
     for batch in job["batches"]:
-        mesh.collectives.clear()
+        mesh.traffic.clear()
         losses.append(float(step(model, state, batch)[2]["loss"]))
     return {"losses": losses, "collectives": dict(mesh.collectives),
             "state_bytes": zero.state_bytes(state),
@@ -364,14 +364,14 @@ def test_cli_trains_over_a_mesh_and_restarts(runs):
 
 
 def test_cli_refuses_what_a_mesh_cannot_run(capsys):
-    """``--data x --model`` beyond ``--force-host-devices``, a family that
-    no mesh trains yet (item 8c), and a batch the data ranks cannot
-    split exit before any rank starts."""
+    """``--data x --model`` beyond ``--force-host-devices``, a model axis
+    that an arch's SSD heads do not divide, and a batch the data ranks
+    cannot split exit before any rank starts."""
     base = ["--reduced", "--steps", "1", "--numerics", "f32", "--device", "cpu"]
     with pytest.raises(SystemExit, match="needs 4 ranks/devices, found 2 host devices"):
         t_cli.main(["--arch", "yi-6b", *base, "--data", "2", "--model", "2",
                     "--force-host-devices", "2"])
-    with pytest.raises(SystemExit, match="item 8c"):
-        t_cli.main(["--arch", "mamba2-780m", *base, "--model", "2"])
+    with pytest.raises(SystemExit, match="8 SSD heads do not divide tp=3"):
+        t_cli.main(["--arch", "mamba2-780m", *base, "--model", "3"])
     with pytest.raises(SystemExit, match="does not split"):
         t_cli.main(["--arch", "yi-6b", *base, "--data", "3", "--batch", "8"])

@@ -127,9 +127,11 @@ class _Fake:
     (a function of the axis and the tensor) says the other ranks send."""
 
     axis_names = ("data", "model")
+    batch_axis = "data"
 
     def __init__(self, model_rank=0, model=2, data=1, others=None):
         self.model_rank, self.model_size, self.data_size = model_rank, model, data
+        self.batch_size, self.batch_rank = data, 0
         self.shape = {"data": data, "model": model}
         self.others = others or (lambda axis, x: x)
 
