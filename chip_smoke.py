@@ -6,9 +6,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py [--layers N]
                           [--phases device,kernels,conformance,serve,serve_paths,observe,moe,
                                     static,archs,train,train_families,e2e,times,dryrun,tp,
-                                    tp_train]
+                                    tp_train,tp_ssm,tp_encdec]
 
-It imports ``repro_torch`` (never JAX) and runs sixteen phases, each on
+It imports ``repro_torch`` (never JAX) and runs eighteen phases, each on
 its own lines:
 
 1. device      — the card's name and power limit (nvidia-smi), the torch
@@ -126,12 +126,12 @@ its own lines:
    requests of 48 seeded tokens, 16 new) and then on the static engine
    (the same prompts: equal tokens, or the serve-paths margin rule), gemma
    also with bf16 weights encoded every forward (equal tokens);
-   command-r-plus-104b (96/8 heads) at full width cut to 16 of 64 layers
+   command-r-plus-104b (96/8 heads) at full width cut to 8 of 64 layers
    on the continuous engine; seamless-m4t-medium (encdec, full depth) on
    the static engine with 4 x 256 seeded frames and a 16-token target
    prefix, prequantized and under its config's own posit_quant:16:1; and
    qwen2-vl-72b (M-RoPE, 1,024 seeded patch embeddings ahead of 32 tokens
-   a row, 2 rows) at full width cut to 24 of 80 layers on the static
+   a row, 2 rows) at full width cut to 12 of 80 layers on the static
    engine.  Gates: every forward's launches by ``launch_counts`` (K1 a
    projection, K3 for a tied head's ``embed.T`` every forward, L K2 a
    decode step on the continuous engine), the weight encodes at build,
@@ -310,18 +310,18 @@ its own lines:
    int16 prequantized seeded weights, each rank its shard (in_proj cut
    block by block, the shared block column- and row-parallel): the
    prefill of ``TP_SSM_PROMPT`` seeded tokens (each data rank its rows)
-   and ``TP_SSM_DECODE`` greedy decode steps; (b) zamba2 at global batch
-   1, its shared K/V positions over ``data``; (c) ``TP_SSM_TRAIN_STEPS``
+   and ``TP_MESH_DECODE`` greedy decode steps; (b) zamba2 at global batch
+   1, its shared K/V positions over ``data``; (c) ``TP_MESH_TRAIN_STEPS``
    AdamW steps of each under its config's posit_quant:16:1 with ZeRO-1
    state, phase train's global batch (8 x 128), built by the dry run's
    ``build_cell`` on the card and cut in depth to ``TP_SSM_TRAIN_LAYERS``;
    (d) each of those cells dry-run on this rank's ``VirtualMesh`` (meta);
    (e) (a) and (b) again with f32 parameters, activations, numerics and
-   caches, TF32 off: the prefill and ``TP_SSM_F32_DECODE`` teacher-forced
+   caches, TF32 off: the prefill and ``TP_MESH_F32_DECODE`` teacher-forced
    decode steps.
    Gates: the tokens of (a) and (b) equal one rank's (served here) or
-   parting only where its top-2 margin is below ``TP_SSM_MARGIN``; the
-   logits of (e) within ``TP_SSM_F32_TOL`` of one rank's, relative to
+   parting only where its top-2 margin is below ``TP_MESH_MARGIN``; the
+   logits of (e) within ``TP_MESH_F32_TOL`` of one rank's, relative to
    its largest |logit| (a gate that does not ride on bf16's near ties); K1
    launches a forward 2L+1 (mamba2) and 2L+8L/6+1 (zamba2), no plain K1
    or codec call, K1 bit for bit against its plain version at every
@@ -332,6 +332,36 @@ its own lines:
    ``tp_ssm_collectives``; (d) the virtual mesh's launches and collectives
    (axis, kind, calls, result bytes) equal to each rank's measured ones,
    and its peak within ``DRYRUN_MEM_TOL`` of the measured one.
+18. tp_encdec  — the encoder-decoder and vlm families over the same
+   (data 2 x model 2) mesh, one world of four ranks.  (a) f32 forms of
+   the serving runs below (f32 parameters, activations, numerics and
+   caches, TF32 off; qwen2-vl at ``TP_ENCDEC_VLM_F32_LAYERS`` layers):
+   the prefill and ``TP_MESH_F32_DECODE`` teacher-forced decode steps,
+   the logits within ``TP_MESH_F32_TOL`` of one rank's largest
+   |logit|; (b) seamless-m4t-medium at full width and depth and
+   qwen2-vl-72b at full width cut to ``TP_ENCDEC_VLM_LAYERS`` layers,
+   default=plam_sim:16:1 with int16 prequantized seeded weights, served
+   through the registry's static entry points at phase archs' prompts
+   (each data rank its rows of the frames or patch embeddings and
+   tokens) and ``TP_MESH_DECODE`` greedy steps, each data rank's
+   tokens against one rank's run of the same rows (a departure only
+   where its top-2 margin is below ``TP_MESH_MARGIN``); (c) K1 73 an
+   encoder pass and 121 a decoder forward (seamless), 7L+1 (qwen2-vl) a
+   forward per rank, no plain K1 or codec call, rank 0's K1 bit for bit
+   at every (M, K, N) it launched (rows 0-63 and the last 64-row block);
+   (d) the collectives over ``model`` a forward by hand
+   (``tp_encdec_collectives``); (e) every serving cell and training step
+   dry-run on the rank's ``VirtualMesh``: launches and collectives equal
+   to the rank's, the peak within ``TP_ENCDEC_SERVE_MEM_TOL`` (serving)
+   and ``TP_ENCDEC_STEP_MEM_TOL`` (a step).  Training:
+   ``TP_MESH_TRAIN_STEPS`` AdamW steps with ZeRO-1 state of seamless
+   under its posit_quant:16:1 (``TP_ENCDEC_TRAIN_LAYERS`` encoder and
+   decoder layers), phase train's global batch, with phase tp_ssm's
+   training gates (step 0 within ``TP_TRAIN_LOSS_RTOL`` of one rank's, m
+   + v the per-stack ZeRO-1 count); qwen2-vl-72b at
+   ``TP_ENCDEC_VLM_TRAIN_LAYERS`` layers trains only with a card a rank
+   (nccl), and on one card its step is counted on the virtual mesh
+   against the hand count.
 
 It exits non-zero if any phase fails, if no CUDA device is present, or if
 ``repro_torch`` cannot be imported.  Its last line is
@@ -356,7 +386,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ["device", "kernels", "conformance", "serve", "serve_paths", "observe", "moe",
           "static", "archs", "train", "train_families", "e2e", "times", "dryrun", "tp",
-          "tp_train", "tp_ssm"]
+          "tp_train", "tp_ssm", "tp_encdec"]
 
 # H100 SXM peaks (NVIDIA data sheet), from the port's roofline, the one
 # source of them: HBM3 bytes/s, f32 CUDA-core FLOP/s, SMs and the INT32
@@ -630,7 +660,8 @@ STATIC_K1_SHAPES = {"mamba2-780m": [(1536, 6448), (3072, 1536), (1536, 50280)],
 # the plain versions (phase e2e's rule).
 ARCHS_DENSE = ("gemma-7b", "minitron-8b", "command-r-plus-104b")
 ARCHS_STATIC = ("seamless-m4t-medium", "qwen2-vl-72b")
-ARCHS_LAYERS = {"command-r-plus-104b": 16, "qwen2-vl-72b": 24}
+# (cut further for the whole script's time; PERF.md section 6)
+ARCHS_LAYERS = {"command-r-plus-104b": 8, "qwen2-vl-72b": 12}
 ARCHS_BOTH_ENGINES = ("gemma-7b", "minitron-8b")
 ARCHS_BATCH, ARCHS_PROMPT, ARCHS_NEW = 4, 48, 16  # ARCHS_NEW: serve_run's 16
 ARCHS_FRAMES, ARCHS_TGT = 256, 16
@@ -856,11 +887,25 @@ TP_TRAIN_TIMEOUT_S = 900
 # of its init scale (d^-1/2), in the gradient's sign, and 32 layers compound
 # it; the full-depth run takes a tenth of it
 TP_TRAIN_FULL_LR = 1e-4
+# phases tp_ssm and tp_encdec: one world of four ranks over a (data x
+# model) mesh of TP_MESH, each data rank serving its rows of the prompts;
+# TP_MESH_DECODE greedy decode steps after each prefill, and a bf16 token
+# that parts from one rank's run of the same rows is a near tie where one
+# rank's top-2 logit margin there is below TP_MESH_MARGIN.  The f32 forms
+# (the prefill and TP_MESH_F32_DECODE teacher-forced steps) are the gate
+# that tells a fault: their logits lie within TP_MESH_F32_TOL of one
+# rank's, relative to its largest |logit|.  TP_MESH_TRAIN_STEPS AdamW steps
+# with ZeRO-1 state a trained model.
+TP_MESH = (2, 2)  # (data, model)
+TP_MESH_DECODE = 8
+TP_MESH_MARGIN = 0.1
+TP_MESH_F32_DECODE = 2
+TP_MESH_F32_TOL = 1e-3
+TP_MESH_TRAIN_STEPS = 2
+TP_MESH_TIMEOUT_S = 600
 # phase tp_ssm: mamba2-780m and zamba2-1.2b over a (data x model) mesh whose
 # ranks share this one card over gloo.  Serving at full width and depth
-# (TP_SSM_PROMPT rows x tokens, each data rank its rows, then TP_SSM_DECODE
-# greedy steps); a differing token is a near tie where one rank's top-2
-# logit margin there is below TP_SSM_MARGIN.  Training cut in depth only
+# (TP_SSM_PROMPT rows x tokens).  Training cut in depth only
 # (gloo moves each step's gradients through host memory, and the whole
 # script's time): mamba2 to 2 of 48 layers, zamba2 to 6 of 38 (one
 # shared-block invocation).  The bf16 tokens part from one rank's at near
@@ -869,18 +914,36 @@ TP_TRAIN_FULL_LR = 1e-4
 # forms also run in f32 at full depth, where the mesh moved the logits by
 # 6e-6 to 8e-6 of the largest one (H100, PERF.md section 6) and a rank
 # reading the wrong channels moves them by far more
-# (tests/test_torch_tp_ssm.py holds TP_SSM_F32_TOL between the two at
+# (tests/test_torch_tp_ssm.py holds TP_MESH_F32_TOL between the two at
 # reduced size; relative to one rank's largest |logit|)
-TP_SSM_MESH = (2, 2)  # (data, model)
 TP_SSM_ARCHS = ("mamba2-780m", "zamba2-1.2b")
 TP_SSM_PROMPT = (4, 64)
-TP_SSM_DECODE = 8
-TP_SSM_MARGIN = 0.1
 TP_SSM_TRAIN_LAYERS = {"mamba2-780m": 2, "zamba2-1.2b": 6}
-TP_SSM_TRAIN_STEPS = 2
-TP_SSM_TIMEOUT_S = 600
-TP_SSM_F32_DECODE = 2
-TP_SSM_F32_TOL = 1e-3
+# phase tp_encdec: seamless-m4t-medium and qwen2-vl-72b over the same
+# (data x model) mesh.  Serving at full width: seamless at full depth,
+# qwen2-vl cut to TP_ENCDEC_VLM_LAYERS of 80 (four ranks' shards and
+# their inits on one card), phase archs' prompts (ARCHS_BATCH rows of
+# ARCHS_FRAMES frames and ARCHS_TGT target tokens; VLM_ROWS rows of 1,024
+# patch embeddings and VLM_TOKENS tokens), each data rank its rows, then
+# TP_MESH_DECODE greedy steps.  As in phase tp_ssm the f32 forms are
+# the gate that tells a fault (tests/test_torch_tp_encdec.py holds
+# TP_MESH_F32_TOL between the mesh's sum order and a rank reading the
+# wrong heads at reduced size); a bf16 token departure is reported with
+# one rank's top-2 margin, which must lie below TP_MESH_MARGIN.
+# Training: seamless under its posit_quant:16:1 at TP_ENCDEC_TRAIN_LAYERS
+# encoder and decoder layers (its full depth: a step's time is its
+# vocabulary's, not its layers', PERF.md section 6); qwen2-vl at
+# TP_ENCDEC_VLM_TRAIN_LAYERS only with a card a rank: four ranks on one
+# card cannot hold its step (3.37 G parameters a rank with both data
+# replicas, bf16 weights and gradients and ZeRO-1's f32 m and v pass 80
+# GB).
+TP_ENCDEC_ARCHS = ("seamless-m4t-medium", "qwen2-vl-72b")
+TP_ENCDEC_VLM_LAYERS = 4
+TP_ENCDEC_VLM_F32_LAYERS = 2
+TP_ENCDEC_TRAIN_LAYERS = 12  # seamless's 12 + 12
+TP_ENCDEC_VLM_TRAIN_LAYERS = 2
+TP_ENCDEC_SERVE_MEM_TOL = 0.05
+TP_ENCDEC_STEP_MEM_TOL = 0.10
 
 
 def launch_counts(cfg, prequantized: bool = True) -> dict:
@@ -6908,7 +6971,7 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model = set_trainable(api.init(seed=0, device=self.dev, mesh=mesh))
-        zero = Zero1(leaf_layouts(cfg, mesh), mesh, cfg.n_layers)
+        zero = Zero1(leaf_layouts(cfg, mesh), mesh)
         tcfg = TrainConfig(opt=OptConfig(name="adamw", lr=job.get("lr", TRAIN_LR)))
         state = init_state(tcfg.opt, model, zero)
         step = make_train_step(api.train_loss, tcfg, zero)
@@ -7024,7 +7087,7 @@ class Smoke:
         with contextlib.ExitStack() as stack:
             seen = stack.enter_context(self.recording_k3()) if rank == 0 else {}
             model = set_trainable(api.init(seed=0, device=self.dev, mesh=mesh))
-            zero = Zero1(leaf_layouts(cfg, mesh), mesh, cfg.n_layers)
+            zero = Zero1(leaf_layouts(cfg, mesh), mesh)
             state = init_state(tcfg.opt, model, zero)
             out["loss"] = float(make_train_step(api.train_loss, tcfg, zero)(
                 model, state, batch)[2]["loss"])
@@ -7159,7 +7222,7 @@ class Smoke:
         gc.collect()
         torch.cuda.empty_cache()
         card = self.results["device"]["nvidia_smi"]
-        data, tp = TP_SSM_MESH
+        data, tp = TP_MESH
         backend = choose_backend(data * tp, "cuda")
         note = (f"[{card}; the ranks share this one card over gloo: not multi-card figures]"
                 if backend == "gloo" else f"[{torch.cuda.device_count()} x {card}, nccl]")
@@ -7168,7 +7231,7 @@ class Smoke:
         rows, seq = TP_SSM_PROMPT
         vocab = min(get_config(a).vocab for a in TP_SSM_ARCHS)
         prompt = torch.randint(0, vocab, (rows, seq), generator=self.gen(77), device=self.dev)
-        dec = torch.randint(0, vocab, (rows, TP_SSM_F32_DECODE), generator=self.gen(78),
+        dec = torch.randint(0, vocab, (rows, TP_MESH_F32_DECODE), generator=self.gen(78),
                             device=self.dev)
         jobs, want = {}, {}
         for arch in TP_SSM_ARCHS:
@@ -7192,7 +7255,7 @@ class Smoke:
         log(f"tp_ssm: a world of {data * tp} ranks, (data {data} x model {tp}) over {backend}; "
             f"one rank's runs here in {res['one_rank_s']:.1f} s")
         t0 = time.perf_counter()
-        ranks = spawn(tp_ssm_rank, data * tp, "cuda", self.args, jobs, timeout=TP_SSM_TIMEOUT_S)
+        ranks = spawn(tp_ssm_rank, data * tp, "cuda", self.args, jobs, timeout=TP_MESH_TIMEOUT_S)
         res["world_s"] = time.perf_counter() - t0
         r0 = ranks[0]
         res["backend"], res["world"] = r0["backend"], r0["world"]
@@ -7229,56 +7292,84 @@ class Smoke:
 
     def tp_ssm_generate(self, cfg, model, prompt, mesh, base=0, seq_parallel=False):
         """``prompt`` served on ``model`` through the registry's ``prefill``
-        and TP_SSM_DECODE greedy ``decode_step``s (with ``seq_parallel``, one
+        and TP_MESH_DECODE greedy ``decode_step``s (with ``seq_parallel``, one
         row whose shared K/V the data ranks hold by positions): each
         position's token, top logit and top-2 margin, and each forward's
         launches; under a mesh also each forward's collectives
         (``Mesh.traffic``) and peak bytes above ``base``."""
         torch = self.torch
-        from repro_torch.kernels import _lib
         from repro_torch.models import build
         from repro_torch.models.hybrid import seq_shard_caches
         from repro_torch.parallel.sharding import use_mesh
 
         api = build(cfg)
-        out = {"tokens": [], "top": [], "margins": [], "launches": [], "traffic": [],
-               "peak": []}
-
-        def forward(fn):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            _lib.reset_launches()
-            if mesh is not None:
-                mesh.traffic.clear()
-            logits, caches = fn()
-            torch.cuda.synchronize()
-            out["peak"].append(torch.cuda.max_memory_allocated() - base)
-            out["launches"].append({k: v for k, v in _lib.launches.items() if v})
-            out["traffic"].append(None if mesh is None else dict(mesh.traffic))
-            top = logits[:, -1].float().topk(2, dim=-1)
-            out["tokens"].append(top.indices[:, 0])
-            out["top"].append(top.values[:, 0])
-            out["margins"].append(top.values[:, 0] - top.values[:, 1])
-            return top.indices[:, :1].to(torch.int32), caches
-
+        out = {k: [] for k in TOP2 + ("launches", "traffic", "peak")}
         with torch.no_grad(), use_mesh(mesh):
-            tok, caches = forward(lambda: api.prefill(model, {"tokens": prompt}))
+            tok, caches = self.served_forward(out, mesh, base,
+                                              lambda: api.prefill(model, {"tokens": prompt}))
             if seq_parallel:
                 caches = seq_shard_caches(caches, mesh)
-            for i in range(TP_SSM_DECODE):
+            for i in range(TP_MESH_DECODE):
                 batch = {"token": tok, "caches": caches, "cache_len": prompt.shape[1] + i}
                 if seq_parallel:
                     batch["seq_parallel"] = True
-                tok, caches = forward(lambda b=batch: api.decode_step(model, b))
+                tok, caches = self.served_forward(out, mesh, base,
+                                                  lambda b=batch: api.decode_step(model, b))
         del caches
-        for k in ("tokens", "top", "margins"):
+        for k in TOP2:
             out[k] = torch.stack(out[k], dim=1)
         return out
+
+    def counted(self, mesh, fn):
+        """``fn()`` alone on the card, after the peak memory, the launch
+        counts and ``mesh``'s traffic are reset: its result, its launches
+        and its collectives (``Mesh.traffic``; None without a mesh)."""
+        torch = self.torch
+        from repro_torch.kernels import _lib
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        if mesh is not None:
+            mesh.traffic.clear()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, {k: v for k, v in _lib.launches.items() if v}, (
+            None if mesh is None else dict(mesh.traffic))
+
+    def served_forward(self, out, mesh, base, fn):
+        """One serving forward ``fn() -> (logits, caches)``, ``counted``: its
+        peak bytes above ``base``, launches and collectives appended to
+        ``out``'s lists, as each row's greedy token, top logit and top-2
+        margin at the last position are.  The tokens as the next [rows, 1]
+        input, and the caches."""
+        torch = self.torch
+        (logits, caches), launches, traffic = self.counted(mesh, fn)
+        out["peak"].append(torch.cuda.max_memory_allocated() - base)
+        out["launches"].append(launches)
+        out["traffic"].append(traffic)
+        top = logits[:, -1].float().topk(2, dim=-1)
+        out["tokens"].append(top.indices[:, 0])
+        out["top"].append(top.values[:, 0])
+        out["margins"].append(top.values[:, 0] - top.values[:, 1])
+        return top.indices[:, :1].to(torch.int32), caches
+
+    def by_data_rank(self, fn, *batches):
+        """``fn`` on each data rank's rows of ``batches`` (of TP_MESH's data
+        ranks) in turn, here on one rank: one rank's runs at the batches
+        the world's data ranks run (one rank's bf16 decode may depend on the
+        batch, PERF.md section 6).  The outputs concatenated on the CPU:
+        tensors, or the TOP2 entries of dicts."""
+        torch = self.torch
+        parts = [fn(*(data_rows(b, d) for b in batches)) for d in range(TP_MESH[0])]
+        if isinstance(parts[0], dict):
+            return {k: torch.cat([p[k].cpu() for p in parts]) for k in TOP2}
+        return torch.cat([p.cpu() for p in parts])
 
     def tp_ssm_one_rank(self, cfg, prompt):
         """One rank's tokens, top logits and margins for phase tp_ssm's
         gates, at the batches the world serves them: each data rank's rows
-        (``prompt`` split over TP_SSM_MESH's data axis), and for the hybrid
+        (``prompt`` split over TP_MESH's data axis), and for the hybrid
         row 0 alone (the batch-1 run).  (One rank's decode step depends on
         the batch: the recurrence's f32 ``einsum`` (a batched GEMV) and the
         gated norm's f32 mean change their sum order with the rows, and 48
@@ -7286,13 +7377,10 @@ class Smoke:
         ``repro_torch/launch/batch_noise.py``, PERF.md section 6.)"""
         torch = self.torch
         model = self.tp_ssm_model(cfg, None)
-        data = TP_SSM_MESH[0]
-        parts = [self.tp_ssm_generate(cfg, model, rows, None)
-                 for rows in prompt.chunk(data)]
-        out = {k: torch.cat([p[k] for p in parts]).cpu() for k in ("tokens", "top", "margins")}
+        out = self.by_data_rank(lambda rows: self.tp_ssm_generate(cfg, model, rows, None), prompt)
         if cfg.family == "hybrid":
             one = self.tp_ssm_generate(cfg, model, prompt[:1], None)
-            out["batch1"] = {k: one[k].cpu() for k in ("tokens", "top", "margins")}
+            out["batch1"] = {k: one[k].cpu() for k in TOP2}
         del model
         torch.cuda.empty_cache()
         return out
@@ -7310,23 +7398,17 @@ class Smoke:
 
         mod = hybrid if cfg.family == "hybrid" else mamba_lm
         s = prompt.shape[1]
-        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-        try:
-            with torch.no_grad(), use_mesh(mesh):
-                caches = mod.cache_init(cfg, prompt.shape[0], s if cfg.family == "hybrid" else 0,
-                                        torch.float32, self.dev)
-                logits, caches = mod.prefill(cfg, model, prompt, caches)
-                if seq_parallel:
-                    caches = hybrid.seq_shard_caches(caches, mesh)
-                out = [logits]
-                for i in range(dec.shape[1]):
-                    kw = {"seq_parallel": True} if seq_parallel else {}
-                    logits, caches = mod.decode_step(cfg, model, dec[:, i:i + 1], caches, s + i,
-                                                     **kw)
-                    out.append(logits)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        with no_tf32(torch), torch.no_grad(), use_mesh(mesh):
+            caches = mod.cache_init(cfg, prompt.shape[0], s if cfg.family == "hybrid" else 0,
+                                    torch.float32, self.dev)
+            logits, caches = mod.prefill(cfg, model, prompt, caches)
+            if seq_parallel:
+                caches = hybrid.seq_shard_caches(caches, mesh)
+            out = [logits]
+            for i in range(dec.shape[1]):
+                kw = {"seq_parallel": True} if seq_parallel else {}
+                logits, caches = mod.decode_step(cfg, model, dec[:, i:i + 1], caches, s + i, **kw)
+                out.append(logits)
         return torch.cat(out, dim=1).float()
 
     def tp_ssm_f32_one_rank(self, cfg, prompt, dec):
@@ -7336,9 +7418,8 @@ class Smoke:
         from repro_torch.models import build
 
         model = build(cfg).init(seed=0, device=self.dev)
-        data = TP_SSM_MESH[0]
-        out = {"logits": torch.cat([self.tp_ssm_f32(cfg, model, p, d, None).cpu() for p, d in
-                                    zip(prompt.chunk(data), dec.chunk(data))])}
+        out = {"logits": self.by_data_rank(
+            lambda p, d: self.tp_ssm_f32(cfg, model, p, d, None), prompt, dec)}
         if cfg.family == "hybrid":
             out["seq"] = self.tp_ssm_f32(cfg, model, prompt[:1], dec[:1], None).cpu()
         del model
@@ -7359,8 +7440,7 @@ class Smoke:
 
         cfg = job["cfg"]
         prompt = job["prompt"].to(self.dev)
-        n = prompt.shape[0] // mesh.data_size
-        mine = prompt[mesh.data_rank * n:(mesh.data_rank + 1) * n]
+        mine = data_rows(prompt, mesh.data_rank, mesh.data_size)
         want_k1 = launch_counts(cfg)["k1"]
         out = {"failures": [], "k1_want": want_k1}
         fails = out["failures"]
@@ -7378,7 +7458,7 @@ class Smoke:
                                           "decode"), run, 1)}
             if cfg.family == "hybrid":
                 seq = self.tp_ssm_generate(cfg, model, prompt[:1], mesh, base, seq_parallel=True)
-                out["seq"] = {k: seq[k].cpu() for k in ("tokens", "top", "margins")}
+                out["seq"] = {k: seq[k].cpu() for k in TOP2}
                 out["seq_k1"] = [f.get("plam_matmul", 0) for f in seq["launches"]]
                 cells["seq_decode"] = (ShapeSpec("tp_ssm_seq_decode", prompt.shape[1], 1,
                                                  "decode"), seq, 1)
@@ -7391,7 +7471,7 @@ class Smoke:
         cfg32 = tp_ssm_f32_cfg(cfg.name)
         dec = job["dec"].to(self.dev)
         model = build(cfg32).init(seed=0, device=self.dev, mesh=mesh)
-        got = self.tp_ssm_f32(cfg32, model, mine, dec[mesh.data_rank * n:(mesh.data_rank + 1) * n],
+        got = self.tp_ssm_f32(cfg32, model, mine, data_rows(dec, mesh.data_rank, mesh.data_size),
                               mesh)
         out["f32"] = torch.cat(mesh.all_gather(got.contiguous(), "data")).cpu()
         if cfg.family == "hybrid":
@@ -7399,7 +7479,7 @@ class Smoke:
                                              seq_parallel=True).cpu()
         del model, got
         out["f32_s"] = time.perf_counter() - t0
-        for k in ("tokens", "top", "margins"):
+        for k in TOP2:
             out[k] = torch.cat(mesh.all_gather(run[k].contiguous(), "data")).cpu()
         out["k1"] = [f.get("plam_matmul", 0) for f in run["launches"]]
         out["launches"] = run["launches"]
@@ -7422,14 +7502,16 @@ class Smoke:
         return out
 
     def tp_ssm_train(self, job, mesh):
-        """One rank's TP_SSM_TRAIN_STEPS AdamW steps of ``job["cfg"]`` under
+        """One rank's TP_MESH_TRAIN_STEPS AdamW steps of ``job["cfg"]`` under
         its config's numerics, built by the dry run's ``build_cell`` on the
         card with this rank's mesh (its shard, ZeRO-1 state, the global
         batch that the step cuts): each step's loss, launches and
         collectives; K3 quantizes a step by ``family_quantize_count``, bit
         for bit at rank 0's (shape, dtype), no plain codec call; m + v bytes
         against the per-device ZeRO-1 count; the collectives a step by
-        ``tp_ssm_collectives``; the last step dry-run on the virtual mesh."""
+        ``tp_ssm_collectives`` (or ``job["count"]``'s, for phase tp_encdec's
+        families); the last step dry-run on the virtual mesh (its peak
+        within ``job["mem_tol"]``, DRYRUN_MEM_TOL by default)."""
         torch = self.torch
         import gc
 
@@ -7442,13 +7524,15 @@ class Smoke:
         rank = mesh.rank
         base = torch.cuda.memory_allocated()
         step, (model, opt, batch) = dryrun.build_cell(cfg, shape, device=self.dev, mesh=mesh)
-        zero = Zero1(leaf_layouts(cfg, mesh), mesh, cfg.n_layers)
+        zero = Zero1(leaf_layouts(cfg, mesh), mesh)
         _, want_k3 = self.family_quantize_count(cfg, shape.seq_len)
         out = {"failures": [], "losses": [], "k3": [], "step_s": [], "k3_want": want_k3,
                "state_bytes": sum(t.numel() * t.element_size() for k in ("m", "v")
                                   for t in opt[k].values()),
                "state_bytes_want": dryrun.state_bytes_rules(cfg, mesh),
-               "collectives_want": tp_ssm_collectives(cfg, zero, model)}
+               "collectives_want": job.get("count", tp_ssm_collectives)(cfg, zero, model),
+               "layers": (f"{cfg.enc_layers} + {cfg.dec_layers}" if cfg.family == "encdec"
+                          else cfg.n_layers)}
         fails = out["failures"]
         if out["state_bytes"] != out["state_bytes_want"]:
             fails.append(f"m + v {out['state_bytes']} bytes, ZeRO-1's count "
@@ -7456,7 +7540,7 @@ class Smoke:
         with contextlib.ExitStack() as stack:
             seen = stack.enter_context(self.recording_k3()) if rank == 0 else {}
             plain = stack.enter_context(self.counting_plain())
-            for i in range(TP_SSM_TRAIN_STEPS):
+            for i in range(TP_MESH_TRAIN_STEPS):
                 mesh.traffic.clear()
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -7488,22 +7572,26 @@ class Smoke:
         gc.collect()
         torch.cuda.empty_cache()
         # (d) the last step (after the first's K3 table build) on the virtual mesh
-        out["cell"] = self.tp_ssm_dry(cfg, shape, False, mesh, launches, traffic, peak, fails)
+        out["cell"] = self.tp_ssm_dry(cfg, shape, False, mesh, launches, traffic, peak, fails,
+                                      tol=job.get("mem_tol", DRYRUN_MEM_TOL))
         return out
 
-    def tp_ssm_dry(self, cfg, shape, prequantize, mesh, launches, traffic, peak, fails):
+    def tp_ssm_dry(self, cfg, shape, prequantize, mesh, launches, traffic, peak, fails,
+                   tol=DRYRUN_MEM_TOL, inputs=None):
         """Phase tp_ssm (d): ``shape``'s cell dry-run on meta as rank
         ``mesh.rank`` of a virtual mesh of ``mesh``'s shape (a training step
         after a warm-up, as the measured step followed the first, which
         builds K3's table), against this rank's measured launches,
-        collectives by axis and kind, and peak bytes."""
+        collectives by axis and kind, and peak bytes (within ``tol``).
+        ``inputs``: the served forward's own inputs as meta tensors, in
+        place of the shape's (``dryrun.build_cell``)."""
         from repro_torch.launch import dryrun
         from repro_torch.launch.mesh import VirtualMesh
 
         vm = VirtualMesh(mesh.rank, data=mesh.data_size, model=mesh.model_size)
         t0 = time.perf_counter()
         rec, _ = dryrun.analyze_cell(cfg, shape, prequantize=prequantize, mesh=vm,
-                                     warmup=shape.kind == "train")
+                                     warmup=shape.kind == "train", inputs=inputs)
         predicted = rec["memory"]["peak_bytes"]
         row = {"launches": launches, "dry_launches": rec["launches"], "traffic": traffic,
                "dry_traffic": dict(vm.traffic), "measured_peak_bytes": peak,
@@ -7515,7 +7603,7 @@ class Smoke:
         if row["dry_traffic"] != traffic:
             fails.append(f"{what}: the dry run's collectives {row['dry_traffic']}, measured "
                          f"{traffic}")
-        if abs(row["peak_err"]) > DRYRUN_MEM_TOL:
+        if abs(row["peak_err"]) > tol:
             fails.append(f"{what}: predicted peak {predicted / 2**30:.3f} GiB is "
                          f"{row['peak_err']:+.3f} of the measured {peak / 2**30:.3f}")
         return row
@@ -7536,59 +7624,80 @@ class Smoke:
                 noise = max(noise, float((got["top"][r, :j] - want["top"][r, :j]).abs().max()))
         return parts, noise
 
-    def tp_ssm_serve_gates(self, arch, ranks, want, failures, note):
-        """Phase tp_ssm (a), (b): every rank's gathered tokens equal, and
-        equal to one rank's at the same batches (each data rank's rows; the
-        batch-1 row) or parting where one rank's top-2 margin is below
-        TP_SSM_MARGIN."""
+    def tp_mesh_gates(self, arch, ranks, want, f32, failures):
+        """Phases tp_ssm and tp_encdec, a served model: every rank's gathered
+        tokens equal, and equal to one rank's at the same rows or parting
+        where one rank's top-2 margin is below TP_MESH_MARGIN; each of
+        ``f32``'s (world's, one rank's) logits within TP_MESH_F32_TOL of one
+        rank's, relative to its largest |logit|.  The phase's row: each
+        rank's record without its tensors, the departures, the top logit's
+        gap before them and the f32 errors."""
         r0 = ranks[0][arch]
         row = {"ranks": [{k: v for k, v in r[arch].items()
-                          if k not in ("tokens", "top", "margins", "seq", "f32", "f32_seq")}
-                         for r in ranks]}
+                          if k not in TOP2 + ("seq", "f32", "f32_seq")} for r in ranks]}
         for r in ranks[1:]:
             if not self.torch.equal(r[arch]["tokens"], r0["tokens"]):
                 failures.append(f"{arch}: rank {r['rank']}'s tokens differ from rank 0's")
         parts, noise = self.tp_ssm_departure(r0, want)
         row.update(departures=parts, top_logit_diff=noise)
-        if any(m >= TP_SSM_MARGIN for _, _, m in parts):
+        if any(m >= TP_MESH_MARGIN for _, _, m in parts):
             failures.append(f"{arch}: tokens part from one rank's at (row, position, margin) "
                             f"{parts}")
+        row["f32_rel_err"] = {k: float((g - w).abs().max() / w.abs().max())
+                              for k, (g, w) in f32.items()}
+        for k, e in row["f32_rel_err"].items():
+            if not e <= TP_MESH_F32_TOL:
+                failures.append(f"{arch} f32 {k}: {e:.3e} of one rank's largest |logit| from "
+                                f"one rank's, over {TP_MESH_F32_TOL}")
+        return row
+
+    @staticmethod
+    def log_mesh_details(row, r0):
+        """The f32 gate's and each dry-run cell's lines of a served model
+        (phases tp_ssm and tp_encdec)."""
+        log(f"  f32 (parameters, activations, numerics, caches; TF32 off), the prefill and "
+            f"{TP_MESH_F32_DECODE} teacher-forced decode steps: logits from one rank's by "
+            + ", ".join(f"{k} {e:.3e}" for k, e in row["f32_rel_err"].items())
+            + f" of its largest |logit| (tol {TP_MESH_F32_TOL}), in {r0['f32_s']:.1f} s")
+        for name, c in r0["cells"].items():
+            Smoke.log_dry(f"dry run {name} (rank 0)", c)
+
+    @staticmethod
+    def log_dry(what, c):
+        """A dry-run cell's launches, collectives and peak beside the measured ones."""
+        log(f"  {what}: launches {c['dry_launches']} (measured {c['launches']}); collectives "
+            f"{c['dry_traffic']} (measured {c['traffic']}); peak predicted "
+            f"{c['predicted_peak_bytes'] / 2**30:.3f} GiB, measured "
+            f"{c['measured_peak_bytes'] / 2**30:.3f} GiB ({c['peak_err']:+.4f})")
+
+    def tp_ssm_serve_gates(self, arch, ranks, want, failures, note):
+        """Phase tp_ssm (a), (b), (e): ``tp_mesh_gates`` over each data
+        rank's rows and, for the hybrid, the batch-1 row whose shared K/V
+        the data ranks hold by positions."""
+        r0 = ranks[0][arch]
+        f32 = {"logits": (r0["f32"], want["f32"]["logits"])}
+        if "f32_seq" in r0:
+            f32["batch 1 over data"] = (r0["f32_seq"], want["f32"]["seq"])
+        row = self.tp_mesh_gates(arch, ranks, want, f32, failures)
         seq_log = ""
         if "seq" in r0:
             seq, seq_noise = self.tp_ssm_departure(r0["seq"], want["batch1"])
             row.update(seq_departures=seq, seq_top_logit_diff=seq_noise)
             seq_log = (f"; batch 1 over data: {seq or 'equal'}, top logit within "
                        f"{seq_noise:.4f}")
-            if any(m >= TP_SSM_MARGIN for _, _, m in seq):
+            if any(m >= TP_MESH_MARGIN for _, _, m in seq):
                 failures.append(f"{arch} batch 1 over data: tokens part from one rank's at "
                                 f"{seq}")
-        f32 = {"logits": (r0["f32"], want["f32"]["logits"])}
-        if "f32_seq" in r0:
-            f32["batch 1 over data"] = (r0["f32_seq"], want["f32"]["seq"])
-        row["f32_rel_err"] = {k: float((g - w).abs().max() / w.abs().max())
-                              for k, (g, w) in f32.items()}
-        for k, e in row["f32_rel_err"].items():
-            if not e <= TP_SSM_F32_TOL:
-                failures.append(f"{arch} f32 {k}: {e:.3e} of one rank's largest |logit| from "
-                                f"one rank's, over {TP_SSM_F32_TOL}")
         log(f"tp_ssm {arch} (full width and depth, prequantized plam_sim): K1 a forward "
             f"{sorted(set(r0['k1'] + r0.get('seq_k1', [])))} (hand count {r0['k1_want']}), "
             f"rank 0's K1 at (K, N) {r0.get('k1_shapes')}; tokens against one rank's at the "
-            f"same batches: {parts or 'equal'} (row, position, one rank's margin), the top "
-            f"logit within {noise:.4f} before that{seq_log}; served in {r0['serve_s']:.1f} s "
-            f"{note}")
-        log(f"  f32 (parameters, activations, numerics, caches; TF32 off), the prefill and "
-            f"{TP_SSM_F32_DECODE} teacher-forced decode steps: logits from one rank's by "
-            + ", ".join(f"{k} {e:.3e}" for k, e in row["f32_rel_err"].items())
-            + f" of its largest |logit| (tol {TP_SSM_F32_TOL}), in {r0['f32_s']:.1f} s")
-        for name, c in r0["cells"].items():
-            log(f"  dry run {name} (rank 0): launches {c['dry_launches']} (measured "
-                f"{c['launches']}); collectives {c['dry_traffic']} (measured {c['traffic']}); "
-                f"peak predicted {c['predicted_peak_bytes'] / 2**30:.3f} GiB, measured "
-                f"{c['measured_peak_bytes'] / 2**30:.3f} GiB ({c['peak_err']:+.4f})")
+            f"same batches: {row['departures'] or 'equal'} (row, position, one rank's margin), "
+            f"the top logit within {row['top_logit_diff']:.4f} before that{seq_log}; served in "
+            f"{r0['serve_s']:.1f} s {note}")
+        self.log_mesh_details(row, r0)
         return row
 
-    def tp_ssm_train_gates(self, arch, ranks, loss0, failures, note):
+    def tp_ssm_train_gates(self, arch, ranks, loss0, failures, note, phase="tp_ssm"):
         """Phase tp_ssm (c): every rank's losses equal, finite, step 0 within
         TP_TRAIN_LOSS_RTOL of one rank's."""
         import math
@@ -7603,18 +7712,388 @@ class Smoke:
         if not (rel <= TP_TRAIN_LOSS_RTOL and all(math.isfinite(x) for x in r0["losses"])):
             failures.append(f"{key}: losses {r0['losses']}, step 0 against one rank's {loss0}: "
                             f"{rel:.2e}")
-        c = r0["cell"]
-        log(f"tp_ssm {key} ({TP_SSM_TRAIN_LAYERS[arch]} layers, posit_quant:16:1, AdamW lr "
+        log(f"{phase} {key} ({r0['layers']} layers, posit_quant:16:1, AdamW lr "
             f"1e-4, ZeRO-1): losses {[round(x, 4) for x in r0['losses']]} (step 0 {rel:.2e} "
             f"from one rank's {loss0:.4f}); step seconds {[round(x, 3) for x in r0['step_s']]}; "
             f"K3 a step {r0['k3']} (hand count {r0['k3_want']}); m + v a rank "
             f"{[r[key]['state_bytes'] for r in ranks]} (ZeRO-1's {r0['state_bytes_want']}); "
             f"collectives a step {r0['collectives']} (hand count {r0['collectives_want']}) {note}")
-        log(f"  dry run of the step (rank 0): launches {c['dry_launches']} (measured "
-            f"{c['launches']}); collectives {c['dry_traffic']} (measured {c['traffic']}); peak "
-            f"predicted {c['predicted_peak_bytes'] / 2**30:.3f} GiB, measured "
-            f"{c['measured_peak_bytes'] / 2**30:.3f} GiB ({c['peak_err']:+.4f})")
+        self.log_dry("dry run of the step (rank 0)", r0["cell"])
         return {"ranks": [r[key] for r in ranks], "step0_rel_diff": rel, "one_rank_loss0": loss0}
+
+    # -- phase tp_encdec ------------------------------------------------------
+
+    def phase_tp_encdec(self):
+        """The encoder-decoder and vlm families over a (data x model) mesh of
+        ranks, one world spawned from here (``tp_encdec_rank``), its four
+        ranks sharing this card over gloo (a card a rank over nccl): each
+        model served through the registry's static entry points
+        (``Smoke.tp_encdec_serve``) and seamless trained (phase tp_ssm's
+        ``Smoke.tp_ssm_train``), every cell also dry-run on the rank's
+        virtual mesh; qwen2-vl trained with a card a rank, else its step
+        counted on the virtual mesh here.  One rank's tokens, f32 logits and
+        step-0 losses are taken here first."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.configs import ShapeSpec, get_config
+        from repro_torch.launch.mesh import choose_backend, spawn
+        from repro_torch.models.registry import vlm_patches
+
+        self.yi_model = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        card = self.results["device"]["nvidia_smi"]
+        data, tp = TP_MESH
+        backend = choose_backend(data * tp, "cuda")
+        note = (f"[{card}; the ranks share this one card over gloo: not multi-card figures]"
+                if backend == "gloo" else f"[{torch.cuda.device_count()} x {card}, nccl]")
+        failures, res = [], {"card": card, "mesh": {"data": data, "model": tp}}
+        t0 = time.perf_counter()
+        jobs, want = {}, {}
+        for arch in TP_ENCDEC_ARCHS:
+            cfg = tp_encdec_cfg(arch)
+            tokens, extra = self.archs_inputs(cfg, 91)
+            batch = {"tokens": tokens.to(self.dev), **extra}
+            dec = torch.randint(0, cfg.vocab, (tokens.shape[0], TP_MESH_F32_DECODE),
+                                generator=self.gen(92), device=self.dev, dtype=torch.int32)
+            want[arch] = self.tp_encdec_one_rank(cfg, batch)
+            want[arch]["f32"] = self.tp_encdec_f32_one_rank(tp_encdec_f32_cfg(arch), batch, dec)
+            jobs[arch] = dict(kind="serve", cfg=cfg, dec=dec.cpu(),
+                              batch={k: v.cpu() for k, v in batch.items()})
+        train = {"seamless-m4t-medium": (
+            tp_encdec_train_cfg(min(self.args.layers, TP_ENCDEC_TRAIN_LAYERS)),
+            ShapeSpec("tp_encdec_train", TRAIN_SEQ, TRAIN_BATCH, "train"))}
+        vlm = dataclasses.replace(get_config("qwen2-vl-72b"),
+                                  n_layers=min(self.args.layers, TP_ENCDEC_VLM_TRAIN_LAYERS))
+        vlm_shape = ShapeSpec("tp_encdec_vlm_train", vlm_patches(vlm) + TRAIN_SEQ,
+                              FAMILY_VLM_ROWS, "train")
+        if backend == "nccl":  # a card a rank: room for qwen2-vl's step
+            train["qwen2-vl-72b"] = (vlm, vlm_shape)
+        else:
+            res["qwen2-vl-72b/train_dry"] = self.tp_encdec_vlm_dry(vlm, vlm_shape, failures, note)
+        for arch, (cfg, shape) in train.items():
+            want[f"{arch}/train"] = self.tp_encdec_loss0(cfg, shape)
+            jobs[f"{arch}/train"] = dict(kind="train", cfg=cfg, shape=shape,
+                                         count=tp_encdec_collectives,
+                                         mem_tol=TP_ENCDEC_STEP_MEM_TOL)
+        res["one_rank_s"] = time.perf_counter() - t0
+        log(f"tp_encdec: a world of {data * tp} ranks, (data {data} x model {tp}) over "
+            f"{backend}; one rank's runs here in {res['one_rank_s']:.1f} s")
+        t0 = time.perf_counter()
+        ranks = spawn(tp_encdec_rank, data * tp, "cuda", self.args, jobs,
+                      timeout=TP_MESH_TIMEOUT_S)
+        res["world_s"] = time.perf_counter() - t0
+        r0 = ranks[0]
+        res["backend"], res["world"] = r0["backend"], r0["world"]
+        log(f"tp_encdec: backend {r0['backend']}, world {r0['world']}, ranks at (data, model) "
+            f"{[(r['data_rank'], r['model_rank']) for r in ranks]}; the world in "
+            f"{res['world_s']:.1f} s with the spawn {note}")
+        if r0["backend"] != backend or r0["world"] != data * tp:
+            failures.append(f"world {r0['world']} over {r0['backend']}, not {data * tp} over "
+                            f"{backend}")
+        for r in ranks:
+            for name in jobs:
+                failures.extend(f"{name} rank {r['rank']}: {f}" for f in r[name]["failures"])
+        for arch in TP_ENCDEC_ARCHS:
+            res[arch] = self.tp_encdec_serve_gates(arch, ranks, want[arch], failures, note)
+        for arch in train:
+            res[f"{arch}/train"] = self.tp_ssm_train_gates(
+                arch, ranks, want[f"{arch}/train"], failures, note, phase="tp_encdec")
+        k1 = sum(sum(r0[a]["k1"]) + r0[a]["encode_k1"] for a in TP_ENCDEC_ARCHS)
+        k3 = sum(sum(r0[f"{a}/train"]["k3"]) for a in train)
+        self.path_launches["plam_matmul"] = self.path_launches.get("plam_matmul", 0) + k1
+        self.path_launches["posit_codec"] = self.path_launches.get("posit_codec", 0) + k3
+        self.results["tp_encdec"] = res
+        if failures:
+            raise AssertionError("; ".join(failures[:8]))
+
+    def tp_encdec_generate(self, cfg, model, batch, mesh, base=0, steps=TP_MESH_DECODE):
+        """``batch`` (tokens and the frames or patch embeddings) served on
+        ``model`` through the registry's static ``prefill`` and ``steps``
+        greedy ``decode_step``s over caches grown by ``steps`` positions, as
+        the static engine grows them (the encdec's over its encoder output,
+        encoded once more after the prefill, as the engine does): each
+        position's token, top logit and top-2 margin, and each forward's
+        launches, collectives (``Mesh.traffic``), peak bytes above ``base``
+        and inputs (as meta tensors, for the dry run); the encode's
+        launches and collectives under ``"encode"``."""
+        torch = self.torch
+        from repro_torch.models import build, encdec
+        from repro_torch.parallel.sharding import use_mesh
+
+        api = build(cfg)
+        out = {k: [] for k in TOP2 + ("launches", "traffic", "peak", "inputs")}
+        out["encode"] = {"launches": {}, "traffic": {}}
+
+        def forward(inputs, fn):
+            out["inputs"].append(meta_like(torch, inputs))
+            return self.served_forward(out, mesh, base, fn)
+
+        with torch.no_grad(), use_mesh(mesh):
+            tok, caches = forward(batch, lambda: api.prefill(model, batch))
+            pad = (0, 0, 0, 0, 0, steps)  # the sequence axis of [L, B, S, kv, hd]
+            caches = tuple(torch.nn.functional.pad(c, pad) for c in caches)
+            at = caches[0].shape[2] - steps
+            extra = {}
+            if cfg.family == "encdec":
+                extra["enc_out"], launches, traffic = self.counted(
+                    mesh, lambda: encdec.encode(cfg, model, batch["frames"]))
+                out["encode"] = {"launches": launches, "traffic": traffic}
+            for i in range(steps):
+                step = {"token": tok, "kv_caches": caches, "cache_len": at + i, **extra}
+                tok, caches = forward(step, lambda b=step: api.decode_step(model, b))
+        del caches, extra
+        for k in TOP2:
+            out[k] = torch.stack(out[k], dim=1)
+        return out
+
+    def tp_encdec_one_rank(self, cfg, batch):
+        """One rank's tokens, top logits and margins for phase tp_encdec's
+        gates, at the batches the world serves them (each data rank's
+        rows)."""
+        torch = self.torch
+        model = self.tp_ssm_model(cfg, None)
+        out = self.by_data_rank(lambda rows: self.tp_encdec_generate(cfg, model, rows, None),
+                                batch)
+        del model
+        torch.cuda.empty_cache()
+        return out
+
+    def tp_encdec_f32(self, cfg, model, batch, dec, mesh):
+        """Phase tp_encdec (a): the f32 logits [rows, 1 + decode steps, V] of
+        ``batch``'s prefill (tokens and frames or patch embeddings) and the
+        teacher-forced decode of ``dec`` over f32 caches with room for it
+        (the modules' own prefill and decode_step, as
+        tests/test_torch_tp_encdec.py runs them), TF32 off."""
+        torch = self.torch
+        from repro_torch.models import encdec, transformer
+        from repro_torch.parallel.sharding import use_mesh
+
+        f32 = torch.float32
+        batch = {k: v.to(self.dev, f32) if v.is_floating_point() else v.to(self.dev)
+                 for k, v in batch.items()}
+        tokens, n = batch["tokens"], dec.shape[1]
+        b, s = tokens.shape
+        with no_tf32(torch), torch.no_grad(), use_mesh(mesh):
+            if cfg.family == "encdec":
+                kv = model.dec_layers[0].attn.wk.shape[-1] // cfg.hd
+                caches = encdec.kv_cache_init(cfg, b, s + n, f32, self.dev, kv)
+                logits, caches = encdec.prefill(cfg, model, batch["frames"], tokens, caches)
+                enc_out = encdec.encode(cfg, model, batch["frames"])
+
+                def step(tok, caches, at):
+                    return encdec.decode_step(cfg, model, tok, enc_out, caches, at)
+            else:
+                s += batch["embeds_prefix"].shape[1]
+                caches = transformer.kv_cache_init(cfg, b, s + n, f32, self.dev,
+                                                   transformer.local_kv_heads(cfg, model))
+                logits, caches = transformer.prefill_prefix(cfg, model, tokens,
+                                                            batch["embeds_prefix"], caches)
+
+                def step(tok, caches, at):
+                    return transformer.decode_step(cfg, model, tok, caches, at)
+            out = [logits]
+            for i in range(n):
+                logits, caches = step(dec[:, i:i + 1].to(self.dev), caches, s + i)
+                out.append(logits)
+        return torch.cat(out, dim=1).float()
+
+    def tp_encdec_f32_one_rank(self, cfg, batch, dec):
+        """One rank's f32 logits for phase tp_encdec (a), at the batches the
+        world runs them (each data rank's rows)."""
+        torch = self.torch
+        from repro_torch.models import build
+
+        model = build(cfg).init(seed=0, device=self.dev)
+        got = self.by_data_rank(lambda rows, d: self.tp_encdec_f32(cfg, model, rows, d, None),
+                                batch, dec)
+        del model
+        torch.cuda.empty_cache()
+        return got
+
+    def tp_encdec_loss0(self, cfg, shape):
+        """One rank's step-0 loss of ``shape``'s training cell (the dry run's
+        ``build_cell`` on this card, as the ranks build theirs): a no-grad
+        forward of the global batch."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.launch import dryrun
+        from repro_torch.models import build
+
+        step, (model, opt, batch) = dryrun.build_cell(cfg, shape, device=self.dev)
+        del step, opt
+        with torch.no_grad():
+            loss0 = float(build(cfg).train_loss(model, batch))
+        del model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        return loss0
+
+    def tp_encdec_vlm_dry(self, cfg, shape, failures, note):
+        """qwen2-vl-72b's sharded training step on one card: rank 0 of the
+        virtual (data x model) mesh, traced on meta (after a warm-up), its
+        collectives against ``tp_encdec_collectives`` and its K3 quantizes
+        against ``family_quantize_count`` (four ranks on one card cannot
+        hold the step; a card a rank trains it)."""
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import VirtualMesh
+        from repro_torch.models import build
+        from repro_torch.optim.optimizers import Zero1
+        from repro_torch.parallel.sharding import leaf_layouts, use_mesh
+
+        vm = VirtualMesh(0, data=TP_MESH[0], model=TP_MESH[1])
+        t0 = time.perf_counter()
+        rec, _ = dryrun.analyze_cell(cfg, shape, mesh=vm, warmup=True)
+        got = dict(vm.collectives)
+        with use_mesh(vm):
+            model = build(cfg).init(device="meta", mesh=vm)
+        want = tp_encdec_collectives(cfg, Zero1(leaf_layouts(cfg, vm), vm), model)
+        _, k3 = self.family_quantize_count(cfg, shape.seq_len)
+        row = {"launches": rec["launches"], "collectives": got, "collectives_want": want,
+               "k3_want": k3, "predicted_peak_bytes": rec["memory"]["peak_bytes"],
+               "param_bytes": rec["memory"]["param_bytes"],
+               "opt_state_bytes": rec["memory"]["opt_state_bytes"],
+               "opt_state_bytes_rules": rec["memory"]["opt_state_bytes_rules"],
+               "dry_run_s": time.perf_counter() - t0}
+        if got != want:
+            failures.append(f"qwen2-vl-72b step on the virtual mesh: collectives {got}, hand "
+                            f"count {want}")
+        if rec["launches"].get("posit_codec") != k3:
+            failures.append(f"qwen2-vl-72b step on the virtual mesh: K3 {rec['launches']}, "
+                            f"expected {k3}")
+        if row["opt_state_bytes"] != row["opt_state_bytes_rules"]:
+            failures.append(f"qwen2-vl-72b m + v {row['opt_state_bytes']} bytes, ZeRO-1's "
+                            f"count {row['opt_state_bytes_rules']}")
+        log(f"tp_encdec qwen2-vl-72b/train ({cfg.n_layers} layers, {shape.global_batch} x "
+            f"{shape.seq_len} positions): not run on one card (four ranks cannot hold its "
+            f"step); rank 0's step on the virtual (data {vm.data_size} x model "
+            f"{vm.model_size}) mesh: launches {rec['launches']} (K3 hand count {k3}), "
+            f"collectives {got} (hand count {want}), m + v {row['opt_state_bytes']:.0f} bytes "
+            f"(ZeRO-1's {row['opt_state_bytes_rules']:.0f}), predicted peak "
+            f"{row['predicted_peak_bytes'] / 2**30:.2f} GiB a rank {note}")
+        return row
+
+    def tp_encdec_serve(self, job, mesh):
+        """One rank's serving of ``job["cfg"]`` (phase tp_encdec (b)-(e)): its
+        rows of the prompt through the registry's static entry points; K1
+        launches a forward and an encode, no other launch, no plain K1 or
+        codec call; the collectives a forward and an encode against
+        ``tp_encdec_forward_collectives``; rank 0's K1 bit for bit (rows
+        0-63 and the last 64-row block, in a second, recorded prefill and
+        decode step); the prefill and a decode step dry-run on this rank's
+        virtual mesh at their own inputs; then (a) in f32."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.configs import ShapeSpec
+        from repro_torch.models import build
+
+        cfg = job["cfg"]
+        data = mesh.data_size
+        batch = {k: v.to(self.dev) for k, v in job["batch"].items()}
+        mine = data_rows(batch, mesh.data_rank, data)
+        lc = launch_counts(cfg)
+        out = {"failures": [],
+               "k1_want": [lc["enc_k1"] + lc["k1"]] + [lc["k1"]] * TP_MESH_DECODE,
+               "encode_k1_want": lc["enc_k1"],
+               "layers": (f"{cfg.enc_layers} + {cfg.dec_layers}" if cfg.family == "encdec"
+                          else cfg.n_layers)}
+        fails = out["failures"]
+        t0 = time.perf_counter()
+        with self.counting_plain() as plain:
+            base = torch.cuda.memory_allocated()
+            model = self.tp_encdec_init(lambda: self.tp_ssm_model(cfg, mesh))
+            run = self.tp_encdec_generate(cfg, model, mine, mesh, base)
+            out["serve_s"] = time.perf_counter() - t0
+            hand = tp_encdec_forward_collectives(cfg, model.vocab_parallel)
+            # every rank runs the recorded prefill and decode step (their
+            # collectives), rank 0 keeps its K1 launches
+            with contextlib.ExitStack() as stack:
+                seen = (stack.enter_context(self.recording_k1_rows(list(model.parameters())))
+                        if mesh.rank == 0 else {})
+                self.tp_encdec_generate(cfg, model, mine, mesh, base, steps=1)
+            del model
+        if mesh.rank == 0:  # the plain version on the card, outside counting_plain
+            out["k1_check"] = self.check_recorded_rows(f"rank 0 {cfg.name} K1", seen, fails)
+        del seen
+        out["k1"] = [f.get("plam_matmul", 0) for f in run["launches"]]
+        out["encode_k1"] = run["encode"]["launches"].get("plam_matmul", 0)
+        out["launches"] = run["launches"]
+        out["plain_calls"] = dict(plain)
+        out["collectives"] = {"forward": [calls(t) for t in run["traffic"]],
+                              "encode": calls(run["encode"]["traffic"])}
+        out["collectives_want"] = hand
+        if out["k1"] != out["k1_want"] or out["encode_k1"] != out["encode_k1_want"]:
+            fails.append(f"K1 launches a forward {out['k1']}, an encode {out['encode_k1']}; "
+                         f"expected {out['k1_want']}, {out['encode_k1_want']}")
+        if any(f.keys() - {"plam_matmul"} for f in run["launches"] + [run["encode"]["launches"]]):
+            fails.append(f"launches other than K1 in a forward: {run['launches'][:2]}")
+        if any(plain.values()):
+            fails.append(f"plain K1 or codec calls on the card: {dict(plain)}")
+        want_calls = [hand["prefill"]] + [hand["decode"]] * TP_MESH_DECODE
+        if out["collectives"]["forward"] != want_calls or (
+                cfg.family == "encdec" and out["collectives"]["encode"] != hand["encode"]):
+            fails.append(f"collectives {out['collectives']}, hand count {hand}")
+        # (e) the prefill and a decode step on this rank's virtual mesh, at their inputs
+        out["cells"] = {}
+        rows = mine["tokens"].shape[0]
+        for name, i in (("prefill", 0), ("decode", 1)):
+            shape = ShapeSpec(f"tp_encdec_{name}", mine["tokens"].shape[1], rows * data, name)
+            out["cells"][name] = self.tp_ssm_dry(
+                cfg, shape, True, mesh, run["launches"][i], run["traffic"][i], run["peak"][i],
+                fails, tol=TP_ENCDEC_SERVE_MEM_TOL, inputs=run["inputs"][i])
+        for k in TOP2:
+            out[k] = torch.cat(mesh.all_gather(run[k].contiguous(), "data")).cpu()
+        del run
+        # (a) the same forms in f32 (teacher-forced), after the bf16 model is gone
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg32 = tp_encdec_f32_cfg(cfg.name)
+        model = self.tp_encdec_init(lambda: build(cfg32).init(seed=0, device=self.dev, mesh=mesh))
+        dec = data_rows(job["dec"], mesh.data_rank, data)
+        got = self.tp_encdec_f32(cfg32, model, mine, dec, mesh)
+        out["f32"] = torch.cat(mesh.all_gather(got.contiguous(), "data")).cpu()
+        del model, got
+        out["f32_s"] = time.perf_counter() - t0
+        return out
+
+    def tp_encdec_init(self, init):
+        """``init()`` (a rank's shard) on each rank of the world in turn, the
+        freed blocks of its draws (one whole f32 tensor at a time) handed
+        back before the next rank draws: four ranks' transients at once do
+        not fit beside their shards on one card."""
+        torch = self.torch
+
+        def one():
+            model = init()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            return model
+
+        return one_rank_at_a_time(self.torch.distributed.get_rank(), one)
+
+    def tp_encdec_serve_gates(self, arch, ranks, want, failures, note):
+        """Phase tp_encdec (a), (b): ``tp_mesh_gates`` over each data rank's
+        rows."""
+        r0 = ranks[0][arch]
+        row = self.tp_mesh_gates(arch, ranks, want, {"logits": (r0["f32"], want["f32"])},
+                                 failures)
+        enc = (f", an encode {r0['encode_k1']} (hand count {r0['encode_k1_want']})"
+               if r0["encode_k1_want"] else "")
+        coll = r0["collectives"]
+        enc_coll = f", an encode {coll['encode']}" if r0["encode_k1_want"] else ""
+        log(f"tp_encdec {arch} (full width, {r0['layers']} layers, prequantized plam_sim): "
+            f"K1 a forward {sorted(set(r0['k1']))} (hand count {sorted(set(r0['k1_want']))}){enc};"
+            f" collectives a prefill {coll['forward'][0]}, a decode step {coll['forward'][1]}"
+            f"{enc_coll} (hand count {r0['collectives_want']}); tokens against one rank's at the "
+            f"same rows: {row['departures'] or 'equal'} (row, position, one rank's margin), the "
+            f"top logit within {row['top_logit_diff']:.4f} before that; served in "
+            f"{r0['serve_s']:.1f} s {note}")
+        self.log_mesh_details(row, r0)
+        return row
 
     def kernels_line(self):
         out = []
@@ -7630,6 +8109,29 @@ class Smoke:
                 "shape": row["shape"],
             })
         return {"kernels": out}
+
+
+TOP2 = ("tokens", "top", "margins")  # a served run's greedy tokens, top logits, top-2 margins
+
+
+@contextlib.contextmanager
+def no_tf32(torch):
+    """TF32 off for matmuls and convolutions inside, then as it was."""
+    was = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = was
+
+
+def data_rows(x, d, data=TP_MESH[0]):
+    """Data rank ``d``'s rows (of ``data`` ranks) of a tensor, or of every
+    leaf of a dict of tensors."""
+    if isinstance(x, dict):
+        return {k: data_rows(v, d, data) for k, v in x.items()}
+    n = x.shape[0] // data
+    return x[d * n:(d + 1) * n]
 
 
 def tp_ssm_f32_cfg(arch):
@@ -7915,11 +8417,139 @@ def tp_ssm_rank(device, args, jobs):
             quiet.enter_context(contextlib.redirect_stdout(
                 quiet.enter_context(open(os.devnull, "w"))))
         smoke = Smoke(args)
-        data, tp = TP_SSM_MESH
+        data, tp = TP_MESH
         mesh = make_host_mesh(data=data, model=tp)
         out.update(data_rank=mesh.data_rank, model_rank=mesh.model_rank)
         for name, job in jobs.items():
             out[name] = getattr(smoke, f"tp_ssm_{job['kind']}")(job, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def meta_like(torch, tree):
+    """``tree`` (dicts, tuples, lists) with each tensor as a meta tensor of
+    its shape and dtype (a dry run's inputs)."""
+    if isinstance(tree, dict):
+        return {k: meta_like(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(meta_like(torch, v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return torch.empty_like(tree, device="meta")
+    return tree
+
+
+def calls(traffic) -> dict:
+    """A ``Mesh.traffic`` record's calls by "<axis>/<kind>"."""
+    return {k: v[0] for k, v in (traffic or {}).items()}
+
+
+def tp_encdec_cfg(arch):
+    """``arch`` at full width under default=plam_sim:16:1, the vlm cut to
+    TP_ENCDEC_VLM_LAYERS layers (phase tp_encdec's serving)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).with_numerics("default=plam_sim:16:1")
+    if cfg.family == "vlm":
+        cfg = dataclasses.replace(cfg, n_layers=TP_ENCDEC_VLM_LAYERS)
+    return cfg
+
+
+def tp_encdec_f32_cfg(arch):
+    """Phase tp_encdec (a)'s f32 form of ``arch`` (f32 parameters,
+    activations and numerics), the vlm at TP_ENCDEC_VLM_F32_LAYERS layers."""
+    cfg = tp_ssm_f32_cfg(arch)
+    if cfg.family == "vlm":
+        cfg = dataclasses.replace(cfg, n_layers=TP_ENCDEC_VLM_F32_LAYERS)
+    return cfg
+
+
+def tp_encdec_train_cfg(layers):
+    """seamless-m4t-medium as its config gives it (its posit_quant:16:1,
+    bf16) with ``layers`` encoder and ``layers`` decoder layers."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("seamless-m4t-medium"), n_layers=2 * layers,
+                               enc_layers=layers, dec_layers=layers)
+
+
+def tp_encdec_forward_collectives(cfg, vocab_parallel) -> dict:
+    """The collectives over ``model`` of a serving forward of an encdec or
+    vlm shard, by hand, as ``calls`` gives them: the f32 partial sums of
+    each row-parallel projection (a transformer layer's wo and wd; an
+    encoder layer's wo and wd, a decoder layer's wo, cross wo and wd), the
+    vocab-parallel embedding's sum and the head's gather.  Under
+    "prefill", "decode" and, for the encdec, "encode" (the encoder alone:
+    the prefill runs it and then the decoder)."""
+    vp = int(vocab_parallel)
+
+    def forward(sums):
+        return {"model/all-reduce": sums + vp, **({"model/all-gather": vp} if vp else {})}
+
+    if cfg.family == "encdec":
+        enc, dec = 2 * cfg.enc_layers, 3 * cfg.dec_layers
+        return {"prefill": forward(enc + dec), "decode": forward(dec),
+                "encode": {"model/all-reduce": enc}}
+    return {"prefill": forward(2 * cfg.n_layers), "decode": forward(2 * cfg.n_layers)}
+
+
+def tp_encdec_collectives(cfg, zero, model) -> dict:
+    """The collectives of an encdec's or vlm's sharded training step, by
+    hand (phase train's batch; the vlm's rows are its patches and tokens).
+    Over ``model``, an encdec (no remat): the embedding's sum, wo's and
+    wd's sums an encoder layer, wo's, the cross wo's and wd's a decoder
+    layer in the forward, their ``copy_model``s' sums in the backward, the
+    encoder output's one copy into every cross wk/wv, the head's copy a
+    loss chunk and the gradient norm's; a vlm as a dense model with remat
+    (``tp_train_collectives``: 5 a layer); either way each ``partial``
+    leaf's sum; the head's all-gather a chunk and its recompute.  Over
+    ``data``: as ``tp_train_collectives``."""
+    import torch
+
+    from repro_torch.models.registry import vlm_patches
+
+    positions = TRAIN_SEQ + (vlm_patches(cfg) if cfg.family == "vlm" else 0)
+    chunks = -(-positions // 512)
+    vp = int(getattr(model, "vocab_parallel", False))
+    partial = sum(lay.partial for lay in zero.layouts.values())
+    if cfg.family == "encdec":
+        layers = 4 * cfg.enc_layers + 6 * cfg.dec_layers + 1
+    else:
+        layers = 5 * cfg.n_layers
+    bf16 = (sum(p.dtype == torch.bfloat16 for p in model.parameters())
+            if zero.mesh.data_size == 2 else 0)
+    return {"all_reduce": vp + layers + vp * chunks + 1 + partial,
+            "all_gather": 2 * vp * chunks,
+            "data_all_reduce": 2 + len(zero.layouts) - bf16,
+            "data_all_gather": bf16 + sum(zero.sliced(names[0])
+                                          for names in zero.by_path.values())}
+
+
+def tp_encdec_rank(device, args, jobs):
+    """One rank of phase tp_encdec (``launch/mesh.py::spawn``): each serving
+    job (``Smoke.tp_encdec_serve``), then each training job (phase
+    tp_ssm's ``Smoke.tp_ssm_train``), on the (data x model) mesh of the
+    world.  Rank 0 logs."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rank = dist.get_rank()
+    out = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend()}
+    with contextlib.ExitStack() as quiet:
+        if rank:
+            quiet.enter_context(contextlib.redirect_stdout(
+                quiet.enter_context(open(os.devnull, "w"))))
+        smoke = Smoke(args)
+        data, tp = TP_MESH
+        mesh = make_host_mesh(data=data, model=tp)
+        out.update(data_rank=mesh.data_rank, model_rank=mesh.model_rank)
+        run = {"serve": smoke.tp_encdec_serve, "train": smoke.tp_ssm_train}
+        for name, job in jobs.items():
+            out[name] = run[job["kind"]](job, mesh)
             gc.collect()
             torch.cuda.empty_cache()
     return out

@@ -35,7 +35,8 @@ mesh): rank r's shard built on meta (``init(mesh=...)``), its inputs as
 the reference's ``batch_shardings`` cut them (the batch over ``data``,
 which folds in ``pod``; a global batch of 1 decodes with the hybrid's
 shared K/V positions over ``data``; caches over ``model``), for training
-ZeRO-1 AdamW state (``optim/optimizers.py::Zero1``).  The rank's
+ZeRO-1 AdamW state (``optim/optimizers.py::Zero1``; the encdec's
+encoder and decoder stacks each at its own depth).  The rank's
 collectives are counted as the world's are (kind, axis, group, result
 bytes) and each axis is priced at its link (``roofline.py::axis_link``).
 The record then has ``devices``, ``mesh``, ``rank``, ``collectives``
@@ -44,10 +45,14 @@ bytes beside the reference rules' per-device parameter count
 (``param_bytes_rules``: where kv < tp a rank keeps whole kv heads,
 ``parallel/sharding.py::kv_heads_for_rank``, and holds more).  Rank 0 is
 analysed; where another model rank holds more argument bytes, that rank
-too (``ranks``).  The reference's ``kv_seq_tp`` (a decode cache's
-positions over ``model`` where kv < tp) is not ported: no config sets it,
-and the port's kv-head layout takes its place.  The encdec and vlm cells
-wait for ROADMAP.md's queue 1, item 8d, and their records say so.
+too (``ranks``).  The encdec's ``frames`` and ``enc_out`` and the vlm's
+``embeds_prefix`` are cut over the batch as its tokens are.  Two
+shardings of the reference are not ported, by design: ``kv_seq_tp`` (a
+decode cache's positions over ``model`` where kv < tp: no config sets
+it, and the port's kv-head layout takes its place), and an encdec
+decode's ``enc_out`` positions over ``data`` at a global batch of 1 (no
+applicable cell has one: long_500k does not apply to a quadratic
+config), which raises.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b --shape decode_32k
@@ -74,8 +79,7 @@ from repro_torch.configs import ARCHS, ALL_SHAPES, applicable_shapes, get_config
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.core.policy import as_policy, describe, load_policy_arg, parse_policy, policy_to_str
 from repro_torch.kernels import _lib
-from repro_torch.launch.mesh import TP_TRAINING, make_production_mesh, make_virtual_mesh, \
-    mesh_name
+from repro_torch.launch.mesh import make_production_mesh, make_virtual_mesh, mesh_name
 from repro_torch.launch.op_analysis import OpAnalysis
 from repro_torch.launch.roofline import HBM_BYTES, axis_link
 from repro_torch.models.registry import build
@@ -89,12 +93,9 @@ from repro_torch.parallel.sharding import (
     spec_for_param,
     use_mesh,
 )
-from repro_torch.serving.api import LATER
 from repro_torch.train.loop import TrainConfig, local_rows, make_train_step
 
 SKIPPED = "quadratic attention at 524k tokens (the config is not sub_quadratic)"
-#: the record of a cell whose family no mesh runs yet
-NOT_ON_A_MESH = "the {} family under a mesh " + LATER.format(TP_TRAINING)
 
 
 def _materialize(spec, cfg: ModelConfig, device):
@@ -134,15 +135,19 @@ def _zeroed(tree):
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeSpec, *, device="meta", prequantize=False,
-               mesh=None):
+               mesh=None, inputs=None):
     """Returns (step, args) for one cell: ``step(*args)`` runs it.  On
     ``"meta"`` (the default) nothing is allocated; on a card the same
     step runs on seeded weights and inputs (``chip_smoke.py``'s phases
-    ``dryrun`` and ``tp_ssm`` hold the two against each other).  Under a
-    ``mesh`` (run the step inside ``use_mesh(mesh)``), rank ``mesh.rank``'s
-    step: its shard, its inputs (:func:`rank_inputs`) and, for training,
-    ZeRO-1 state; a training batch is the global one, which the step
-    cuts (``train/loop.py::local_rows``), as the world's ranks take it."""
+    ``dryrun``, ``tp_ssm`` and ``tp_encdec`` hold the two against each
+    other).  Under a ``mesh`` (run the step inside ``use_mesh(mesh)``),
+    rank ``mesh.rank``'s step: its shard, its inputs (:func:`rank_inputs`)
+    and, for training, ZeRO-1 state; a training batch is the global one,
+    which the step cuts (``train/loop.py::local_rows``), as the world's
+    ranks take it.  ``inputs``: a prefill's or decode step's inputs (meta
+    tensors, the rank's) in place of the shape's, for a served run whose
+    shapes no ``ShapeSpec`` gives (an encdec's target prefix shorter than
+    its frames)."""
     device = torch.device(device)
     api = build(cfg)
     with use_mesh(mesh):
@@ -157,11 +162,12 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, *, device="meta", prequantize
             set_trainable(model)
             batch = _materialize(api.train_inputs(b, s), cfg, device)
             ocfg = OptConfig(name="adamw", lr=1e-4)
-            zero = None if mesh is None else Zero1(leaf_layouts(cfg, mesh), mesh, cfg.n_layers)
+            zero = None if mesh is None else Zero1(leaf_layouts(cfg, mesh), mesh)
             opt = init_state(ocfg, model, zero)
             step = make_train_step(api.train_loss, TrainConfig(opt=ocfg), zero)
             return step, (model, opt, batch)
-        inputs = rank_inputs(api, shape, mesh)
+        if inputs is None:
+            inputs = rank_inputs(api, shape, mesh)
         if shape.kind == "prefill":
             return api.prefill, (model, _materialize(inputs, cfg, device))
         if shape.kind == "decode":
@@ -192,9 +198,19 @@ def rank_inputs(api, shape: ShapeSpec, mesh):
     (meta tensors; the whole batch with no mesh): its rows
     (:func:`rank_rows`), the caches of its heads and channels (made
     inside the mesh), and at global batch 1 a decode's shared K/V cut
-    to its positions over ``data`` (``hybrid.py::seq_shard_caches``)."""
+    to its positions over ``data`` (``hybrid.py::seq_shard_caches``).  The
+    encdec's ``frames`` and ``enc_out`` and the vlm's ``embeds_prefix``
+    are the rank's rows; an encdec decode at a global batch of 1 over
+    more than one data rank, whose ``enc_out`` the reference cuts by
+    position, raises (not ported)."""
     from repro_torch.models.hybrid import seq_shard_caches
 
+    if (mesh is not None and shape.kind == "decode" and shape.global_batch == 1
+            and mesh.data_size > 1 and api.cfg.family == "encdec"):
+        raise NotImplementedError(
+            "an encdec decode at a global batch of 1 cuts enc_out's positions over data in "
+            "the reference; the port does not (no applicable cell decodes one: long_500k "
+            "does not apply to a quadratic config)")
     rows, s = rank_rows(shape.global_batch, mesh), shape.seq_len
     with use_mesh(mesh):
         if shape.kind == "prefill":
@@ -247,6 +263,19 @@ def trace_step(step, args):
     return oa.result, launches, out
 
 
+def stack_depths(cfg: ModelConfig) -> dict:
+    """path -> the depth of its layer stack, for every stacked parameter of
+    ``cfg``'s model (``layers/``; the encdec's ``enc_layers/`` and
+    ``dec_layers/`` each its own)."""
+    from repro_torch.core.prequant import layer_index, param_path
+
+    out = {}
+    for name, _, _ in meta_params(cfg):
+        if layer_index(name) is not None:
+            out[param_path(name)] = out.get(param_path(name), 0) + 1
+    return out
+
+
 def param_bytes_rules(cfg: ModelConfig, mesh) -> float:
     """A device's parameter bytes by the reference's rules
     (``spec_for_param`` and ``sanitize`` on the stacked leaves, the port's
@@ -255,13 +284,14 @@ def param_bytes_rules(cfg: ModelConfig, mesh) -> float:
     from repro_torch.core.prequant import param_path
 
     tp = mesh.model_size
+    depth = stack_depths(cfg)
     seen, total = set(), 0.0
     for name, shape, dtype in meta_params(cfg):
         path = param_path(name)
         if path in seen:
             continue
         seen.add(path)
-        stacked = ((cfg.n_layers,) if path.startswith("layers/") else ()) + shape
+        stacked = ((depth[path],) if path in depth else ()) + shape
         dims = sanitize(mesh, spec_for_param(path, len(stacked)), stacked)
         n = 1
         for size, d in zip(stacked, dims):
@@ -274,11 +304,12 @@ def state_bytes_rules(cfg: ModelConfig, mesh) -> float:
     """A device's AdamW m + v bytes under the reference's ZeRO-1
     (``_zero1_dims`` on the stacked leaves, f32 m and v)."""
     total, seen = 0.0, set()
+    depth = stack_depths(cfg)
     for lay in leaf_layouts(cfg, mesh).values():
         if lay.path in seen:
             continue
         seen.add(lay.path)
-        shape = ((cfg.n_layers,) if lay.layer is not None else ()) + lay.shape
+        shape = ((depth[lay.path],) if lay.layer is not None else ()) + lay.shape
         total += 8 * zero1_numel(shape, zero1_dims(lay.path, shape, mesh), mesh)
     return total
 
@@ -307,14 +338,14 @@ def collectives_by_axis(ana, mesh) -> dict:
 
 
 def analyze_cell(cfg: ModelConfig, shape: ShapeSpec, *, prequantize=False, tag="",
-                 warmup=False, mesh=None):
+                 warmup=False, mesh=None, inputs=None):
     """The dry-run record of one cell, and its analysis.  ``warmup`` runs
     the step once untraced first, as a process that has run it before
     would (its K3 tables built: the card's step after a warm-up).  Under
     a ``mesh``, rank ``mesh.rank``'s step (the step runs in the mesh, whose
-    collectives the analysis counts)."""
+    collectives the analysis counts).  ``inputs``: as :func:`build_cell`'s."""
     t0 = time.time()
-    step, args = build_cell(cfg, shape, prequantize=prequantize, mesh=mesh)
+    step, args = build_cell(cfg, shape, prequantize=prequantize, mesh=mesh, inputs=inputs)
     with use_mesh(mesh):
         if warmup:
             step(*args)
@@ -377,10 +408,6 @@ def analyze_mesh_cell(cfg: ModelConfig, shape: ShapeSpec, mesh_spec: str, *, pre
     the ranks keep unevenly), that rank's as well, in ``ranks``.  Returns
     (record, rank 0's analysis)."""
     mesh = make_virtual_mesh(mesh_spec, 0)
-    if cfg.family in ("encdec", "vlm"):
-        return {"arch": cfg.name, "shape": shape.name, "kind": shape.kind,
-                "mesh": mesh_name(mesh), "devices": mesh.world_size,
-                "skipped": NOT_ON_A_MESH.format(cfg.family)}, None
     check_shardable(cfg, mesh.model_size)
     rec, ana = analyze_cell(cfg, shape, prequantize=prequantize, tag=tag, mesh=mesh)
     layouts = leaf_layouts(cfg, mesh)

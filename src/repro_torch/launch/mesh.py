@@ -30,12 +30,6 @@ import torch
 
 from repro_torch.parallel.sharding import Mesh
 
-#: the item of ROADMAP.md's queue 1 that holds what no mesh runs yet: the
-#: encdec and vlm families (the dry run's seamless-m4t-medium and
-#: qwen2-vl-72b cells on the production meshes)
-TP_TRAINING = "8d: the encdec and vlm families under a mesh"
-
-
 def choose_backend(world: int, device) -> str:
     """``nccl`` when every rank has a card of its own, ``gloo`` when the
     ranks share a card (world > ``torch.cuda.device_count()``) or run on

@@ -158,7 +158,7 @@ def _train(args, device, mesh=None) -> list:
 
     cfg = _config(args)
     api = build(cfg)
-    zero = None if mesh is None else Zero1(leaf_layouts(cfg, mesh), mesh, cfg.n_layers)
+    zero = None if mesh is None else Zero1(leaf_layouts(cfg, mesh), mesh)
 
     def init():
         if mesh is None:

@@ -385,21 +385,31 @@ def attn_apply_paged(
 def cross_attn_apply(p: Attention, x, enc_kv, ncfg: SiteNumerics, *, n_heads: int,
                      n_kv: int, head_dim: int, use_kernel: Optional[bool] = None):
     """Decoder cross-attention over the encoder's (k, v) [B, S_src, kv, hd]:
-    no rope, every query attends to every encoder position."""
+    no rope, every query attends to every encoder position.  Under tensor
+    parallelism the heads are the rank's (from the weights it holds), x
+    enters ``wq`` through ``copy_model`` and ``wo``'s f32 partial sums are
+    added over the ranks before their rounding, as in :func:`attn_apply`."""
     b, s, _ = x.shape
+    heads = p.wq.shape[-1] // head_dim
+    if p.row_parallel:
+        x = copy_model(x)
     q = _split_heads(dense(x, p.wq, site(ncfg, "attn.cross.qkv"), use_kernel=use_kernel),
-                     n_heads, head_dim)
+                     heads, head_dim)
     k, v = enc_kv
     m = torch.ones((s, k.shape[1]), dtype=torch.bool, device=x.device)
     out = attn_core(q, k, v, m)
-    return dense(out.reshape(b, s, n_heads * head_dim), p.wo, site(ncfg, "attn.cross.out"),
-                 use_kernel=use_kernel)
+    return dense(out.reshape(b, s, heads * head_dim), p.wo, site(ncfg, "attn.cross.out"),
+                 use_kernel=use_kernel, reduce=p.row_parallel)
 
 
 def encode_cross_kv(p: Attention, enc_out, ncfg: SiteNumerics, *, n_kv: int, head_dim: int,
                     use_kernel: Optional[bool] = None):
-    """The cross-attention's (k, v) of the encoder output [B, S_src, d]."""
+    """The cross-attention's (k, v) of the encoder output [B, S_src, d], of
+    the kv heads this rank holds (all of them without tensor parallelism).
+    ``enc_out`` enters the cut ``wk``/``wv`` as it is: the decoder puts it
+    through ``copy_model`` once for all its layers."""
+    kv = p.wk.shape[-1] // head_dim
     qkv_cfg = site(ncfg, "attn.cross.qkv")
-    k = _split_heads(dense(enc_out, p.wk, qkv_cfg, use_kernel=use_kernel), n_kv, head_dim)
-    v = _split_heads(dense(enc_out, p.wv, qkv_cfg, use_kernel=use_kernel), n_kv, head_dim)
+    k = _split_heads(dense(enc_out, p.wk, qkv_cfg, use_kernel=use_kernel), kv, head_dim)
+    v = _split_heads(dense(enc_out, p.wv, qkv_cfg, use_kernel=use_kernel), kv, head_dim)
     return k, v

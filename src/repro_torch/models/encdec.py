@@ -13,6 +13,15 @@ LM's depth.
 Like the reference, each decoder block computes its cross-attention K/V
 from the encoder output on every call, decode steps included, and the
 caller (the static engine) keeps the encoder output.
+
+Under tensor parallelism (``parallel/sharding.py``) a rank holds its
+shard (``encdec_init(mesh=...)``, drawn whole and cut): each block's
+attention, cross-attention and MLP column- and row-parallel, the kv heads
+of ``kv_heads_for_rank``, ``embed`` and ``unembed`` by vocabulary where
+it divides tp (looked up and gathered as the transformer's),
+``frontend_proj`` whole.  The caches hold the rank's kv heads, and the
+encoder output enters the decoder's cross ``wk``/``wv`` through one
+``copy_model``, so that its gradient is summed over ``model`` once.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dense import dense, dense_init
 from repro_torch.core.policy import bind, site_for
+from repro_torch.parallel.sharding import copy_model, gather_model, shard_model
 
 from .attention import Attention, attn_apply, cross_attn_apply, encode_cross_kv
 from .common import RMSNorm, rmsnorm
@@ -52,7 +62,11 @@ class EncBlock(nn.Module):
 class EncDecLM(nn.Module):
     """``frontend_proj`` [frontend_dim, d], ``embed`` [V, d],
     ``enc_layers``, ``dec_layers``, ``ln_enc``, ``ln_dec`` and ``unembed``
-    [d, V], in the reference's layout."""
+    [d, V], in the reference's layout.  ``vocab_parallel`` and
+    ``tp_shard``: as ``transformer.DenseLM``'s."""
+
+    vocab_parallel = False
+    tp_shard = None
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device: torch.device):
@@ -75,14 +89,16 @@ class EncDecLM(nn.Module):
             p.requires_grad_(False)
 
 
-def encdec_init(cfg: ModelConfig, *, seed: int = 0, device=None) -> EncDecLM:
+def encdec_init(cfg: ModelConfig, *, seed: int = 0, device=None, mesh=None) -> EncDecLM:
     """The port's own seeded init on ``device`` (CUDA by default; on
-    ``"meta"`` shapes and dtypes only, ``device.init_generator``)."""
+    ``"meta"`` shapes and dtypes only, ``device.init_generator``); under a
+    ``mesh``, drawn whole and cut to this rank's shard
+    (``parallel/sharding.py::shard_model``)."""
     from repro_torch.device import init_generator, resolve_device
 
     device = resolve_device(device)
     gen = init_generator(device, seed)
-    return EncDecLM(cfg, generator=gen, device=device)
+    return shard_model(EncDecLM(cfg, generator=gen, device=device), cfg, mesh)
 
 
 def _positions(b: int, s: int, offset: int, device):
@@ -114,6 +130,8 @@ def _decoder(cfg: ModelConfig, model: EncDecLM, y, positions, enc_out, kv_caches
     ``cache_len``.  Returns (hidden after ``ln_dec``, kv_caches)."""
     nsite = bind(cfg.numerics)
     heads = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd)
+    if model.dec_layers and model.dec_layers[0].xattn.row_parallel:
+        enc_out = copy_model(enc_out)  # every layer's cut cross wk/wv reads it
     x = y
     for i, blk in enumerate(model.dec_layers):
         kv_slice = None if kv_caches is None else (kv_caches[0][i], kv_caches[1][i])
@@ -146,16 +164,24 @@ def train_loss(cfg: ModelConfig, model: EncDecLM, batch, use_kernel: Optional[bo
 
 
 def kv_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-                  device=None):
-    """The decoder's self-attention caches: k, v [L_dec, B, max_len, kv, hd]."""
-    shape = (cfg.dec_layers, batch, max_len, cfg.n_kv, cfg.hd)
+                  device=None, n_kv: Optional[int] = None):
+    """The decoder's self-attention caches: k, v [L_dec, B, max_len, kv, hd]
+    (``n_kv``: the kv heads a rank holds under tensor parallelism; all of
+    them by default)."""
+    shape = (cfg.dec_layers, batch, max_len, n_kv or cfg.n_kv, cfg.hd)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
 
 def _logits(cfg: ModelConfig, model: EncDecLM, hidden, use_kernel):
-    return dense(hidden, model.unembed, site_for(cfg.numerics, "lm_head"),
-                 use_kernel=use_kernel)
+    """The head's logits [..., V]; a vocab-parallel ``unembed`` computes
+    the rank's block of V and gathers the others'."""
+    if not model.vocab_parallel:
+        return dense(hidden, model.unembed, site_for(cfg.numerics, "lm_head"),
+                     use_kernel=use_kernel)
+    logits = dense(copy_model(hidden), model.unembed, site_for(cfg.numerics, "lm_head"),
+                   use_kernel=use_kernel)
+    return gather_model(logits, -1)
 
 
 @torch.no_grad()

@@ -33,15 +33,15 @@ int32 scalar: the port's eager attention slices the cache with it
 Together with ``init(seed, device="meta")`` these are the dry run's
 cells (``launch/dryrun.py``), built without a byte of device memory.
 
-Under tensor parallelism the dense, MoE, ssm and hybrid hooks run on
-one rank's shard (``parallel/sharding.py``): ``init(mesh=...)`` draws
-it, ``paged_pool_init(n_kv=...)`` allocates the rank's kv heads, and the
+Under tensor parallelism every family's hooks run on one rank's shard
+(``parallel/sharding.py``): ``init(mesh=...)`` draws it,
+``paged_pool_init(n_kv=...)`` allocates the rank's kv heads, and the
 paged entry points take the shard as they take a whole model, their
-collectives called inside the engine's mesh; the ssm's and hybrid's
-static entry points make the rank's caches inside the caller's mesh
-(``use_mesh``), and a hybrid decode batch with ``"seq_parallel": True``
-holds this data rank's positions of the shared K/V
-(``hybrid.py::seq_shard_caches``).
+collectives called inside the engine's mesh; the static entry points
+make the rank's caches (its kv heads, or its SSD heads and channels)
+inside the caller's mesh (``use_mesh``), and a hybrid decode batch with
+``"seq_parallel": True`` holds this data rank's positions of the shared
+K/V (``hybrid.py::seq_shard_caches``).
 """
 from __future__ import annotations
 
@@ -65,7 +65,7 @@ ENCDEC_TGT_LEN = 4096  # the encdec's longest target prefix (64 when reduced)
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: ModelConfig
-    init: Callable  # (seed=0, device=None; but encdec: mesh=None) -> model
+    init: Callable  # (seed=0, device=None, mesh=None) -> model (a rank's shard under mesh)
     train_loss: Callable  # (model, batch, use_kernel=None) -> scalar f32 loss
     prefill: Callable  # (model, batch, use_kernel=None) -> (logits, caches)
     decode_step: Callable  # (model, batch with caches, use_kernel=None) -> (logits, caches)
@@ -189,8 +189,8 @@ def build(cfg: ModelConfig) -> ModelAPI:
 
 
 def _build_encdec(cfg: ModelConfig) -> ModelAPI:
-    def init(seed: int = 0, device=None):
-        return _encdec.encdec_init(cfg, seed=seed, device=device)
+    def init(seed: int = 0, device=None, mesh=None):
+        return _encdec.encdec_init(cfg, seed=seed, device=device, mesh=mesh)
 
     def train_loss(model, batch, use_kernel=None):
         return _encdec.train_loss(cfg, model, batch, use_kernel)
@@ -198,7 +198,7 @@ def _build_encdec(cfg: ModelConfig) -> ModelAPI:
     def prefill(model, batch, use_kernel=None):
         tokens = batch["tokens"]
         caches = _encdec.kv_cache_init(cfg, tokens.shape[0], tokens.shape[1], CACHE_DTYPE,
-                                       tokens.device)
+                                       tokens.device, _rank_kv(cfg))
         frames = torch.as_tensor(batch["frames"]).to(tokens.device)
         return _encdec.prefill(cfg, model, frames, tokens, caches, use_kernel)
 
@@ -296,16 +296,10 @@ def _build_transformer(cfg: ModelConfig) -> ModelAPI:
 
 @torch.no_grad()
 def _vlm_prefill(cfg: ModelConfig, model, tokens, embeds_prefix, use_kernel):
-    """The vlm's prefill: the patch embeddings [B, P, d] occupy the first
-    P positions of the cache window, the tokens' embeddings the next S.
-    Returns (logits [B, 1, V] at the last token, kv_caches of P + S)."""
-    b = tokens.shape[0]
-    x = _tf.embed_tokens(cfg, model, tokens)
-    prefix = torch.as_tensor(embeds_prefix).to(x.device, x.dtype)
-    x = torch.cat([prefix, x], dim=1)
-    s_tot = x.shape[1]
-    caches = _tf.kv_cache_init(cfg, b, s_tot, CACHE_DTYPE, tokens.device)
-    positions = _tf.default_positions(cfg, b, s_tot, device=tokens.device)
-    hidden, caches = _tf.lm_backbone(cfg, model, x, positions, kv_caches=caches,
-                                     cache_len=0, use_kernel=use_kernel)
-    return _tf.lm_logits(cfg, model, hidden[:, -1:, :], use_kernel), caches
+    """The vlm's prefill (``transformer.py::prefill_prefix``) into caches of
+    P + S positions, of the kv heads a rank holds inside a mesh.  Returns
+    (logits [B, 1, V] at the last token, kv_caches)."""
+    b, s = tokens.shape
+    caches = _tf.kv_cache_init(cfg, b, embeds_prefix.shape[1] + s, CACHE_DTYPE, tokens.device,
+                               _rank_kv(cfg))
+    return _tf.prefill_prefix(cfg, model, tokens, embeds_prefix, caches, use_kernel)

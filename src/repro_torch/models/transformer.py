@@ -242,10 +242,14 @@ def train_loss(cfg: ModelConfig, model: DenseLM, batch,
     model's device), and for the vlm ``embeds_prefix`` [B, P, d]: the
     patch embeddings go ahead of the tokens' and their positions carry no
     target (label -1).  Returns the mean next-token cross-entropy, a
-    scalar f32 tensor.  A MoE block routes under autograd as it does in
-    a forward (the gate's gradient through the softmax and the top-k
-    values; the dispatch's through its gather); no auxiliary loss is
-    added, as in the reference."""
+    scalar f32 tensor.  Under a mesh with a data axis the batch is this
+    data rank's rows (``train/loop.py::local_rows`` cuts every leaf, the
+    prefix too), the M-RoPE positions are the rows' own, and the mean is
+    over the global batch's labels (:func:`lm_loss_chunked`).  A MoE
+    block routes under autograd as it does in a forward (the gate's
+    gradient through the softmax and the top-k values; the dispatch's
+    through its gather); no auxiliary loss is added, as in the
+    reference."""
     dev = model.embed.device
     tokens = torch.as_tensor(batch["tokens"]).to(dev)
     labels = torch.as_tensor(batch["labels"]).to(dev)
@@ -313,6 +317,22 @@ def prefill(cfg: ModelConfig, model: DenseLM, tokens, kv_caches,
     b, s = tokens.shape
     x = embed_tokens(cfg, model, tokens)
     positions = default_positions(cfg, b, s, device=tokens.device)
+    hidden, kv_caches = lm_backbone(cfg, model, x, positions, kv_caches=kv_caches,
+                                    cache_len=0, use_kernel=use_kernel)
+    return lm_logits(cfg, model, hidden[:, -1:, :], use_kernel), kv_caches
+
+
+@torch.no_grad()
+def prefill_prefix(cfg: ModelConfig, model: DenseLM, tokens, embeds_prefix, kv_caches,
+                   use_kernel: Optional[bool] = None):
+    """The vlm's prefill: the patch embeddings [B, P, d] occupy the first P
+    positions of the cache window, the tokens' embeddings the next S; the
+    caches (k, v [L, B, >= P + S, kv, hd]) are written in place from
+    position 0.  Returns (logits [B, 1, V] at the last token, kv_caches)."""
+    b = tokens.shape[0]
+    x = embed_tokens(cfg, model, tokens)
+    x = torch.cat([torch.as_tensor(embeds_prefix).to(x.device, x.dtype), x], dim=1)
+    positions = default_positions(cfg, b, x.shape[1], device=tokens.device)
     hidden, kv_caches = lm_backbone(cfg, model, x, positions, kv_caches=kv_caches,
                                     cache_len=0, use_kernel=use_kernel)
     return lm_logits(cfg, model, hidden[:, -1:, :], use_kernel), kv_caches

@@ -196,30 +196,36 @@ class Zero1:
     layer, so the dims are computed on the stacked shape (L, *shape) and
     layer i's state goes where the reference's [L] sharding puts row i:
     on data rank ``i // (L / data)`` when the data dim is L (``owner``),
-    else each layer's state cut on the same dim (``sdim``).  The bytes a
-    rank holds are the reference's per-device bytes, but for ``wk``/``wv``
-    where kv < tp, whose heads a rank keeps whole (``kv_heads_for_rank``).
+    else each layer's state cut on the same dim (``sdim``).  L is the depth
+    of the leaf's own stack (``depth``: the layers that hold it, so the
+    encoder-decoder's ``enc_layers`` and ``dec_layers`` each their own).
+    The bytes a rank holds are the reference's per-device bytes, but for
+    ``wk``/``wv`` where kv < tp, whose heads a rank keeps whole
+    (``kv_heads_for_rank``).
 
-    ``layouts``: each parameter's :class:`LeafLayout` (``leaf_layouts``);
-    ``n_layers``: the layer stacks' depth."""
+    ``layouts``: each parameter's :class:`LeafLayout` (``leaf_layouts``)."""
 
-    def __init__(self, layouts: Dict[str, LeafLayout], mesh: Mesh, n_layers: int):
-        self.layouts, self.mesh, self.n_layers = layouts, mesh, n_layers
+    def __init__(self, layouts: Dict[str, LeafLayout], mesh: Mesh):
+        self.layouts, self.mesh = layouts, mesh
         self.owner: Dict[str, int] = {}
         self.sdim: Dict[str, int] = {}
         self.by_path: Dict[str, List[str]] = {}
-        data = mesh.data_size
         for name, lay in layouts.items():
             self.by_path.setdefault(lay.path, []).append(name)
-            stacked = lay.layer is not None
-            dims = zero1_dims(lay.path, ((n_layers,) if stacked else ()) + lay.shape, mesh)
+        #: the depth of each stacked leaf's stack, by path
+        self.depth: Dict[str, int] = {path: len(names) for path, names in self.by_path.items()
+                                      if layouts[names[0]].layer is not None}
+        data = mesh.data_size
+        for name, lay in layouts.items():
+            depth = self.depth.get(lay.path)
+            dims = zero1_dims(lay.path, ((depth,) if depth else ()) + lay.shape, mesh)
             if data == 1 or "seq" not in dims:
                 continue
             j = dims.index("seq")
-            if stacked and j == 0:
-                self.owner[name] = lay.layer // (n_layers // data)
+            if depth and j == 0:
+                self.owner[name] = lay.layer // (depth // data)
             else:
-                self.sdim[name] = j - 1 if stacked else j
+                self.sdim[name] = j - 1 if depth else j
         for names in self.by_path.values():
             names.sort(key=lambda n: self.layouts[n].layer or 0)
 

@@ -57,6 +57,11 @@ scale) match no rule: whole on every rank, as the reference keeps them
 on every device, each rank reading its channels' or heads' slice and
 their gradients summed over ``model`` (``partial``).
 
+The encoder-decoder's cross-attention (``xattn``) is cut as
+self-attention is: ``wq`` by q heads, ``wk``/``wv`` by
+:func:`kv_heads_for_rank`, ``wo`` row-parallel.  Its ``frontend_proj``
+matches no rule and stays whole on every rank, as in the reference.
+
 One layout differs (:func:`kv_heads_for_rank`).  Where the kv heads do
 not divide the model axis, the reference shards the paged pool on
 positions (``seq_tp``) and lets GSPMD partition its gather path.  The
@@ -552,16 +557,13 @@ def kv_heads_for_rank(n_heads: int, n_kv: int, tp: int, rank: int) -> List[int]:
 
 
 def check_shardable(cfg, tp: int) -> None:
-    """Raise unless ``cfg`` can be cut ``tp`` ways: a dense or MoE
-    transformer whose q heads divide tp; a Mamba2 LM whose SSD heads and
-    state channels divide it; a hybrid whose shared attention's q heads
-    divide it too.  The encdec and vlm families wait for their item."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        from repro_torch.serving.api import LATER
-
-        raise ValueError(f"tensor parallelism serves and trains the dense, moe, ssm and hybrid "
-                         f"families, not {cfg.family!r}: the {cfg.family} family under a mesh "
-                         + LATER.format("8d"))
+    """Raise unless ``cfg`` can be cut ``tp`` ways: a dense, MoE or vlm
+    transformer (the vlm is the dense LM with M-RoPE) or an encoder-decoder
+    whose q heads divide tp; a Mamba2 LM whose SSD heads and state
+    channels divide it; a hybrid whose shared attention's q heads divide
+    it too."""
+    if cfg.family not in ("dense", "moe", "vlm", "encdec", "ssm", "hybrid"):
+        raise ValueError(f"tensor parallelism has no rules for the {cfg.family!r} family")
     if cfg.family in ("ssm", "hybrid"):
         nh = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
         for what, n in (("SSD heads", nh), ("SSM state channels", cfg.ssm_state)):
@@ -573,7 +575,8 @@ def check_shardable(cfg, tp: int) -> None:
         raise ValueError(f"{cfg.name}: {cfg.n_heads} q heads do not divide tp={tp}")
 
 
-_KV_COLUMNS = re.compile(r"(^|/)attn/w[kv]$")
+#: the kv projections, self-attention's and the decoder's cross-attention's
+_KV_COLUMNS = re.compile(r"(^|/)x?attn/w[kv]$")
 #: row-parallel leaves; out_proj's mark is also what sends a Mamba2 mixer
 #: down its mesh path (:func:`_mark`, ``models/ssm.py::mamba2_apply``)
 _ROW = re.compile(r"(^|/)(wo|wd|out_proj)$")
@@ -750,10 +753,10 @@ def _mark(owner: nn.Module, path: str, dim: int, ndim: int) -> None:
 @torch.no_grad()
 def shard_model(model: nn.Module, cfg, mesh: Optional[Mesh]) -> nn.Module:
     """Keep this rank's slice of every parameter of ``model`` (a dense,
-    MoE, Mamba2 or hybrid LM), in place: a column rule its N block, a row
-    rule its K block, ``embed`` its vocab block; ``wk``/``wv`` the
-    columns of :func:`kv_heads_for_rank`; a Mamba2 ``in_proj`` those of
-    :func:`ssm_in_columns`.  Float weights and posit patterns alike.
+    MoE, vlm, Mamba2, hybrid or encoder-decoder LM), in place: a column
+    rule its N block, a row rule its K block, ``embed`` its vocab block;
+    ``wk``/``wv`` the columns of :func:`kv_heads_for_rank`; a Mamba2
+    ``in_proj`` those of :func:`ssm_in_columns`.  Float weights and posit patterns alike.
     The identity with no mesh and on a model already cut for this mesh
     (``tp_shard``).  A mesh of one rank cuts nothing but marks what it
     would cut, so that its forward runs every collective (a world of

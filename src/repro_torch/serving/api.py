@@ -37,10 +37,6 @@ from .scheduler import Request, RequestState
 #: families served by the continuous-batching engine under engine="auto"
 PAGED_FAMILIES = ("dense", "moe")
 
-#: the message of an option whose slice is not ported yet, by its
-#: ROADMAP.md queue 1 item (launch/mesh.py::TP_TRAINING)
-LATER = "is not ported yet (ROADMAP.md, queue 1, item {})"
-
 
 @dataclasses.dataclass
 class ServeOptions:

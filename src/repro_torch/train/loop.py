@@ -282,7 +282,7 @@ def _whole_like(zero: Zero1, opt_state):
     leaves = {}
     for path, names in zero.by_path.items():
         lay = zero.layouts[names[0]]
-        shape = ((zero.n_layers,) if lay.layer is not None else ()) + lay.shape
+        shape = ((zero.depth[path],) if lay.layer is not None else ()) + lay.shape
         leaves[path] = torch.empty(shape, device="meta")
     tree = _tree_of(leaves)
     state = {k: tree for k in opt_state if k != "step"}

@@ -191,4 +191,5 @@ def test_cli_records_and_reanalysis(tmp_path):
     dryrun.main(["--arch", "seamless-m4t-medium", "--shape", "train_4k", "--multi-pod",
                  "--out-dir", str(out)])
     rec = json.loads((out / "seamless-m4t-medium__train_4k__2x16x16.json").read_text())
-    assert rec["devices"] == 512 and "item 8d" in rec["skipped"]
+    assert rec["devices"] == 512 and "skipped" not in rec
+    assert set(rec["collectives"]["by_axis"]) == {"model", "data", "batch"}

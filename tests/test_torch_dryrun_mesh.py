@@ -2,7 +2,7 @@
 ``launch/mesh.py::VirtualMesh``), against the JAX package's rules and
 without a world.
 
-For the eight language-model configs at full size, each on the (2 x 4)
+For the ten configs at full size, each on the (2 x 4)
 test mesh, the reference's 16 x 16 production mesh and its 2 x 16 x 16
 two-pod mesh, the first and the last rank's shard (``init(mesh=...)`` on
 the meta device) holds the per-device parameter bytes of the reference's
@@ -35,7 +35,8 @@ from test_torch_ssm import one_thread  # noqa: E402,F401
 pytestmark = pytest.mark.usefixtures("one_thread")
 
 LM_ARCHS = ("minitron-8b", "yi-6b", "command-r-plus-104b", "gemma-7b", "mamba2-780m",
-            "granite-moe-1b-a400m", "deepseek-moe-16b", "zamba2-1.2b")
+            "granite-moe-1b-a400m", "deepseek-moe-16b", "zamba2-1.2b", "seamless-m4t-medium",
+            "qwen2-vl-72b")
 MESHES = ("2x4", "16x16", "2x16x16")
 
 
@@ -99,7 +100,7 @@ def test_rank_bytes_are_the_reference_rules(arch, spec):
         model = build(cfg).init(device="meta", mesh=mesh)
         held = sum(p.numel() * p.element_size() for p in model.parameters())
         assert held == want_params, (rank, held, want_params)
-        zero = Zero1(t_sh.leaf_layouts(cfg, mesh), mesh, cfg.n_layers)
+        zero = Zero1(t_sh.leaf_layouts(cfg, mesh), mesh)
         state = init_state(OptConfig(), model, zero)
         assert zero.state_bytes(state) == want_state, rank
     if cfg.family in ("ssm", "hybrid") or cfg.n_kv % mesh.model_size == 0:
@@ -113,7 +114,7 @@ def test_reduced_cell_records_the_mesh():
     collectives by axis with each axis' link (inside one node of eight
     cards: NVLink), the roofline's collective term priced there, and the
     one-card step's K3 launches; on 16 x 16 both axes cross InfiniBand;
-    an encdec cell names item 8d."""
+    an encdec cell is analysed too, its collectives by axis."""
     cfg = get_config("zamba2-1.2b").reduced()
     shape = ShapeSpec("ci", 64, 8, "train")
     rec, _ = dryrun.analyze_mesh_cell(cfg, shape, "2x4")
@@ -136,5 +137,16 @@ def test_reduced_cell_records_the_mesh():
     assert rec["launches"] == one["launches"] and one["launches"]["posit_codec"] > 0
     assert roofline.axis_link(parse_mesh("16x16"), "model") == "ib"
     assert roofline.axis_link(parse_mesh("16x16"), "data") == "ib"
-    skip, _ = dryrun.analyze_mesh_cell(get_config("seamless-m4t-medium").reduced(), shape, "2x4")
-    assert skip["devices"] == 8 and "item 8d" in skip["skipped"]
+    enc, _ = dryrun.analyze_mesh_cell(get_config("seamless-m4t-medium").reduced(), shape, "2x4")
+    assert enc["devices"] == 8 and "skipped" not in enc
+    assert {a: v["group"] for a, v in enc["collectives"]["by_axis"].items()} == {
+        "model": 4, "data": 2}
+
+
+def test_encdec_decode_at_global_batch_one_over_data_raises():
+    """The reference cuts an encdec decode's enc_out by position over
+    ``data`` at a global batch of 1; the port does not (no applicable cell
+    decodes one) and says so rather than running another layout."""
+    cfg = get_config("seamless-m4t-medium").reduced()
+    with pytest.raises(NotImplementedError, match="enc_out"):
+        dryrun.analyze_mesh_cell(cfg, ShapeSpec("ci", 64, 1, "decode"), "2x4")

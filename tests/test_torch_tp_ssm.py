@@ -308,10 +308,10 @@ def test_sequence_parallel_decode_matches_the_jax_unsharded_decode(runs):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_chip_smoke_f32_gate_tells_a_fault_from_sum_order(runs, arch):
     """Phase tp_ssm (e) at reduced size: the world's f32 logits lie within
-    a hundredth of ``TP_SSM_F32_TOL`` of the reference's (relative to its
+    a hundredth of ``TP_MESH_F32_TOL`` of the reference's (relative to its
     largest |logit|), and each rank-reading fault moves them by more than
     ten times the tolerance."""
-    tol = _chip_smoke().TP_SSM_F32_TOL
+    tol = _chip_smoke().TP_MESH_F32_TOL
     want = runs["ref"][arch]["logits"]
     err = {k: float(np.abs(v - want).max() / np.abs(want).max())
            for k, v in runs["world"][f"{arch}/f32gate"].items()}

@@ -144,7 +144,7 @@ def _sharded(job, mesh):
         model = shard_model(params_from_jax(job["params"], cfg, device="cpu"), cfg, mesh)
     else:
         model = api.init(seed=0, device="cpu", mesh=mesh)
-    zero = Zero1(leaf_layouts(cfg, mesh), mesh, cfg.n_layers)
+    zero = Zero1(leaf_layouts(cfg, mesh), mesh)
     return api, set_trainable(model), zero
 
 

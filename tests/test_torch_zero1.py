@@ -109,7 +109,7 @@ def test_rank_state_bytes_are_the_zero1_layouts(arch, data, model):
     ref = {path: leaf for path, leaf in _ref_leaves(arch)}
     for rank in (0, data * model - 1):
         mesh = t_sh.Mesh(rank, model, data=data)
-        zero = Zero1(t_sh.leaf_layouts(cfg, mesh), mesh, cfg.n_layers)
+        zero = Zero1(t_sh.leaf_layouts(cfg, mesh), mesh)
         model_ = t_tf.lm_init(cfg, device="meta", mesh=mesh)
         state = init_state(OptConfig(), model_, zero)
         held = {}
@@ -230,5 +230,5 @@ def test_gradient_norm_over_shards_is_the_whole_models(arch, tp):
         rest = sum(cut_squares(r) for r in range(tp) if r != rank)
         mesh = _Fake(model_rank=rank, model=tp,
                      others=lambda axis, x, rest=rest: torch.tensor(rest, dtype=x.dtype))
-        zero = Zero1(layouts, mesh, cfg.n_layers)
+        zero = Zero1(layouts, mesh)
         torch.testing.assert_close(zero.global_norm(local(rank)), want, rtol=1e-6, atol=0)
